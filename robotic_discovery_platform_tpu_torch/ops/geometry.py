@@ -1,0 +1,207 @@
+"""Mask + depth -> point cloud -> edge -> B-spline -> curvature, as one
+static-shape torch pipeline.
+
+The port of the JAX package's ``ops/geometry.py`` on its reference path
+(``GeometryConfig.kernel_impl = "xla"``): dense pinhole deprojection over
+the full H x W grid, edge extraction as ONE sort of a packed int32
+(x-bin, descending-y) key so each bin's top 5% by y is the head of its
+segment, a fixed-knot penalized least-squares B-spline, and curvature.
+Every data-dependent step is masked fixed-shape tensor code, so the
+whole profile runs on the device with no host round trip; graceful-zero
+results come as a ``valid=False`` flag with zeroed fields.
+
+Parity with the JAX package: the deprojection maps and the x/y min/max
+and valid count are bitwise; the sort is stable (``torch.sort(stable=
+True)``), and the float-to-int casts clip in float first, so they never
+depend on how a backend converts an out-of-range float.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from robotic_discovery_platform_tpu_torch.ops import bspline
+from robotic_discovery_platform_tpu_torch.utils.config import (
+    GeometryConfig,
+    check_supported,
+)
+
+_F32 = torch.float32
+_BIG = 1e30
+_SHIFT = 1 << 25
+
+
+class CurvatureProfile(NamedTuple):
+    """Fixed-shape curvature result; when ``valid`` is False every
+    curvature field is zeroed."""
+
+    mean_curvature: torch.Tensor  # scalar
+    max_curvature: torch.Tensor  # scalar
+    spline_points: torch.Tensor  # [num_samples, 3]
+    valid: torch.Tensor  # scalar bool
+    num_cloud_points: torch.Tensor  # scalar int32 (diagnostics)
+    num_edge_points: torch.Tensor  # scalar int32 (diagnostics)
+    truncated: torch.Tensor  # scalar bool: a bin hit max_per_bin
+
+
+def deproject(mask, depth, fx, fy, cx, cy, depth_scale, stride: int = 1):
+    """Pinhole deprojection over the dense grid -> (x, y, z, valid) maps.
+
+    ``depth`` is raw depth as float32 (z16 values are exact in float32);
+    the intrinsics and ``depth_scale`` are float32 scalars. With
+    ``stride`` > 1 the maps are an s x s pooled view and coordinates point
+    at each cell's centre."""
+    h, w = depth.shape
+    off = (stride - 1) / 2.0
+    v = torch.arange(h, dtype=_F32, device=depth.device)[:, None]
+    u = torch.arange(w, dtype=_F32, device=depth.device)[None, :]
+    v = (v * stride + off).expand(h, w)
+    u = (u * stride + off).expand(h, w)
+    z = depth.to(_F32) * depth_scale
+    valid = (mask > 0) & (z > 0)
+    x = (u - cx) * z / fx
+    y = (v - cy) * z / fy
+    return x, y, z, valid
+
+
+def _edge_points(x, y, z, valid, cfg: GeometryConfig):
+    """Bin x into ``num_bins`` equal bins over the valid x-range and keep
+    the top ``max(1, floor(top_k_percent * n_b))`` points by y per bin,
+    capped at ``max_per_bin``.
+
+    Returns ([num_bins * max_per_bin, 3] points, their weights,
+    edge_count, binnable flag, per-bin-cap flag)."""
+    if (cfg.num_bins + 1) << 25 >= 2**31:
+        raise ValueError(
+            f"num_bins={cfg.num_bins} overflows the packed int32 sort key "
+            "(needs (num_bins + 1) << 25 < 2^31, i.e. num_bins <= 62)"
+        )
+    dev = x.device
+    xs, ys, v = x.reshape(-1), y.reshape(-1), valid.reshape(-1)
+    big = torch.full((), _BIG, dtype=_F32, device=dev)
+    x_min = torch.min(torch.where(v, xs, big))
+    x_max = torch.max(torch.where(v, xs, -big))
+    y_min = torch.min(torch.where(v, ys, big))
+    y_max = torch.max(torch.where(v, ys, -big))
+    n_valid = torch.sum(v)
+    bin_width = (x_max - x_min) / cfg.num_bins
+    binnable = (n_valid >= cfg.num_bins) & (bin_width > 0)
+    safe_width = torch.where(bin_width > 0, bin_width,
+                             torch.ones((), dtype=_F32, device=dev))
+    bin_idx = torch.clamp(torch.floor((xs - x_min) / safe_width),
+                          0, cfg.num_bins - 1).to(torch.int32)
+
+    p = xs.shape[0]
+    # one packed int32 key: (bin << 25) | 25-bit quantized descending y;
+    # the product is clipped in float before the int cast
+    q_scale = (torch.full((), float(_SHIFT - 1), dtype=_F32, device=dev)
+               / torch.clamp_min(y_max - y_min, 1e-12))
+    qy = torch.clamp((y_max - ys) * q_scale, 0.0,
+                     float(_SHIFT - 2)).to(torch.int32)
+    key = torch.where(v, bin_idx * _SHIFT + qy,
+                      torch.full_like(qy, cfg.num_bins * _SHIFT))
+    sorted_key, sorted_idx = torch.sort(key, stable=True)
+    bins = torch.arange(cfg.num_bins + 1, dtype=torch.int32, device=dev)
+    bounds = torch.searchsorted(sorted_key, bins * _SHIFT).to(torch.int32)
+    starts, ends = bounds[:-1], bounds[1:]
+    n_b = ends - starts
+    k_b = torch.where(
+        n_b > 0,
+        torch.clamp_min(
+            torch.floor(n_b.to(_F32) * torch.full(
+                (), cfg.top_k_percent, dtype=_F32, device=dev)).to(torch.int32),
+            1),
+        torch.zeros_like(n_b),
+    )
+    rank = torch.arange(cfg.max_per_bin, dtype=torch.int32, device=dev)
+    gather = torch.clamp(starts[:, None] + rank[None, :], 0, p - 1)
+    sel = sorted_idx[gather.reshape(-1).long()]
+    e_pts = torch.stack([xs[sel], ys[sel], z.reshape(-1)[sel]], dim=-1)
+    keep = ((rank[None, :] < torch.clamp_max(k_b, cfg.max_per_bin)[:, None])
+            & (rank[None, :] < n_b[:, None]))
+    e_w = keep.reshape(-1).to(_F32) * binnable.to(_F32)
+    truncated = torch.any((k_b > cfg.max_per_bin) & (n_b > 0)) & binnable
+    return e_pts, e_w, torch.sum(e_w).to(torch.int32), binnable, truncated
+
+
+def _sort_by_x(pts, w):
+    """Sort edge points by x (stable), padded points last."""
+    key = torch.where(w > 0, pts[:, 0],
+                      torch.full((), _BIG, dtype=_F32, device=pts.device))
+    order = torch.argsort(key, stable=True)
+    return pts[order], w[order]
+
+
+def compute_curvature_profile(mask, depth, intrinsics, depth_scale,
+                              cfg: GeometryConfig = GeometryConfig()
+                              ) -> CurvatureProfile:
+    """Full profile for one frame.
+
+    Args:
+        mask: [H, W] binary/uint8 mask tensor.
+        depth: [H, W] raw depth (z16 values) as a float32 tensor, on the
+            same device.
+        intrinsics: [3, 3] pinhole matrix (float32 tensor, same device).
+        depth_scale: depth-to-metres factor (float32 0-d tensor or float).
+        cfg: static geometry configuration.
+    """
+    check_supported(cfg)
+    dev = depth.device
+    intrinsics = torch.as_tensor(intrinsics, dtype=_F32, device=dev)
+    depth_scale = torch.as_tensor(depth_scale, dtype=_F32, device=dev)
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    depth = depth.to(_F32)
+
+    s = max(1, int(cfg.stride))
+    native_cloud_count = None
+    if s > 1:
+        # exact native-resolution cloud count for the validity gate, then
+        # an s x s max-pool of the masked depth (each pooled cell keeps its
+        # deepest masked pixel or is invalid)
+        native_cloud_count = torch.sum((mask > 0) & (depth > 0)).to(torch.int32)
+        masked_depth = torch.where(mask > 0, depth, torch.zeros_like(depth))
+        masked_depth = F.max_pool2d(masked_depth[None, None], s, s)[0, 0]
+        mask = (masked_depth > 0).to(torch.uint8)
+        depth = masked_depth
+
+    x, y, z, valid_map = deproject(mask, depth, fx, fy, cx, cy, depth_scale,
+                                   stride=s)
+    cloud_count = torch.sum(valid_map).to(torch.int32)
+    e_pts, e_w, edge_count, binnable, bin_capped = _edge_points(
+        x, y, z, valid_map, cfg)
+    s_pts, s_w = _sort_by_x(e_pts, e_w)
+
+    knots = bspline.clamped_uniform_knots(cfg.num_ctrl, cfg.spline_degree)
+    ctrl, _ = bspline.fit_bspline(s_pts, s_w, knots, cfg.spline_degree,
+                                  cfg.spline_smoothing)
+    u_fine = torch.linspace(0.0, 1.0, cfg.num_samples, dtype=_F32, device=dev)
+    kappa, k_valid, r = bspline.curvature_profile(ctrl, knots, u_fine,
+                                                  cfg.spline_degree)
+    n_kv = torch.sum(k_valid)
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    mean_k = torch.where(n_kv > 0, torch.sum(kappa) / torch.clamp_min(n_kv, 1),
+                         zero)
+    max_k = torch.max(torch.where(k_valid, kappa, zero))
+
+    # validity gates: the native-resolution cloud cutoff (exact count when
+    # striding) and the edge cutoff on the pooled selection scaled by s^2
+    gate_cloud = (native_cloud_count if native_cloud_count is not None
+                  else cloud_count)
+    ok = ((gate_cloud >= cfg.min_cloud_points)
+          & binnable
+          & (edge_count * (s * s) >= cfg.min_edge_points)
+          & (n_kv > 0))
+    return CurvatureProfile(
+        mean_curvature=torch.where(ok, mean_k, zero),
+        max_curvature=torch.where(ok, max_k, zero),
+        spline_points=torch.where(ok, r, torch.zeros_like(r)),
+        valid=ok,
+        num_cloud_points=cloud_count,
+        num_edge_points=edge_count,
+        truncated=bin_capped,
+    )
+

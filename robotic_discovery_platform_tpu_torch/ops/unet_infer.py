@@ -1,0 +1,109 @@
+"""The folded U-Net inference forward, on the hand-written kernels.
+
+The port of the JAX package's ``ops/pallas/unet_infer.PallasUNet``: every
+(conv -> BatchNorm -> ReLU) half-block of a DoubleConv is one
+:func:`ops.conv.conv3x3_bn_relu` launch with BatchNorm folded into
+scale/bias ahead of time (18 launches per forward: 2 in the encoder's
+input block, 8 in the four Down blocks, 8 in the four Up blocks), and the
+1x1 head is one :func:`ops.conv.conv1x1` launch emitting float32 logits.
+Max-pooling, the align-corners upsample and the skip concatenation stay
+plain torch, as they stayed XLA in the JAX package.
+
+:meth:`FoldedUNet.forward_plain` runs the same sequence through the
+kernels' plain PyTorch versions: the reference the kernel forward is held
+against on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from robotic_discovery_platform_tpu_torch.models.unet import (
+    UNet,
+    compute_dtype,
+    max_pool2x2,
+    upsample_align_corners,
+)
+from robotic_discovery_platform_tpu_torch.ops.conv import (
+    conv1x1,
+    conv1x1_plain,
+    conv3x3_bn_relu,
+    conv3x3_bn_relu_plain,
+    fold_batchnorm,
+)
+from robotic_discovery_platform_tpu_torch.utils.config import check_supported
+from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
+
+
+class FoldedUNet:
+    """Callable inference forward over a fixed :class:`UNet`'s weights.
+
+    ``net(x)``: NHWC input (any float dtype) -> NHWC float32 logits, the
+    same contract as ``UNet.forward``. Weights are folded, cast to the
+    compute dtype and moved to ``device`` once, at construction.
+    """
+
+    def __init__(self, net: UNet, device: str | torch.device = "cuda"):
+        check_supported(net.cfg)
+        self.cfg = net.cfg
+        self.device = resolve_device(device)
+        self.dtype = compute_dtype(net.cfg.compute_dtype)
+        self._interp: dict = {}  # upsample matrices, per shape
+        with torch.no_grad():
+            self._layers = self._fold(net)
+
+    def _fold(self, net: UNet) -> dict:
+        dev, dt = self.device, self.dtype
+
+        def double_conv(dc) -> list:
+            taps = []
+            for conv, bn in ((dc.Conv_0, dc.BatchNorm_0),
+                             (dc.Conv_1, dc.BatchNorm_1)):
+                scale, bias = fold_batchnorm(bn.scale, bn.bias, bn.mean,
+                                             bn.var)
+                taps.append((conv.kernel.to(dev, dt).contiguous(),
+                             scale.to(dev).contiguous(),
+                             bias.to(dev).contiguous()))
+            return taps
+
+        layers = {"inc": double_conv(net.DoubleConv_0)}
+        for i in range(4):
+            layers[f"down{i}"] = double_conv(getattr(net, f"Down_{i}").DoubleConv_0)
+            layers[f"up{i}"] = double_conv(getattr(net, f"Up_{i}").DoubleConv_0)
+        head = net.Conv_0
+        layers["head"] = (
+            head.kernel[0, 0].to(dev, dt).contiguous(),  # [Cin, Cout]
+            torch.ones(head.kernel.shape[-1], device=dev),
+            head.bias.to(dev, torch.float32).contiguous(),
+        )
+        return layers
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward(x, conv3x3_bn_relu, conv1x1)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The same forward through the kernels' plain PyTorch versions."""
+        return self._forward(x, conv3x3_bn_relu_plain, conv1x1_plain)
+
+    def _forward(self, x, conv3x3, conv1x1_head) -> torch.Tensor:
+        layers = self._layers
+
+        def double_conv(y, taps):
+            for w, scale, bias in taps:
+                y = conv3x3(y, w, scale, bias, relu=True)
+            return y
+
+        x = x.to(self.dtype).contiguous()  # the kernels take dense NHWC
+        xs = [double_conv(x, layers["inc"])]
+        for i in range(4):
+            xs.append(double_conv(max_pool2x2(xs[-1]), layers[f"down{i}"]))
+        y = xs[4]
+        for i in range(4):
+            skip = xs[3 - i]
+            up = upsample_align_corners(y, skip.shape[1], skip.shape[2],
+                                        self._interp)
+            y = double_conv(torch.cat([skip, up.to(skip.dtype)], dim=-1),
+                            layers[f"up{i}"])
+        w, scale, bias = layers["head"]
+        return conv1x1_head(y, w, scale, bias, relu=False,
+                            out_dtype=torch.float32)

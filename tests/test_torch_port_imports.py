@@ -1,0 +1,186 @@
+"""The port's boundaries: it imports no JAX and nothing of the JAX package,
+its entry points run on the card unless asked for the CPU, its config
+refuses what this slice does not implement, and chip_smoke.py refuses to
+run without a card."""
+
+import ast
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from robotic_discovery_platform_tpu_torch.models import unet as tunet
+from robotic_discovery_platform_tpu_torch.models import weights
+from robotic_discovery_platform_tpu_torch.ops import build, pipeline
+from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
+from robotic_discovery_platform_tpu_torch.serving.server import (
+    VisionAnalysisService,
+)
+from robotic_discovery_platform_tpu_torch.utils import config
+from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "robotic_discovery_platform_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    # robotic_discovery_platform_tpu_torch is the port itself, not a match
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import json, sys\n"
+        "import robotic_discovery_platform_tpu_torch\n"
+        "import robotic_discovery_platform_tpu_torch.serving.server\n"
+        "import robotic_discovery_platform_tpu_torch.serving.grpc_service\n"
+        "import robotic_discovery_platform_tpu_torch.ops.build\n"
+        "import chip_smoke\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "robotic_discovery_platform_tpu_torch.serving.server" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+    imported = set()
+    for node in ast.walk(ast.parse((REPO / "chip_smoke.py").read_text())):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.add(node.module)
+    assert imported and not [m for m in imported if _forbidden(m)]
+    for path in (REPO / "robotic_discovery_platform_tpu_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.module else [])
+            assert not [m for m in names if _forbidden(m)], path
+
+
+def _tiny_net():
+    cfg = config.ModelConfig(base_features=4)
+    return tunet.UNet(cfg).init_weights(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "FoldedUNet",
+                                   "make_frame_analyzer",
+                                   "VisionAnalysisService", "load_model_dir"])
+def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
+    """With no CUDA device, the default device raises; ``device="cpu"``
+    runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = _tiny_net()
+    folded = FoldedUNet(net, device="cpu")
+    if entry == "load_model_dir":
+        from flax import serialization
+
+        (tmp_path / "model_config.json").write_text(
+            json.dumps({"base_features": 4}))
+        tree = {"params": {}, "batch_stats": {}}
+        for key, value in net.state_dict().items():
+            kind = ("batch_stats" if key.rsplit(".", 1)[1] in ("mean", "var")
+                    else "params")
+            node = tree[kind]
+            *path, leaf = key.split(".")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = value.numpy()
+        (tmp_path / "variables.msgpack").write_bytes(
+            serialization.msgpack_serialize(tree))
+    calls = {
+        "resolve_device": lambda **kw: resolve_device(**kw),
+        "FoldedUNet": lambda **kw: FoldedUNet(net, **kw),
+        "make_frame_analyzer": lambda **kw: pipeline.make_frame_analyzer(
+            folded, img_size=32, **kw),
+        "VisionAnalysisService": lambda **kw: VisionAnalysisService(
+            folded, cfg=config.ServerConfig(
+                metrics_csv=str(tmp_path / "m.csv")), **kw),
+        "load_model_dir": lambda **kw: weights.load_model_dir(tmp_path, **kw),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert calls[entry](device="cpu") is not None
+    if entry == "load_model_dir":
+        _, loaded = calls[entry](device="cpu")
+        for key, value in net.state_dict().items():
+            assert torch.equal(loaded.state_dict()[key], value), key
+
+
+@pytest.mark.parametrize("case", ["kernel_impl_default", "kernel_impl_auto",
+                                  "kernel_impl_pallas", "precision_bf16",
+                                  "batch_window", "bilinear_false",
+                                  "norm_group", "flags"])
+def test_config_refuses_what_the_slice_lacks(case, tmp_path):
+    if case == "kernel_impl_default":
+        assert config.GeometryConfig().kernel_impl == "xla"
+        config.check_supported(config.GeometryConfig())
+    elif case.startswith("kernel_impl_"):
+        impl = case.split("_")[-1]
+        with pytest.raises(NotImplementedError, match="queue 2 items 3-5"):
+            pipeline.make_frame_analyzer(
+                lambda x: x, geom_cfg=config.GeometryConfig(kernel_impl=impl),
+                device="cpu")
+    elif case in ("precision_bf16", "batch_window"):
+        cfg = (config.ServerConfig(precision="bf16") if case == "precision_bf16"
+               else config.ServerConfig(batch_window_ms=5.0))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            VisionAnalysisService(lambda x: x, cfg=cfg, device="cpu")
+    elif case in ("bilinear_false", "norm_group"):
+        cfg = (config.ModelConfig(bilinear=False) if case == "bilinear_false"
+               else config.ModelConfig(norm="group"))
+        with pytest.raises(NotImplementedError):
+            tunet.UNet(cfg)
+    else:
+        (tmp_path / "c.json").write_text(json.dumps(
+            {"model": {"base_features": 16}}))
+        cfg = config.parse_config(["--config", str(tmp_path / "c.json"),
+                                   "--server.model_img_size", "128",
+                                   "--geometry.stride", "2",
+                                   "--model.bilinear", "true"])
+        assert cfg.model.base_features == 16
+        assert cfg.server.model_img_size == 128
+        assert cfg.geometry.stride == 2 and cfg.model.bilinear is True
+        with pytest.raises(ValueError, match="unknown config keys"):
+            config.from_dict(config.ModelConfig, {"widths": 3})
+
+
+def test_kernel_build_is_keyed_on_the_sources():
+    """Each kernel's library name carries a hash of its source and flags;
+    nothing is built at import time, and where no nvcc exists the build
+    says so."""
+    paths = {name: build.library_path(name) for name in build.SOURCES}
+    assert len(set(paths.values())) == len(build.SOURCES)
+    for name, path in paths.items():
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-")
+        assert (build.CSRC / build.SOURCES[name]).is_file()
+    if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.nvcc()
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """No CUDA device: exit non-zero, no result line. A directory holding
+    chip_smoke.py and nothing else of the repo fails the same way."""
+    for cwd in (REPO, tmp_path):
+        script = REPO / "chip_smoke.py"
+        if cwd == tmp_path:
+            script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+        out = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, capture_output=True,
+            text=True, timeout=120,
+            env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
+        )
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+        assert np.all([not line.startswith("{") for line in
+                       out.stdout.splitlines()])
