@@ -16,10 +16,12 @@ Package map:
 - ``ops/conv.py``: the conv kernels' wrappers and plain versions;
   ``ops/unet_infer.py``: the folded forward on those kernels;
 - ``ops/bspline.py``, ``ops/geometry.py``: the curvature profile;
-- ``ops/pipeline.py``: the single-frame analyzer;
+  ``ops/geometry_kernels.py``: the geometry kernels of one frame;
+- ``ops/pack.py``: the mask bitpack kernel and the packed row layout;
+- ``ops/pipeline.py``: the single-frame and batched analyzers;
 - ``io/frames.py``: synthetic scenes and calibration files;
 - ``serving/``: wire messages, ingest, egress, metrics CSV, the servicer
-  and its gRPC adapter.
+  and its gRPC adapter, the batch dispatcher and its admission queue.
 """
 
 from robotic_discovery_platform_tpu_torch.io.frames import (

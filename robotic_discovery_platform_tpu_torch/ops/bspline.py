@@ -4,9 +4,9 @@ The port of the JAX package's ``ops/bspline.py``: a clamped knot vector
 with uniform interior knots (static, numpy), the Cox-de Boor basis, a
 weighted penalized least-squares fit (P-spline) solved as one [C, C]
 system, and curvature from the first and second derivative bases. Every
-function takes and returns fixed-shape tensors; padded points carry
-weight 0. Matrix products run in float32 (on the card the caller keeps
-TF32 off).
+function takes and returns fixed-shape tensors, with any leading batch
+dimensions; padded points carry weight 0. Matrix products run in float32
+(on the card the caller keeps TF32 off), the fit in float64.
 """
 
 from __future__ import annotations
@@ -83,9 +83,10 @@ def _static(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def bspline_basis(u: torch.Tensor, knots, degree: int = 3) -> torch.Tensor:
-    """[N] parameters in [0, 1] -> [N, num_ctrl] basis matrix B with
-    ``spline(u) = B @ ctrl`` (``knots`` static, numpy)."""
-    return _basis_columns(u[:, None], _static(knots, u), degree)
+    """[..., N] parameters in [0, 1] -> [..., N, num_ctrl] basis matrix B
+    with ``spline(u) = B @ ctrl`` (``knots`` static, numpy)."""
+    b = _basis_columns(u.reshape(-1, 1), _static(knots, u), degree)
+    return b.reshape(*u.shape, b.shape[-1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,9 +135,9 @@ def bspline_basis_derivative(u: torch.Tensor, knots, degree: int = 3,
 
 def chord_length_params(points: torch.Tensor,
                         weights: torch.Tensor) -> torch.Tensor:
-    """Normalized cumulative chord-length parameters [N] for pre-sorted
-    [N, D] points; a segment counts only when both its ends have weight,
-    padded points inherit the running parameter.
+    """Normalized cumulative chord-length parameters [..., N] for
+    pre-sorted [..., N, D] points; a segment counts only when both its
+    ends have weight, padded points inherit the running parameter.
 
     The parameters are clipped to 1. A parallel prefix sum (the JAX
     package's on the CPU, this one on the card) can round the last valid
@@ -144,11 +145,11 @@ def chord_length_params(points: torch.Tensor,
     the last knot span, its basis row is all zeros and the point drops
     out of the fit. Clipped, it always counts, as in exact arithmetic."""
     w = weights.to(points.dtype)
-    deltas = torch.linalg.vector_norm(torch.diff(points, dim=0), dim=1)
-    seg_w = w[1:] * w[:-1]
-    cum = torch.cat([torch.zeros(1, dtype=points.dtype, device=points.device),
-                     torch.cumsum(deltas * seg_w, dim=0)])
-    total = cum[-1]
+    deltas = torch.linalg.vector_norm(torch.diff(points, dim=-2), dim=-1)
+    seg_w = w[..., 1:] * w[..., :-1]
+    cum = torch.cumsum(deltas * seg_w, dim=-1)
+    cum = torch.cat([torch.zeros_like(cum[..., :1]), cum], dim=-1)
+    total = cum[..., -1:]
     u = torch.clamp_max(cum / torch.clamp_min(total, 1e-12), 1.0)
     return torch.where(total > 1e-12, u, torch.zeros_like(cum))
 
@@ -159,11 +160,26 @@ def second_difference_penalty(num_ctrl: int) -> np.ndarray:
     return d2.T @ d2
 
 
+def _design(points: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
+            knots, degree: int):
+    """``(B^T W B, B^T W X)`` of the fit, through the basis matrix: the
+    reference ops (and the plain version of ``bspline_design``)."""
+    b = bspline_basis(u, knots, degree)
+    bw = b * weights[..., None]
+    bwt = bw.transpose(-1, -2)
+    return bwt @ b, bwt @ points
+
+
 def fit_bspline(points: torch.Tensor, weights: torch.Tensor, knots,
-                degree: int = 3, smoothing: float = 1e-3):
+                degree: int = 3, smoothing: float = 1e-3, impl: str = "xla"):
     """Weighted penalized least-squares B-spline fit: solves
     ``(B^T W B + lam * P + 1e-8 I) C = B^T W X`` with
-    ``lam = smoothing * max(sum(w), 1)``.
+    ``lam = smoothing * max(sum(w), 1)``, for [..., N, D] points.
+
+    ``impl`` is ``"xla"`` (the reference ops: the basis matrix, then two
+    matrix products) or ``"fused"`` (one frame's basis and both
+    contractions in :func:`ops.geometry_kernels.bspline_design`, its
+    kernel on the card).
 
     The fit runs in float64 and returns ``points``' dtype. Its sums run
     over thousands of points in an order that differs between backends
@@ -182,21 +198,26 @@ def fit_bspline(points: torch.Tensor, weights: torch.Tensor, knots,
     w = weights.to(torch.float64)
     u = chord_length_params(pts, w)
     num_ctrl = np.asarray(knots).shape[0] - degree - 1
-    b = bspline_basis(u, knots, degree)
-    bw = b * w[:, None]
-    gram = bw.T @ b
-    rhs = bw.T @ pts
-    lam = smoothing * torch.clamp_min(torch.sum(w), 1.0)
+    if impl == "fused":
+        from robotic_discovery_platform_tpu_torch.ops import geometry_kernels
+
+        gram, rhs = geometry_kernels.bspline_design(pts, w, u, knots, degree)
+    elif impl == "xla":
+        gram, rhs = _design(pts, w, u, knots, degree)
+    else:
+        raise ValueError(f"unknown fit impl {impl!r} (want 'xla' or 'fused')")
+    lam = smoothing * torch.clamp_min(torch.sum(w, dim=-1), 1.0)
     pen = _static(second_difference_penalty(num_ctrl), pts)
     eye = torch.eye(num_ctrl, dtype=pts.dtype, device=pts.device)
-    reg = gram + lam * pen + 1e-8 * eye
+    reg = gram + lam[..., None, None] * pen + 1e-8 * eye
     ctrl, _ = torch.linalg.solve_ex(reg, rhs)
     return ctrl.to(points.dtype), u.to(points.dtype)
 
 
 def evaluate_bspline(ctrl: torch.Tensor, knots, u: torch.Tensor,
                      degree: int = 3, order: int = 0) -> torch.Tensor:
-    """The spline (or its ``order``-th derivative) at ``u``: [N, D]."""
+    """The spline (or its ``order``-th derivative) at ``u``: [..., N, D]
+    for [..., C, D] control points."""
     return bspline_basis_derivative(u, knots, degree, order) @ ctrl
 
 
@@ -211,10 +232,21 @@ def _curvature_formula(r1: torch.Tensor, r2: torch.Tensor):
 
 
 def curvature_profile(ctrl: torch.Tensor, knots, u: torch.Tensor,
-                      degree: int = 3):
-    """kappa(u) along the fitted curve, plus the sample points.
+                      degree: int = 3, impl: str = "xla"):
+    """kappa(u) along the fitted curve, plus the sample points, for
+    [..., C, D] control points.
 
-    Returns (kappa [N], valid [N] bool, r [N, D])."""
+    ``impl`` follows :func:`fit_bspline`: ``"fused"`` evaluates one
+    frame's three design products and the curvature formula in
+    :func:`ops.geometry_kernels.bspline_curvature`.
+
+    Returns (kappa [..., N], valid [..., N] bool, r [..., N, D])."""
+    if impl == "fused":
+        from robotic_discovery_platform_tpu_torch.ops import geometry_kernels
+
+        return geometry_kernels.bspline_curvature(ctrl, u, knots, degree)
+    if impl != "xla":
+        raise ValueError(f"unknown curvature impl {impl!r}")
     r = evaluate_bspline(ctrl, knots, u, degree, order=0)
     r1 = evaluate_bspline(ctrl, knots, u, degree, order=1)
     r2 = evaluate_bspline(ctrl, knots, u, degree, order=2)

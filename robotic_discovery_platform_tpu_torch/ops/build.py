@@ -31,6 +31,10 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "conv3x3_bn_relu": "conv3x3_bn_relu.cu",
     "conv1x1": "conv1x1.cu",
+    "deproject_edge_stats": "deproject_edge_stats.cu",
+    "bspline_design": "bspline_design.cu",
+    "bspline_curvature": "bspline_curvature.cu",
+    "bitpack_mask": "bitpack_mask.cu",
 }
 
 NVCC_FLAGS = (
@@ -42,6 +46,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  # guarded_by: _lock
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}  # guarded_by: _lock
 #: kernel name -> nvcc's output from the build that made its library
 build_logs: dict[str, str] = {}
 
@@ -126,3 +131,26 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of kernel ``name``'s library, typed with
+    ``argtypes`` (``ctypes.c_void_p`` for pointers and the stream) and an
+    int return: the launch's cudaError_t."""
+    key = (name, symbol)
+    with _lock:
+        fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        with _lock:
+            fn = _fns.setdefault(key, fn)
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise when a launch function returned an error (it returns -1 for
+    sizes past the kernel's limits, else the cudaError_t)."""
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")

@@ -45,7 +45,6 @@ _SIGNATURES = {
     "conv1x1": ("conv1x1_launch",
                 [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]),
 }
-_fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def fold_batchnorm(gamma, beta, mean, var, eps: float = 1e-5):
@@ -58,14 +57,7 @@ def fold_batchnorm(gamma, beta, mean, var, eps: float = 1e-5):
 
 
 def _kernel(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(build.library(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+    return build.function(name, *_SIGNATURES[name])
 
 
 def _check_cuda(name: str, x, w, scale, bias, out_dtype):
@@ -89,11 +81,6 @@ def _check_cuda(name: str, x, w, scale, bias, out_dtype):
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"{name}: scale and bias must be float32")
     return code
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
 
 
 # -- 3x3 conv + scale/bias (+ReLU) -------------------------------------------
@@ -150,7 +137,7 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
         out.data_ptr(), b, h, width, cin, cout, int(relu), code,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on("conv3x3_bn_relu", err)
+    build.check("conv3x3_bn_relu", err)
     conv3x3_bn_relu.launches += 1
     return out
 
@@ -207,7 +194,7 @@ def conv1x1(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
         out.data_ptr(), b * h * width, cin, cout, int(relu), code,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on("conv1x1", err)
+    build.check("conv1x1", err)
     conv1x1.launches += 1
     return out
 

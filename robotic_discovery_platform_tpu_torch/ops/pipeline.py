@@ -1,12 +1,14 @@
 """The per-frame analysis: frame -> mask -> curvature, on the device.
 
-The port of the JAX package's ``ops/pipeline.py`` single-frame path:
-``preprocess`` (antialiased bilinear resize to the model input as two
-static float32 matmuls), the model forward, ``logits_to_native_masks``
-(sigmoid, threshold, nearest resize back to the camera resolution), the
-confidence margin, the mask coverage and the curvature profile. The
-frame's host-to-device copy is the only transfer in; the result stays on
-the device until the caller reads it.
+The port of the JAX package's ``ops/pipeline.py``: ``preprocess``
+(antialiased bilinear resize to the model input as two static float32
+matmuls), the model forward, ``logits_to_native_masks`` (sigmoid,
+threshold, nearest resize back to the camera resolution), the confidence
+margin, the mask coverage and the curvature profile, for one frame
+(:func:`make_frame_analyzer`) or a batch (:func:`make_batch_analyzer`,
+which can end in :func:`pack_analysis`: one [B, P] uint8 payload per
+dispatch). The frames' host-to-device copy is the only transfer in; the
+result stays on the device until the caller reads it.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from robotic_discovery_platform_tpu_torch.ops import geometry
+from robotic_discovery_platform_tpu_torch.ops import geometry, pack
 from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
     check_supported,
@@ -27,12 +29,61 @@ from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
 
 
 class FrameAnalysis(NamedTuple):
-    mask: torch.Tensor  # [H, W] uint8 native-resolution binary mask
-    mask_coverage: torch.Tensor  # percent of the frame covered
-    profile: geometry.CurvatureProfile
+    mask: torch.Tensor  # [(B,) H, W] uint8 native-resolution binary mask
+    mask_coverage: torch.Tensor  # [(B,)] percent of the frame covered
+    profile: geometry.CurvatureProfile  # leaves lead with B in batch mode
     # mean |sigmoid(logit) - 0.5| at model resolution: distance from the
     # decision boundary (0 = maximally uncertain, 0.5 = saturated)
     confidence_margin: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def _header_on(h: int, w: int, n_pts: int,
+               device: torch.device) -> torch.Tensor:
+    """The row header on the device, copied there once per geometry (a
+    per-dispatch copy from pageable memory would wait on the stream)."""
+    return torch.from_numpy(pack.payload_header(h, w, n_pts).copy()).to(device)
+
+
+def pack_analysis(out: FrameAnalysis, *, n_pts: int) -> torch.Tensor:
+    """A batched :class:`FrameAnalysis` -> one ``[B, P]`` uint8 packed
+    payload on the device (``ops/pack.py``'s row layout, byte for byte the
+    JAX package's): the header, the float32 sidecar of coverage, mean and
+    max curvature, validity and confidence margin, then the spline block,
+    then the bitpacked mask, zero-padded to ``frame_payload_bytes``.
+
+    Invalid profiles' curvatures are masked with ``where``, not
+    multiplied, so a non-finite curvature on an invalid frame packs as the
+    exact 0.0 the direct path reports."""
+    b, h, w = out.mask.shape
+    prof = out.profile
+    if prof.spline_points.shape[-2] != n_pts:
+        raise ValueError(
+            f"spline block has {prof.spline_points.shape[-2]} samples; "
+            f"the packed layout was declared with n_pts={n_pts}"
+        )
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=out.mask.device)
+    sidecar = torch.cat([
+        torch.stack([
+            out.mask_coverage.to(f32),
+            torch.where(prof.valid, prof.mean_curvature, zero).to(f32),
+            torch.where(prof.valid, prof.max_curvature, zero).to(f32),
+            prof.valid.to(f32),
+            out.confidence_margin.to(f32),
+        ], dim=1),
+        prof.spline_points.to(f32).reshape(b, -1),
+    ], dim=1)
+    header = _header_on(h, w, n_pts, out.mask.device)
+    row = torch.zeros((b, pack.frame_payload_bytes(h, w, n_pts)),
+                      dtype=torch.uint8, device=out.mask.device)
+    side = sidecar.contiguous().view(torch.uint8)  # little-endian f32 bytes
+    lo = pack.HEADER_BYTES + side.shape[1]
+    row[:, :pack.HEADER_BYTES] = header
+    row[:, pack.HEADER_BYTES:lo] = side
+    row[:, lo:lo + h * pack.packed_row_bytes(w)] = pack.bitpack_mask(
+        out.mask).reshape(b, -1)
+    return row
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,6 +171,76 @@ def _f32_on(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
+def stage_batch(frames_rgb: torch.Tensor, depths: torch.Tensor,
+                intrinsics: torch.Tensor, depth_scales: torch.Tensor,
+                device: torch.device):
+    """Host-to-device staging of one padded batch, off the analyzer's
+    critical path: ``non_blocking`` copies on the current stream (the
+    dispatcher's dispatch stream) from the dispatcher's pooled pinned host
+    buffers, so staging batch N+1 overlaps batch N's compute. The caller
+    keeps the host buffers untouched until the stream has passed the
+    copies. On a CPU ``device`` the tensors come back as they are.
+
+    Returns (frames u8 [B, H, W, 3], depths [B, H, W] as the z16 bit
+    pattern in int16, intrinsics [B, 3, 3] f32, depth scales [B] f32)."""
+    return tuple(t.to(device, non_blocking=True)
+                 for t in (frames_rgb, depths, intrinsics, depth_scales))
+
+
+def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
+              threshold: float, device):
+    """The shared core: ``(frames [B, H, W, 3] u8, depths [B, H, W] z16,
+    intrinsics [B, 3, 3], depth_scales [B]) -> FrameAnalysis`` with a
+    leading B on every field, on ``device``."""
+    check_supported(geom_cfg)
+    device = resolve_device(device)
+    if device.type == "cuda":
+        # every float32 product of the analyzer is a full float32 product
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    tables: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def analyze(frames_rgb, depths, intrinsics, depth_scales) -> FrameAnalysis:
+        frames, raw_depth = _as_device_frame(frames_rgb, depths, device)
+        b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+        mats = tables.get((h, w))
+        if mats is None:
+            mats = tables[(h, w)] = (
+                torch.from_numpy(_resize_matrix(h, img_size)).to(device),
+                torch.from_numpy(_resize_matrix(w, img_size)).to(device),
+            )
+        k = _f32_on(intrinsics, device)
+        scales = _f32_on(depth_scales, device)
+        with torch.no_grad():
+            # frame by frame, so each frame's float32 resize sums are those
+            # of a batch of one: a frame's mask does not depend on the batch
+            # it rode in (the forward's kernels compute each pixel alone)
+            x = torch.cat([preprocess(frames[i:i + 1], img_size, *mats)
+                           for i in range(b)])
+            logits = forward(x)
+            masks = logits_to_native_masks(logits, h, w, threshold)
+            margin = confidence_margin(logits)
+            if b == 1:
+                # one frame takes geom_cfg.kernel_impl's path (the fused
+                # kernels by default); a batch runs the reference ops, as
+                # the JAX package's vmapped leg pins "xla"
+                profile = geometry.CurvatureProfile(*(
+                    t[None] for t in geometry.compute_curvature_profile(
+                        masks[0], raw_depth[0], k[0], scales[0], geom_cfg)))
+            else:
+                profile = geometry.compute_curvature_profile(
+                    masks, raw_depth, k, scales, geom_cfg)
+            # an exact count times the float32 reciprocal of the pixel
+            # count, then the percent scaling: the JAX package's
+            # 100 * jnp.mean of the 0/1 mask, to the bit
+            count = torch.sum(masks, dim=(1, 2), dtype=torch.int64)
+            coverage = 100.0 * (count.to(torch.float32) * (1.0 / (h * w)))
+        return FrameAnalysis(mask=masks, mask_coverage=coverage,
+                             profile=profile, confidence_margin=margin)
+
+    return analyze
+
+
 def make_frame_analyzer(
     forward: Callable[[torch.Tensor], torch.Tensor],
     img_size: int = 256,
@@ -136,37 +257,51 @@ def make_frame_analyzer(
     that keeps the intrinsics and depth scale on the device as float32
     tensors saves their per-frame copies.
     """
-    check_supported(geom_cfg)
+    core = _analyzer(forward, img_size, geom_cfg, threshold, device)
     device = resolve_device(device)
-    if device.type == "cuda":
-        # every float32 product of the analyzer is a full float32 product
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    tables: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
     def analyze(frame_rgb, depth, intrinsics, depth_scale) -> FrameAnalysis:
-        frame, raw_depth = _as_device_frame(frame_rgb, depth, device)
-        h, w = frame.shape[0], frame.shape[1]
-        mats = tables.get((h, w))
-        if mats is None:
-            mats = tables[(h, w)] = (
-                torch.from_numpy(_resize_matrix(h, img_size)).to(device),
-                torch.from_numpy(_resize_matrix(w, img_size)).to(device),
-            )
-        with torch.no_grad():
-            x = preprocess(frame[None], img_size, *mats)
-            logits = forward(x)
-            masks = logits_to_native_masks(logits, h, w, threshold)
-            margin = confidence_margin(logits)
-            profile = geometry.compute_curvature_profile(
-                masks[0], raw_depth, _f32_on(intrinsics, device),
-                _f32_on(depth_scale, device), geom_cfg)
-            # an exact count times the float32 reciprocal of the pixel count,
-            # then the percent scaling: the JAX package's 100 * jnp.mean of
-            # the 0/1 mask, to the bit
-            count = torch.sum(masks[0], dtype=torch.int64).to(torch.float32)
-            coverage = 100.0 * (count * (1.0 / (h * w)))
-        return FrameAnalysis(mask=masks[0], mask_coverage=coverage,
-                             profile=profile, confidence_margin=margin[0])
+        out = core(_leading(frame_rgb), _leading(depth),
+                   _f32_on(intrinsics, device)[None],
+                   _f32_on(depth_scale, device)[None])
+        return FrameAnalysis(
+            mask=out.mask[0], mask_coverage=out.mask_coverage[0],
+            profile=geometry.CurvatureProfile(*(t[0] for t in out.profile)),
+            confidence_margin=out.confidence_margin[0])
 
     return analyze
+
+
+def make_batch_analyzer(
+    forward: Callable[[torch.Tensor], torch.Tensor],
+    img_size: int = 256,
+    geom_cfg: GeometryConfig = GeometryConfig(),
+    threshold: float = 0.5,
+    device: str | torch.device = "cuda",
+    *,
+    pack: bool = False,
+):
+    """Batched analyzer for cross-stream micro-batching: one forward over
+    ``[B, H, W, 3]``, the geometry over the batch.
+
+    Returns ``analyze(frames [B, H, W, 3] u8, depths [B, H, W] (z16, as
+    uint16 numpy or the int16 bit pattern of :func:`stage_batch`),
+    intrinsics [B, 3, 3], depth_scales [B])``: a :class:`FrameAnalysis`
+    with a leading B, or with ``pack=True`` the ``[B, P]`` uint8 payload
+    of :func:`pack_analysis` (the dispatcher's one device-to-host copy).
+    The call returns once the work is enqueued on the current stream.
+    """
+    core = _analyzer(forward, img_size, geom_cfg, threshold, device)
+    if not pack:
+        return core
+
+    def analyze(frames_rgb, depths, intrinsics, depth_scales) -> torch.Tensor:
+        return pack_analysis(core(frames_rgb, depths, intrinsics,
+                                  depth_scales), n_pts=geom_cfg.num_samples)
+
+    return analyze
+
+
+def _leading(a):
+    """A frame with a leading batch axis of one (numpy or tensor)."""
+    return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]

@@ -1,5 +1,6 @@
 """Response mask payloads (the port of the JAX package's
-``serving/egress.py`` wire codecs).
+``serving/egress.py`` wire codecs), and :class:`PackedResult`, the parser
+of one frame's packed analysis row from a batched dispatch.
 
 ``AnalysisRequest.mask_format`` selects what rides
 ``AnalysisResponse.mask``: 0 = a PNG of the 0/255 mask, 1 = packed bits
@@ -14,8 +15,11 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Callable
 
 import numpy as np
+
+from robotic_discovery_platform_tpu_torch.ops import pack
 
 #: ``AnalysisRequest.mask_format`` wire values (protos/vision.proto)
 MASK_FORMAT_PNG = 0
@@ -121,3 +125,87 @@ def encode_mask(mask: np.ndarray, mask_format: int) -> bytes:
     if mask_format == MASK_FORMAT_RLE:
         return encode_rle_wire(mask, h, w)
     return encode_png_mask(mask)
+
+
+class PackedResult:
+    """One frame's packed analysis payload: a zero-copy parser over the
+    uint8 row that a batched dispatch's one device-to-host copy landed in
+    the dispatcher's pooled host staging (``ops/pack.py``'s layout: the
+    16-byte header, the float32 sidecar, the bitpacked mask rows).
+
+    Scalars come off the sidecar as the exact float32 values the direct
+    path reads; the full-resolution mask materializes on the host only
+    when something needs pixels (:meth:`unpack_mask`). ``release`` hands
+    the row back to the pool: call it once, after everything needed was
+    read or copied (a second call is ignored).
+    """
+
+    __slots__ = ("payload", "h", "w", "n_pts", "_release")
+
+    def __init__(self, payload: np.ndarray,
+                 release: Callable[[], None] | None = None):
+        payload = np.asarray(payload)
+        if payload.ndim != 1 or payload.dtype != np.uint8:
+            raise ValueError(
+                f"packed payload must be a 1-D uint8 row; got "
+                f"{payload.dtype} with shape {payload.shape}"
+            )
+        magic, h, w, n_pts = struct.unpack_from(
+            "<4sIII", memoryview(payload[:pack.HEADER_BYTES]))
+        if magic != pack.ROW_MAGIC:
+            raise ValueError(
+                f"packed payload header magic {magic!r} != {pack.ROW_MAGIC!r}"
+            )
+        expect = pack.frame_payload_bytes(h, w, n_pts)
+        if payload.shape[0] != expect:
+            raise ValueError(
+                f"packed payload is {payload.shape[0]} bytes; header "
+                f"geometry ({h}x{w}, {n_pts} spline samples) needs {expect}"
+            )
+        self.payload = payload
+        self.h, self.w, self.n_pts = int(h), int(w), int(n_pts)
+        self._release = release
+
+    def _sidecar(self) -> np.ndarray:
+        lo = pack.HEADER_BYTES
+        return self.payload[lo:lo + 4 * pack.sidecar_floats(self.n_pts)].view(
+            "<f4")
+
+    @property
+    def mask_bits(self) -> np.ndarray:
+        """[H, ceil(W/8)] uint8 view of the bitpacked mask rows."""
+        wb = pack.packed_row_bytes(self.w)
+        lo = pack.HEADER_BYTES + 4 * pack.sidecar_floats(self.n_pts)
+        return self.payload[lo:lo + self.h * wb].reshape(self.h, wb)
+
+    def scalars(self) -> tuple[float, float, float, bool, float]:
+        """(coverage, mean_curvature, max_curvature, valid, margin): the
+        sidecar's float32 values (invalid frames read 0.0 curvature)."""
+        s = self._sidecar()
+        return (float(s[0]), float(s[1]), float(s[2]), bool(s[3] != 0.0),
+                float(s[4]))
+
+    def spline(self) -> np.ndarray:
+        """[n_pts, 3] float32 spline block, a copy that outlives
+        :meth:`release`; [0, 3] when the profile is invalid."""
+        s = self._sidecar()
+        if s[3] == 0.0:
+            return np.zeros((0, 3), np.float32)
+        return np.array(s[pack.N_SCALARS:].reshape(self.n_pts, 3),
+                        np.float32)
+
+    def spline_wire(self) -> bytes:
+        """The ``packed_spline`` payload: little-endian float32 (x, y, z)
+        triples, empty when the profile is invalid."""
+        s = self._sidecar()
+        return b"" if s[3] == 0.0 else s[pack.N_SCALARS:].tobytes()
+
+    def unpack_mask(self) -> np.ndarray:
+        """[H, W] uint8 0/1 mask, the exact mask the analyzer emitted."""
+        return np.unpackbits(self.mask_bits, axis=1)[:, :self.w]
+
+    def release(self) -> None:
+        """Return this row's share of the staging buffer. Idempotent."""
+        release, self._release = self._release, None
+        if release is not None:
+            release()

@@ -14,6 +14,9 @@ import logging
 import numpy as np
 
 from robotic_discovery_platform_tpu_torch.serving import messages
+from robotic_discovery_platform_tpu_torch.serving.admission import (
+    OverloadedError,
+)
 from robotic_discovery_platform_tpu_torch.serving.server import (
     VisionAnalysisService,
 )
@@ -62,10 +65,15 @@ class GrpcVisionService:
         self.service = service
 
     def AnalyzeActuatorPerformance(self, request_iterator, context):
+        import grpc
+
         requests = (request_from_proto(r) for r in request_iterator)
-        for resp in self.service.analyze_stream(requests,
-                                                active=context.is_active):
-            yield response_to_proto(resp)
+        try:
+            for resp in self.service.analyze_stream(requests,
+                                                    active=context.is_active):
+                yield response_to_proto(resp)
+        except OverloadedError as exc:  # shed: retryable by the client
+            context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
 
 
 def build_server(cfg: ServerConfig, forward, *,

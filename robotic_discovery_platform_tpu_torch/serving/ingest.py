@@ -40,7 +40,7 @@ def decode_color(img) -> np.ndarray:
     if img.format == FORMAT_COEF:
         raise NotImplementedError(
             "Image.format = 2 (JPEG coefficient lane) is ROADMAP queue 1 "
-            "item 8 of the port; send format 0 or 1"
+            "item 10 of the port; send format 0 or 1"
         )
     if img.format == FORMAT_RAW:
         expect = img.height * img.width * 3

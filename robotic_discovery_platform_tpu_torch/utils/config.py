@@ -1,18 +1,17 @@
 """Configuration of the port: the fields of the JAX package's
-``ModelConfig``, ``GeometryConfig`` and ``ServerConfig`` that the
-single-frame serving path reads, with the same names and defaults, plus
-``from_dict`` and ``--section.field`` flag parsing for them.
+``ModelConfig``, ``GeometryConfig`` and ``ServerConfig`` that the serving
+paths read, with the same names and defaults, plus ``from_dict`` and
+``--section.field`` flag parsing for them.
 
-Deliberate differences, each raising ``NotImplementedError`` in
-:func:`check_supported` until the ROADMAP item that brings it lands:
+Settings the port does not implement yet raise ``NotImplementedError`` in
+:func:`check_supported`, naming the ROADMAP item that brings them:
 
-- ``GeometryConfig.kernel_impl`` defaults to ``"xla"`` here (the geometry
-  reference ops; the JAX package defaults to ``"auto"``). ``"auto"`` and
-  ``"pallas"`` need the three geometry kernels, ROADMAP queue 2 items 3-5;
-  the PR that ports them restores ``"auto"`` as the default.
-- ``ServerConfig.precision`` other than ``"f32"`` (ROADMAP queue 1 item 6,
-  precision tiers) and ``ServerConfig.batch_window_ms`` other than 0
-  (ROADMAP queue 1 item 7, batched serving).
+- ``ServerConfig.precision`` other than ``"f32"`` (precision tiers);
+- on the batched path (``batch_window_ms > 0``): ``batch_impl="scan"``,
+  ``serving_mesh > 1`` (the multi-device router), ``egress_pack=False``,
+  ``egress_workers > 0`` (the encode pool) and the JAX package's
+  ``RDP_*`` environment overrides of those settings;
+- ``ModelConfig.bilinear=False`` and ``norm`` other than ``"batch"``.
 """
 
 from __future__ import annotations
@@ -22,7 +21,16 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
+import os
 from typing import Any, Sequence
+
+#: ``GeometryConfig.kernel_impl`` values, the JAX package's names
+KERNEL_IMPLS = ("auto", "pallas", "xla", "interpret")
+
+#: the JAX package's environment overrides of batched-serving settings
+#: (``RDP_PRECISION`` is refused with the precision tiers)
+_BATCH_ENV_OVERRIDES = ("RDP_INFLIGHT", "RDP_SERVING_CHIPS",
+                        "RDP_DISPATCH_MODE", "RDP_EGRESS_WORKERS")
 
 
 @dataclass(frozen=True)
@@ -50,10 +58,10 @@ class GeometryConfig:
 
     num_bins: int = 50
     top_k_percent: float = 0.05
-    # "xla" = the geometry reference ops (the only implementation in this
-    # slice). The JAX package defaults to "auto", which runs three Pallas
-    # geometry kernels; the PR that ports them restores "auto" here.
-    kernel_impl: str = "xla"
+    # a single frame's geometry path: "auto" (default), "pallas" and
+    # "interpret" run the fused geometry kernels, "xla" the reference ops
+    # (resolve_kernel_impl)
+    kernel_impl: str = "auto"
     stride: int = 1
     spline_degree: int = 3
     spline_smoothing: float = 1e-3
@@ -66,7 +74,8 @@ class GeometryConfig:
 
 @dataclass(frozen=True)
 class ServerConfig:
-    """The single-frame server's settings."""
+    """The server's settings: the direct path's, and the batched path's
+    (``batch_window_ms > 0``, ``serving/batching.py``)."""
 
     address: str = "[::]:50051"
     max_workers: int = 10
@@ -75,7 +84,23 @@ class ServerConfig:
     calibration_path: str = "ml/configs/calibration_data.npz"
     metrics_csv: str = "logs/vision_service_metrics.csv"
     metrics_flush_every: int = 32
+    # > 0 turns on cross-stream micro-batching: frames of concurrent
+    # streams that arrive within this window share one dispatch
     batch_window_ms: float = 0.0
+    max_batch: int = 8  # per-dispatch cap when micro-batching
+    batch_impl: str = "dense"  # one [B, ...] forward per dispatch
+    # launched-but-not-completed dispatches: 1 = serial, 2 = batch N+1
+    # stages and computes while batch N's result comes back
+    max_inflight_dispatches: int = 2
+    serving_mesh: int = 0  # devices the dispatcher routes over (0/1: one)
+    egress_pack: bool = True  # one packed [B, P] D2H per dispatch
+    egress_workers: int = 0  # 0 = encode response masks inline
+    submit_deadline_s: float = 30.0  # per-frame wait on the dispatcher
+    max_backlog: int = 64  # queued frames before submits are shed
+    watchdog_interval_s: float = 1.0  # <= 0 disables the watchdog
+    # backlog overflow policy: "deadline" evicts the least-headroom frame,
+    # "fifo" rejects the newcomer (serving/admission.py)
+    admission_policy: str = "deadline"
     geometry_stride: int = 1
     precision: str = "f32"
 
@@ -89,26 +114,36 @@ class PlatformConfig:
     server: ServerConfig = field(default_factory=ServerConfig)
 
 
-def check_supported(cfg: Any) -> None:
-    """Raise ``NotImplementedError`` for a setting this slice of the port
-    does not implement (see the module docstring)."""
-    if isinstance(cfg, GeometryConfig) and cfg.kernel_impl != "xla":
-        raise NotImplementedError(
-            f"GeometryConfig.kernel_impl={cfg.kernel_impl!r}: the geometry "
-            "kernels (deproject_edge_stats, bspline_design, "
-            "bspline_curvature) are ROADMAP queue 2 items 3-5; use 'xla'"
+def resolve_kernel_impl(configured: str) -> str:
+    """The geometry path one frame takes for ``GeometryConfig.
+    kernel_impl``: ``"fused"`` (the three geometry functions of
+    ``ops/geometry_kernels.py``: their kernels for tensors on the card,
+    their plain versions on the CPU) for ``"auto"`` and ``"pallas"``, and
+    for ``"interpret"``, the JAX package's off-chip run of its kernels,
+    whose counterpart here is the plain versions on the CPU; ``"xla"``
+    (the reference ops) for ``"xla"``. The JAX package's per-shape
+    PALLAS_TUNE table is not ported (ROADMAP queue 1 item 17)."""
+    if configured not in KERNEL_IMPLS:
+        raise ValueError(
+            f"unknown kernel_impl {configured!r} (choose from {KERNEL_IMPLS})"
         )
+    return "xla" if configured == "xla" else "fused"
+
+
+def check_supported(cfg: Any) -> None:
+    """Raise for a setting the port does not implement (see the module
+    docstring): ``NotImplementedError`` naming its ROADMAP item, or
+    ``ValueError`` for a value no package knows."""
+    if isinstance(cfg, GeometryConfig):
+        resolve_kernel_impl(cfg.kernel_impl)
     if isinstance(cfg, ServerConfig):
         if cfg.precision != "f32":
             raise NotImplementedError(
                 f"ServerConfig.precision={cfg.precision!r}: precision tiers "
-                "are ROADMAP queue 1 item 6; use 'f32'"
+                "are ROADMAP queue 1 item 8; use 'f32'"
             )
-        if cfg.batch_window_ms != 0:
-            raise NotImplementedError(
-                f"ServerConfig.batch_window_ms={cfg.batch_window_ms}: "
-                "batched serving is ROADMAP queue 1 item 7; use 0"
-            )
+        if cfg.batch_window_ms > 0:
+            _check_batched(cfg)
     if isinstance(cfg, ModelConfig):
         if not cfg.bilinear:
             raise NotImplementedError(
@@ -120,6 +155,38 @@ def check_supported(cfg: Any) -> None:
                 f"ModelConfig.norm={cfg.norm!r}: the folded forward folds "
                 "BatchNorm; only 'batch' is ported"
             )
+
+
+def _check_batched(cfg: ServerConfig) -> None:
+    if cfg.batch_impl != "dense":
+        if cfg.batch_impl == "scan":
+            raise NotImplementedError(
+                "ServerConfig.batch_impl='scan' is ROADMAP queue 1 item 16; "
+                "use 'dense'"
+            )
+        raise ValueError(f"unknown batch_impl {cfg.batch_impl!r}")
+    if cfg.serving_mesh not in (0, 1):
+        raise NotImplementedError(
+            f"ServerConfig.serving_mesh={cfg.serving_mesh}: the multi-device "
+            "router (DeviceRouter) is ROADMAP queue 1 item 16; use 0"
+        )
+    if not cfg.egress_pack:
+        raise NotImplementedError(
+            "ServerConfig.egress_pack=False (the unpacked per-leaf fetch) is "
+            "ROADMAP queue 1 item 16; the port's dispatcher packs"
+        )
+    if cfg.egress_workers > 0:
+        raise NotImplementedError(
+            f"ServerConfig.egress_workers={cfg.egress_workers}: the encode "
+            "pool is ROADMAP queue 1 item 16; use 0"
+        )
+    set_env = [k for k in _BATCH_ENV_OVERRIDES if os.environ.get(k)]
+    if set_env:
+        raise NotImplementedError(
+            f"environment overrides {set_env} of the batched-serving "
+            "settings are ROADMAP queue 1 item 16; set the ServerConfig "
+            "fields instead"
+        )
 
 
 def _coerce(value: str, typ: type) -> Any:

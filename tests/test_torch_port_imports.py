@@ -4,6 +4,7 @@ refuses what this slice does not implement, and chip_smoke.py refuses to
 run without a card."""
 
 import ast
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -18,6 +19,9 @@ from robotic_discovery_platform_tpu_torch.models import unet as tunet
 from robotic_discovery_platform_tpu_torch.models import weights
 from robotic_discovery_platform_tpu_torch.ops import build, pipeline
 from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
+from robotic_discovery_platform_tpu_torch.serving.batching import (
+    BatchDispatcher,
+)
 from robotic_discovery_platform_tpu_torch.serving.server import (
     VisionAnalysisService,
 )
@@ -40,6 +44,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.serving.server\n"
         "import robotic_discovery_platform_tpu_torch.serving.grpc_service\n"
         "import robotic_discovery_platform_tpu_torch.ops.build\n"
+        "import robotic_discovery_platform_tpu_torch.ops.geometry_kernels\n"
+        "import robotic_discovery_platform_tpu_torch.ops.pack\n"
+        "import robotic_discovery_platform_tpu_torch.serving.batching\n"
+        "import robotic_discovery_platform_tpu_torch.serving.admission\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -47,7 +55,9 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "robotic_discovery_platform_tpu_torch.serving.server" in loaded
+    for module in ("serving.server", "serving.batching", "ops.pack",
+                   "ops.geometry_kernels"):
+        assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
     imported = set()
@@ -73,7 +83,8 @@ def _tiny_net():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "FoldedUNet",
                                    "make_frame_analyzer",
-                                   "VisionAnalysisService", "load_model_dir"])
+                                   "VisionAnalysisService", "load_model_dir",
+                                   "make_batch_analyzer", "BatchDispatcher"])
 def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """With no CUDA device, the default device raises; ``device="cpu"``
     runs."""
@@ -105,10 +116,17 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
             folded, cfg=config.ServerConfig(
                 metrics_csv=str(tmp_path / "m.csv")), **kw),
         "load_model_dir": lambda **kw: weights.load_model_dir(tmp_path, **kw),
+        "make_batch_analyzer": lambda **kw: pipeline.make_batch_analyzer(
+            folded, img_size=32, pack=True, **kw),
+        "BatchDispatcher": lambda **kw: BatchDispatcher(
+            lambda *a: None, watchdog_interval_s=0.0, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
-    assert calls[entry](device="cpu") is not None
+    made = calls[entry](device="cpu")
+    assert made is not None
+    if entry == "BatchDispatcher":
+        made.stop()
     if entry == "load_model_dir":
         _, loaded = calls[entry](device="cpu")
         for key, value in net.state_dict().items():
@@ -118,22 +136,53 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", ["kernel_impl_default", "kernel_impl_auto",
                                   "kernel_impl_pallas", "precision_bf16",
                                   "batch_window", "bilinear_false",
-                                  "norm_group", "flags"])
-def test_config_refuses_what_the_slice_lacks(case, tmp_path):
+                                  "norm_group", "flags", "batch_impl_scan",
+                                  "serving_mesh", "egress_pack_off",
+                                  "egress_workers", "env_override"])
+def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
     if case == "kernel_impl_default":
-        assert config.GeometryConfig().kernel_impl == "xla"
+        assert config.GeometryConfig().kernel_impl == "auto"
         config.check_supported(config.GeometryConfig())
     elif case.startswith("kernel_impl_"):
+        # the fused geometry path, accepted; an unknown name is refused
         impl = case.split("_")[-1]
-        with pytest.raises(NotImplementedError, match="queue 2 items 3-5"):
-            pipeline.make_frame_analyzer(
-                lambda x: x, geom_cfg=config.GeometryConfig(kernel_impl=impl),
-                device="cpu")
-    elif case in ("precision_bf16", "batch_window"):
-        cfg = (config.ServerConfig(precision="bf16") if case == "precision_bf16"
-               else config.ServerConfig(batch_window_ms=5.0))
+        assert pipeline.make_frame_analyzer(
+            lambda x: x, geom_cfg=config.GeometryConfig(kernel_impl=impl),
+            device="cpu") is not None
+        with pytest.raises(ValueError, match="unknown kernel_impl"):
+            config.check_supported(config.GeometryConfig(kernel_impl="cuda"))
+    elif case == "precision_bf16":
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            VisionAnalysisService(lambda x: x,
+                                  cfg=config.ServerConfig(precision="bf16"),
+                                  device="cpu")
+    elif case == "batch_window":
+        # batched serving builds (and stops) with the JAX package's defaults
+        cfg = config.ServerConfig(batch_window_ms=2.0,
+                                  metrics_csv=str(tmp_path / "m.csv"))
+        assert (cfg.max_batch, cfg.batch_impl, cfg.max_inflight_dispatches,
+                cfg.serving_mesh, cfg.egress_pack, cfg.submit_deadline_s,
+                cfg.max_backlog, cfg.watchdog_interval_s,
+                cfg.admission_policy) == (8, "dense", 2, 0, True, 30.0, 64,
+                                          1.0, "deadline")
+        service = VisionAnalysisService(lambda x: x, cfg=cfg, device="cpu")
+        assert service.dispatcher is not None
+        assert service.dispatcher.max_inflight == 2
+        service.close()
+    elif case in ("batch_impl_scan", "serving_mesh", "egress_pack_off",
+                  "egress_workers", "env_override"):
+        fields = {"batch_impl_scan": {"batch_impl": "scan"},
+                  "serving_mesh": {"serving_mesh": 2},
+                  "egress_pack_off": {"egress_pack": False},
+                  "egress_workers": {"egress_workers": 2},
+                  "env_override": {}}[case]
+        if case == "env_override":
+            monkeypatch.setenv("RDP_INFLIGHT", "4")
+        cfg = config.ServerConfig(batch_window_ms=2.0, **fields)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
             VisionAnalysisService(lambda x: x, cfg=cfg, device="cpu")
+        # the direct path reads none of these settings
+        config.check_supported(dataclasses.replace(cfg, batch_window_ms=0.0))
     elif case in ("bilinear_false", "norm_group"):
         cfg = (config.ModelConfig(bilinear=False) if case == "bilinear_false"
                else config.ModelConfig(norm="group"))
