@@ -33,7 +33,21 @@ and the script exits non-zero:
    every batched response byte-equal to the direct path's, one bitpack
    and 18 conv3x3 launches per dispatch, dispatch sizes, frames/s and the
    device's busy share;
-5. geometry on a rendered scene's true mask, card against CPU.
+5. geometry on a rendered scene's true mask, card against CPU;
+6. training at the reference configuration (``ModelConfig()``,
+   ``TrainConfig`` batch 4 at 256x256, lr 1e-4, loss "bce"): the weight
+   gradient kernel against its plain version and the training conv's
+   forward and dx (the conv kernel, unit epilogue) against theirs at the
+   18 training shapes at B = 4, with their times, bounds and cuDNN's;
+   one step's gradients on the kernels against plain torch convs; exact
+   launches per train step (18 + 17 conv3x3_bn_relu, 18
+   conv3x3_grad_weights; none per eval step); ``train_model`` on 20
+   synthetic samples for two epochs into a temporary registry (losses
+   finite and falling, version 1 registered), with the step's time, its
+   device-time split and busy share, and peak memory; then a server
+   built from the registry (``models:/Actuator-Segmenter@staging``)
+   serving 4 frames, its masks equal to a ``FoldedUNet`` built from the
+   checkpoint's best variables.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
@@ -41,6 +55,7 @@ The line before the last is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -90,6 +105,18 @@ R_RTOL = 1e-5
 BATCH_3X3 = [(256, 3, 64), (256, 64, 64), (64, 256, 256), (16, 512, 512)]
 MAX_BATCH = 8
 STREAMS = 8  # concurrent streams of the servicer phase's last two legs
+# training: the reference batch, and the bars of phase 6
+TRAIN_BATCH = 4
+DW_REL_L2 = 1e-4  # dw kernel vs plain: float32 sums of the same products
+# one step's gradients, kernels vs plain torch convs, in float32 compute
+GRAD_REL_L2 = 2e-2
+LOSS_RTOL = 1e-2
+# in bfloat16 compute the plain step itself lies about 5% (relative L2)
+# from the same step with float64 conv sums, so no two summation orders
+# meet GRAD_REL_L2 there; the kernel step must lie no farther from the
+# float64-sum step than this factor times the plain step's distance
+BF16_GRAD_RATIO = 1.25
+TRAIN_SAMPLES = 20  # 16 train + 4 validation: 4 steps per epoch
 
 
 def log(msg: str) -> None:
@@ -158,7 +185,11 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(r[0] for r in device_rows(prof)) / iters
+    total = sum(r[0] for r in device_rows(prof)) / iters
+    # the profiler can record no device activity for a launch (seen once
+    # for the 2 us bitpack); CUDA events around back-to-back calls then
+    # give an upper bound (they include the host's cost per call)
+    return total if total > 0 else time_ms(torch, fn, iters)
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -468,6 +499,10 @@ KERNELS = {
         "robotic_discovery_platform_tpu_torch/csrc/bitpack_mask.cu",
         "robotic_discovery_platform_tpu/ops/pallas/pack.py:117",
         [("bitpack_mask",)]),
+    "conv3x3_grad_weights": (
+        "robotic_discovery_platform_tpu_torch/csrc/conv3x3_grad_weights.cu",
+        "robotic_discovery_platform_tpu/ops/pallas/conv.py:519",
+        [("conv3x3_grad_weights", *s) for s in MAIN_PATH_3X3]),
 }
 
 
@@ -481,7 +516,8 @@ def launch_counters():
             "deproject_edge_stats": gk.deproject_edge_stats,
             "bspline_design": gk.bspline_design,
             "bspline_curvature": gk.bspline_curvature,
-            "bitpack_mask": pack.bitpack_mask}
+            "bitpack_mask": pack.bitpack_mask,
+            "conv3x3_grad_weights": conv.conv3x3_grad_weights}
 
 
 def reset_launches() -> None:
@@ -496,9 +532,11 @@ def read_launches() -> dict:
 def kernel_record(results: dict, launches: dict) -> dict:
     """The kernels' JSON record: per kernel, the sums over one frame's
     launches of each per-launch time (so ``ms`` is the kernel's device
-    time per frame; the bitpack's is one [8, 480, 640] dispatch), the
+    time per frame; the bitpack's is one [8, 480, 640] dispatch; the
+    weight gradient's is one train step's 18 launches at B = 4), the
     worst error over its main-path shapes, and the launch count of the
-    servicer phase's legs."""
+    servicer phase's legs and the training phase's train_model and
+    registry-served legs."""
     kernels = []
     for name, (source, replaces, keys) in KERNELS.items():
         rows = [results[k] for k in keys]
@@ -614,7 +652,8 @@ def analyzer_phase(torch, port, frames) -> tuple:
     counts = read_launches()
     want = {"conv3x3_bn_relu": 18 * n, "conv1x1": n,
             "deproject_edge_stats": n, "bspline_design": n,
-            "bspline_curvature": n, "bitpack_mask": 0}
+            "bspline_curvature": n, "bitpack_mask": 0,
+            "conv3x3_grad_weights": 0}
     check(counts == want,
           f"launch counts after {n} frames: {counts}, want {want}")
     peak = torch.cuda.max_memory_allocated()
@@ -807,7 +846,8 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
     n = len(requests)
     want = {"conv3x3_bn_relu": 18 * n, "conv1x1": n,
             "deproject_edge_stats": n, "bspline_design": n,
-            "bspline_curvature": n, "bitpack_mask": 0}
+            "bspline_curvature": n, "bitpack_mask": 0,
+            "conv3x3_grad_weights": 0}
     check(launches == want, f"servicer launch counts {launches} for {n} "
           f"frames, want {want}")
     verify(responses, "in-process")
@@ -890,7 +930,8 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
     ones = sizes.get(1, 0)
     bwant = {"conv3x3_bn_relu": 18 * dispatches, "conv1x1": dispatches,
              "deproject_edge_stats": ones, "bspline_design": ones,
-             "bspline_curvature": ones, "bitpack_mask": dispatches}
+             "bspline_curvature": ones, "bitpack_mask": dispatches,
+             "conv3x3_grad_weights": 0}
     check(blaunches == bwant, f"batched leg launch counts {blaunches}, want "
           f"{bwant} for dispatch sizes {sizes}")
     for order, responses_s in zip(orders, out):
@@ -952,6 +993,411 @@ def geometry_phase(torch, port) -> None:
         "edge points")
 
 
+# -- phase 6: training ------------------------------------------------------
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def timed(torch, kernel, plain, library, flops: float, nbytes: float,
+          err: float, plain_iters: int = 20) -> dict:
+    t = {"ms": time_ms(torch, kernel),
+         "plain_ms": time_ms(torch, plain, iters=plain_iters),
+         "library_ms": time_ms(torch, library), "max_abs_err": err}
+    t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
+    return t
+
+
+def train_kernel_phase(torch, conv) -> dict:
+    """The training conv's kernels against their plain versions at the 18
+    training shapes at B = 4 in bfloat16, as the default model trains:
+    the weight gradient (relative L2 within DW_REL_L2, also in float32 at
+    two small ragged shapes), and ``conv3x3``'s forward and dx (the conv
+    kernel with a unit epilogue; dx on the flipped, transposed kernel)
+    within BF16_TOL, its dw the weight-gradient kernel's, rounded to
+    bfloat16. Times per launch: the kernel, its plain version and one
+    cuDNN call on the same operands (``F.conv2d``; the weight gradient's
+    ``torch.nn.grad.conv2d_weight``), TF32 off."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    results = {}
+    for b, h, w, cin, cout in [(2, 37, 53, 40, 24), (1, 9, 11, 3, 5)]:
+        x = torch.randn(b, h, w, cin, generator=gen, device="cuda")
+        g = torch.randn(b, h, w, cout, generator=gen, device="cuda")
+        err = rel_l2(torch, conv.conv3x3_grad_weights(x, g),
+                     conv.conv3x3_grad_weights_plain(x, g))
+        check(err <= DW_REL_L2, f"conv3x3_grad_weights {(b, h, w, cin, cout)}"
+              f" float32: relative L2 {err} > {DW_REL_L2}")
+        log(f"conv3x3_grad_weights [{b},{h},{w},{cin}]x[..,{cout}] float32: "
+            f"relative L2 {err:.3g} (bar {DW_REL_L2})")
+
+    b, bf = TRAIN_BATCH, torch.bfloat16
+    measured = {}
+    for s, cin, cout in sorted(set(MAIN_PATH_3X3), key=MAIN_PATH_3X3.index):
+        x = torch.randn(b, s, s, cin, generator=gen, device="cuda").to(bf)
+        g = torch.randn(b, s, s, cout, generator=gen, device="cuda").to(bf)
+        w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda")
+             / (9 * cin) ** 0.5).to(bf)
+        dw = conv.conv3x3_grad_weights(x, g)
+        dw_plain = conv.conv3x3_grad_weights_plain(x, g)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = conv.conv3x3(xg, wg, "auto")
+        y.backward(g)
+        unit_o = (torch.ones(cout, device="cuda"),
+                  torch.zeros(cout, device="cuda"))
+        unit_i = (torch.ones(cin, device="cuda"),
+                  torch.zeros(cin, device="cuda"))
+        w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
+        y_plain = conv.conv3x3_bn_relu_plain(x, w, *unit_o, relu=False)
+        dx_plain = conv.conv3x3_bn_relu_plain(g, w_flip, *unit_i, relu=False)
+        torch.cuda.synchronize()
+        err = rel_l2(torch, dw, dw_plain)
+        check(err <= DW_REL_L2, f"conv3x3_grad_weights {(b, s, s, cin, cout)}:"
+              f" relative L2 {err} > {DW_REL_L2}")
+        check(torch.equal(wg.grad, dw.to(bf)),
+              f"conv3x3 {(s, cin, cout)}: dw is not the kernel's, rounded")
+        errs = {}
+        for name, got, want in (("y", y.detach(), y_plain),
+                                ("dx", xg.grad, dx_plain)):
+            errs[name] = float((got.float() - want.float()).abs().max())
+            check(torch.allclose(got.float(), want.float(), atol=BF16_TOL,
+                                 rtol=BF16_TOL),
+                  f"conv3x3 {(b, s, s, cin, cout)} {name}: max |err| "
+                  f"{errs[name]} over tolerance {BF16_TOL}")
+        flops = 2.0 * b * s * s * 9 * cin * cout
+        act = b * s * s * 2  # bytes per channel of a bf16 activation
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        wc, wfc = (t.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last) for t in (w, w_flip))
+        m = measured[(s, cin, cout)] = {
+            "dw": timed(
+                torch, lambda: conv.conv3x3_grad_weights(x, g),
+                lambda: conv.conv3x3_grad_weights_plain(x, g),
+                lambda: torch.nn.grad.conv2d_weight(xc, (cout, cin, 3, 3), gc,
+                                                    padding=1),
+                flops, act * (cin + cout) + 9 * cin * cout * 4,
+                float((dw - dw_plain).abs().max()), plain_iters=5),
+            "fwd": timed(
+                torch, lambda: conv.conv3x3_bn_relu(x, w, *unit_o,
+                                                    relu=False),
+                lambda: conv.conv3x3_bn_relu_plain(x, w, *unit_o, relu=False),
+                lambda: F.conv2d(xc, wc, padding=1), flops,
+                act * (cin + cout) + 9 * cin * cout * 2 + 8 * cout,
+                errs["y"]),
+            "dx": timed(
+                torch, lambda: conv.conv3x3_bn_relu(g, w_flip, *unit_i,
+                                                    relu=False),
+                lambda: conv.conv3x3_bn_relu_plain(g, w_flip, *unit_i,
+                                                   relu=False),
+                lambda: F.conv2d(gc, wfc, padding=1), flops,
+                act * (cin + cout) + 9 * cin * cout * 2 + 8 * cin,
+                errs["dx"]),
+        }
+        m["dw"]["rel_l2"] = err
+        log(f"train conv [{b},{s},{s},{cin}]->{cout} bf16: " + "; ".join(
+            f"{k} ms {t['ms']:.4f} plain {t['plain_ms']:.4f} cudnn "
+            f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}) {flops / t['ms'] / 1e9:.1f} TFLOP/s"
+            for k, t in m.items())
+            + f"; dw rel L2 {err:.3g} (bar {DW_REL_L2}), y max|err| "
+            f"{errs['y']:.3g}, dx max|err| {errs['dx']:.3g} (tol {BF16_TOL})")
+        del x, g, w, xg, wg, y, dw, dw_plain, y_plain, dx_plain
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    sums = {k: dict.fromkeys(keys, 0.0) for k in ("dw", "fwd", "dx")}
+    for i, shape in enumerate(MAIN_PATH_3X3):
+        results[("conv3x3_grad_weights", *shape)] = measured[shape]["dw"]
+        for k, t in measured[shape].items():
+            if k == "dx" and i == 0:
+                continue  # the image input takes no gradient
+            for f in keys:
+                sums[k][f] += t[f]
+    for k, n in (("dw", 18), ("fwd", 18), ("dx", 17)):
+        log(f"train conv {k}, the {n} launches of one step at B = {b}: "
+            + ", ".join(f"{f} {v:.3f}" for f, v in sums[k].items()))
+    return results
+
+
+def conv3x3_f64(x, w):
+    """The plain training conv with float64 sums (one rounding to x's
+    dtype): the most exact reference of a step's gradients."""
+    import torch
+
+    wf = w.to(x.dtype).to(torch.float64).permute(3, 2, 0, 1)
+    y = torch.nn.functional.conv2d(x.to(torch.float64).permute(0, 3, 1, 2),
+                                   wf, padding=1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def step_grads(torch, cfg, impl, x, y, loss_fn, f64_sums=False):
+    """(loss, gradients, launches) of one training forward and backward
+    from the seeded initial weights; ``f64_sums`` swaps the plain conv
+    for :func:`conv3x3_f64`."""
+    from robotic_discovery_platform_tpu_torch.models import unet
+    from robotic_discovery_platform_tpu_torch.training import trainer
+
+    net = trainer.init_model(dataclasses.replace(cfg, conv_impl=impl), SEED,
+                             torch.device("cuda"))
+    plain = unet.conv3x3_plain
+    if f64_sums:
+        unet.conv3x3_plain = conv3x3_f64
+    try:
+        reset_launches()
+        loss = loss_fn(net(x, train=True), y)
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        unet.conv3x3_plain = plain
+    grads = torch.cat([p.grad.flatten() for p in net.parameters()])
+    per = {k: p.grad for k, p in net.named_parameters()}
+    return float(loss.detach()), grads, per, read_launches(), net
+
+
+def step_phase(torch, port) -> dict:
+    """One reference train step (B = 4 at 256x256, bce) on the kernels
+    (conv_impl="auto") against plain torch convs (conv_impl="flax") from
+    the same weights and batch: in float32 compute within GRAD_REL_L2;
+    in bfloat16 (the reference configuration) beside the float64-sum
+    step, within BF16_GRAD_RATIO of the plain step's distance to it.
+    Then exact launches per train step and per eval step, the step's
+    time, device-time split and busy share, and peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.training import (
+        synthetic,
+        trainer,
+    )
+
+    cfg = port.ModelConfig()
+    check(cfg.conv_impl == "auto" and cfg.base_features == 64
+          and cfg.compute_dtype == "bfloat16",
+          f"the reference configuration changed: {cfg}")
+    imgs, masks = synthetic.generate_arrays(TRAIN_BATCH, 256, 256, seed=SEED)
+    xs, ys = trainer.normalize_arrays(imgs, masks)
+    x, y = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    loss_fn = losses.make_loss_fn("bce")
+    zero = {k: 0 for k in read_launches()}
+    step_want = dict(zero, conv3x3_bn_relu=18 + 17, conv3x3_grad_weights=18)
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    loss_k, g_k, _, counts, _ = step_grads(torch, f32, "auto", x, y, loss_fn)
+    check(counts == step_want, f"float32 step launches {counts}")
+    loss_p, g_p, _, counts, _ = step_grads(torch, f32, "flax", x, y, loss_fn)
+    check(counts == zero, f"plain step launched {counts}")
+    total = rel_l2(torch, g_k, g_p)
+    check(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
+          f"float32 step loss kernels {loss_k} vs plain {loss_p}")
+    check(total <= GRAD_REL_L2, f"float32 step gradients, kernels vs plain: "
+          f"relative L2 {total} > {GRAD_REL_L2}")
+    log(f"train step in float32, kernels vs plain convs: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f}; gradients relative L2 {total:.3g} (bar {GRAD_REL_L2})")
+
+    loss_k, g_k, per_k, counts, net = step_grads(torch, cfg, "auto", x, y,
+                                                 loss_fn)
+    check(counts == step_want, f"bfloat16 step launches {counts}, want "
+          f"{step_want}")
+    loss_p, g_p, per_p, _, _ = step_grads(torch, cfg, "flax", x, y, loss_fn)
+    loss_e, g_e, _, _, _ = step_grads(torch, cfg, "flax", x, y, loss_fn,
+                                      f64_sums=True)
+    kp, ke, pe = (rel_l2(torch, g_k, g_p), rel_l2(torch, g_k, g_e),
+                  rel_l2(torch, g_p, g_e))
+    check(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
+          f"bfloat16 step loss kernels {loss_k} vs plain {loss_p}")
+    check(ke <= BF16_GRAD_RATIO * pe, f"bfloat16 step: the kernels' gradients "
+          f"lie {ke} from the float64-sum step's, beyond {BF16_GRAD_RATIO} x "
+          f"the plain step's {pe}")
+    log(f"train step in bfloat16 (the reference): loss kernels {loss_k:.6f}, "
+        f"plain {loss_p:.6f}, float64 sums {loss_e:.6f}; gradients relative "
+        f"L2 kernels-plain {kp:.3g}, kernels-float64 {ke:.3g}, plain-float64 "
+        f"{pe:.3g} (bar: kernels-float64 <= {BF16_GRAD_RATIO} x "
+        f"plain-float64); per tensor, kernels vs plain: " + ", ".join(
+            f"{k} {rel_l2(torch, per_k[k], per_p[k]):.3g}" for k in per_p
+            if per_p[k].abs().max() > 0))
+    del g_k, g_p, g_e, per_k, per_p, _
+    torch.cuda.empty_cache()
+
+    opt = trainer.make_optimizer(net, 1e-4)
+    reset_launches()
+    trainer.train_step(net, opt, loss_fn, x, y)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(counts == step_want, f"train_step launches {counts}, want "
+          f"{step_want}")
+    reset_launches()
+    trainer.eval_step(net, loss_fn, x, y)
+    torch.cuda.synchronize()
+    check(read_launches() == zero, f"eval_step launched {read_launches()}")
+
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    step_ms = []
+    for _ in range(5):
+        start.record()
+        trainer.train_step(net, opt, loss_fn, x, y)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+
+    def device_ms_of(fn) -> tuple:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return sum(r[0] for r in device_rows(prof)), wall, result
+
+    opt.zero_grad(set_to_none=True)
+    fwd, _, loss = device_ms_of(lambda: loss_fn(net(x, train=True), y))
+    bwd, _, _ = device_ms_of(loss.backward)
+    upd, _, _ = device_ms_of(opt.step)
+    dev, wall, _ = device_ms_of(
+        lambda: trainer.train_step(net, opt, loss_fn, x, y))
+    log(f"train step (B = {TRAIN_BATCH}, 256x256, bf16): ms per step (CUDA "
+        f"events) {' '.join(f'{v:.2f}' for v in step_ms)}; device time "
+        f"forward+loss {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer "
+        f"{upd:.2f} ms (profiler, one step each); one step under the "
+        f"profiler: host wall {wall:.2f} ms, device {dev:.2f} ms (device "
+        f"busy {100 * dev / wall:.1f}%); peak memory {peak / 2**20:.0f} MiB")
+    return {"step_ms": step_ms, "split": (fwd, bwd, upd), "busy": dev / wall}
+
+
+def train_serve_phase(torch, port, frames) -> dict:
+    """``train_model`` at the reference configuration on synthetic data
+    for two epochs into a temporary registry, then a server built from
+    the registry's staging version serving 4 frames; returns the launches
+    of the two legs."""
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.training import (
+        checkpoint,
+        synthetic,
+        trainer,
+    )
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    cfg = port.TrainConfig(epochs=2, batch_size=TRAIN_BATCH, img_size=256,
+                           learning_rate=1e-4, loss="bce", seed=SEED,
+                           tracking_uri=f"file:{tmp}/mlruns",
+                           checkpoint_dir=str(tmp / "ckpt"))
+    model_cfg = port.ModelConfig()
+    arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.train_model(cfg, model_cfg, arrays=arrays, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    steps = cfg.epochs * 4
+    want = {k: 0 for k in train_launches}
+    want.update(conv3x3_bn_relu=35 * steps, conv3x3_grad_weights=18 * steps)
+    check(train_launches == want, f"train_model launches {train_launches}, "
+          f"want {want} for {steps} steps")
+    store = tracking.store_for(cfg.tracking_uri)
+    hist = {k: [h["value"] for h in store.get_metric_history(res.run_id, k)]
+            for k in ("train_loss", "val_loss", "val_miou")}
+    check(all(np.isfinite(v) for vs in hist.values() for v in vs)
+          and len(hist["train_loss"]) == 2,
+          f"train_model metrics not finite: {hist}")
+    check(hist["train_loss"][1] < hist["train_loss"][0],
+          f"train loss did not fall: {hist['train_loss']}")
+    check(res.registry_version == 1,
+          f"registered version {res.registry_version}, want 1")
+    log(f"train_model: {TRAIN_SAMPLES} samples, 2 epochs x 4 steps in "
+        f"{train_s:.1f} s (epochs {' '.join(f'{v:.2f}' for v in res.epoch_seconds)}"
+        f" s, checkpoint IO excluded); train loss {hist['train_loss']}, val "
+        f"loss {hist['val_loss']}, val mIoU {hist['val_miou']}; launches "
+        f"{train_launches}; registered version {res.registry_version}")
+
+    store.set_alias(cfg.registered_model_name, "staging", 1)
+    best = checkpoint.CheckpointManager(cfg.checkpoint_dir).restore()["best"]
+    net = port.UNet(model_cfg)
+    net.load_state_dict(best)
+    folded = port.FoldedUNet(net, device="cuda")
+    direct = port.make_frame_analyzer(folded, img_size=256, device="cuda")
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    frames = frames[:4]
+    want_masks = [direct(rgb, depth, k, 0.001).mask.cpu().numpy()
+                  for rgb, depth in frames]
+    scfg = port.ServerConfig(address="localhost:0",
+                             tracking_uri=cfg.tracking_uri,
+                             metrics_csv=str(tmp / "metrics.csv"),
+                             calibration_path=str(tmp / "none.npz"))
+    # the registered artifact carries the best variables exactly
+    from robotic_discovery_platform_tpu_torch.serving import server
+
+    _, registered, version = server.resolve_serving_model(scfg,
+                                                          device="cuda")
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    with torch.no_grad():
+        same = torch.equal(port.FoldedUNet(registered, device="cuda")(x0),
+                           folded(x0))
+    check(version == 1 and same, f"registry version {version}: logits "
+          "differ from the FoldedUNet of the best variables")
+    requests = [port.raw_request(rgb, depth) for rgb, depth in frames]
+    reset_launches()
+    try:
+        import grpc
+
+        from robotic_discovery_platform_tpu_torch.serving import grpc_service
+        from robotic_discovery_platform_tpu_torch.serving.proto import (
+            vision_grpc,
+            vision_pb2,
+        )
+    except ImportError as exc:
+        service = server.build_service(scfg, device="cuda")
+        responses = list(service.analyze_stream(iter(requests)))
+        leg = f"in process (no grpc: {exc})"
+    else:
+        srv, service = grpc_service.build_server(scfg, device="cuda")
+        srv.start()
+        try:
+            with grpc.insecure_channel(
+                    f"localhost:{service.bound_port}") as channel:
+                stub = vision_grpc.VisionAnalysisServiceStub(channel)
+                responses = list(stub.AnalyzeActuatorPerformance(iter([
+                    vision_pb2.AnalysisRequest(
+                        color_image=vision_pb2.Image(
+                            data=r.color_image.data, width=FRAME_W,
+                            height=FRAME_H, format=1),
+                        depth_image=vision_pb2.Image(
+                            data=r.depth_image.data, width=FRAME_W,
+                            height=FRAME_H, format=1))
+                    for r in requests])))
+        finally:
+            srv.stop(grace=None).wait()
+        leg = "over gRPC"
+    torch.cuda.synchronize()
+    serve_launches = read_launches()
+    service.close()
+    n = len(frames)
+    want = {k: 0 for k in serve_launches}
+    want.update(conv3x3_bn_relu=18 * n, conv1x1=n, deproject_edge_stats=n,
+                bspline_design=n, bspline_curvature=n)
+    check(serve_launches == want, f"registry-served launches "
+          f"{serve_launches}, want {want}")
+    check(service.model_version == 1,
+          f"server runs version {service.model_version}, want 1 (staging)")
+    for i, (resp, mask) in enumerate(zip(responses, want_masks)):
+        check(resp.status.startswith(("OK", "DEGRADED")),
+              f"registry-served frame {i}: status {resp.status!r}")
+        got = (decode_png(resp.mask) > 0).astype(np.uint8)
+        check(np.array_equal(got, mask), f"registry-served frame {i}: mask "
+              "differs from the FoldedUNet of the best variables")
+    log(f"registry-served leg ({leg}): models:/{scfg.model_name}@"
+        f"{scfg.model_alias} -> version {service.model_version}; {n} frames,"
+        f" statuses {[r.status for r in responses]}, masks equal to the "
+        f"direct FoldedUNet's (coverage "
+        f"{[round(float(r.mask_coverage), 2) for r in responses]}); "
+        f"launches {serve_launches}")
+    return {k: train_launches[k] + serve_launches[k] for k in want}
+
+
 def main() -> int:
     try:
         import torch
@@ -993,6 +1439,10 @@ def main() -> int:
                   for rgb, depth in frames]
     launches = servicer_phase(torch, port, folded, frames, want_masks)
     geometry_phase(torch, port)
+    results.update(train_kernel_phase(torch, conv))
+    step_phase(torch, port)
+    trained = train_serve_phase(torch, port, frames)
+    launches = {k: launches[k] + trained[k] for k in launches}
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps(kernel_record(results, launches)))

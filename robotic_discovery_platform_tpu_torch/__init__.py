@@ -9,19 +9,27 @@ points run on ``device="cuda"`` unless the caller asks for the CPU.
 
 Package map:
 
-- ``utils/config.py``: the configuration fields the serving path reads;
+- ``utils/config.py``: the configuration fields the serving and training
+  paths read;
 - ``models/unet.py``, ``models/weights.py``: the unfolded U-Net module
-  (the forward's plain reference) and weights carried from the JAX
-  package's Flax trees and artifact directories;
-- ``ops/conv.py``: the conv kernels' wrappers and plain versions;
-  ``ops/unet_infer.py``: the folded forward on those kernels;
+  (the forward's plain reference and the training forward) and weights
+  shared with the JAX package's Flax trees and artifact directories;
+  ``models/losses.py``: the losses and metrics;
+- ``ops/conv.py``: the conv kernels' wrappers and plain versions, and the
+  training conv (custom VJP); ``ops/unet_infer.py``: the folded forward
+  on those kernels;
 - ``ops/bspline.py``, ``ops/geometry.py``: the curvature profile;
   ``ops/geometry_kernels.py``: the geometry kernels of one frame;
 - ``ops/pack.py``: the mask bitpack kernel and the packed row layout;
 - ``ops/pipeline.py``: the single-frame and batched analyzers;
 - ``io/frames.py``: synthetic scenes and calibration files;
 - ``serving/``: wire messages, ingest, egress, metrics CSV, the servicer
-  and its gRPC adapter, the batch dispatcher and its admission queue.
+  (built from the registry when given no forward) and its gRPC adapter,
+  the batch dispatcher and its admission queue;
+- ``training/``: ``train_model`` (and ``python -m
+  robotic_discovery_platform_tpu_torch.training``), the data pipeline,
+  synthetic data and checkpoints; ``tracking/``: the file-backed
+  experiment store and model registry shared with the JAX package.
 """
 
 from robotic_discovery_platform_tpu_torch.io.frames import (
@@ -49,17 +57,21 @@ from robotic_discovery_platform_tpu_torch.serving.ingest import (
 )
 from robotic_discovery_platform_tpu_torch.serving.server import (
     VisionAnalysisService,
+    build_service,
 )
+from robotic_discovery_platform_tpu_torch.training.trainer import train_model
 from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
     ModelConfig,
     ServerConfig,
+    TrainConfig,
 )
 
 __all__ = [
     "BatchNorm", "FoldedUNet", "GeometryConfig", "ModelConfig",
-    "ServerConfig", "SyntheticSource", "UNet", "VisionAnalysisService",
-    "compute_curvature_profile", "decode_mask_wire", "default_intrinsics",
-    "from_flax_variables", "load_calibration", "load_model_dir",
-    "make_frame_analyzer", "preprocess", "raw_request", "render_scene",
+    "ServerConfig", "SyntheticSource", "TrainConfig", "UNet",
+    "VisionAnalysisService", "build_service", "compute_curvature_profile",
+    "decode_mask_wire", "default_intrinsics", "from_flax_variables",
+    "load_calibration", "load_model_dir", "make_frame_analyzer",
+    "preprocess", "raw_request", "render_scene", "train_model",
 ]

@@ -15,6 +15,12 @@ onto :meth:`nn.Module.state_dict` keys one to one
 Layout at the public surface is the JAX package's: NHWC in, NHWC float32
 logits out. Inside, convolutions run as ``F.conv2d`` on NCHW views with
 the operands in the compute dtype and float32 accumulation.
+
+``forward(x, train=True)`` is the training forward of the JAX package's
+``UNet.apply(..., train=True)``: under a kernel ``ModelConfig.conv_impl``
+each DoubleConv conv is the custom-VJP :func:`ops.conv.conv3x3` (the
+hand-written forward, dx and dw kernels), and BatchNorm normalizes with
+batch statistics in Flax's semantics and updates its running statistics.
 """
 
 from __future__ import annotations
@@ -26,7 +32,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from robotic_discovery_platform_tpu_torch.ops.conv import (
+    conv3x3,
+    conv3x3_plain,
+)
 from robotic_discovery_platform_tpu_torch.utils.config import (
+    PLAIN_CONV_IMPLS,
     ModelConfig,
     check_supported,
 )
@@ -133,22 +144,34 @@ def _bias_init(init: str, t: torch.Tensor, fan_in: int,
 
 
 class Conv3x3(nn.Module):
-    """3x3 SAME conv without bias; ``kernel`` is HWIO [3, 3, Cin, Cout]."""
+    """3x3 SAME conv without bias; ``kernel`` is HWIO [3, 3, Cin, Cout].
+    With ``train=True`` and a kernel ``impl`` it is the custom-VJP
+    :func:`ops.conv.conv3x3` on the kernel cast to x's dtype (the JAX
+    package's ``TrainConv3x3``); otherwise the plain conv."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, impl: str = "auto"):
         super().__init__()
+        self.impl = impl
         self.kernel = nn.Parameter(torch.zeros(3, 3, cin, cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel.to(x.dtype).to(torch.float32).permute(3, 2, 0, 1)
-        y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), w, padding=1)
-        return y.permute(0, 2, 3, 1).to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train and self.impl not in PLAIN_CONV_IMPLS:
+            return conv3x3(x, self.kernel.to(x.dtype), self.impl)
+        return conv3x3_plain(x, self.kernel)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis, eps 1e-5, in
-    Flax's order: ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
-    float32, one cast back to the input's dtype."""
+    """BatchNorm over the last (channel) axis, eps 1e-5, in Flax's order:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, one cast
+    back to the input's dtype.
+
+    Inference normalizes with the running statistics. ``train=True``
+    normalizes with the batch's, in Flax's ``nn.BatchNorm(momentum=0.9)``
+    semantics (not ``nn.BatchNorm2d``'s): float32 statistics over (B, H,
+    W), the variance as ``max(0, E[x^2] - E[x]^2)`` (biased), and running
+    statistics updated as ``0.9 * running + (1 - 0.9) * batch``."""
+
+    momentum = 0.9
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -158,50 +181,66 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return ((x.to(torch.float32) - self.mean) * mul + self.bias).to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        mean, var = self.mean, self.var
+        if train:
+            xf = x.to(torch.float32)
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 1, 2))
+                                  - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((x.to(torch.float32) - mean) * mul + self.bias).to(x.dtype)
 
 
 class DoubleConv(nn.Module):
     """(3x3 conv -> BatchNorm -> ReLU) x 2."""
 
-    def __init__(self, cin: int, cout: int, mid: int | None = None):
+    def __init__(self, cin: int, cout: int, mid: int | None = None,
+                 impl: str = "auto"):
         super().__init__()
         mid = mid or cout
-        self.Conv_0 = Conv3x3(cin, mid)
+        self.Conv_0 = Conv3x3(cin, mid, impl)
         self.BatchNorm_0 = BatchNorm(mid)
-        self.Conv_1 = Conv3x3(mid, cout)
+        self.Conv_1 = Conv3x3(mid, cout, impl)
         self.BatchNorm_1 = BatchNorm(cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        return torch.relu(self.BatchNorm_1(self.Conv_1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = torch.relu(self.BatchNorm_0(self.Conv_0(x, train), train))
+        return torch.relu(self.BatchNorm_1(self.Conv_1(x, train), train))
 
 
 class Down(nn.Module):
     """2x2 max-pool, then DoubleConv."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, impl: str = "auto"):
         super().__init__()
-        self.DoubleConv_0 = DoubleConv(cin, cout)
+        self.DoubleConv_0 = DoubleConv(cin, cout, impl=impl)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.DoubleConv_0(max_pool2x2(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.DoubleConv_0(max_pool2x2(x), train)
 
 
 class Up(nn.Module):
     """Align-corners bilinear upsample to the skip's size, concat
     ``[skip, upsampled]``, DoubleConv with a halved mid width."""
 
-    def __init__(self, cin_up: int, cin_skip: int, cout: int):
+    def __init__(self, cin_up: int, cin_skip: int, cout: int,
+                 impl: str = "auto"):
         super().__init__()
         self.DoubleConv_0 = DoubleConv(cin_up + cin_skip, cout,
-                                       mid=(cin_up + cin_skip) // 2)
+                                       mid=(cin_up + cin_skip) // 2,
+                                       impl=impl)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = upsample_align_corners(x, skip.shape[1], skip.shape[2])
-        return self.DoubleConv_0(torch.cat([skip, x.to(skip.dtype)], dim=-1))
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                train: bool = False, cache: dict | None = None
+                ) -> torch.Tensor:
+        x = upsample_align_corners(x, skip.shape[1], skip.shape[2], cache)
+        return self.DoubleConv_0(torch.cat([skip, x.to(skip.dtype)], dim=-1),
+                                 train)
 
 
 class Head(nn.Module):
@@ -221,22 +260,24 @@ class Head(nn.Module):
 class UNet(nn.Module):
     """Encoder/decoder U-Net (bilinear decoder, BatchNorm). Call with NHWC
     input; returns NHWC float32 logits. ``dtype`` is the compute dtype of
-    the activations; parameters stay float32."""
+    the activations; parameters stay float32. ``forward(x, train=True)``
+    is the training forward (module docstring)."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.compute_dtype)
-        f = cfg.base_features
+        self._interp: dict = {}  # upsample matrices, per shape and device
+        f, impl = cfg.base_features, cfg.conv_impl
         widths = [f, 2 * f, 4 * f, 8 * f, 8 * f]  # 16 * f // 2, bilinear
-        self.DoubleConv_0 = DoubleConv(cfg.in_channels, f)
+        self.DoubleConv_0 = DoubleConv(cfg.in_channels, f, impl=impl)
         for i in range(4):
-            setattr(self, f"Down_{i}", Down(widths[i], widths[i + 1]))
+            setattr(self, f"Down_{i}", Down(widths[i], widths[i + 1], impl))
         # Up_i fuses widths[4 - i] (upsampled) with widths[3 - i] (skip)
         up_in = widths[4]
         for i, cout in enumerate([4 * f, 2 * f, f, f]):
-            setattr(self, f"Up_{i}", Up(up_in, widths[3 - i], cout))
+            setattr(self, f"Up_{i}", Up(up_in, widths[3 - i], cout, impl))
             up_in = cout
         self.Conv_0 = Head(f, cfg.num_classes)
 
@@ -253,12 +294,12 @@ class UNet(nn.Module):
                            gen)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
-        xs = [self.DoubleConv_0(x)]
+        xs = [self.DoubleConv_0(x, train)]
         for i in range(4):
-            xs.append(getattr(self, f"Down_{i}")(xs[-1]))
+            xs.append(getattr(self, f"Down_{i}")(xs[-1], train))
         y = xs[4]
         for i in range(4):
-            y = getattr(self, f"Up_{i}")(y, xs[3 - i])
+            y = getattr(self, f"Up_{i}")(y, xs[3 - i], train, self._interp)
         return self.Conv_0(y).to(torch.float32)

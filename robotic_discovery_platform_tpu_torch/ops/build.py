@@ -35,6 +35,7 @@ SOURCES = {
     "bspline_design": "bspline_design.cu",
     "bspline_curvature": "bspline_curvature.cu",
     "bitpack_mask": "bitpack_mask.cu",
+    "conv3x3_grad_weights": "conv3x3_grad_weights.cu",
 }
 
 NVCC_FLAGS = (

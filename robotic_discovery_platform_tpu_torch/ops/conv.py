@@ -7,6 +7,13 @@ its plain PyTorch version beside it.
   (+ ReLU), f32 accumulation, one rounding to the output type.
 - :func:`conv1x1` (``csrc/conv1x1.cu``) replaces ``conv1x1`` of the same
   file (both its Cout = 1 squeeze body and its general body).
+- :func:`conv3x3_grad_weights` (``csrc/conv3x3_grad_weights.cu``)
+  replaces ``conv3x3_grad_weights`` of the same file: the weight gradient
+  of the training conv.
+- :func:`conv3x3` is the training conv, a ``torch.autograd.Function``
+  and the counterpart of that file's custom-VJP ``conv3x3``: its forward
+  and dx launch :func:`conv3x3_bn_relu` with a unit epilogue (dx on the
+  flipped, in/out-transposed kernel), its dw :func:`conv3x3_grad_weights`.
 
 Layouts are the JAX package's: activations NHWC, 3x3 kernels HWIO
 ``[3, 3, Cin, Cout]``, 1x1 kernels ``[Cin, Cout]``, scale/bias ``[Cout]``
@@ -27,6 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from robotic_discovery_platform_tpu_torch.ops import build
+from robotic_discovery_platform_tpu_torch.utils.config import (
+    CONV_IMPLS,
+    PLAIN_CONV_IMPLS,
+)
 
 #: (input dtype, output dtype) -> the dtypes code of the C interface
 _DTYPES = {
@@ -44,7 +55,19 @@ _SIGNATURES = {
     # x, w, scale, bias, out, P, Cin, Cout, relu, dtypes, stream
     "conv1x1": ("conv1x1_launch",
                 [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]),
+    # x, g, workspace, dw, B, H, W, Cin, Cout, splits, dtypes, stream
+    "conv3x3_grad_weights": ("conv3x3_grad_weights_launch",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P]),
 }
+
+#: conv3x3_grad_weights launch shape (csrc/conv3x3_grad_weights.cu): a
+#: block owns 32 input x 64 output channels and walks 8x8 pixel tiles;
+#: the pixel tiles are split over enough blocks to give the 132 SMs about
+#: four blocks each, with the split partials' workspace capped
+DW_CIN_TILE, DW_COUT_TILE, DW_PIXEL_TILE = 32, 64, 8
+DW_TARGET_BLOCKS = 4 * 132
+DW_WORKSPACE_CAP = 32 * 2**20  # bytes
 
 
 def fold_batchnorm(gamma, beta, mean, var, eps: float = 1e-5):
@@ -200,3 +223,144 @@ def conv1x1(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
 
 
 conv1x1.launches = 0
+
+
+# -- the weight gradient of a 3x3 SAME conv ------------------------------------
+
+
+def conv3x3_grad_weights_plain(x, g):
+    """Plain PyTorch version of :func:`conv3x3_grad_weights`: float32 on the
+    same operands, one contraction over (b, h, w) per tap of the nine
+    shifted views of the zero-padded x. On a CUDA tensor the caller keeps
+    TF32 off."""
+    h, w = x.shape[1:3]
+    xp = F.pad(x.to(torch.float32), (0, 0, 1, 1, 1, 1))
+    gf = g.to(torch.float32)
+    taps = [torch.einsum("bhwi,bhwo->io", xp[:, ky:ky + h, kx:kx + w], gf)
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps).reshape(3, 3, x.shape[3], g.shape[3])
+
+
+def dw_splits(b: int, h: int, w: int, cin: int, cout: int) -> int:
+    """How many ways :func:`conv3x3_grad_weights` splits its pixel tiles:
+    enough blocks for about ``DW_TARGET_BLOCKS``, at most one split per
+    8x8 tile, and a float32 workspace of at most ``DW_WORKSPACE_CAP``."""
+    tile = DW_PIXEL_TILE
+    tiles = b * -(-h // tile) * -(-w // tile)
+    blocks = -(-cin // DW_CIN_TILE) * -(-cout // DW_COUT_TILE)
+    splits = min(tiles, max(1, -(-DW_TARGET_BLOCKS // blocks)))
+    return max(1, min(splits, DW_WORKSPACE_CAP // (9 * cin * cout * 4)))
+
+
+def conv3x3_grad_weights(x, g):
+    """dL/dw of a stride-1 SAME 3x3 no-bias conv: ``[3, 3, Cin, Cout]``
+    float32 = sum over (b, y, x) of ``xpad[b, y+ky, x+kx, :]^T g[b, y, x, :]``.
+
+    Args:
+        x: [B, H, W, Cin], the conv's input; bfloat16 or float32.
+        g: [B, H, W, Cout], the gradient of its output; x's dtype.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_grad_weights_plain(x, g)
+    if (x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]
+            or x.dtype != g.dtype):
+        raise ValueError(
+            f"conv3x3_grad_weights: want x [B,H,W,Cin] and g [B,H,W,Cout] of "
+            f"one dtype; got {tuple(x.shape)} {x.dtype} and "
+            f"{tuple(g.shape)} {g.dtype}"
+        )
+    code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
+    if code is None:
+        raise TypeError(f"conv3x3_grad_weights: unsupported dtype {x.dtype}")
+    for label, t in (("x", x), ("g", g)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                f"conv3x3_grad_weights: {label} must be contiguous on "
+                f"{x.device}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"conv3x3_grad_weights: x is on {x.device} but the current "
+            f"device is cuda:{torch.cuda.current_device()}")
+    b, h, w, cin = x.shape
+    cout = g.shape[3]
+    splits = dw_splits(b, h, w, cin, cout)
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((splits, 3, 3, cin, cout), dtype=torch.float32,
+                      device=x.device) if splits > 1 else dw)
+    err = _kernel("conv3x3_grad_weights")(
+        x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), b, h, w,
+        cin, cout, splits, code,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("conv3x3_grad_weights", err)
+    conv3x3_grad_weights.launches += 1
+    return dw
+
+
+conv3x3_grad_weights.launches = 0
+
+
+# -- the training conv ---------------------------------------------------------
+
+
+def conv3x3_plain(x, w):
+    """A 3x3 SAME no-bias conv in plain torch, differentiable by autograd:
+    ``F.conv2d`` in float32 on the operands in x's dtype (w cast to it),
+    one cast of the result to x's dtype. On a CUDA tensor the caller
+    keeps TF32 off."""
+    wf = w.to(x.dtype).to(torch.float32).permute(3, 2, 0, 1)
+    y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), wf, padding=1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _unit_epilogue(c: int, device) -> tuple:
+    return (torch.ones(c, dtype=torch.float32, device=device),
+            torch.zeros(c, dtype=torch.float32, device=device))
+
+
+class _Conv3x3(torch.autograd.Function):
+    """y = conv(x, w) on :func:`conv3x3_bn_relu` with a unit epilogue;
+    dx = conv(g, flipT(w)) on the same kernel, dw on
+    :func:`conv3x3_grad_weights` (``ops/pallas/conv.py`` ``_conv3x3_fwd``
+    and ``_conv3x3_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return conv3x3_bn_relu(x, w, *_unit_epilogue(w.shape[3], x.device),
+                               relu=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the spatially flipped, in/out-transposed kernel
+            wt = w.flip(0, 1).transpose(2, 3).contiguous()
+            dx = conv3x3_bn_relu(g, wt, *_unit_epilogue(w.shape[2], x.device),
+                                 relu=False).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # cast to w's dtype as the reference does: bfloat16 weights get
+            # a bfloat16-rounded gradient before autograd casts it back
+            dw = conv3x3_grad_weights(x, g).to(w.dtype)
+        return dx, dw
+
+
+def conv3x3(x, w, impl: str = "auto"):
+    """The training conv: a differentiable stride-1 SAME 3x3 no-bias conv,
+    x [B, H, W, Cin] and w [3, 3, Cin, Cout] (HWIO) in one dtype.
+
+    ``impl`` is ``ModelConfig.conv_impl``: ``"auto"``, ``"pallas"`` and
+    ``"interpret"`` take the custom-VJP kernels (their plain versions for
+    CPU tensors); ``"flax"`` and ``"xla"`` take :func:`conv3x3_plain` with
+    autograd. The JAX package's small-channel and large-volume routing to
+    XLA is a TPU workaround and does not carry over: every CUDA tensor
+    launches the kernels.
+    """
+    if impl not in CONV_IMPLS:
+        raise ValueError(f"unknown conv impl {impl!r} (one of {CONV_IMPLS})")
+    if impl in PLAIN_CONV_IMPLS:
+        return conv3x3_plain(x, w)
+    return _Conv3x3.apply(x, w)

@@ -39,8 +39,8 @@ class FoldedUNet:
     """Callable inference forward over a fixed :class:`UNet`'s weights.
 
     ``net(x)``: NHWC input (any float dtype) -> NHWC float32 logits, the
-    same contract as ``UNet.forward``. Weights are folded, cast to the
-    compute dtype and moved to ``device`` once, at construction.
+    same contract as ``UNet.forward``. Weights are moved to ``device``,
+    folded there and cast to the compute dtype once, at construction.
     """
 
     def __init__(self, net: UNet, device: str | torch.device = "cuda"):
@@ -59,8 +59,10 @@ class FoldedUNet:
             taps = []
             for conv, bn in ((dc.Conv_0, dc.BatchNorm_0),
                              (dc.Conv_1, dc.BatchNorm_1)):
-                scale, bias = fold_batchnorm(bn.scale, bn.bias, bn.mean,
-                                             bn.var)
+                # folded on the device that runs them, wherever the
+                # module lives, so one set of weights folds to one result
+                scale, bias = fold_batchnorm(*(
+                    t.to(dev) for t in (bn.scale, bn.bias, bn.mean, bn.var)))
                 taps.append((conv.kernel.to(dev, dt).contiguous(),
                              scale.to(dev).contiguous(),
                              bias.to(dev).contiguous()))

@@ -9,23 +9,18 @@ servicer core runs where neither is installed.
 
 from __future__ import annotations
 
-import logging
-
-import numpy as np
-
 from robotic_discovery_platform_tpu_torch.serving import messages
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     OverloadedError,
 )
 from robotic_discovery_platform_tpu_torch.serving.server import (
     VisionAnalysisService,
+    build_service,
 )
 from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
     ServerConfig,
 )
-
-log = logging.getLogger(__name__)
 
 
 def request_from_proto(msg) -> messages.AnalysisRequest:
@@ -76,43 +71,22 @@ class GrpcVisionService:
             context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
 
 
-def build_server(cfg: ServerConfig, forward, *,
+def build_server(cfg: ServerConfig, forward=None, *,
                  geom_cfg: GeometryConfig | None = None,
                  warmup_shape: tuple[int, int] | None = None,
                  device="cuda"):
-    """An unstarted (grpc.Server, VisionAnalysisService) pair serving
-    ``forward`` (a :class:`ops.unet_infer.FoldedUNet`) on
-    ``cfg.address``; the bound port is ``servicer.bound_port``.
-
-    The camera calibration comes from ``cfg.calibration_path`` (intrinsics
-    and depth scale) when that file exists, else the focal-length default
-    and ``cfg.default_depth_scale``. ``geom_cfg`` defaults to ``stride =
-    cfg.geometry_stride``. ``warmup_shape`` = (width, height) runs one
-    blank frame first.
-    """
+    """An unstarted (grpc.Server, VisionAnalysisService) pair on
+    ``cfg.address``; the bound port is ``servicer.bound_port``. The
+    servicer is :func:`serving.server.build_service`'s: with no
+    ``forward`` it serves the registered model."""
     from concurrent import futures
 
     import grpc
 
-    from robotic_discovery_platform_tpu_torch.io.frames import (
-        load_calibration,
-    )
     from robotic_discovery_platform_tpu_torch.serving.proto import vision_grpc
 
-    intrinsics, depth_scale = None, cfg.default_depth_scale
-    try:
-        mtx, _, scale = load_calibration(cfg.calibration_path)
-        intrinsics = np.asarray(mtx)
-        if scale is not None:
-            depth_scale = scale
-        log.info("calibration loaded from %s", cfg.calibration_path)
-    except (FileNotFoundError, KeyError) as exc:
-        log.warning("no calibration at %s (%s); using focal-length defaults",
-                    cfg.calibration_path, exc)
-    servicer = VisionAnalysisService(forward, intrinsics, depth_scale, cfg,
-                                     geom_cfg, device=device)
-    if warmup_shape is not None:
-        servicer.warmup(*warmup_shape)
+    servicer = build_service(cfg, forward, geom_cfg=geom_cfg,
+                             warmup_shape=warmup_shape, device=device)
     server = grpc.server(futures.ThreadPoolExecutor(max_workers=cfg.max_workers))
     vision_grpc.add_VisionAnalysisServiceServicer_to_server(
         GrpcVisionService(servicer), server)

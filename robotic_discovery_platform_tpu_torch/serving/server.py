@@ -20,6 +20,12 @@ The core, :meth:`VisionAnalysisService.analyze_stream`, maps an iterator
 of :class:`serving.messages.AnalysisRequest` to an iterator of
 :class:`serving.messages.AnalysisResponse` and needs neither grpc nor
 protobuf; ``serving/grpc_service.py`` puts it behind a gRPC server.
+
+:func:`build_service` makes a servicer from the settings alone: with no
+forward it loads the registered model (:func:`resolve_serving_model`: the
+``model_alias`` version first, else the latest) and folds it onto the
+kernels. Hot reload of a newly registered version is not ported (ROADMAP
+queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -31,7 +37,10 @@ from typing import Callable, Iterable, Iterator, NamedTuple
 import numpy as np
 import torch
 
+from robotic_discovery_platform_tpu_torch import tracking
+from robotic_discovery_platform_tpu_torch.io.frames import load_calibration
 from robotic_discovery_platform_tpu_torch.ops import pipeline
+from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
 from robotic_discovery_platform_tpu_torch.serving import egress, ingest
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     OverloadedError,
@@ -55,6 +64,33 @@ log = logging.getLogger(__name__)
 
 STATUS_OK = "OK"
 STATUS_DEGRADED = "DEGRADED: insufficient geometry"
+
+
+def resolve_serving_version(cfg: ServerConfig,
+                            store: tracking.FileStore | None = None) -> int:
+    """The registry version a server runs: ``cfg.model_alias``'s when that
+    alias is set, else the latest of ``cfg.model_name``. Raises KeyError
+    when the model has no version. ``store`` defaults to one scoped to
+    ``cfg.tracking_uri`` (the process-global tracking URI is left
+    alone)."""
+    store = tracking.store_for(cfg.tracking_uri) if store is None else store
+    version = store.get_alias(cfg.model_name, cfg.model_alias)
+    if version is not None:
+        return int(version)
+    return int(store.latest_version(cfg.model_name)["version"])
+
+
+def resolve_serving_model(cfg: ServerConfig,
+                          device: str | torch.device = "cuda"):
+    """Load the model a server runs (:func:`resolve_serving_version`):
+    returns ``(ModelConfig, UNet on device in eval mode, version)``."""
+    store = tracking.store_for(cfg.tracking_uri)
+    version = resolve_serving_version(cfg, store)
+    uri = f"models:/{cfg.model_name}/{version}"
+    model_cfg, net = tracking.load_model(uri, store=store, device=device)
+    log.info("loaded %s from %s (alias %r first)", uri, cfg.tracking_uri,
+             cfg.model_alias)
+    return model_cfg, net, version
 
 
 class FrameResult(NamedTuple):
@@ -124,6 +160,7 @@ class VisionAnalysisService:
         self.metrics = metrics or MetricsWriter(cfg.metrics_csv,
                                                 cfg.metrics_flush_every)
         self.bound_port = 0  # set by grpc_service.build_server
+        self.model_version: int | None = None  # set by build_service
 
     def _camera(self, w: int, h: int) -> np.ndarray:
         """The float32 intrinsics of a w x h camera."""
@@ -265,3 +302,40 @@ class VisionAnalysisService:
         if self.dispatcher is not None:
             self.dispatcher.stop()
         self.metrics.close()
+
+
+def build_service(cfg: ServerConfig, forward=None, *,
+                  geom_cfg: GeometryConfig | None = None,
+                  warmup_shape: tuple[int, int] | None = None,
+                  device="cuda") -> VisionAnalysisService:
+    """A servicer built from the settings.
+
+    ``forward`` defaults to the registered model (``cfg.tracking_uri``,
+    ``cfg.model_name``, ``cfg.model_alias``; :func:`resolve_serving_model`)
+    folded onto the kernels as a :class:`ops.unet_infer.FoldedUNet`; its
+    version is ``service.model_version``. The camera calibration comes
+    from ``cfg.calibration_path`` (intrinsics and depth scale) when that
+    file exists, else the focal-length default and
+    ``cfg.default_depth_scale``. ``warmup_shape`` = (width, height) runs
+    blank frames first.
+    """
+    version = None
+    if forward is None:
+        _, net, version = resolve_serving_model(cfg, device=device)
+        forward = FoldedUNet(net, device=device)
+    intrinsics, depth_scale = None, cfg.default_depth_scale
+    try:
+        mtx, _, scale = load_calibration(cfg.calibration_path)
+        intrinsics = np.asarray(mtx)
+        if scale is not None:
+            depth_scale = scale
+        log.info("calibration loaded from %s", cfg.calibration_path)
+    except (FileNotFoundError, KeyError) as exc:
+        log.warning("no calibration at %s (%s); using focal-length defaults",
+                    cfg.calibration_path, exc)
+    service = VisionAnalysisService(forward, intrinsics, depth_scale, cfg,
+                                    geom_cfg, device=device)
+    service.model_version = version
+    if warmup_shape is not None:
+        service.warmup(*warmup_shape)
+    return service

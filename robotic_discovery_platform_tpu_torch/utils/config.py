@@ -1,7 +1,8 @@
 """Configuration of the port: the fields of the JAX package's
-``ModelConfig``, ``GeometryConfig`` and ``ServerConfig`` that the serving
-paths read, with the same names and defaults, plus ``from_dict`` and
-``--section.field`` flag parsing for them.
+``ModelConfig``, ``TrainConfig``, ``GeometryConfig``, ``ServerConfig`` and
+``MeshConfig`` that the serving and training paths read, with the same
+names and defaults, plus ``from_dict`` and ``--section.field`` flag
+parsing for them.
 
 Settings the port does not implement yet raise ``NotImplementedError`` in
 :func:`check_supported`, naming the ROADMAP item that brings them:
@@ -11,7 +12,10 @@ Settings the port does not implement yet raise ``NotImplementedError`` in
   ``serving_mesh > 1`` (the multi-device router), ``egress_pack=False``,
   ``egress_workers > 0`` (the encode pool) and the JAX package's
   ``RDP_*`` environment overrides of those settings;
-- ``ModelConfig.bilinear=False`` and ``norm`` other than ``"batch"``.
+- ``ModelConfig.bilinear=False`` and ``norm`` other than ``"batch"``;
+- ``TrainConfig.epoch_mode="scan"`` (the whole-epoch ``lax.scan``; its
+  card analogue is a CUDA graph) and any non-default ``MeshConfig`` (the
+  mesh trainer).
 """
 
 from __future__ import annotations
@@ -26,6 +30,15 @@ from typing import Any, Sequence
 
 #: ``GeometryConfig.kernel_impl`` values, the JAX package's names
 KERNEL_IMPLS = ("auto", "pallas", "xla", "interpret")
+
+#: ``ModelConfig.conv_impl`` values: the first three train through the
+#: hand-written conv kernels (``ops/conv.conv3x3``), the last two through
+#: plain torch convs with autograd
+CONV_IMPLS = ("auto", "pallas", "interpret", "flax", "xla")
+PLAIN_CONV_IMPLS = ("flax", "xla")
+
+#: ``TrainConfig.epoch_mode`` values, the JAX package's names
+EPOCH_MODES = ("auto", "scan", "stream")
 
 #: the JAX package's environment overrides of batched-serving settings
 #: (``RDP_PRECISION`` is refused with the precision tiers)
@@ -47,9 +60,46 @@ class ModelConfig:
     # weight-init family: "torch" = Conv2d's kaiming_uniform_(a=sqrt(5)),
     # "lecun" = truncated-normal lecun (the Flax default)
     init: str = "torch"
-    # training-path conv implementation in the JAX package; read back from
-    # model_config.json files, not used by the inference port
+    # the training forward's 3x3 convs (UNet.forward(train=True)): "auto",
+    # "pallas" and "interpret" run the custom-VJP ops/conv.conv3x3 on the
+    # hand-written kernels (their plain versions for CPU tensors); "flax"
+    # and "xla" run plain torch convs with autograd. Inference ignores it.
     conv_impl: str = "auto"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The trainer's settings (``training/trainer.train_model``), the JAX
+    package's names and defaults. ``epoch_mode`` "auto" and "stream" both
+    take the per-batch loop; "scan" raises. ``donate_state``,
+    ``scan_max_bytes`` and ``tp_min_channels`` steer TPU-side buffer
+    donation, the scan epoch and tensor parallelism: accepted, and no-ops
+    on the card."""
+
+    learning_rate: float = 1e-4
+    batch_size: int = 4
+    epochs: int = 50
+    validation_split: float = 0.2
+    img_size: int = 256
+    seed: int = 0
+    loss: str = "bce"  # "bce", "dice" or "bce_dice"
+    dice_weight: float = 0.5
+    tracking_uri: str = "file:ml/mlruns"
+    experiment_name: str = "Actuator Segmentation"
+    registered_model_name: str = "Actuator-Segmenter"
+    dataset_dir: str = "ml/datasets/processed"
+    checkpoint_dir: str = "ml/checkpoints"
+    keep_checkpoints: int = 3
+    # checkpoint every N epochs; the final epoch always saves
+    checkpoint_every: int = 1
+    # write checkpoints on a background thread from a host snapshot
+    async_checkpointing: bool = True
+    donate_state: bool = True
+    log_every: int = 1
+    tp_min_channels: int = 256
+    loader_workers: int = 4  # decode threads of the file-backed loader
+    epoch_mode: str = "auto"
+    scan_max_bytes: int = 4 * 1024**3
 
 
 @dataclass(frozen=True)
@@ -81,6 +131,12 @@ class ServerConfig:
     max_workers: int = 10
     model_img_size: int = 256
     default_depth_scale: float = 0.001
+    # the registry a server with no forward loads its model from: the
+    # model_alias version first, else the latest (serving/server.py
+    # resolve_serving_model)
+    tracking_uri: str = "file:ml/mlruns"
+    model_name: str = "Actuator-Segmenter"
+    model_alias: str = "staging"
     calibration_path: str = "ml/configs/calibration_data.npz"
     metrics_csv: str = "logs/vision_service_metrics.csv"
     metrics_flush_every: int = 32
@@ -106,12 +162,24 @@ class ServerConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's device-mesh sizes (data, model, spatial). The
+    port trains on one device: any value but the defaults raises."""
+
+    data: int = -1
+    model: int = 1
+    spatial: int = 1
+
+
+@dataclass(frozen=True)
 class PlatformConfig:
     """Root of the sections the port reads."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     geometry: GeometryConfig = field(default_factory=GeometryConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def resolve_kernel_impl(configured: str) -> str:
@@ -144,7 +212,29 @@ def check_supported(cfg: Any) -> None:
             )
         if cfg.batch_window_ms > 0:
             _check_batched(cfg)
+    if isinstance(cfg, TrainConfig):
+        if cfg.epoch_mode not in EPOCH_MODES:
+            raise ValueError(
+                f"epoch_mode must be one of {EPOCH_MODES}, got "
+                f"{cfg.epoch_mode!r}"
+            )
+        if cfg.epoch_mode == "scan":
+            raise NotImplementedError(
+                "TrainConfig.epoch_mode='scan' (the whole-epoch scan; a CUDA "
+                "graph on the card) is ROADMAP queue 1 item 7; use 'auto' or "
+                "'stream'"
+            )
+    if isinstance(cfg, MeshConfig) and cfg != MeshConfig():
+        raise NotImplementedError(
+            f"{cfg}: the mesh trainer is ROADMAP queue 1 item 14; the port "
+            "trains on one device"
+        )
     if isinstance(cfg, ModelConfig):
+        if cfg.conv_impl not in CONV_IMPLS:
+            raise ValueError(
+                f"unknown conv_impl {cfg.conv_impl!r} (choose from "
+                f"{CONV_IMPLS})"
+            )
         if not cfg.bilinear:
             raise NotImplementedError(
                 "ModelConfig.bilinear=False needs the conv_transpose2x2 "

@@ -111,3 +111,124 @@ def test_fold_batchnorm_matches_jax(c):
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-6,
                                atol=1e-7)
+
+
+# -- the training conv: custom VJP and weight gradient -------------------------
+#
+# Tolerances, fixed before measuring: y, dx and dw of the port's conv3x3
+# (plain versions on the CPU) against the JAX package's custom VJP in
+# interpret mode within relative L2 1e-5 in float32 and 1e-2 in bfloat16
+# (both sides round y, dx and dw to bfloat16, dw after its float32
+# accumulation, as the reference's VJP does); the plain weight gradient
+# against the JAX kernel in interpret mode within relative L2 1e-5.
+
+
+def _rel_l2(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _as_np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin,cout", [(3, 8), (16, 16)])
+def test_conv3x3_vjp_matches_jax_interpret(cin, cout, dtype):
+    import jax
+
+    rng = np.random.default_rng(cin * 31 + cout)
+    x = rng.normal(size=(2, 8, 8, cin)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(
+        np.float32)
+    g = rng.normal(size=(2, 8, 8, cout)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    jx, jw, jg = (jnp.asarray(a).astype(jdt) for a in (x, w, g))
+    y_ref, vjp = jax.vjp(lambda a, b: jconv.conv3x3(a, b, "interpret"),
+                         jx, jw)
+    dx_ref, dw_ref = vjp(jg)
+
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tw = torch.from_numpy(w).to(tdt).requires_grad_()
+    y = tconv.conv3x3(tx, tw, "interpret")
+    y.backward(torch.from_numpy(g).to(tdt))
+    assert y.dtype == tx.grad.dtype == tw.grad.dtype == tdt
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for name, got, want in (("y", y, y_ref), ("dx", tx.grad, dx_ref),
+                            ("dw", tw.grad, dw_ref)):
+        want = np.asarray(want.astype(jnp.float32))
+        assert got.shape == want.shape, name
+        assert _rel_l2(_as_np(got), want) <= tol, name
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 8, 8, 3, 8), (2, 8, 8, 16, 16),
+                                            (1, 16, 16, 64, 8)])
+def test_conv3x3_grad_weights_plain_matches_jax_interpret(b, h, w, cin, cout):
+    rng = np.random.default_rng(b * 7 + cin)
+    x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
+    g = rng.normal(size=(b, h, w, cout)).astype(np.float32)
+    want = np.asarray(jconv.conv3x3_grad_weights(
+        jnp.asarray(x), jnp.asarray(g), interpret=True))
+    got = tconv.conv3x3_grad_weights(torch.from_numpy(x), torch.from_numpy(g))
+    assert got.dtype == torch.float32 and got.shape == (3, 3, cin, cout)
+    assert _rel_l2(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("impl", ["flax", "xla"])
+def test_conv3x3_plain_impls_match_the_kernel_path(impl):
+    """The plain convs with autograd compute the custom VJP's y, dx and dw
+    (float32, relative L2 1e-5); unknown impl names are refused."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(2, 9, 7, 5)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 3, 5, 6)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 9, 7, 6)).astype(np.float32))
+    grads = {}
+    for name in (impl, "auto"):
+        a, b = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = tconv.conv3x3(a, b, name)
+        y.backward(g)
+        grads[name] = (y.detach(), a.grad, b.grad)
+    for got, want in zip(grads[impl], grads["auto"]):
+        assert _rel_l2(got.numpy(), want.numpy()) <= 1e-5
+    with pytest.raises(ValueError, match="unknown conv impl"):
+        tconv.conv3x3(x, w, "cuda")
+
+
+def test_conv3x3_skips_dx_for_an_input_without_grad():
+    """The first layer's image input takes no gradient: backward leaves
+    it alone and still fills dw."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(1, 6, 6, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3, 4)).astype(
+        np.float32)).requires_grad_()
+    tconv.conv3x3(x, w, "auto").sum().backward()
+    assert x.grad is None and w.grad is not None
+    want = tconv.conv3x3_grad_weights_plain(x, torch.ones(1, 6, 6, 4))
+    assert torch.allclose(w.grad, want, rtol=1e-6, atol=1e-6)
+
+
+# (H = W, Cin, Cout) of the 18 training convs of the default model
+_TRAIN_SHAPES = [(256, 3, 64), (256, 64, 64), (128, 64, 128), (128, 128, 128),
+                 (64, 128, 256), (64, 256, 256), (32, 256, 512),
+                 (32, 512, 512), (16, 512, 512), (16, 512, 512),
+                 (32, 1024, 512), (32, 512, 256), (64, 512, 256),
+                 (64, 256, 128), (128, 256, 128), (128, 128, 64),
+                 (256, 128, 64), (256, 64, 64)]
+
+
+@pytest.mark.parametrize("s,cin,cout", sorted(set(_TRAIN_SHAPES)))
+def test_dw_split_count_fills_the_card_within_the_workspace_cap(s, cin, cout):
+    """At the training batch (B = 4) the weight-gradient kernel's split
+    count lies in [1, number of 8x8 tiles], keeps the float32 workspace
+    under its cap, and gives at least the 132 SMs' worth of blocks unless
+    the tiles or the cap run out first."""
+    splits = tconv.dw_splits(4, s, s, cin, cout)
+    tiles = 4 * (s // 8) ** 2
+    blocks = -(-cin // tconv.DW_CIN_TILE) * -(-cout // tconv.DW_COUT_TILE)
+    per_split = 9 * cin * cout * 4
+    assert 1 <= splits <= tiles
+    assert splits == 1 or splits * per_split <= tconv.DW_WORKSPACE_CAP
+    assert (splits * blocks >= 132 or splits == tiles
+            or (splits + 1) * per_split > tconv.DW_WORKSPACE_CAP)

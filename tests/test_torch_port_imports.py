@@ -24,7 +24,12 @@ from robotic_discovery_platform_tpu_torch.serving.batching import (
 )
 from robotic_discovery_platform_tpu_torch.serving.server import (
     VisionAnalysisService,
+    build_service,
 )
+from robotic_discovery_platform_tpu_torch.training.synthetic import (
+    generate_arrays,
+)
+from robotic_discovery_platform_tpu_torch.training.trainer import train_model
 from robotic_discovery_platform_tpu_torch.utils import config
 from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
 
@@ -48,6 +53,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.ops.pack\n"
         "import robotic_discovery_platform_tpu_torch.serving.batching\n"
         "import robotic_discovery_platform_tpu_torch.serving.admission\n"
+        "import robotic_discovery_platform_tpu_torch.training.trainer\n"
+        "import robotic_discovery_platform_tpu_torch.training.__main__\n"
+        "import robotic_discovery_platform_tpu_torch.tracking\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -56,7 +64,8 @@ def test_port_and_chip_smoke_import_no_jax():
                          check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("serving.server", "serving.batching", "ops.pack",
-                   "ops.geometry_kernels"):
+                   "ops.geometry_kernels", "training.trainer",
+                   "training.checkpoint", "tracking.store", "models.losses"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -84,7 +93,8 @@ def _tiny_net():
 @pytest.mark.parametrize("entry", ["resolve_device", "FoldedUNet",
                                    "make_frame_analyzer",
                                    "VisionAnalysisService", "load_model_dir",
-                                   "make_batch_analyzer", "BatchDispatcher"])
+                                   "make_batch_analyzer", "BatchDispatcher",
+                                   "train_model", "build_service"])
 def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """With no CUDA device, the default device raises; ``device="cpu"``
     runs."""
@@ -120,6 +130,16 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
             folded, img_size=32, pack=True, **kw),
         "BatchDispatcher": lambda **kw: BatchDispatcher(
             lambda *a: None, watchdog_interval_s=0.0, **kw),
+        "train_model": lambda **kw: train_model(
+            config.TrainConfig(epochs=1, img_size=16, batch_size=2,
+                               tracking_uri=f"file:{tmp_path}/mlruns",
+                               checkpoint_dir=str(tmp_path / "ckpt")),
+            config.ModelConfig(base_features=4),
+            arrays=generate_arrays(4, 16, 16), register=False, **kw),
+        "build_service": lambda **kw: build_service(
+            config.ServerConfig(metrics_csv=str(tmp_path / "m.csv"),
+                                calibration_path=str(tmp_path / "none.npz")),
+            folded, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -127,6 +147,8 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     assert made is not None
     if entry == "BatchDispatcher":
         made.stop()
+    if entry == "build_service":
+        made.close()
     if entry == "load_model_dir":
         _, loaded = calls[entry](device="cpu")
         for key, value in net.state_dict().items():
@@ -138,7 +160,9 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
                                   "batch_window", "bilinear_false",
                                   "norm_group", "flags", "batch_impl_scan",
                                   "serving_mesh", "egress_pack_off",
-                                  "egress_workers", "env_override"])
+                                  "egress_workers", "env_override",
+                                  "conv_impl", "train_defaults",
+                                  "mesh_section"])
 def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
     if case == "kernel_impl_default":
         assert config.GeometryConfig().kernel_impl == "auto"
@@ -183,6 +207,28 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
             VisionAnalysisService(lambda x: x, cfg=cfg, device="cpu")
         # the direct path reads none of these settings
         config.check_supported(dataclasses.replace(cfg, batch_window_ms=0.0))
+    elif case == "conv_impl":
+        for impl in config.CONV_IMPLS:
+            config.check_supported(config.ModelConfig(conv_impl=impl))
+        with pytest.raises(ValueError, match="unknown conv_impl"):
+            tunet.UNet(config.ModelConfig(conv_impl="cudnn"))
+    elif case == "train_defaults":
+        # the JAX package's names and defaults; "scan" refused
+        cfg = config.parse_config(["--train.epochs", "3",
+                                   "--train.loss", "bce_dice"])
+        assert (cfg.train.epochs, cfg.train.loss) == (3, "bce_dice")
+        assert (config.TrainConfig().learning_rate,
+                config.TrainConfig().batch_size,
+                config.TrainConfig().registered_model_name,
+                config.ServerConfig().model_alias) == (
+                    1e-4, 4, "Actuator-Segmenter", "staging")
+        config.check_supported(config.TrainConfig(epoch_mode="stream"))
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            config.check_supported(config.TrainConfig(epoch_mode="scan"))
+    elif case == "mesh_section":
+        config.check_supported(config.MeshConfig())
+        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+            config.check_supported(config.MeshConfig(data=2))
     elif case in ("bilinear_false", "norm_group"):
         cfg = (config.ModelConfig(bilinear=False) if case == "bilinear_false"
                else config.ModelConfig(norm="group"))
