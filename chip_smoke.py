@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from ``robotic_discovery_platform_tpu_
 torch/csrc`` and drives the serving paths of the default model
 (``ModelConfig()``: bilinear U-Net, 64 base features, 256x256 bf16 input)
 on 480x640 frames under the default geometry path
-(``GeometryConfig.kernel_impl = "auto"``), in phases; any mismatch raises
-and the script exits non-zero:
+(``GeometryConfig.kernel_impl = "auto"``), its coefficient lane, and the
+non-bilinear model (``ModelConfig(bilinear=False)``), in phases; any
+mismatch raises and the script exits non-zero:
 
 1. environment: torch, the card's name and power limit, kernel build time;
 2. every kernel against its plain PyTorch version on the card, at each
@@ -20,7 +21,9 @@ and the script exits non-zero:
    the two convs, then the geometry kernels (deprojection bitwise at
    480x640 stride 1 and 240x320 stride 2, the design contractions of 6400
    edge-point slots, the curvature at 100 samples) and the mask bitpack
-   (bitwise, [8, 480, 640]);
+   (bitwise, [8, 480, 640]); the transposed conv at the non-bilinear
+   ladder's four shapes (B = 1 and 8) and the dequant + IDCT (bitwise, one
+   480x640 4:2:0 frame's planes at B = 1 and 8, and a ragged N);
 3. the analyzer: the kernel forward against the plain forward, exact
    launch counts per frame (18 conv3x3_bn_relu + 1 conv1x1 + 1 each
    geometry kernel), the same frames against the reference geometry ops
@@ -47,7 +50,20 @@ and the script exits non-zero:
    device-time split and busy share, and peak memory; then a server
    built from the registry (``models:/Actuator-Segmenter@staging``)
    serving 4 frames, its masks equal to a ``FoldedUNet`` built from the
-   checkpoint's best variables.
+   checkpoint's best variables;
+7. the coefficient lane: the 8 frames through a numpy JPEG forward half
+   (``encode_coefficients``, quality 75, 4:2:0; no cv2 on the card's
+   machine) and the ``format = 2`` wire payload, the card's decode
+   bitwise against the CPU plain decode, exact launches (3 dequant_idct
+   + 18 + 1 + 3 per direct frame), and format-2 requests served
+   directly, over gRPC and batched under 8 streams, against the format-1
+   responses of the decoded pixels (ms per frame of both lanes);
+8. the non-bilinear model at full width: kernel vs plain forward, exact
+   launches (18 + 4 conv_transpose2x2 + 1 + 3 per frame), 8 frames served
+   directly and batched, the training conv at the ladder's new shapes,
+   one train step (no conv_transpose2x2 launch: training runs the plain
+   transposed conv), and ``train_model`` for one epoch into a temporary
+   registry with a server built from it (phase 6's last leg).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
@@ -86,6 +102,41 @@ MAIN_PATH_3X3 = [
     (256, 128, 64), (256, 64, 64),
 ]
 HEAD = (256, 64, 1)  # the conv1x1 head: H = W, Cin, Cout
+# the non-bilinear model (ModelConfig(bilinear=False)): its 18
+# conv3x3_bn_relu launches, those shapes the default model does not have,
+# and its 4 conv_transpose2x2 launches (input H = W, Cin, Cout)
+NB_MAIN_PATH_3X3 = [
+    (256, 3, 64), (256, 64, 64),
+    (128, 64, 128), (128, 128, 128),
+    (64, 128, 256), (64, 256, 256),
+    (32, 256, 512), (32, 512, 512),
+    (16, 512, 1024), (16, 1024, 1024),
+    (32, 1024, 512), (32, 512, 512),
+    (64, 512, 256), (64, 256, 256),
+    (128, 256, 128), (128, 128, 128),
+    (256, 128, 64), (256, 64, 64),
+]
+NB_NEW_3X3 = [s for s in NB_MAIN_PATH_3X3 if s not in MAIN_PATH_3X3]
+CONVT_SHAPES = [(16, 1024, 512), (32, 512, 256), (64, 256, 128),
+                (128, 128, 64)]
+# the coefficient lane: 8x8 blocks of the Y, Cb and Cr planes of one
+# 480x640 4:2:0 frame (one dequant_idct launch each), and the IJG quality
+# of chip_smoke's own encoder
+IDCT_PLANES = (4800, 1200, 1200)
+COEF_QUALITY = 75
+# the encoder's sanity bar: the CPU decode's luma against the source's.
+# (RGB PSNR is logged: on these synthetic frames 4:2:0 chroma caps it near
+# 30 dB, 29.78-30.74 dB for the 8 frames, as libjpeg's own encoder at the
+# same quality gives within 0.02 dB)
+COEF_PSNR_DB = 30.0
+# int32 operations per 8x8 block of the least work computing dequant_idct:
+# libjpeg's islow butterfly, about 12 multiplies, 32 adds and 18 shifts
+# or rounding adds per 8-point pass, 16 passes, plus the dequantizing
+# multiply, the level shift and the clamp per sample
+ISLOW_OPS_PER_BLOCK = 16 * 62 + 64 * 4
+DENSE_IDCT_MACS_PER_BLOCK = 2 * 64 * 64  # the kernel's two dense passes
+INT32_OPS_PER_SM_CLOCK = 64  # Hopper's int32 multiply-add rate per SM
+CONVT_F32_REL = 1e-5  # float32 transposed conv, kernel vs plain
 
 BF16_TOL = 1.6e-2  # two bf16 ulps, kernel vs plain from the same operands
 F32_TOL = 1e-4  # float32 kernel vs plain, TF32 off
@@ -128,13 +179,20 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s(torch) -> float:
+    """The card's int32 multiply-add rate: SMs x 64 per clock x the
+    maximum SM clock nvidia-smi reports."""
+    mhz = float(nvidia_smi_line("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_OPS_PER_SM_CLOCK * mhz * 1e6
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -231,6 +289,8 @@ def kernel_phase(torch, conv) -> dict:
              for s, cin, cout in shapes]
     cases += [(MAX_BATCH, s, s, cin, cout, torch.bfloat16, False)
               for s, cin, cout in BATCH_3X3]
+    cases += [(1, s, s, cin, cout, torch.bfloat16, False)
+              for s, cin, cout in NB_NEW_3X3]
     cases += [(1, 37, 53, 3, 24, torch.bfloat16, False),
               (2, 37, 53, 40, 24, torch.float32, False)]
     for b, h, w, cin, cout, dtype, main in cases:
@@ -473,6 +533,135 @@ def geometry_kernel_phase(torch, port) -> dict:
     return results
 
 
+def bf16_ulp_check(torch, got, want, mag, n: int) -> tuple[bool, int]:
+    """Two bfloat16 roundings of float32 sums of the same ``n`` products
+    (plus a bias) taken in different orders: every element within one
+    bfloat16 ulp (of the larger of the two) plus the float32 summation
+    bound of the two orders, ``2 n 2^-24`` times the sum of the terms'
+    magnitudes ``mag`` (which matters only where the sum cancels to near
+    zero, where a bfloat16 ulp is tiny). Returns (all within, how many
+    elements are more than one representable step apart)."""
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    ok = bool(((g - w).abs() <= ulp + 2 * n * 2.0 ** -24 * mag).all())
+
+    def line(t):  # sign-magnitude bits on a monotone integer line
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return ok, int(((line(got) - line(want)).abs() > 1).sum())
+
+
+def convt_kernel_phase(torch, conv) -> dict:
+    """conv_transpose2x2 against its plain version at the non-bilinear
+    ladder's four shapes at B = 1 and B = 8 in bfloat16 (both round
+    float32 sums of the same products, in another order: every element
+    within one bfloat16 ulp, plus the two orders' float32 summation bound
+    where a sum cancels to near zero, :func:`bf16_ulp_check`), and in
+    float32 at a ragged shape (relative L2 within CONVT_F32_REL); times
+    per launch against the plain version,
+    cuDNN's ``F.conv_transpose2d`` on the same operands in torch's layout
+    (``w.flip(0, 1).permute(2, 3, 0, 1)``) and the bound."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    results = {}
+    cases = [(b, s, s, cin, cout, torch.bfloat16)
+             for b in (1, MAX_BATCH) for s, cin, cout in CONVT_SHAPES]
+    cases.append((2, 9, 13, 40, 24, torch.float32))
+    for b, h, w, cin, cout, dtype in cases:
+        x = torch.randn(b, h, w, cin, generator=gen, device="cuda").to(dtype)
+        wt = (torch.randn(2, 2, cin, cout, generator=gen, device="cuda")
+              / cin ** 0.5).to(dtype)
+        bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+        got = conv.conv_transpose2x2(x, wt, bias)
+        want = conv.conv_transpose2x2_plain(x, wt, bias)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.bfloat16:
+            mag = conv.conv_transpose2x2_plain(x.abs(), wt.abs(), bias.abs(),
+                                               out_dtype=torch.float32)
+            ok, steps = bf16_ulp_check(torch, got, want, mag, cin)
+            check(ok, f"conv_transpose2x2 {(b, h, w, cin, cout)}: an element "
+                  f"beyond one bfloat16 ulp plus the float32 summation bound "
+                  f"of the plain version (max |err| {err})")
+            bar = (f"within one bf16 ulp + the f32 order bound; {steps} of "
+                   f"{got.numel()} elements more than one step apart")
+        else:
+            rel = rel_l2(torch, got, want)
+            check(rel <= CONVT_F32_REL, f"conv_transpose2x2 "
+                  f"{(b, h, w, cin, cout)} float32: relative L2 {rel} > "
+                  f"{CONVT_F32_REL}")
+            bar = f"relative L2 {rel:.3g} (bar {CONVT_F32_REL})"
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.flip(0, 1).permute(2, 3, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = bias.view(1, -1, 1, 1)
+        t = {
+            "ms": time_ms(torch, lambda: conv.conv_transpose2x2(x, wt, bias)),
+            "plain_ms": time_ms(torch, lambda: conv.conv_transpose2x2_plain(
+                x, wt, bias)),
+            "library_ms": time_ms(torch, lambda: (F.conv_transpose2d(
+                xc, wc, stride=2).float() + bc).to(dtype)),
+            "max_abs_err": err,
+        }
+        nbytes = (x.numel() + wt.numel() + 4 * b * h * w * cout) \
+            * x.element_size() + 4 * cout
+        flops = 2.0 * b * h * w * cin * 4 * cout
+        t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
+        log(f"conv_transpose2x2 [{b},{h},{w},{cin}]->{cout} "
+            f"{str(dtype)[6:]}: {bar}, max|err| {err:.3g}; ms "
+            f"{t['ms']:.4f} plain {t['plain_ms']:.4f} cudnn "
+            f"{t['library_ms']:.4f} bound {t['bound_ms']:.5f} "
+            f"({t['bound_by']}) {flops / t['ms'] / 1e9:.1f} TFLOP/s")
+        if b == 1 and dtype == torch.bfloat16:
+            results[("conv_transpose2x2", h, cin, cout)] = t
+    return results
+
+
+def decode_kernel_phase(torch) -> dict:
+    """dequant_idct against its plain version, bitwise, on coefficients
+    spanning the full baseline range (|coef| <= 2047, q <= 255): one
+    480x640 4:2:0 frame's planes (N = 4800 and 1200) at B = 1 and B = 8,
+    and a ragged N that no tile divides. Device time per launch (the
+    profiler) against the plain version; no single PyTorch call computes
+    the islow IDCT (and torch has no int32 matrix product on CUDA), so
+    there is no library time. The bound counts libjpeg's butterfly, the
+    least work (ISLOW_OPS_PER_BLOCK), at the card's int32 rate; the
+    kernel's dense form does DENSE_IDCT_MACS_PER_BLOCK."""
+    from robotic_discovery_platform_tpu_torch.ops import decode
+
+    rng = np.random.default_rng(SEED + 5)
+    rate = int32_ops_per_s(torch)
+    results = {}
+    cases = [(b, n) for b in (1, MAX_BATCH) for n in sorted(set(IDCT_PLANES))]
+    cases.append((3, 1237))
+    for b, n in cases:
+        c = torch.from_numpy(rng.integers(-2047, 2048, (b, n, 64))
+                             .astype(np.int16)).cuda()
+        q = torch.from_numpy(rng.integers(1, 256, (b, 64))
+                             .astype(np.int32)).cuda()
+        got = decode.dequant_idct(c, q)
+        want = decode.dequant_idct_plain(c, q)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"dequant_idct [{b},{n},64]: differs from the plain version")
+        t = timings(torch, lambda: decode.dequant_idct(c, q),
+                    lambda: decode.dequant_idct_plain(c, q))
+        t["max_abs_err"] = 0.0
+        blocks = b * n
+        nbytes = blocks * 64 * (2 + 4) + b * 64 * 4 + 2 * 64 * 64 * 4
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            float(blocks * ISLOW_OPS_PER_BLOCK), nbytes, rate)
+        t["dense_ops_ms"] = blocks * DENSE_IDCT_MACS_PER_BLOCK / rate * 1e3
+        log(f"dequant_idct [{b},{n},64]: bitwise; {timing_text(t)}; the "
+            f"dense form's operations alone {t['dense_ops_ms']:.6f} ms at "
+            f"{rate / 1e12:.2f} T int32 ops/s")
+        if b == 1:
+            results[("dequant_idct", n)] = t
+    return results
+
+
 KERNELS = {
     # name: (source, the TPU kernel it replaces, results keys of one frame)
     "conv3x3_bn_relu": (
@@ -503,12 +692,20 @@ KERNELS = {
         "robotic_discovery_platform_tpu_torch/csrc/conv3x3_grad_weights.cu",
         "robotic_discovery_platform_tpu/ops/pallas/conv.py:519",
         [("conv3x3_grad_weights", *s) for s in MAIN_PATH_3X3]),
+    "dequant_idct": (
+        "robotic_discovery_platform_tpu_torch/csrc/dequant_idct.cu",
+        "robotic_discovery_platform_tpu/ops/pallas/decode.py:149",
+        [("dequant_idct", n) for n in IDCT_PLANES]),
+    "conv_transpose2x2": (
+        "robotic_discovery_platform_tpu_torch/csrc/conv_transpose2x2.cu",
+        "robotic_discovery_platform_tpu/ops/pallas/conv.py:412",
+        [("conv_transpose2x2", *s) for s in CONVT_SHAPES]),
 }
 
 
 def launch_counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from robotic_discovery_platform_tpu_torch.ops import conv
+    from robotic_discovery_platform_tpu_torch.ops import conv, decode
     from robotic_discovery_platform_tpu_torch.ops import geometry_kernels as gk
     from robotic_discovery_platform_tpu_torch.ops import pack
 
@@ -517,7 +714,9 @@ def launch_counters():
             "bspline_design": gk.bspline_design,
             "bspline_curvature": gk.bspline_curvature,
             "bitpack_mask": pack.bitpack_mask,
-            "conv3x3_grad_weights": conv.conv3x3_grad_weights}
+            "conv3x3_grad_weights": conv.conv3x3_grad_weights,
+            "dequant_idct": decode.dequant_idct,
+            "conv_transpose2x2": conv.conv_transpose2x2}
 
 
 def reset_launches() -> None:
@@ -527,6 +726,29 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def launches_of(**counts) -> dict:
+    """Every kernel's expected launch count: those named, 0 for the rest."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(counts)
+    return want
+
+
+def frame_launches(n: int, *, coef: bool = False, convt: bool = False,
+                   dispatches: int = 0, ones: int = 0) -> dict:
+    """Launches of ``n`` direct frames (18 conv3x3_bn_relu, 1 conv1x1, 1
+    each geometry kernel; 3 dequant_idct for a coefficient frame and 4
+    conv_transpose2x2 for the non-bilinear model), or of ``dispatches``
+    batched dispatches, ``ones`` of them of one frame (those take the
+    geometry kernels; every dispatch one bitpack)."""
+    units = dispatches if dispatches else n
+    geom = ones if dispatches else n
+    return launches_of(
+        conv3x3_bn_relu=18 * units, conv1x1=units, deproject_edge_stats=geom,
+        bspline_design=geom, bspline_curvature=geom, bitpack_mask=dispatches,
+        dequant_idct=3 * units if coef else 0,
+        conv_transpose2x2=4 * units if convt else 0)
 
 
 def kernel_record(results: dict, launches: dict) -> dict:
@@ -562,8 +784,9 @@ def kernel_record(results: dict, launches: dict) -> dict:
 # -- phase 3: the analyzer ---------------------------------------------------
 
 
-def seeded_model(torch, port, x0):
-    """Full-width default model with conv weights from a seeded generator
+def seeded_model(torch, port, x0, cfg=None):
+    """Full-width model (default: the default model; ``cfg`` for another)
+    with conv weights from a seeded generator
     and BatchNorm statistics as a trained network keeps them: each
     layer's mean and variance measured on its input for frame 0 (a float32
     forward, layer by layer), perturbed from a numpy seed, with scale and
@@ -573,10 +796,10 @@ def seeded_model(torch, port, x0):
     2.6% in the bf16 logits, on the CPU as on the card.) The head's bias
     is set so that half of frame 0's logits are positive: a structured
     mask, not an all-or-nothing one."""
-    cfg = port.ModelConfig()
+    cfg = port.ModelConfig() if cfg is None else cfg
     net = port.UNet(cfg).init_weights(
         torch.Generator().manual_seed(SEED)).eval()
-    calib = port.UNet(port.ModelConfig(compute_dtype="float32")).eval()
+    calib = port.UNet(dataclasses.replace(cfg, compute_dtype="float32")).eval()
     calib.load_state_dict(net.state_dict())
     calib = calib.to("cuda")
     rng = np.random.default_rng(SEED)
@@ -650,10 +873,7 @@ def analyzer_phase(torch, port, frames) -> tuple:
         outs.append(out)
     n = len(frames)
     counts = read_launches()
-    want = {"conv3x3_bn_relu": 18 * n, "conv1x1": n,
-            "deproject_edge_stats": n, "bspline_design": n,
-            "bspline_curvature": n, "bitpack_mask": 0,
-            "conv3x3_grad_weights": 0}
+    want = frame_launches(n)
     check(counts == want,
           f"launch counts after {n} frames: {counts}, want {want}")
     peak = torch.cuda.max_memory_allocated()
@@ -844,10 +1064,7 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
     stream_s = time.perf_counter() - t0
     launches = read_launches()
     n = len(requests)
-    want = {"conv3x3_bn_relu": 18 * n, "conv1x1": n,
-            "deproject_edge_stats": n, "bspline_design": n,
-            "bspline_curvature": n, "bitpack_mask": 0,
-            "conv3x3_grad_weights": 0}
+    want = frame_launches(n)
     check(launches == want, f"servicer launch counts {launches} for {n} "
           f"frames, want {want}")
     verify(responses, "in-process")
@@ -927,11 +1144,7 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
     check(sum(k * v for k, v in sizes.items()) == STREAMS * n,
           f"batched leg: dispatch sizes {sizes} do not add up to "
           f"{STREAMS * n} frames")
-    ones = sizes.get(1, 0)
-    bwant = {"conv3x3_bn_relu": 18 * dispatches, "conv1x1": dispatches,
-             "deproject_edge_stats": ones, "bspline_design": ones,
-             "bspline_curvature": ones, "bitpack_mask": dispatches,
-             "conv3x3_grad_weights": 0}
+    bwant = frame_launches(0, dispatches=dispatches, ones=sizes.get(1, 0))
     check(blaunches == bwant, f"batched leg launch counts {blaunches}, want "
           f"{bwant} for dispatch sizes {sizes}")
     for order, responses_s in zip(orders, out):
@@ -1021,7 +1234,6 @@ def train_kernel_phase(torch, conv) -> dict:
     bfloat16. Times per launch: the kernel, its plain version and one
     cuDNN call on the same operands (``F.conv2d``; the weight gradient's
     ``torch.nn.grad.conv2d_weight``), TF32 off."""
-    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     results = {}
     for b, h, w, cin, cout in [(2, 37, 53, 40, 24), (1, 9, 11, 3, 5)]:
@@ -1034,9 +1246,32 @@ def train_kernel_phase(torch, conv) -> dict:
         log(f"conv3x3_grad_weights [{b},{h},{w},{cin}]x[..,{cout}] float32: "
             f"relative L2 {err:.3g} (bar {DW_REL_L2})")
 
+    measured = train_conv_shapes(
+        torch, conv, sorted(set(MAIN_PATH_3X3), key=MAIN_PATH_3X3.index), gen)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    sums = {k: dict.fromkeys(keys, 0.0) for k in ("dw", "fwd", "dx")}
+    for i, shape in enumerate(MAIN_PATH_3X3):
+        results[("conv3x3_grad_weights", *shape)] = measured[shape]["dw"]
+        for k, t in measured[shape].items():
+            if k == "dx" and i == 0:
+                continue  # the image input takes no gradient
+            for f in keys:
+                sums[k][f] += t[f]
+    for k, n in (("dw", 18), ("fwd", 18), ("dx", 17)):
+        log(f"train conv {k}, the {n} launches of one step at B = "
+            f"{TRAIN_BATCH}: " + ", ".join(f"{f} {v:.3f}"
+                                           for f, v in sums[k].items()))
+    return results
+
+
+def train_conv_shapes(torch, conv, shapes, gen) -> dict:
+    """The training conv's kernels at each (H = W, Cin, Cout) of
+    ``shapes`` at B = TRAIN_BATCH in bfloat16 (train_kernel_phase's bars
+    and times); returns {shape: {"dw", "fwd", "dx": times}}."""
+    F = torch.nn.functional
     b, bf = TRAIN_BATCH, torch.bfloat16
     measured = {}
-    for s, cin, cout in sorted(set(MAIN_PATH_3X3), key=MAIN_PATH_3X3.index):
+    for s, cin, cout in shapes:
         x = torch.randn(b, s, s, cin, generator=gen, device="cuda").to(bf)
         g = torch.randn(b, s, s, cout, generator=gen, device="cuda").to(bf)
         w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda")
@@ -1105,20 +1340,7 @@ def train_kernel_phase(torch, conv) -> dict:
             + f"; dw rel L2 {err:.3g} (bar {DW_REL_L2}), y max|err| "
             f"{errs['y']:.3g}, dx max|err| {errs['dx']:.3g} (tol {BF16_TOL})")
         del x, g, w, xg, wg, y, dw, dw_plain, y_plain, dx_plain
-
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    sums = {k: dict.fromkeys(keys, 0.0) for k in ("dw", "fwd", "dx")}
-    for i, shape in enumerate(MAIN_PATH_3X3):
-        results[("conv3x3_grad_weights", *shape)] = measured[shape]["dw"]
-        for k, t in measured[shape].items():
-            if k == "dx" and i == 0:
-                continue  # the image input takes no gradient
-            for f in keys:
-                sums[k][f] += t[f]
-    for k, n in (("dw", 18), ("fwd", 18), ("dx", 17)):
-        log(f"train conv {k}, the {n} launches of one step at B = {b}: "
-            + ", ".join(f"{f} {v:.3f}" for f, v in sums[k].items()))
-    return results
+    return measured
 
 
 def conv3x3_f64(x, w):
@@ -1268,11 +1490,13 @@ def step_phase(torch, port) -> dict:
     return {"step_ms": step_ms, "split": (fwd, bwd, upd), "busy": dev / wall}
 
 
-def train_serve_phase(torch, port, frames) -> dict:
-    """``train_model`` at the reference configuration on synthetic data
-    for two epochs into a temporary registry, then a server built from
-    the registry's staging version serving 4 frames; returns the launches
-    of the two legs."""
+def train_serve_phase(torch, port, frames, model_cfg=None,
+                      epochs: int = 2) -> dict:
+    """``train_model`` on synthetic data for ``epochs`` epochs into a
+    temporary registry (at the reference configuration, or ``model_cfg``
+    with the reference's training settings; over two or more epochs the
+    train loss must fall), then a server built from the registry's staging
+    version serving 4 frames; returns the launches of the two legs."""
     from robotic_discovery_platform_tpu_torch import tracking
     from robotic_discovery_platform_tpu_torch.training import (
         checkpoint,
@@ -1281,11 +1505,11 @@ def train_serve_phase(torch, port, frames) -> dict:
     )
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    cfg = port.TrainConfig(epochs=2, batch_size=TRAIN_BATCH, img_size=256,
-                           learning_rate=1e-4, loss="bce", seed=SEED,
-                           tracking_uri=f"file:{tmp}/mlruns",
+    cfg = port.TrainConfig(epochs=epochs, batch_size=TRAIN_BATCH,
+                           img_size=256, learning_rate=1e-4, loss="bce",
+                           seed=SEED, tracking_uri=f"file:{tmp}/mlruns",
                            checkpoint_dir=str(tmp / "ckpt"))
-    model_cfg = port.ModelConfig()
+    model_cfg = port.ModelConfig() if model_cfg is None else model_cfg
     arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
     reset_launches()
     t0 = time.perf_counter()
@@ -1302,13 +1526,14 @@ def train_serve_phase(torch, port, frames) -> dict:
     hist = {k: [h["value"] for h in store.get_metric_history(res.run_id, k)]
             for k in ("train_loss", "val_loss", "val_miou")}
     check(all(np.isfinite(v) for vs in hist.values() for v in vs)
-          and len(hist["train_loss"]) == 2,
+          and len(hist["train_loss"]) == epochs,
           f"train_model metrics not finite: {hist}")
-    check(hist["train_loss"][1] < hist["train_loss"][0],
+    check(epochs < 2 or hist["train_loss"][-1] < hist["train_loss"][0],
           f"train loss did not fall: {hist['train_loss']}")
     check(res.registry_version == 1,
           f"registered version {res.registry_version}, want 1")
-    log(f"train_model: {TRAIN_SAMPLES} samples, 2 epochs x 4 steps in "
+    log(f"train_model ({'bilinear' if model_cfg.bilinear else 'non-bilinear'}"
+        f"): {TRAIN_SAMPLES} samples, {epochs} epochs x 4 steps in "
         f"{train_s:.1f} s (epochs {' '.join(f'{v:.2f}' for v in res.epoch_seconds)}"
         f" s, checkpoint IO excluded); train loss {hist['train_loss']}, val "
         f"loss {hist['val_loss']}, val mIoU {hist['val_miou']}; launches "
@@ -1376,9 +1601,7 @@ def train_serve_phase(torch, port, frames) -> dict:
     serve_launches = read_launches()
     service.close()
     n = len(frames)
-    want = {k: 0 for k in serve_launches}
-    want.update(conv3x3_bn_relu=18 * n, conv1x1=n, deproject_edge_stats=n,
-                bspline_design=n, bspline_curvature=n)
+    want = frame_launches(n, convt=not model_cfg.bilinear)
     check(serve_launches == want, f"registry-served launches "
           f"{serve_launches}, want {want}")
     check(service.model_version == 1,
@@ -1396,6 +1619,380 @@ def train_serve_phase(torch, port, frames) -> dict:
         f"{[round(float(r.mask_coverage), 2) for r in responses]}); "
         f"launches {serve_launches}")
     return {k: train_launches[k] + serve_launches[k] for k in want}
+
+
+# -- phase 7: the coefficient lane -------------------------------------------
+
+
+def dct_matrix() -> np.ndarray:
+    """[8, 8] orthonormal DCT-II (rows are frequencies): ``D @ B @ D.T`` is
+    the JPEG forward DCT of an 8x8 block B (ITU-T T.81 A.3.3)."""
+    k = np.arange(8)
+    d = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * 0.5
+    d[0] /= np.sqrt(2.0)
+    return d
+
+
+def encode_coefficients(entropy, rgb: np.ndarray, qy: np.ndarray,
+                        qc: np.ndarray):
+    """A JPEG encoder's forward half in numpy (the card's machine has no
+    cv2): RGB -> JFIF YCbCr, 4:2:0 chroma by 2x2 averaging, each plane
+    padded to the MCU grid by edge replication, level-shifted by -128,
+    a float DCT-II per 8x8 block, quantized by rounding against ``qy`` /
+    ``qc`` (natural order) -> a 4:2:0 ``CoefficientFrame``."""
+    h, w, _ = rgb.shape
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+
+    def halve(p):
+        p = np.pad(p, ((0, p.shape[0] % 2), (0, p.shape[1] % 2)), mode="edge")
+        return p.reshape(p.shape[0] // 2, 2, p.shape[1] // 2, 2).mean((1, 3))
+
+    d = dct_matrix()
+    (ybh, ybw), (cbh, cbw) = entropy.block_grids(h, w, "420")
+
+    def blocks(p, bh, bw, q):
+        p = np.pad(p, ((0, 8 * bh - p.shape[0]), (0, 8 * bw - p.shape[1])),
+                   mode="edge")
+        t = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128.0
+        c = np.einsum("uy,nmyx,vx->nmuv", d, t, d).reshape(bh * bw, 64)
+        return np.clip(np.round(c / q.astype(np.float64)), -2047,
+                       2047).astype(np.int16)
+
+    return entropy.CoefficientFrame(
+        height=h, width=w, subsampling="420",
+        y=blocks(y, ybh, ybw, qy), cb=blocks(halve(cb), cbh, cbw, qc),
+        cr=blocks(halve(cr), cbh, cbw, qc), qy=qy, qc=qc)
+
+
+def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / mse)) if mse else float("inf")
+
+
+def luma(rgb: np.ndarray) -> np.ndarray:
+    """JFIF Y of an RGB frame, float64."""
+    return rgb.astype(np.float64) @ np.array([0.299, 0.587, 0.114])
+
+
+def same_responses(got, want, leg: str, exact: bool = True) -> None:
+    """Two response lists: status, mask bytes and coverage byte-equal, and
+    the curvature and spline byte-equal (``exact``) or the curvature
+    within GEOM_RTOL."""
+    check(len(got) == len(want), f"{leg}: {len(got)} responses for "
+          f"{len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.status == b.status and a.mask == b.mask
+              and a.mask_coverage == b.mask_coverage,
+              f"{leg} frame {i}: status, mask bytes or coverage differ "
+              f"({a.status!r} vs {b.status!r})")
+        if exact:
+            check((a.mean_curvature, a.max_curvature, a.packed_spline,
+                   [(p.x, p.y, p.z) for p in a.spline_points]) == (
+                       b.mean_curvature, b.max_curvature, b.packed_spline,
+                       [(p.x, p.y, p.z) for p in b.spline_points]),
+                  f"{leg} frame {i}: curvature or spline differ")
+        else:
+            check(np.allclose([a.mean_curvature, a.max_curvature],
+                              [b.mean_curvature, b.max_curvature],
+                              rtol=GEOM_RTOL, atol=0),
+                  f"{leg} frame {i}: curvature {a.mean_curvature} vs "
+                  f"{b.mean_curvature} beyond rtol {GEOM_RTOL}")
+
+
+def grpc_responses(cfg, folded, requests) -> list | None:
+    """``requests`` through a real gRPC server of the port (None where
+    grpc is not installed)."""
+    try:
+        import grpc
+
+        from robotic_discovery_platform_tpu_torch.serving import grpc_service
+        from robotic_discovery_platform_tpu_torch.serving.proto import (
+            vision_grpc,
+            vision_pb2,
+        )
+    except ImportError as exc:
+        log(f"gRPC leg did not run: {exc}")
+        return None
+
+    def image(img):
+        return vision_pb2.Image(data=img.data, width=img.width,
+                                height=img.height, format=img.format)
+
+    server, servicer = grpc_service.build_server(cfg, folded, device="cuda")
+    server.start()
+    try:
+        with grpc.insecure_channel(
+                f"localhost:{servicer.bound_port}") as channel:
+            stub = vision_grpc.VisionAnalysisServiceStub(channel)
+            return list(stub.AnalyzeActuatorPerformance(iter([
+                vision_pb2.AnalysisRequest(
+                    color_image=image(r.color_image),
+                    depth_image=image(r.depth_image),
+                    mask_format=r.mask_format) for r in requests])))
+    finally:
+        server.stop(grace=None).wait()
+        servicer.close()
+
+
+def coef_phase(torch, port, folded, frames) -> dict:
+    """The coefficient lane on the default model: frames encoded by
+    :func:`encode_coefficients` at COEF_QUALITY (its CPU plain decode within
+    COEF_PSNR_DB of the source) and sent through the wire payload; the
+    card's decode against the CPU plain decode, bitwise; the direct
+    coefficient analyzer's exact launches (3 dequant_idct + 18 + 1 + 3
+    geometry per frame); then format-2 requests served directly, over
+    gRPC and under STREAMS concurrent streams batched, against the
+    format-1 responses of the CPU-decoded pixels. Returns the launches of
+    the serving legs."""
+    from robotic_discovery_platform_tpu_torch.ops import pipeline
+    from robotic_discovery_platform_tpu_torch.serving import entropy, ingest
+
+    qy, qc = ingest.quant_tables(COEF_QUALITY)
+    coefs = [entropy.unpack_coefficients(entropy.pack_coefficients(
+        encode_coefficients(entropy, rgb, qy, qc))) for rgb, _ in frames]
+    geometry = dict(height=FRAME_H, width=FRAME_W, subsampling="420")
+    decoded, psnr, psnr_rgb = [], [], []
+    for cf, (rgb, _) in zip(coefs, frames):
+        decoded.append(pipeline.decode_coef_batch(
+            *pipeline.coef_planes(cf), **geometry)[0].numpy())
+        psnr.append(psnr_db(luma(decoded[-1]), luma(rgb)))
+        psnr_rgb.append(psnr_db(decoded[-1], rgb))
+    check(min(psnr) >= COEF_PSNR_DB, f"encoder sanity: luma PSNR {psnr} dB "
+          f"below {COEF_PSNR_DB}")
+    planes = [torch.cat(p).cuda() for p in zip(*(pipeline.coef_planes(cf)
+                                                  for cf in coefs))]
+    reset_launches()
+    card = pipeline.decode_coef_batch(*planes, **geometry)
+    torch.cuda.synchronize()
+    check(read_launches() == launches_of(dequant_idct=3),
+          f"decode_coef_batch launches {read_launches()}")
+    check(np.array_equal(card.cpu().numpy(), np.stack(decoded)),
+          "decode_coef_batch: the card's RGB differs from the CPU plain "
+          "decode")
+    n = len(frames)
+    decode_ms = time_ms(torch, lambda: pipeline.decode_coef_batch(
+        *planes, **geometry), iters=10) / n
+    log(f"coefficient frames: {n} at quality {COEF_QUALITY}, "
+        f"{len(entropy.pack_coefficients(coefs[0]))} payload bytes each; "
+        f"CPU plain decode luma PSNR {min(psnr):.2f}-{max(psnr):.2f} dB "
+        f"against the source (bar {COEF_PSNR_DB}; RGB "
+        f"{min(psnr_rgb):.2f}-{max(psnr_rgb):.2f}); card decode of [{n}] bitwise "
+        f"equal to the CPU's, {decode_ms:.4f} ms per frame (CUDA events)")
+
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    analyze = pipeline.make_coef_frame_analyzer(folded, img_size=256,
+                                                device="cuda")
+    pixels = port.make_frame_analyzer(folded, img_size=256, device="cuda")
+    analyze(coefs[0], frames[0][1], k, 0.001)
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = [analyze(cf, depth, k, 0.001)
+            for cf, (_, depth) in zip(coefs, frames)]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(counts == frame_launches(n, coef=True),
+          f"coefficient analyzer launches {counts} for {n} frames")
+    for i, (out, rgb, (_, depth)) in enumerate(zip(outs, decoded, frames)):
+        check(torch.equal(out.mask, pixels(rgb, depth, k, 0.001).mask),
+              f"coefficient frame {i}: mask differs from the pixel "
+              "analyzer's on the decoded pixels")
+    log(f"coefficient analyzer: {n} frames, launches {counts} (3 + 18 + 1 + "
+        "3 per frame), masks equal to the pixel analyzer's on the decoded "
+        "pixels")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_coef_"))
+    cfg = port.ServerConfig(address="localhost:0",
+                            metrics_csv=str(tmp / "metrics.csv"),
+                            calibration_path=str(tmp / "none.npz"))
+    service = port.VisionAnalysisService(folded, cfg=cfg, device="cuda")
+    service.warmup(FRAME_W, FRAME_H)
+    service.warmup_coef(FRAME_W, FRAME_H)
+    raw = [port.raw_request(rgb, depth, mask_format=i % 3)
+           for i, (rgb, (_, depth)) in enumerate(zip(decoded, frames))]
+    coef = [ingest.coef_request(cf, depth, mask_format=i % 3)
+            for i, (cf, (_, depth)) in enumerate(zip(coefs, frames))]
+    walls = {}
+    for lane, requests in (("raw", raw), ("coef", coef), ("raw", raw),
+                           ("coef", coef)):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = list(service.analyze_stream(iter(requests)))
+        walls.setdefault(lane, []).append((time.perf_counter() - t0) * 1e3 / n)
+        if lane == "raw":
+            want = out
+        else:
+            got, launches = out, read_launches()
+    check(launches == frame_launches(n, coef=True),
+          f"served coefficient launches {launches}")
+    same_responses(got, want, "format 2, direct")
+    log(f"format-2 requests, direct: {n} responses byte-equal to the format-1 "
+        f"responses of the decoded pixels; ms per frame over a stream (two "
+        f"runs each) raw {' '.join(f'{v:.2f}' for v in walls['raw'])}, "
+        f"coefficient {' '.join(f'{v:.2f}' for v in walls['coef'])}; "
+        f"proc_time_ms median raw {np.median([r.proc_time_ms for r in want]):.2f}"
+        f", coefficient {np.median([r.proc_time_ms for r in got]):.2f}")
+    service.close()
+    over_grpc = grpc_responses(cfg, folded, coef)
+    if over_grpc is not None:
+        same_responses(over_grpc, want, "format 2, gRPC")
+        log(f"format-2 requests over gRPC: {len(over_grpc)} responses "
+            "byte-equal to the format-1 responses")
+
+    bcfg = dataclasses.replace(cfg, metrics_csv=str(tmp / "batched.csv"),
+                               batch_window_ms=2.0, max_batch=MAX_BATCH)
+    batched = port.VisionAnalysisService(folded, cfg=bcfg, device="cuda")
+    batched.warmup(FRAME_W, FRAME_H)
+    batched.warmup_coef(FRAME_W, FRAME_H)
+    orders = [[(s * 2 + j) % n for j in range(n)] for s in range(STREAMS)]
+    batched.dispatcher.dispatch_sizes.clear()
+    reset_launches()
+    out, wall_s = concurrent_streams(
+        batched, [[coef[i] for i in order] for order in orders])
+    blaunches = read_launches()
+    sizes = dict(sorted(batched.dispatcher.dispatch_sizes.items()))
+    dispatches = sum(sizes.values())
+    check(blaunches == frame_launches(0, coef=True, dispatches=dispatches,
+                                      ones=sizes.get(1, 0)),
+          f"batched coefficient launches {blaunches} for dispatch sizes "
+          f"{sizes}")
+    for order, responses in zip(orders, out):
+        same_responses(responses, [want[i] for i in order],
+                       "format 2, batched", exact=False)
+    batched.close()
+    log(f"format-2 requests batched (batch_window_ms=2), {STREAMS} streams x "
+        f"{n} frames: dispatch sizes {sizes}, {STREAMS * n / wall_s:.1f} "
+        f"frames/s aggregate; launches {blaunches}; status, mask bytes and "
+        f"coverage equal to the format-1 responses, curvature within rtol "
+        f"{GEOM_RTOL}")
+    return {k: launches[k] + blaunches[k] for k in launches}
+
+
+# -- phase 8: the non-bilinear model --------------------------------------------
+
+
+def nonbilinear_phase(torch, port, conv, frames) -> dict:
+    """``ModelConfig(bilinear=False)`` at full width from a seed
+    (BatchNorm calibrated as ``seeded_model`` does): the folded kernel
+    forward against ``forward_plain``; the analyzer's exact launches (18
+    conv3x3_bn_relu + 4 conv_transpose2x2 + 1 conv1x1 + 3 geometry per
+    frame); 8 frames served directly and batched, masks equal to the
+    analyzer's; the training conv's kernels at the ladder's new shapes;
+    one train step at B = 4 (18 + 17 conv3x3_bn_relu, 18
+    conv3x3_grad_weights, no conv_transpose2x2: training runs the plain
+    transposed conv). Returns the serving legs' launches."""
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.training import (
+        synthetic,
+        trainer,
+    )
+
+    cfg = port.ModelConfig(bilinear=False)
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    folded = port.FoldedUNet(seeded_model(torch, port, x0, cfg),
+                             device="cuda")
+    with torch.no_grad():
+        got = folded(x0)
+        want = folded.forward_plain(x0)
+    torch.cuda.synchronize()
+    rel = rel_l2(torch, got, want)
+    check(bool(torch.isfinite(got).all()) and got.shape == (1, 256, 256, 1)
+          and rel <= LOGITS_REL_L2,
+          f"non-bilinear forward: kernels vs plain relative L2 {rel} > "
+          f"{LOGITS_REL_L2} (or logits not finite)")
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: folded(x0), iters=10)
+    log(f"non-bilinear forward: kernel vs plain logits relative L2 "
+        f"{rel:.3g} (tol {LOGITS_REL_L2}); {fwd_ms:.3f} ms per forward")
+
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    analyze = port.make_frame_analyzer(folded, img_size=256, device="cuda")
+    analyze(*frames[0], k, 0.001)
+    torch.cuda.synchronize()
+    n = len(frames)
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    masks = [analyze(rgb, depth, k, 0.001).mask for rgb, depth in frames]
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(counts == frame_launches(n, convt=True),
+          f"non-bilinear analyzer launches {counts} for {n} frames")
+    masks = [m.cpu().numpy() for m in masks]
+    log(f"non-bilinear analyzer: {n} frames, launches {counts} (18 + 4 + 1 + "
+        f"3 per frame), {start.elapsed_time(end) / n:.3f} ms per frame (CUDA "
+        f"events); coverage {[round(100 * float(m.mean()), 1) for m in masks]}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nb_"))
+    requests = [port.raw_request(rgb, depth) for rgb, depth in frames]
+    legs = {}
+    for leg, window in (("direct", 0.0), ("batched", 2.0)):
+        scfg = port.ServerConfig(address="localhost:0",
+                                 metrics_csv=str(tmp / f"{leg}.csv"),
+                                 calibration_path=str(tmp / "none.npz"),
+                                 batch_window_ms=window, max_batch=MAX_BATCH)
+        service = port.VisionAnalysisService(folded, cfg=scfg, device="cuda")
+        service.warmup(FRAME_W, FRAME_H)
+        reset_launches()
+        if window:
+            service.dispatcher.dispatch_sizes.clear()
+            out, _ = concurrent_streams(service, [[r] for r in requests])
+            responses = [o[0] for o in out]
+            sizes = dict(service.dispatcher.dispatch_sizes)
+            want = frame_launches(0, convt=True,
+                                  dispatches=sum(sizes.values()),
+                                  ones=sizes.get(1, 0))
+        else:
+            responses = list(service.analyze_stream(iter(requests)))
+            sizes, want = None, frame_launches(n, convt=True)
+        legs[leg] = read_launches()
+        service.close()
+        check(legs[leg] == want, f"non-bilinear {leg} launches {legs[leg]}, "
+              f"want {want}")
+        for i, resp in enumerate(responses):
+            check(resp.status.startswith(("OK", "DEGRADED")) and np.array_equal(
+                (decode_png(resp.mask) > 0).astype(np.uint8), masks[i]),
+                f"non-bilinear {leg} frame {i}: status {resp.status!r} or "
+                "mask differs from the analyzer's")
+        log(f"non-bilinear served {leg}: {n} frames, masks equal to the "
+            f"analyzer's; launches {legs[leg]}"
+            + (f"; dispatch sizes {sizes}" if sizes else ""))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    train_conv_shapes(torch, conv, NB_NEW_3X3, gen)
+
+    imgs, labels = synthetic.generate_arrays(TRAIN_BATCH, 256, 256, seed=SEED)
+    xs, ys = trainer.normalize_arrays(imgs, labels)
+    x, y = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    net = trainer.init_model(cfg, SEED, torch.device("cuda"))
+    opt = trainer.make_optimizer(net, 1e-4)
+    loss_fn = losses.make_loss_fn("bce")
+    reset_launches()
+    loss = float(trainer.train_step(net, opt, loss_fn, x, y))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(np.isfinite(loss) and counts == launches_of(
+        conv3x3_bn_relu=18 + 17, conv3x3_grad_weights=18),
+        f"non-bilinear train step: loss {loss}, launches {counts}")
+    step_ms = []
+    for _ in range(3):
+        start.record()
+        trainer.train_step(net, opt, loss_fn, x, y)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    log(f"non-bilinear train step (B = {TRAIN_BATCH}, 256x256, bf16): loss "
+        f"{loss:.6f}, launches {counts} (no conv_transpose2x2: training runs "
+        f"the plain transposed conv); ms per step "
+        f"{' '.join(f'{v:.2f}' for v in step_ms)}")
+    del net, opt
+    torch.cuda.empty_cache()
+    return {key: legs["direct"][key] + legs["batched"][key]
+            for key in legs["direct"]}
 
 
 def main() -> int:
@@ -1426,6 +2023,8 @@ def main() -> int:
         f"{build_s:.1f} s")
 
     results = kernel_phase(torch, conv)
+    results.update(convt_kernel_phase(torch, conv))
+    results.update(decode_kernel_phase(torch))
     rng = np.random.default_rng(SEED)
     frames = []
     for _ in range(8):
@@ -1438,11 +2037,16 @@ def main() -> int:
     want_masks = [analyze(rgb, depth, k, 0.001).mask.cpu().numpy()
                   for rgb, depth in frames]
     launches = servicer_phase(torch, port, folded, frames, want_masks)
+    legs = [coef_phase(torch, port, folded, frames)]
     geometry_phase(torch, port)
     results.update(train_kernel_phase(torch, conv))
     step_phase(torch, port)
-    trained = train_serve_phase(torch, port, frames)
-    launches = {k: launches[k] + trained[k] for k in launches}
+    legs.append(train_serve_phase(torch, port, frames))
+    legs.append(nonbilinear_phase(torch, port, conv, frames))
+    legs.append(train_serve_phase(torch, port, frames,
+                                  port.ModelConfig(bilinear=False), epochs=1))
+    launches = {k: launches[k] + sum(leg[k] for leg in legs)
+                for k in launches}
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps(kernel_record(results, launches)))

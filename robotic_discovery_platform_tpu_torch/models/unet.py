@@ -5,8 +5,11 @@ through the hand-written kernels.
 Same architecture and parameter tree as the JAX package's
 ``models/unet.py`` ``UNet``: DoubleConv blocks of (3x3 conv, no bias ->
 BatchNorm -> ReLU) x 2, a 4-level encoder with 2x2 max-pooling, a decoder
-with the align-corners bilinear upsample and ``[skip, upsampled]``
-concatenation, and a 1x1 head with a bias. Submodules carry the Flax
+with the align-corners bilinear upsample (``bilinear=True``, the default)
+or a 2x2 stride-2 transposed conv with a bias and a nearest resize to the
+skip's size (``bilinear=False``, channel ladder ending at 16x the base
+width), the ``[skip, upsampled]`` concatenation, and a 1x1 head with a
+bias. Submodules carry the Flax
 names (``DoubleConv_0``, ``Down_2``, ``Conv_1``, ``BatchNorm_0`` ...) and
 conv kernels stay HWIO, so a Flax ``{"params", "batch_stats"}`` tree maps
 onto :meth:`nn.Module.state_dict` keys one to one
@@ -21,6 +24,9 @@ the operands in the compute dtype and float32 accumulation.
 each DoubleConv conv is the custom-VJP :func:`ops.conv.conv3x3` (the
 hand-written forward, dx and dw kernels), and BatchNorm normalizes with
 batch statistics in Flax's semantics and updates its running statistics.
+The non-bilinear decoder's transposed conv trains as a plain autograd op
+(:func:`ops.conv.conv_transpose2x2_plain`), as the JAX package trains it
+with Flax's ``nn.ConvTranspose`` and no kernel.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from torch import nn
 from robotic_discovery_platform_tpu_torch.ops.conv import (
     conv3x3,
     conv3x3_plain,
+    conv_transpose2x2_plain,
 )
 from robotic_discovery_platform_tpu_torch.utils.config import (
     PLAIN_CONV_IMPLS,
@@ -100,6 +107,34 @@ def upsample_align_corners(x: torch.Tensor, h: int, w: int,
     y = torch.einsum("Hh,bhwc->bHwc", mat(h, ih), x.to(torch.float32))
     y = torch.einsum("Ww,bhwc->bhWc", mat(w, iw), y)
     return y.to(x.dtype)
+
+
+def nearest_indices(out: int, inp: int) -> np.ndarray:
+    """Source index of each of ``out`` samples of a nearest resize from
+    ``inp``: ``floor((i + 0.5) * inp / out)`` in float32, the half-pixel
+    rule of ``jax.image.resize(..., "nearest")``."""
+    pos = (np.arange(out, dtype=np.float32) + np.float32(0.5)) \
+        * np.float32(inp) / np.float32(out)
+    return np.floor(pos).astype(np.int64)
+
+
+def resize_nearest(x: torch.Tensor, h: int, w: int,
+                   cache: dict | None = None) -> torch.Tensor:
+    """Nearest NHWC resize to ``[B, h, w, C]`` with
+    :func:`nearest_indices` (the identity where a size already matches).
+    ``cache`` keeps the index vectors on the device between calls."""
+    for axis, out in ((1, h), (2, w)):
+        inp = x.shape[axis]
+        if inp == out:
+            continue
+        key = ("nearest", out, inp, x.device)
+        idx = cache.get(key) if cache is not None else None
+        if idx is None:
+            idx = torch.from_numpy(nearest_indices(out, inp)).to(x.device)
+            if cache is not None:
+                cache[key] = idx
+        x = x.index_select(axis, idx)
+    return x
 
 
 def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
@@ -224,21 +259,49 @@ class Down(nn.Module):
         return self.DoubleConv_0(max_pool2x2(x), train)
 
 
+class ConvTranspose2x2(nn.Module):
+    """2x2 stride-2 transposed conv with a bias, Flax's ``nn.ConvTranspose``
+    in the compute dtype: ``kernel`` is [2, 2, Cin, Cout] (its taps land
+    flipped, :func:`ops.conv.conv_transpose2x2`), the product is rounded to
+    x's dtype and the bias added in that dtype."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(2, 2, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose2x2_plain(x, self.kernel) + self.bias.to(x.dtype)
+
+
 class Up(nn.Module):
-    """Align-corners bilinear upsample to the skip's size, concat
-    ``[skip, upsampled]``, DoubleConv with a halved mid width."""
+    """Upsample to the skip's size, concat ``[skip, upsampled]``,
+    DoubleConv. ``bilinear``: the align-corners bilinear upsample and a
+    halved mid width; otherwise ``ConvTranspose_0`` to ``cin_up // 2``
+    channels, then a nearest resize to the skip's size (the identity when
+    the sizes already match), and no halved mid width."""
 
     def __init__(self, cin_up: int, cin_skip: int, cout: int,
-                 impl: str = "auto"):
+                 impl: str = "auto", bilinear: bool = True):
         super().__init__()
-        self.DoubleConv_0 = DoubleConv(cin_up + cin_skip, cout,
-                                       mid=(cin_up + cin_skip) // 2,
-                                       impl=impl)
+        self.bilinear = bilinear
+        if bilinear:
+            self.DoubleConv_0 = DoubleConv(cin_up + cin_skip, cout,
+                                           mid=(cin_up + cin_skip) // 2,
+                                           impl=impl)
+        else:
+            self.ConvTranspose_0 = ConvTranspose2x2(cin_up, cin_up // 2)
+            self.DoubleConv_0 = DoubleConv(cin_up // 2 + cin_skip, cout,
+                                           impl=impl)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 train: bool = False, cache: dict | None = None
                 ) -> torch.Tensor:
-        x = upsample_align_corners(x, skip.shape[1], skip.shape[2], cache)
+        h, w = skip.shape[1], skip.shape[2]
+        if self.bilinear:
+            x = upsample_align_corners(x, h, w, cache)
+        else:
+            x = resize_nearest(self.ConvTranspose_0(x), h, w, cache)
         return self.DoubleConv_0(torch.cat([skip, x.to(skip.dtype)], dim=-1),
                                  train)
 
@@ -258,10 +321,11 @@ class Head(nn.Module):
 
 
 class UNet(nn.Module):
-    """Encoder/decoder U-Net (bilinear decoder, BatchNorm). Call with NHWC
-    input; returns NHWC float32 logits. ``dtype`` is the compute dtype of
-    the activations; parameters stay float32. ``forward(x, train=True)``
-    is the training forward (module docstring)."""
+    """Encoder/decoder U-Net (bilinear or transposed-conv decoder,
+    BatchNorm). Call with NHWC input; returns NHWC float32 logits.
+    ``dtype`` is the compute dtype of the activations; parameters stay
+    float32. ``forward(x, train=True)`` is the training forward (module
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -270,28 +334,39 @@ class UNet(nn.Module):
         self.dtype = compute_dtype(cfg.compute_dtype)
         self._interp: dict = {}  # upsample matrices, per shape and device
         f, impl = cfg.base_features, cfg.conv_impl
-        widths = [f, 2 * f, 4 * f, 8 * f, 8 * f]  # 16 * f // 2, bilinear
+        factor = 2 if cfg.bilinear else 1
+        widths = [f, 2 * f, 4 * f, 8 * f, 16 * f // factor]
         self.DoubleConv_0 = DoubleConv(cfg.in_channels, f, impl=impl)
         for i in range(4):
             setattr(self, f"Down_{i}", Down(widths[i], widths[i + 1], impl))
         # Up_i fuses widths[4 - i] (upsampled) with widths[3 - i] (skip)
         up_in = widths[4]
-        for i, cout in enumerate([4 * f, 2 * f, f, f]):
-            setattr(self, f"Up_{i}", Up(up_in, widths[3 - i], cout, impl))
+        for i, cout in enumerate([8 * f // factor, 4 * f // factor,
+                                  2 * f // factor, f]):
+            setattr(self, f"Up_{i}", Up(up_in, widths[3 - i], cout, impl,
+                                        cfg.bilinear))
             up_in = cout
         self.Conv_0 = Head(f, cfg.num_classes)
 
     def init_weights(self, gen: torch.Generator) -> UNet:
-        """Draw every conv kernel and the head's bias from ``cfg.init`` on
-        ``gen``, in parameter order; BatchNorm keeps scale 1, bias 0,
-        mean 0, var 1."""
+        """Draw every conv kernel and bias from ``cfg.init`` on ``gen``, in
+        parameter order; BatchNorm keeps scale 1, bias 0, mean 0, var 1.
+        A transposed conv's "torch" init takes torch ``ConvTranspose2d``'s
+        fan, ``Cout * 4``, for kernel and bias (the JAX package's
+        ``models/unet.py`` ``Up``); "lecun" takes Flax's ``Cin * 4`` and a
+        zero bias."""
+        init = self.cfg.init
         for module in self.modules():
             if isinstance(module, (Conv3x3, Head)):
                 kh, kw, cin, _ = module.kernel.shape
-                _kernel_init(self.cfg.init, module.kernel, kh * kw * cin, gen)
+                _kernel_init(init, module.kernel, kh * kw * cin, gen)
             if isinstance(module, Head):
-                _bias_init(self.cfg.init, module.bias, module.kernel.shape[2],
-                           gen)
+                _bias_init(init, module.bias, module.kernel.shape[2], gen)
+            if isinstance(module, ConvTranspose2x2):
+                _, _, cin, cout = module.kernel.shape
+                _kernel_init(init, module.kernel,
+                             4 * (cout if init == "torch" else cin), gen)
+                _bias_init(init, module.bias, 4 * cout, gen)
         return self
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:

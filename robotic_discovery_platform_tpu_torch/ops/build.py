@@ -36,6 +36,8 @@ SOURCES = {
     "bspline_curvature": "bspline_curvature.cu",
     "bitpack_mask": "bitpack_mask.cu",
     "conv3x3_grad_weights": "conv3x3_grad_weights.cu",
+    "dequant_idct": "dequant_idct.cu",
+    "conv_transpose2x2": "conv_transpose2x2.cu",
 }
 
 NVCC_FLAGS = (

@@ -10,14 +10,17 @@ its plain PyTorch version beside it.
 - :func:`conv3x3_grad_weights` (``csrc/conv3x3_grad_weights.cu``)
   replaces ``conv3x3_grad_weights`` of the same file: the weight gradient
   of the training conv.
+- :func:`conv_transpose2x2` (``csrc/conv_transpose2x2.cu``) replaces
+  ``conv_transpose2x2`` of the same file: the non-bilinear U-Net's 2x2
+  stride-2 transposed conv + bias.
 - :func:`conv3x3` is the training conv, a ``torch.autograd.Function``
   and the counterpart of that file's custom-VJP ``conv3x3``: its forward
   and dx launch :func:`conv3x3_bn_relu` with a unit epilogue (dx on the
   flipped, in/out-transposed kernel), its dw :func:`conv3x3_grad_weights`.
 
 Layouts are the JAX package's: activations NHWC, 3x3 kernels HWIO
-``[3, 3, Cin, Cout]``, 1x1 kernels ``[Cin, Cout]``, scale/bias ``[Cout]``
-float32. The bound of each kernel on an H100 and what its design does
+``[3, 3, Cin, Cout]``, 1x1 kernels ``[Cin, Cout]``, transposed-conv
+kernels ``[2, 2, Cin, Cout]``, scale/bias ``[Cout]`` float32. The bound of each kernel on an H100 and what its design does
 about it are stated at the top of its source.
 
 Dispatch: a wrapper takes its plain version only for a tensor that lies
@@ -59,6 +62,9 @@ _SIGNATURES = {
     "conv3x3_grad_weights": ("conv3x3_grad_weights_launch",
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P]),
+    # x, w, bias, out, B, H, W, Cin, Cout, dtypes, stream
+    "conv_transpose2x2": ("conv_transpose2x2_launch",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 #: conv3x3_grad_weights launch shape (csrc/conv3x3_grad_weights.cu): a
@@ -83,15 +89,16 @@ def _kernel(name: str):
     return build.function(name, *_SIGNATURES[name])
 
 
-def _check_cuda(name: str, x, w, scale, bias, out_dtype):
-    """Validate what the kernel takes; returns its dtypes code."""
+def _check_cuda(name: str, x, w, out_dtype, **vectors):
+    """Validate what the kernel takes (``vectors``: its float32 per-channel
+    operands, by name); returns its dtypes code."""
     code = _DTYPES.get((x.dtype, out_dtype))
     if code is None:
         raise TypeError(
             f"{name}: unsupported dtypes {x.dtype} -> {out_dtype}; the "
             f"kernel takes {sorted((str(a), str(b)) for a, b in _DTYPES)}"
         )
-    for label, t in (("x", x), ("w", w), ("scale", scale), ("bias", bias)):
+    for label, t in (("x", x), ("w", w), *vectors.items()):
         if t.device != x.device:
             raise ValueError(f"{name}: {label} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -101,8 +108,8 @@ def _check_cuda(name: str, x, w, scale, bias, out_dtype):
             f"{name}: x is on {x.device} but the current device is "
             f"cuda:{torch.cuda.current_device()}"
         )
-    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError(f"{name}: scale and bias must be float32")
+    if any(t.dtype != torch.float32 for t in vectors.values()):
+        raise TypeError(f"{name}: {' and '.join(vectors)} must be float32")
     return code
 
 
@@ -153,7 +160,8 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
             f"{tuple(bias.shape)}"
         )
     w = w.to(x.dtype)
-    code = _check_cuda("conv3x3_bn_relu", x, w, scale, bias, out_dtype)
+    code = _check_cuda("conv3x3_bn_relu", x, w, out_dtype, scale=scale,
+                       bias=bias)
     out = torch.empty((b, h, width, cout), dtype=out_dtype, device=x.device)
     err = _kernel("conv3x3_bn_relu")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -210,7 +218,7 @@ def conv1x1(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
             f"{tuple(bias.shape)} do not match Cout={cout}"
         )
     w = w.to(x.dtype)
-    code = _check_cuda("conv1x1", x, w, scale, bias, out_dtype)
+    code = _check_cuda("conv1x1", x, w, out_dtype, scale=scale, bias=bias)
     out = torch.empty((b, h, width, cout), dtype=out_dtype, device=x.device)
     err = _kernel("conv1x1")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -223,6 +231,74 @@ def conv1x1(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
 
 
 conv1x1.launches = 0
+
+
+# -- 2x2 stride-2 transposed conv + bias -----------------------------------------
+
+
+def conv_transpose2x2_plain(x, w, bias=None, *, out_dtype=None):
+    """Plain PyTorch version of :func:`conv_transpose2x2`, differentiable by
+    autograd: four float32 contractions over Cin, one per tap, with the
+    spatially flipped tap (``out[2h+dy, 2w+dx] = x[h, w] @ w[1-dy, 1-dx]``),
+    interleaved, the float32 bias added (when given), one cast. On a CUDA
+    tensor the caller keeps TF32 off."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    b, h, width, _ = x.shape
+    xf = x.to(torch.float32)
+    wf = w.to(x.dtype).to(torch.float32)
+
+    def tap(dy, dx):
+        return torch.einsum("bhwi,io->bhwo", xf, wf[1 - dy, 1 - dx])
+
+    # [B, H, 2 (dy), W, 2 (dx), Cout] -> [B, 2H, 2W, Cout]
+    y = torch.stack([torch.stack([tap(dy, 0), tap(dy, 1)], dim=3)
+                     for dy in (0, 1)], dim=2)
+    y = y.reshape(b, 2 * h, 2 * width, w.shape[3])
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(out_dtype)
+
+
+def conv_transpose2x2(x, w, bias, *, out_dtype=None):
+    """NHWC 2x2 stride-2 transposed conv + bias: the non-bilinear ``Up``
+    upsampler, ``[B, H, W, Cin] -> [B, 2H, 2W, Cout]``.
+
+    Args:
+        x: [B, H, W, Cin], bfloat16 or float32.
+        w: [2, 2, Cin, Cout] (HWIO, Flax's ``ConvTranspose`` layout; the
+            taps land flipped: ``out[2h+dy, 2w+dx] = x[h, w] @
+            w[1-dy, 1-dx]``), cast to x's dtype.
+        bias: [Cout] float32, added in float32 before the one rounding.
+        out_dtype: output dtype (default x's; float32 also taken for a
+            bfloat16 x).
+    """
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        return conv_transpose2x2_plain(x, w, bias, out_dtype=out_dtype)
+    if (x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (2, 2)
+            or w.shape[2] != x.shape[3] or bias.shape != (w.shape[3],)):
+        raise ValueError(
+            f"conv_transpose2x2: want x [B,H,W,Cin], w [2,2,Cin,Cout] and "
+            f"bias [Cout]; got {tuple(x.shape)}, {tuple(w.shape)} and "
+            f"{tuple(bias.shape)}"
+        )
+    b, h, width, cin = x.shape
+    cout = w.shape[3]
+    w = w.to(x.dtype)
+    code = _check_cuda("conv_transpose2x2", x, w, out_dtype, bias=bias)
+    out = torch.empty((b, 2 * h, 2 * width, cout), dtype=out_dtype,
+                      device=x.device)
+    err = _kernel("conv_transpose2x2")(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h,
+        width, cin, cout, code,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("conv_transpose2x2", err)
+    conv_transpose2x2.launches += 1
+    return out
+
+
+conv_transpose2x2.launches = 0
 
 
 # -- the weight gradient of a 3x3 SAME conv ------------------------------------

@@ -9,6 +9,14 @@ margin, the mask coverage and the curvature profile, for one frame
 which can end in :func:`pack_analysis`: one [B, P] uint8 payload per
 dispatch). The frames' host-to-device copy is the only transfer in; the
 result stays on the device until the caller reads it.
+
+The coefficient lane (:func:`make_coef_frame_analyzer`,
+:func:`make_coef_batch_analyzer`) takes entropy-decoded JPEG coefficient
+planes instead of pixels and runs the pixel half of the decode on the
+device ahead of the same analyzer (:func:`decode_coef_batch`: the
+``ops/decode.dequant_idct`` kernel per plane, then libjpeg's exact
+integer fancy upsampling and color conversion as plain torch integer
+ops), so a frame's RGB never exists on the host.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from robotic_discovery_platform_tpu_torch.ops import geometry, pack
+from robotic_discovery_platform_tpu_torch.ops import decode, geometry, pack
+from robotic_discovery_platform_tpu_torch.serving.entropy import block_grids
 from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
     check_supported,
@@ -171,9 +180,7 @@ def _f32_on(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
-def stage_batch(frames_rgb: torch.Tensor, depths: torch.Tensor,
-                intrinsics: torch.Tensor, depth_scales: torch.Tensor,
-                device: torch.device):
+def stage_batch(*tensors: torch.Tensor, device: torch.device) -> tuple:
     """Host-to-device staging of one padded batch, off the analyzer's
     critical path: ``non_blocking`` copies on the current stream (the
     dispatcher's dispatch stream) from the dispatcher's pooled pinned host
@@ -181,10 +188,12 @@ def stage_batch(frames_rgb: torch.Tensor, depths: torch.Tensor,
     keeps the host buffers untouched until the stream has passed the
     copies. On a CPU ``device`` the tensors come back as they are.
 
-    Returns (frames u8 [B, H, W, 3], depths [B, H, W] as the z16 bit
-    pattern in int16, intrinsics [B, 3, 3] f32, depth scales [B] f32)."""
-    return tuple(t.to(device, non_blocking=True)
-                 for t in (frames_rgb, depths, intrinsics, depth_scales))
+    ``tensors`` are a batch analyzer's arguments: (frames u8 [B, H, W, 3],
+    depths [B, H, W] as the z16 bit pattern in int16, intrinsics [B, 3, 3]
+    f32, depth scales [B] f32), or for the coefficient lane the three
+    int16 coefficient planes and the two int32 quant tables ahead of the
+    same depths, intrinsics and scales."""
+    return tuple(t.to(device, non_blocking=True) for t in tensors)
 
 
 def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
@@ -305,3 +314,188 @@ def make_batch_analyzer(
 def _leading(a):
     """A frame with a leading batch axis of one (numpy or tensor)."""
     return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
+
+
+# -- the coefficient lane: the pixel half of the split JPEG decode ------------
+
+_YCC_SCALE = 16
+_YCC_HALF = 1 << (_YCC_SCALE - 1)
+
+
+def _ycc_fix(x: float) -> int:
+    return int(x * (1 << _YCC_SCALE) + 0.5)
+
+
+def _assemble_plane(samples: torch.Tensor, blocks_h: int,
+                    blocks_w: int) -> torch.Tensor:
+    """[B, blocks_h*blocks_w, 64] block samples -> [B, 8*bh, 8*bw]."""
+    b = samples.shape[0]
+    x = samples.reshape(b, blocks_h, blocks_w, 8, 8)
+    return x.permute(0, 1, 3, 2, 4).reshape(b, blocks_h * 8, blocks_w * 8)
+
+
+def _clamped(n: int, step: int, device) -> torch.Tensor:
+    """Indices ``i + step`` clamped to ``[0, n)``: the edge-replicated
+    neighbour of each of ``n`` samples."""
+    return torch.clamp(torch.arange(n, device=device) + step, 0, n - 1)
+
+
+def _upsample_h2v2(plane: torch.Tensor) -> torch.Tensor:
+    """libjpeg ``h2v2_fancy_upsample``, exact integer arithmetic.
+
+    [B, ch, cw] int32 -> [B, 2ch, 2cw]: vertical 3:1 column sums with
+    edge-clamped neighbours, then the 9/16-3/16-3/16-1/16 horizontal
+    triangle with libjpeg's alternating +8/+7 rounding biases."""
+    b, ih, iw = plane.shape
+    dev = plane.device
+    even = 3 * plane + plane[:, _clamped(ih, -1, dev)]
+    odd = 3 * plane + plane[:, _clamped(ih, 1, dev)]
+    colsum = torch.stack([even, odd], dim=2).reshape(b, 2 * ih, iw)
+    h_even = (3 * colsum + colsum[:, :, _clamped(iw, -1, dev)] + 8) >> 4
+    h_odd = (3 * colsum + colsum[:, :, _clamped(iw, 1, dev)] + 7) >> 4
+    return torch.stack([h_even, h_odd], dim=3).reshape(b, 2 * ih, 2 * iw)
+
+
+def _upsample_h2v1(plane: torch.Tensor) -> torch.Tensor:
+    """libjpeg ``h2v1_fancy_upsample``: horizontal-only triangle."""
+    b, ih, iw = plane.shape
+    dev = plane.device
+    h_even = (3 * plane + plane[:, :, _clamped(iw, -1, dev)] + 1) >> 2
+    h_odd = (3 * plane + plane[:, :, _clamped(iw, 1, dev)] + 2) >> 2
+    return torch.stack([h_even, h_odd], dim=3).reshape(b, ih, 2 * iw)
+
+
+def _ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor,
+                cr: torch.Tensor) -> torch.Tensor:
+    """libjpeg ``ycc_rgb_convert``: SCALEBITS=16 fixed point, exact.
+
+    int32 planes (0..255) -> uint8 [B, H, W, 3]; arithmetic right shifts
+    on int32 match the C tables bit for bit."""
+    cb = cb - 128
+    cr = cr - 128
+    r = y + ((_ycc_fix(1.40200) * cr + _YCC_HALF) >> _YCC_SCALE)
+    b = y + ((_ycc_fix(1.77200) * cb + _YCC_HALF) >> _YCC_SCALE)
+    g = y + ((-_ycc_fix(0.34414) * cb - _ycc_fix(0.71414) * cr + _YCC_HALF)
+             >> _YCC_SCALE)
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0, 255).to(torch.uint8)
+
+
+def decode_coef_batch(y, cb, cr, qy, qc, *, height: int, width: int,
+                      subsampling: str) -> torch.Tensor:
+    """The on-device half of the split JPEG decode, batched.
+
+    Args:
+        y/cb/cr: [B, N, 64] int16 quantized coefficient planes (natural
+            order, block raster: ``serving.entropy.CoefficientFrame``).
+        qy/qc: [B, 64] int32 quant tables (per frame).
+        height/width/subsampling: the frame geometry.
+
+    Returns uint8 RGB [B, height, width, 3], bitwise equal to what
+    libjpeg / ``cv2.imdecode`` produces from the same coefficients: one
+    :func:`ops.decode.dequant_idct` launch per plane, then plain torch
+    integer ops on the same device.
+    """
+    (ybh, ybw), (cbh, cbw) = block_grids(height, width, subsampling)
+    y_pix = _assemble_plane(decode.dequant_idct(y, qy), ybh, ybw)
+    cb_pix = _assemble_plane(decode.dequant_idct(cb, qc), cbh, cbw)
+    cr_pix = _assemble_plane(decode.dequant_idct(cr, qc), cbh, cbw)
+    # crop the chroma planes to their true downsampled size before
+    # upsampling: the block grid pads to whole MCUs, and the upsamplers'
+    # edge-clamped taps must replicate the real last row and column
+    # (libjpeg's edge rule), not read MCU padding
+    if subsampling == "420":
+        ch, cw = (height + 1) // 2, (width + 1) // 2
+        cb_pix = _upsample_h2v2(cb_pix[:, :ch, :cw])
+        cr_pix = _upsample_h2v2(cr_pix[:, :ch, :cw])
+    elif subsampling == "422":
+        ch, cw = height, (width + 1) // 2
+        cb_pix = _upsample_h2v1(cb_pix[:, :ch, :cw])
+        cr_pix = _upsample_h2v1(cr_pix[:, :ch, :cw])
+    return _ycc_to_rgb(y_pix[:, :height, :width], cb_pix[:, :height, :width],
+                       cr_pix[:, :height, :width])
+
+
+def coef_planes(frame):
+    """A :class:`serving.entropy.CoefficientFrame` -> its planes and tables
+    as host tensors with a leading batch of one (copies: the planes may be
+    read-only views of the wire bytes; the tables widened to int32)."""
+    planes = tuple(torch.from_numpy(np.array(a, np.int16))[None]
+                   for a in (frame.y, frame.cb, frame.cr))
+    tables = tuple(torch.from_numpy(np.asarray(a, np.int32))[None]
+                   for a in (frame.qy, frame.qc))
+    return planes + tables
+
+
+def make_coef_batch_analyzer(
+    forward: Callable[[torch.Tensor], torch.Tensor],
+    img_size: int = 256,
+    geom_cfg: GeometryConfig = GeometryConfig(),
+    threshold: float = 0.5,
+    device: str | torch.device = "cuda",
+    *,
+    height: int,
+    width: int,
+    subsampling: str = "420",
+    pack: bool = False,
+):
+    """Batched analyzer whose input is coefficient planes: the decode
+    (:func:`decode_coef_batch`) ahead of the batch analyzer's core, on the
+    device. The frame geometry is fixed per analyzer (the dispatcher
+    groups coefficient frames by geometry and subsampling).
+
+    Returns ``analyze(y, cb, cr, qy, qc, depths, intrinsics,
+    depth_scales)`` (the tensors :func:`stage_batch` stages): a
+    :class:`FrameAnalysis` with a leading B, or with ``pack=True`` the
+    ``[B, P]`` uint8 payload of :func:`pack_analysis`.
+    """
+    block_grids(height, width, subsampling)  # validates the geometry
+    core = _analyzer(forward, img_size, geom_cfg, threshold, device)
+    device = resolve_device(device)
+
+    def analyze(y, cb, cr, qy, qc, depths, intrinsics, depth_scales):
+        y, cb, cr, qy, qc = (t.to(device, non_blocking=True)
+                             for t in (y, cb, cr, qy, qc))
+        with torch.no_grad():
+            frames = decode_coef_batch(y, cb, cr, qy, qc, height=height,
+                                       width=width, subsampling=subsampling)
+        out = core(frames, depths, intrinsics, depth_scales)
+        if pack:
+            return pack_analysis(out, n_pts=geom_cfg.num_samples)
+        return out
+
+    return analyze
+
+
+def make_coef_frame_analyzer(
+    forward: Callable[[torch.Tensor], torch.Tensor],
+    img_size: int = 256,
+    geom_cfg: GeometryConfig = GeometryConfig(),
+    threshold: float = 0.5,
+    device: str | torch.device = "cuda",
+):
+    """Single-frame analyzer of the coefficient lane (the direct path).
+
+    Returns ``analyze(frame: CoefficientFrame, depth [H, W] u16,
+    intrinsics [3, 3], depth_scale) -> FrameAnalysis`` with unbatched
+    fields on ``device``: the frame's planes and tables go to the device,
+    are decoded there as a batch of one and analyzed as
+    :func:`make_frame_analyzer` analyzes pixels. The decoded RGB never
+    reaches the host. Any geometry and subsampling the frame carries."""
+    core = _analyzer(forward, img_size, geom_cfg, threshold, device)
+    device = resolve_device(device)
+
+    def analyze(frame, depth, intrinsics, depth_scale) -> FrameAnalysis:
+        y, cb, cr, qy, qc = (t.to(device, non_blocking=True)
+                             for t in coef_planes(frame))
+        with torch.no_grad():
+            rgb = decode_coef_batch(y, cb, cr, qy, qc, height=frame.height,
+                                    width=frame.width,
+                                    subsampling=frame.subsampling)
+        out = core(rgb, _leading(depth), _f32_on(intrinsics, device)[None],
+                   _f32_on(depth_scale, device)[None])
+        return FrameAnalysis(
+            mask=out.mask[0], mask_coverage=out.mask_coverage[0],
+            profile=geometry.CurvatureProfile(*(t[0] for t in out.profile)),
+            confidence_margin=out.confidence_margin[0])
+
+    return analyze

@@ -6,8 +6,11 @@ The port of the JAX package's ``ops/pallas/unet_infer.PallasUNet``: every
 scale/bias ahead of time (18 launches per forward: 2 in the encoder's
 input block, 8 in the four Down blocks, 8 in the four Up blocks), and the
 1x1 head is one :func:`ops.conv.conv1x1` launch emitting float32 logits.
-Max-pooling, the align-corners upsample and the skip concatenation stay
-plain torch, as they stayed XLA in the JAX package.
+The non-bilinear model (``ModelConfig(bilinear=False)``) adds one
+:func:`ops.conv.conv_transpose2x2` launch per decoder step (4 per
+forward). Max-pooling, the align-corners upsample, the nearest resize and
+the skip concatenation stay plain torch, as they stayed XLA in the JAX
+package.
 
 :meth:`FoldedUNet.forward_plain` runs the same sequence through the
 kernels' plain PyTorch versions: the reference the kernel forward is held
@@ -22,6 +25,7 @@ from robotic_discovery_platform_tpu_torch.models.unet import (
     UNet,
     compute_dtype,
     max_pool2x2,
+    resize_nearest,
     upsample_align_corners,
 )
 from robotic_discovery_platform_tpu_torch.ops.conv import (
@@ -29,6 +33,8 @@ from robotic_discovery_platform_tpu_torch.ops.conv import (
     conv1x1_plain,
     conv3x3_bn_relu,
     conv3x3_bn_relu_plain,
+    conv_transpose2x2,
+    conv_transpose2x2_plain,
     fold_batchnorm,
 )
 from robotic_discovery_platform_tpu_torch.utils.config import check_supported
@@ -48,7 +54,7 @@ class FoldedUNet:
         self.cfg = net.cfg
         self.device = resolve_device(device)
         self.dtype = compute_dtype(net.cfg.compute_dtype)
-        self._interp: dict = {}  # upsample matrices, per shape
+        self._interp: dict = {}  # upsample matrices and indices, per shape
         with torch.no_grad():
             self._layers = self._fold(net)
 
@@ -71,7 +77,13 @@ class FoldedUNet:
         layers = {"inc": double_conv(net.DoubleConv_0)}
         for i in range(4):
             layers[f"down{i}"] = double_conv(getattr(net, f"Down_{i}").DoubleConv_0)
-            layers[f"up{i}"] = double_conv(getattr(net, f"Up_{i}").DoubleConv_0)
+            up = getattr(net, f"Up_{i}")
+            layers[f"up{i}"] = double_conv(up.DoubleConv_0)
+            if not self.cfg.bilinear:
+                ct = up.ConvTranspose_0
+                layers[f"convt{i}"] = (
+                    ct.kernel.to(dev, dt).contiguous(),
+                    ct.bias.to(dev, torch.float32).contiguous())
         head = net.Conv_0
         layers["head"] = (
             head.kernel[0, 0].to(dev, dt).contiguous(),  # [Cin, Cout]
@@ -81,13 +93,14 @@ class FoldedUNet:
         return layers
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self._forward(x, conv3x3_bn_relu, conv1x1)
+        return self._forward(x, conv3x3_bn_relu, conv1x1, conv_transpose2x2)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The same forward through the kernels' plain PyTorch versions."""
-        return self._forward(x, conv3x3_bn_relu_plain, conv1x1_plain)
+        return self._forward(x, conv3x3_bn_relu_plain, conv1x1_plain,
+                             conv_transpose2x2_plain)
 
-    def _forward(self, x, conv3x3, conv1x1_head) -> torch.Tensor:
+    def _forward(self, x, conv3x3, conv1x1_head, convt) -> torch.Tensor:
         layers = self._layers
 
         def double_conv(y, taps):
@@ -102,8 +115,12 @@ class FoldedUNet:
         y = xs[4]
         for i in range(4):
             skip = xs[3 - i]
-            up = upsample_align_corners(y, skip.shape[1], skip.shape[2],
-                                        self._interp)
+            h, w = skip.shape[1], skip.shape[2]
+            if self.cfg.bilinear:
+                up = upsample_align_corners(y, h, w, self._interp)
+            else:
+                up = resize_nearest(convt(y, *layers[f"convt{i}"]), h, w,
+                                    self._interp)
             y = double_conv(torch.cat([skip, up.to(skip.dtype)], dim=-1),
                             layers[f"up{i}"])
         w, scale, bias = layers["head"]

@@ -33,13 +33,22 @@ dispatch fails only its own frames, a watchdog restarts a dead collector
 or completer after failing the frames either held, and :meth:`stop`
 leaves no submitter blocked.
 
+The coefficient lane (:meth:`BatchDispatcher.submit_coef`): a frame whose
+color half is an entropy-decoded :class:`~serving.entropy.CoefficientFrame`
+groups only with coefficient frames of the same geometry and subsampling,
+stages its quantized planes and quant tables in pooled pinned buffers
+(:class:`_CoefBucketBuffers`), and runs the analyzer that the
+``coef_analyzer_factory`` builds for that geometry
+(``ops/pipeline.make_coef_batch_analyzer(pack=True)``: the decode on the
+device ahead of the analyzer), with the same admission, deadlines and one
+packed device-to-host copy per dispatch.
+
 On ``device="cpu"`` (the tests) there is no stream and no event: the
 analyzer runs in the collector thread, and the completer copies its
 result into the landing buffer.
 
 Not ported (each raises ``NotImplementedError``; ROADMAP queue 1 item 16):
-the multi-device ``DeviceRouter``, the zoo's ``bind_model`` and placer,
-and the coefficient lane's ``submit_coef`` (queue 1 item 10).
+the multi-device ``DeviceRouter``, the zoo's ``bind_model`` and placer.
 """
 
 from __future__ import annotations
@@ -62,6 +71,10 @@ from robotic_discovery_platform_tpu_torch.serving.admission import (
     ServiceTimeEstimator,
 )
 from robotic_discovery_platform_tpu_torch.serving.egress import PackedResult
+from robotic_discovery_platform_tpu_torch.serving.entropy import (
+    CoefficientFrame,
+    block_grids,
+)
 from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -75,7 +88,9 @@ class DeadlineExceeded(TimeoutError):
 
 @dataclass(eq=False)
 class _Pending:
-    frame_rgb: np.ndarray  # [H, W, 3] uint8
+    # [H, W, 3] uint8 pixels, or the coefficient half of a split decode
+    # (the coefficient lane: the device decodes)
+    frame_rgb: np.ndarray | CoefficientFrame
     depth: np.ndarray  # [H, W] uint16 (z16)
     intrinsics: np.ndarray  # [3, 3] float32
     depth_scale: float
@@ -100,7 +115,8 @@ class _BucketBuffers:
 
     __slots__ = ("key", "frames", "depths", "intr", "scales", "_np")
 
-    def __init__(self, key: tuple, b: int, h: int, w: int, pin: bool):
+    def __init__(self, key: tuple, template: _Pending, b: int, pin: bool):
+        h, w = template.frame_rgb.shape[:2]
         self.key = key
         self.frames = torch.empty((b, h, w, 3), dtype=torch.uint8,
                                   pin_memory=pin)
@@ -109,8 +125,12 @@ class _BucketBuffers:
         self.intr = torch.empty((b, 3, 3), dtype=torch.float32,
                                 pin_memory=pin)
         self.scales = torch.empty((b,), dtype=torch.float32, pin_memory=pin)
-        self._np = tuple(t.numpy() for t in (self.frames, self.depths,
-                                             self.intr, self.scales))
+        self._np = tuple(t.numpy() for t in self.tensors)
+
+    @property
+    def tensors(self) -> tuple:
+        """The host tensors, in the analyzer's argument order."""
+        return self.frames, self.depths, self.intr, self.scales
 
     def fill(self, i: int, p: _Pending) -> None:
         """Write frame ``p`` into row ``i`` (the one host copy a frame
@@ -126,6 +146,52 @@ class _BucketBuffers:
         if n < self._np[0].shape[0]:
             for a in self._np:
                 a[n:] = a[0]
+
+
+class _CoefBucketBuffers(_BucketBuffers):
+    """The coefficient lane's pooled host staging for a (bucket, geometry,
+    subsampling) key: the three quantized int16 coefficient planes, the
+    per-frame quant tables widened to int32 (the device never computes
+    in uint16), then depth, intrinsics and depth scale as for pixels.
+    Pinned on a CUDA device; the pixels first exist on the device."""
+
+    __slots__ = ("y", "cb", "cr", "qy", "qc")
+
+    def __init__(self, key: tuple, template: _Pending, b: int, pin: bool):
+        cf = template.frame_rgb
+        (ybh, ybw), (cbh, cbw) = block_grids(cf.height, cf.width,
+                                             cf.subsampling)
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=pin)
+
+        self.key = key
+        self.y = empty((b, ybh * ybw, 64), torch.int16)
+        self.cb = empty((b, cbh * cbw, 64), torch.int16)
+        self.cr = empty((b, cbh * cbw, 64), torch.int16)
+        self.qy = empty((b, 64), torch.int32)
+        self.qc = empty((b, 64), torch.int32)
+        self.depths = empty((b, cf.height, cf.width), torch.int16)
+        self.intr = empty((b, 3, 3), torch.float32)
+        self.scales = empty((b,), torch.float32)
+        self._np = tuple(t.numpy() for t in self.tensors)
+
+    @property
+    def tensors(self) -> tuple:
+        return (self.y, self.cb, self.cr, self.qy, self.qc, self.depths,
+                self.intr, self.scales)
+
+    def fill(self, i: int, p: _Pending) -> None:
+        cf = p.frame_rgb
+        y, cb, cr, qy, qc, depths, intr, scales = self._np
+        y[i] = cf.y
+        cb[i] = cf.cb
+        cr[i] = cf.cr
+        qy[i] = cf.qy
+        qc[i] = cf.qc
+        depths[i] = np.asarray(p.depth, np.uint16).view(np.int16)
+        intr[i] = p.intrinsics
+        scales[i] = p.depth_scale
 
 
 class _EgressStaging:
@@ -181,8 +247,13 @@ def _bucket(n: int, max_batch: int) -> int:
 
 
 def _group_key(p: _Pending) -> tuple:
-    """Frames batch only with co-arrivals of the same camera geometry."""
-    return tuple(p.frame_rgb.shape[:2])
+    """Frames batch only with co-arrivals of the same camera geometry, and
+    coefficient frames only with coefficient frames of the same
+    subsampling."""
+    f = p.frame_rgb
+    if isinstance(f, CoefficientFrame):
+        return ("coef", f.subsampling, f.height, f.width)
+    return tuple(f.shape[:2])
 
 
 class BatchDispatcher:
@@ -207,6 +278,12 @@ class BatchDispatcher:
         max_inflight: dispatches launched but not completed at once.
         admission: "deadline" or "fifo" (``serving/admission.py``).
         device: where the analyzer runs ("cuda" by default).
+        coef_analyzer_factory: ``(height, width, subsampling) ->
+            analyze(y, cb, cr, qy, qc, depths, intrinsics, scales) -> [B,
+            P] uint8`` for coefficient-lane frames
+            (``ops/pipeline.make_coef_batch_analyzer(pack=True)``), built
+            on a geometry's first coefficient dispatch and kept; None
+            fails coefficient frames.
     """
 
     def __init__(self, analyze_batch: Callable, window_ms: float = 2.0,
@@ -215,7 +292,8 @@ class BatchDispatcher:
                  watchdog_interval_s: float = 1.0, max_inflight: int = 2,
                  admission: str = "deadline",
                  device: str | torch.device = "cuda",
-                 router=None, placer=None):
+                 router=None, placer=None,
+                 coef_analyzer_factory: Callable | None = None):
         if router is not None:
             raise NotImplementedError(
                 "DeviceRouter (multi-device dispatch) is ROADMAP queue 1 "
@@ -230,6 +308,10 @@ class BatchDispatcher:
         self._stream = (torch.cuda.Stream(device=self.device) if self._cuda
                         else None)
         self._analyze = analyze_batch
+        self._coef_factory = coef_analyzer_factory
+        # (height, width, subsampling) -> the coefficient lane's analyzer
+        self._coef_analyzers: dict[tuple, Callable] = {}  # guarded_by: _coef_lock
+        self._coef_lock = threading.Lock()
         self._window_s = window_ms / 1e3
         self._max_batch = max(1, int(max_batch))
         self._submit_timeout_s = submit_timeout_s
@@ -298,6 +380,31 @@ class BatchDispatcher:
         if frame_rgb.shape[:2] != depth.shape or frame_rgb.shape[2:] != (3,):
             raise ValueError(
                 f"frame {frame_rgb.shape} and depth {depth.shape} disagree")
+        return self._submit_frame(frame_rgb, depth, intrinsics, depth_scale,
+                                  timeout_s)
+
+    def submit_coef(self, frame: CoefficientFrame, depth, intrinsics,
+                    depth_scale, timeout_s: float | None = None
+                    ) -> PackedResult:
+        """:meth:`submit` for the coefficient lane: the color half is an
+        entropy-decoded :class:`~serving.entropy.CoefficientFrame` whose
+        pixels are decoded on the device ahead of the analyzer. Admission,
+        deadlines and the result are :meth:`submit`'s; frames group by
+        geometry and subsampling and never mix with pixel frames."""
+        if not isinstance(frame, CoefficientFrame):
+            raise TypeError(
+                f"submit_coef wants a CoefficientFrame, got "
+                f"{type(frame).__name__}; pixel arrays ride submit()")
+        depth = np.asarray(depth)
+        if depth.shape != (frame.height, frame.width):
+            raise ValueError(
+                f"depth shape {depth.shape} != frame geometry "
+                f"({frame.height}, {frame.width})")
+        return self._submit_frame(frame, depth, intrinsics, depth_scale,
+                                  timeout_s)
+
+    def _submit_frame(self, frame_rgb, depth, intrinsics, depth_scale,
+                      timeout_s: float | None) -> PackedResult:
         timeout = self._submit_timeout_s
         if timeout_s is not None:
             timeout = min(timeout, timeout_s)
@@ -329,10 +436,6 @@ class BatchDispatcher:
         if p.error is not None:
             raise p.error
         return p.result
-
-    def submit_coef(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the coefficient lane (submit_coef) is ROADMAP queue 1 item 10")
 
     def bind_model(self, *args, **kwargs):
         raise NotImplementedError(
@@ -511,13 +614,17 @@ class BatchDispatcher:
             for group in groups.values():
                 self._launch_group(group)
 
-    def _pool_take(self, b: int, h: int, w: int) -> _BucketBuffers:
-        key = (b, h, w)
+    def _pool_take(self, b: int, template: _Pending) -> _BucketBuffers:
+        """A pooled staging set for ``b`` frames like ``template``."""
+        key = (b, *_group_key(template))
         with self._pool_lock:
             free = self._pool.get(key)
             if free:
                 return free.pop()
-        return _BucketBuffers(key, b, h, w, pin=self._cuda)
+        cls = (_CoefBucketBuffers
+               if isinstance(template.frame_rgb, CoefficientFrame)
+               else _BucketBuffers)
+        return cls(key, template, b, pin=self._cuda)
 
     def _pool_put(self, bufs: _BucketBuffers | None) -> None:
         if bufs is None:
@@ -546,24 +653,42 @@ class BatchDispatcher:
     def _stage_group(self, group: list[_Pending], b: int) -> _BucketBuffers:
         """The group's rows in a pooled staging set, padded to ``b`` rows
         with replicas of the first frame."""
-        h, w = group[0].frame_rgb.shape[:2]
-        bufs = self._pool_take(b, h, w)
+        bufs = self._pool_take(b, group[0])
         for i, p in enumerate(group):
             bufs.fill(i, p)
         bufs.pad(len(group))
         return bufs
 
-    def _enqueue(self, bufs: _BucketBuffers):
-        """Stage, analyze and start the D2H copy of one batch; returns
-        (out, host, event). Never waits on the device."""
+    def _coef_analyze_for(self, frame: CoefficientFrame) -> Callable:
+        """The coefficient lane's analyzer for ``frame``'s geometry and
+        subsampling, built through ``coef_analyzer_factory`` on first use
+        and kept."""
+        key = (frame.height, frame.width, frame.subsampling)
+        with self._coef_lock:
+            analyze = self._coef_analyzers.get(key)
+        if analyze is not None:
+            return analyze
+        if self._coef_factory is None:
+            raise ValueError(
+                "coefficient-lane frame dispatched but no "
+                "coef_analyzer_factory is bound (the servicer binds "
+                "ops/pipeline.make_coef_batch_analyzer)")
+        analyze = self._coef_factory(*key)
+        with self._coef_lock:
+            return self._coef_analyzers.setdefault(key, analyze)
+
+    def _enqueue(self, bufs: _BucketBuffers, template: _Pending):
+        """Stage, analyze and start the D2H copy of one batch of frames
+        like ``template``; returns (out, host, event). Never waits on the
+        device."""
+        analyze = (self._coef_analyze_for(template.frame_rgb)
+                   if isinstance(bufs, _CoefBucketBuffers) else self._analyze)
         if not self._cuda:
-            return self._analyze(bufs.frames, bufs.depths, bufs.intr,
-                                 bufs.scales), None, None
+            return analyze(*bufs.tensors), None, None
         with torch.cuda.stream(self._stream):
-            staged = pipeline_lib.stage_batch(bufs.frames, bufs.depths,
-                                              bufs.intr, bufs.scales,
-                                              self.device)
-            out = self._analyze(*staged)
+            staged = pipeline_lib.stage_batch(*bufs.tensors,
+                                              device=self.device)
+            out = analyze(*staged)
             host = self._egress_take(tuple(out.shape))
             host.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
@@ -573,13 +698,22 @@ class BatchDispatcher:
     def warm(self, frames, depths, intrinsics, scales) -> None:
         """Run the analyzer once at this batch shape and wait for it, so
         the first live dispatch of the bucket pays no first-use costs."""
-        b, h, w = np.shape(depths)
-        bufs = self._pool_take(b, h, w)
+        self._warm([_Pending(f, d, _intrinsics_f32(k), float(s))
+                    for f, d, k, s in zip(frames, depths, intrinsics,
+                                          scales)])
+
+    def warm_coef(self, frame: CoefficientFrame, depths, intrinsics,
+                  scales) -> None:
+        """:meth:`warm` for the coefficient lane: ``frame`` replicated over
+        the batch of ``len(depths)`` rows, through the analyzer that live
+        coefficient dispatches of its geometry use."""
+        self._warm([_Pending(frame, d, _intrinsics_f32(k), float(s))
+                    for d, k, s in zip(depths, intrinsics, scales)])
+
+    def _warm(self, group: list[_Pending]) -> None:
+        bufs = self._stage_group(group, len(group))
         try:
-            for a, src in zip(bufs._np, (frames, np.asarray(depths, np.uint16)
-                                         .view(np.int16), intrinsics, scales)):
-                a[...] = src
-            out, host, event = self._enqueue(bufs)
+            out, host, event = self._enqueue(bufs, group[0])
             if event is not None:
                 event.synchronize()
                 self._egress_put(host)
@@ -619,7 +753,7 @@ class BatchDispatcher:
             b = self.bucket_for(n)
             t0 = time.monotonic()
             bufs = self._stage_group(group, b)
-            out, host, event = self._enqueue(bufs)
+            out, host, event = self._enqueue(bufs, group[0])
             t1 = time.monotonic()
             with self._inflight_lock:
                 self._inflight += 1

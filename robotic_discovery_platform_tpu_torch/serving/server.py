@@ -12,9 +12,14 @@ at 0 (the default) each frame runs the single-frame analyzer
 (:func:`ops.pipeline.make_frame_analyzer` around the folded U-Net) in its
 handler thread; above 0, frames of concurrent streams meet in the batch
 dispatcher (``serving/batching.py``) and come back as packed rows
-(:class:`serving.egress.PackedResult`). A dispatcher at its backlog cap
-ends the stream with :class:`serving.admission.OverloadedError` (the gRPC
-adapter answers RESOURCE_EXHAUSTED).
+(:class:`serving.egress.PackedResult`). Coefficient frames (``Image.format
+= 2``, or baseline JPEGs under ``ServerConfig.onchip_decode``) take the
+coefficient lane on either path: the single-frame coefficient analyzer
+(``ops/pipeline.make_coef_frame_analyzer``) or the dispatcher's
+``submit_coef``; their pixels are decoded on the device. A dispatcher at
+its backlog cap ends the stream with
+:class:`serving.admission.OverloadedError` (the gRPC adapter answers
+RESOURCE_EXHAUSTED).
 
 The core, :meth:`VisionAnalysisService.analyze_stream`, maps an iterator
 of :class:`serving.messages.AnalysisRequest` to an iterator of
@@ -41,7 +46,11 @@ from robotic_discovery_platform_tpu_torch import tracking
 from robotic_discovery_platform_tpu_torch.io.frames import load_calibration
 from robotic_discovery_platform_tpu_torch.ops import pipeline
 from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
-from robotic_discovery_platform_tpu_torch.serving import egress, ingest
+from robotic_discovery_platform_tpu_torch.serving import (
+    egress,
+    entropy,
+    ingest,
+)
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     OverloadedError,
 )
@@ -137,16 +146,30 @@ class VisionAnalysisService:
         self.intrinsics = intrinsics
         self.depth_scale = (cfg.default_depth_scale if depth_scale is None
                             else float(depth_scale))
+        self.onchip = ingest.resolve_onchip_decode(cfg.onchip_decode)
         self.analyze = pipeline.make_frame_analyzer(
+            forward, img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
+            device=self.device,
+        )
+        self.analyze_coef = pipeline.make_coef_frame_analyzer(
             forward, img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
             device=self.device,
         )
         self.dispatcher = None
         if cfg.batch_window_ms > 0:
+
+            def coef_factory(height: int, width: int, subsampling: str):
+                return pipeline.make_coef_batch_analyzer(
+                    forward, img_size=cfg.model_img_size,
+                    geom_cfg=self.geom_cfg, device=self.device,
+                    height=height, width=width, subsampling=subsampling,
+                    pack=True)
+
             self.dispatcher = BatchDispatcher(
                 pipeline.make_batch_analyzer(
                     forward, img_size=cfg.model_img_size,
                     geom_cfg=self.geom_cfg, device=self.device, pack=True),
+                coef_analyzer_factory=coef_factory,
                 window_ms=cfg.batch_window_ms, max_batch=cfg.max_batch,
                 max_backlog=cfg.max_backlog,
                 submit_timeout_s=cfg.submit_deadline_s,
@@ -179,10 +202,13 @@ class VisionAnalysisService:
             )
         return staged
 
-    def analyze_frame(self, rgb: np.ndarray, depth: np.ndarray,
+    def analyze_frame(self, rgb, depth: np.ndarray,
                       mask_format: int = 0) -> FrameResult:
         """One decoded frame -> its response fields (the device result is
-        read back here, once)."""
+        read back here, once). ``rgb`` is [H, W, 3] uint8 pixels or a
+        :class:`~serving.entropy.CoefficientFrame` (the coefficient
+        lane)."""
+        coef = isinstance(rgb, entropy.CoefficientFrame)
         h, w = rgb.shape[:2]
         if depth.shape != (h, w):
             raise ValueError(
@@ -192,7 +218,8 @@ class VisionAnalysisService:
         if self.dispatcher is not None:
             return self._analyze_batched(rgb, depth, mask_format)
         k, scale = self._staged_geometry(w, h)
-        out = self.analyze(rgb, depth, k, scale)
+        analyze = self.analyze_coef if coef else self.analyze
+        out = analyze(rgb, depth, k, scale)
         prof = out.profile
         scalars = torch.stack([
             out.mask_coverage, prof.mean_curvature, prof.max_curvature,
@@ -214,13 +241,16 @@ class VisionAnalysisService:
                            egress.encode_mask(mask, mask_format), coverage,
                            valid, spline_wire)
 
-    def _analyze_batched(self, rgb: np.ndarray, depth: np.ndarray,
+    def _analyze_batched(self, rgb, depth: np.ndarray,
                          mask_format: int) -> FrameResult:
-        """One frame through the batch dispatcher: the response fields off
-        its packed row (the direct path's values, bit for bit)."""
+        """One frame (pixels, or a CoefficientFrame for ``submit_coef``)
+        through the batch dispatcher: the response fields off its packed
+        row (the direct path's values, bit for bit)."""
         h, w = rgb.shape[:2]
-        packed = self.dispatcher.submit(rgb, depth, self._camera(w, h),
-                                        self.depth_scale)
+        submit = (self.dispatcher.submit_coef
+                  if isinstance(rgb, entropy.CoefficientFrame)
+                  else self.dispatcher.submit)
+        packed = submit(rgb, depth, self._camera(w, h), self.depth_scale)
         try:
             coverage, mean_k, max_k, valid, _ = packed.scalars()
             if mask_format == egress.MASK_FORMAT_BITS:
@@ -253,7 +283,7 @@ class VisionAnalysisService:
     def _respond(self, request) -> AnalysisResponse:
         t0 = time.perf_counter()
         try:
-            rgb, depth = ingest.decode_request(request)
+            rgb, depth = ingest.decode_request(request, onchip=self.onchip)
             res = self.analyze_frame(rgb, depth, request.mask_format)
             response = AnalysisResponse(
                 mean_curvature=res.mean_k,
@@ -275,26 +305,55 @@ class VisionAnalysisService:
         response.proc_time_ms = (time.perf_counter() - t0) * 1e3
         return response
 
+    def _buckets(self) -> list[int]:
+        """Every padded batch size a dispatch can take."""
+        return sorted({self.dispatcher.bucket_for(n)
+                       for n in range(1, self.cfg.max_batch + 1)})
+
     def warmup(self, width: int, height: int) -> None:
         """Run blank frames of the camera's size through the analyzer the
         served frames will take -- with batching, every bucket up to
         ``max_batch`` -- so the first served frame pays no kernel build or
-        first-launch cost."""
+        first-launch cost. With on-chip decode on, the coefficient lane
+        too (:meth:`warmup_coef`)."""
         if self.dispatcher is None:
             self.analyze_frame(np.zeros((height, width, 3), np.uint8),
                                np.zeros((height, width), np.uint16))
         else:
             k = self._camera(width, height)
-            for b in sorted({self.dispatcher.bucket_for(n)
-                             for n in range(1, self.cfg.max_batch + 1)}):
+            for b in self._buckets():
                 self.dispatcher.warm(
                     np.zeros((b, height, width, 3), np.uint8),
                     np.zeros((b, height, width), np.uint16),
                     np.repeat(k[None], b, axis=0),
                     np.full((b,), self.depth_scale, np.float32))
+        if self.onchip:
+            self.warmup_coef(width, height)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         log.info("warmed up %dx%d analyzer on %s", width, height, self.device)
+
+    def warmup_coef(self, width: int, height: int,
+                    subsampling: str = "420") -> None:
+        """Warm the coefficient lane for a camera geometry: a blank (mid-
+        gray, standard tables) coefficient frame through the direct
+        coefficient analyzer, or with batching through every bucket
+        (``BatchDispatcher.warm_coef``). :meth:`warmup` calls it when
+        on-chip decode is on; a server whose clients send ``format = 2``
+        calls it before load arrives."""
+        frame = ingest.blank_coefficient_frame(height, width, subsampling)
+        depth = np.zeros((height, width), np.uint16)
+        if self.dispatcher is None:
+            self.analyze_frame(frame, depth)
+        else:
+            k = self._camera(width, height)
+            for b in self._buckets():
+                self.dispatcher.warm_coef(
+                    frame, np.zeros((b, height, width), np.uint16),
+                    np.repeat(k[None], b, axis=0),
+                    np.full((b,), self.depth_scale, np.float32))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def close(self) -> None:
         """Stop the dispatcher (its pending frames drain or fail) and

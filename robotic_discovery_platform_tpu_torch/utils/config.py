@@ -12,7 +12,7 @@ Settings the port does not implement yet raise ``NotImplementedError`` in
   ``serving_mesh > 1`` (the multi-device router), ``egress_pack=False``,
   ``egress_workers > 0`` (the encode pool) and the JAX package's
   ``RDP_*`` environment overrides of those settings;
-- ``ModelConfig.bilinear=False`` and ``norm`` other than ``"batch"``;
+- ``ModelConfig.norm`` other than ``"batch"``;
 - ``TrainConfig.epoch_mode="scan"`` (the whole-epoch ``lax.scan``; its
   card analogue is a CUDA graph) and any non-default ``MeshConfig`` (the
   mesh trainer).
@@ -49,7 +49,8 @@ _BATCH_ENV_OVERRIDES = ("RDP_INFLIGHT", "RDP_SERVING_CHIPS",
 @dataclass(frozen=True)
 class ModelConfig:
     """U-Net architecture: channel ladder base_features x (1, 2, 4, 8,
-    16 // factor), factor 2 when ``bilinear`` (the deployed default)."""
+    16 // factor), factor 2 when ``bilinear`` (the deployed default), 1
+    for the transposed-conv decoder."""
 
     in_channels: int = 3
     num_classes: int = 1
@@ -159,6 +160,11 @@ class ServerConfig:
     admission_policy: str = "deadline"
     geometry_stride: int = 1
     precision: str = "f32"
+    # on-chip split JPEG decode: baseline-JPEG color payloads are
+    # entropy-decoded on the host (serving/entropy.py) and ride the
+    # coefficient lane; the RDP_ONCHIP_DECODE environment variable
+    # overrides it (serving/ingest.resolve_onchip_decode)
+    onchip_decode: bool = False
 
 
 @dataclass(frozen=True)
@@ -234,11 +240,6 @@ def check_supported(cfg: Any) -> None:
             raise ValueError(
                 f"unknown conv_impl {cfg.conv_impl!r} (choose from "
                 f"{CONV_IMPLS})"
-            )
-        if not cfg.bilinear:
-            raise NotImplementedError(
-                "ModelConfig.bilinear=False needs the conv_transpose2x2 "
-                "kernel, ROADMAP queue 2 item 8"
             )
         if cfg.norm != "batch":
             raise NotImplementedError(

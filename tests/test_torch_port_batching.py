@@ -417,7 +417,8 @@ def test_stop_with_frames_pending_leaves_no_submitter_blocked():
 def test_left_out_parts_raise():
     d = BatchDispatcher(_Analyzer(), device="cpu", watchdog_interval_s=0.0)
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
+        # the coefficient lane is ported: a non-CoefficientFrame is refused
+        with pytest.raises(TypeError, match="CoefficientFrame"):
             d.submit_coef(None, _DEPTH, _K, 0.001)
         with pytest.raises(NotImplementedError, match="item 16"):
             d.bind_model("aux", None)

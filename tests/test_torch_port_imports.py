@@ -51,6 +51,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.ops.build\n"
         "import robotic_discovery_platform_tpu_torch.ops.geometry_kernels\n"
         "import robotic_discovery_platform_tpu_torch.ops.pack\n"
+        "import robotic_discovery_platform_tpu_torch.ops.decode\n"
         "import robotic_discovery_platform_tpu_torch.serving.batching\n"
         "import robotic_discovery_platform_tpu_torch.serving.admission\n"
         "import robotic_discovery_platform_tpu_torch.training.trainer\n"
@@ -65,7 +66,8 @@ def test_port_and_chip_smoke_import_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("serving.server", "serving.batching", "ops.pack",
                    "ops.geometry_kernels", "training.trainer",
-                   "training.checkpoint", "tracking.store", "models.losses"):
+                   "training.checkpoint", "tracking.store", "models.losses",
+                   "ops.decode", "serving.entropy"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -229,11 +231,17 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         config.check_supported(config.MeshConfig())
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):
             config.check_supported(config.MeshConfig(data=2))
-    elif case in ("bilinear_false", "norm_group"):
-        cfg = (config.ModelConfig(bilinear=False) if case == "bilinear_false"
-               else config.ModelConfig(norm="group"))
+    elif case == "bilinear_false":
+        # the transposed-conv decoder builds: a ConvTranspose_0 in each Up,
+        # the ladder ending at 16x the base width
+        config.check_supported(config.ModelConfig(bilinear=False))
+        net = tunet.UNet(config.ModelConfig(bilinear=False, base_features=4))
+        assert tuple(net.Up_0.ConvTranspose_0.kernel.shape) == (2, 2, 64, 32)
+        assert tuple(net.Down_3.DoubleConv_0.Conv_1.kernel.shape) == (
+            3, 3, 64, 64)
+    elif case == "norm_group":
         with pytest.raises(NotImplementedError):
-            tunet.UNet(cfg)
+            tunet.UNet(config.ModelConfig(norm="group"))
     else:
         (tmp_path / "c.json").write_text(json.dumps(
             {"model": {"base_features": 16}}))

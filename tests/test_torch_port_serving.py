@@ -317,8 +317,9 @@ def test_bad_frames_answer_errors_and_the_stream_lives_on(case, tmp_path):
         bad.color_image.data = bad.color_image.data[:-3]
         want = "ERROR: ValueError: raw color payload"
     elif case == "coef_lane":
+        # raw pixels labelled as a coefficient payload: malformed
         bad.color_image.format = ingest.FORMAT_COEF
-        want = "ERROR: NotImplementedError: Image.format = 2"
+        want = "ERROR: ValueError: coefficient payload: bad magic"
     elif case == "bad_jpeg":
         bad.color_image = messages.Image(b"not a jpeg", W, H, 0)
         want = "ERROR: ValueError: failed to decode color payload"
