@@ -17,8 +17,12 @@ mismatch raises and the script exits non-zero:
 2. every kernel against its plain PyTorch version on the card, at each
    shape the main path gives it (plus ragged and float32 cases, and the
    conv at the batched path's B = 8), with its time, the plain version's,
-   one cuDNN call's where one computes the same function, and the bound:
-   the two convs, then the geometry kernels (deprojection bitwise at
+   one cuDNN call's where one computes the same function, and the bound
+   (the convs' lines also give TFLOP/s and the share of the bound): the
+   two convs (each called twice on the same operands, equal bit for bit;
+   at B = 8, for the four BATCH_3X3 shapes and every shape whose K is
+   split, each frame of the stack equal bit for bit to the frame alone),
+   then the geometry kernels (deprojection bitwise at
    480x640 stride 1 and 240x320 stride 2, the design contractions of 6400
    edge-point slots, the curvature at 100 samples) and the mask bitpack
    (bitwise, [8, 480, 640]); the transposed conv at the non-bilinear
@@ -41,7 +45,8 @@ mismatch raises and the script exits non-zero:
    ``TrainConfig`` batch 4 at 256x256, lr 1e-4, loss "bce"): the weight
    gradient kernel against its plain version and the training conv's
    forward and dx (the conv kernel, unit epilogue) against theirs at the
-   18 training shapes at B = 4, with their times, bounds and cuDNN's;
+   18 training shapes at B = 4, each called twice (equal bit for bit),
+   with their times, bounds and cuDNN's;
    one step's gradients on the kernels against plain torch convs; exact
    launches per train step (18 + 17 conv3x3_bn_relu, 18
    conv3x3_grad_weights; none per eval step); ``train_model`` on 20
@@ -303,6 +308,21 @@ def kernel_phase(torch, conv) -> dict:
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
               f"conv3x3_bn_relu {(b, h, w, cin, cout)} {dtype}: max |err| "
               f"{err} over tolerance {tol}")
+        check(torch.equal(conv.conv3x3_bn_relu(x, wt, scale, bias), got),
+              f"conv3x3_bn_relu {(b, h, w, cin, cout)} {dtype}: two calls "
+              "on the same operands differ")
+        splits = (conv.fwd_plan(b, h, w, cin, cout)[0]
+                  if dtype == torch.bfloat16 else 1)
+        if dtype == torch.bfloat16 and (b == MAX_BATCH or splits > 1):
+            # a frame's bits alone and inside the batched path's stack
+            x8 = x if b == MAX_BATCH else operands(
+                MAX_BATCH, h, w, cin, cout, dtype, 9)[0]
+            check(batch_invariant(torch, conv, x8, wt, scale, bias),
+                  f"conv3x3_bn_relu {(h, w, cin, cout)}: a frame of a B = "
+                  f"{MAX_BATCH} stack differs from the frame alone")
+            log(f"conv3x3_bn_relu [{MAX_BATCH},{h},{w},{cin}]->{cout}: "
+                f"every frame equal bit for bit to the frame alone "
+                f"({splits} K splits)")
         xc = x.permute(0, 3, 1, 2)
         wc = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -320,13 +340,30 @@ def kernel_phase(torch, conv) -> dict:
         flops = 2.0 * b * h * w * 9 * cin * cout
         t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
         t["max_abs_err"] = err
+        device = ""
+        if main:
+            # at B = 1 a launch costs the host about as much as the card:
+            # the profiler's device time beside the back-to-back time
+            t["device_ms"] = device_ms(torch, lambda: conv.conv3x3_bn_relu(
+                x, wt, scale, bias))
+            t["library_device_ms"] = device_ms(torch, lambda: torch.clamp_min(
+                F.conv2d(xc, wc, padding=1).float() * sc + bc, 0).to(dtype))
+            device = (f"; device ms {t['device_ms']:.4f} cudnn "
+                      f"{t['library_device_ms']:.4f} (profiler), "
+                      f"{flops / t['device_ms'] / 1e9:.1f} TFLOP/s, "
+                      f"{t['bound_ms'] / t['device_ms']:.1%} of the bound")
         log(f"conv3x3_bn_relu [{b},{h},{w},{cin}]->{cout} {str(dtype)[6:]}: "
-            f"max|err| {err:.3g} (tol {tol}) ms {t['ms']:.4f} plain "
-            f"{t['plain_ms']:.4f} cudnn {t['library_ms']:.4f} bound "
-            f"{t['bound_ms']:.4f} ({t['bound_by']}) "
-            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+            f"max|err| {err:.3g} (tol {tol}), deterministic; ms "
+            f"{t['ms']:.4f} plain {t['plain_ms']:.4f} cudnn "
+            f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}); {rate_text(flops, t)}; {splits} K "
+            f"splits{device}")
         if main:
             results[("conv3x3_bn_relu", h, cin, cout)] = t
+    rows = [results[("conv3x3_bn_relu", *s)] for s in MAIN_PATH_3X3]
+    log("conv3x3_bn_relu, the 18 launches of one frame at B = 1: " + ", ".join(
+        f"{f} {sum(r[f] for r in rows):.4f}" for f in (
+            "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")))
 
     for b, h, w, cin, cout, dtype, odt, main in [
         (1, 256, 256, 64, 1, torch.bfloat16, torch.float32, True),
@@ -367,6 +404,20 @@ def kernel_phase(torch, conv) -> dict:
         if main:
             results[("conv1x1", h, cin, cout)] = t
     return results
+
+
+def batch_invariant(torch, conv, x8, wt, scale, bias) -> bool:
+    """conv3x3_bn_relu on a stack of frames equals, frame by frame and bit
+    for bit, the call on each frame alone."""
+    stack = conv.conv3x3_bn_relu(x8, wt, scale, bias)
+    return all(torch.equal(stack[i:i + 1], conv.conv3x3_bn_relu(
+        x8[i:i + 1], wt, scale, bias)) for i in range(x8.shape[0]))
+
+
+def rate_text(flops: float, t: dict) -> str:
+    """A conv's rate and its share of the bf16 tensor-core bound."""
+    return (f"{flops / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['bound_ms'] / t['ms']:.1%} of the bound")
 
 
 def timings(torch, kernel, plain) -> dict:
@@ -1294,6 +1345,15 @@ def train_conv_shapes(torch, conv, shapes, gen) -> dict:
               f" relative L2 {err} > {DW_REL_L2}")
         check(torch.equal(wg.grad, dw.to(bf)),
               f"conv3x3 {(s, cin, cout)}: dw is not the kernel's, rounded")
+        again = {
+            "dw": conv.conv3x3_grad_weights(x, g),
+            "y": conv.conv3x3_bn_relu(x, w, *unit_o, relu=False),
+            "dx": conv.conv3x3_bn_relu(g, w_flip, *unit_i, relu=False),
+        }
+        for name, first in (("dw", dw), ("y", y.detach()), ("dx", xg.grad)):
+            check(torch.equal(again[name], first),
+                  f"conv3x3 {(b, s, s, cin, cout)} {name}: two calls on the "
+                  "same operands differ")
         errs = {}
         for name, got, want in (("y", y.detach(), y_plain),
                                 ("dx", xg.grad, dx_plain)):
@@ -1335,11 +1395,15 @@ def train_conv_shapes(torch, conv, shapes, gen) -> dict:
         log(f"train conv [{b},{s},{s},{cin}]->{cout} bf16: " + "; ".join(
             f"{k} ms {t['ms']:.4f} plain {t['plain_ms']:.4f} cudnn "
             f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
-            f"({t['bound_by']}) {flops / t['ms'] / 1e9:.1f} TFLOP/s"
+            f"({t['bound_by']}) {rate_text(flops, t)}"
             for k, t in m.items())
             + f"; dw rel L2 {err:.3g} (bar {DW_REL_L2}), y max|err| "
-            f"{errs['y']:.3g}, dx max|err| {errs['dx']:.3g} (tol {BF16_TOL})")
-        del x, g, w, xg, wg, y, dw, dw_plain, y_plain, dx_plain
+            f"{errs['y']:.3g}, dx max|err| {errs['dx']:.3g} (tol {BF16_TOL});"
+            f" each deterministic; K splits dw "
+            f"{conv.dw_splits(b, s, s, cin, cout)}, forward "
+            f"{conv.fwd_plan(b, s, s, cin, cout)[0]}, dx "
+            f"{conv.fwd_plan(b, s, s, cout, cin)[0]}")
+        del x, g, w, xg, wg, y, dw, dw_plain, y_plain, dx_plain, again
     return measured
 
 

@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded through ``ctypes``. Libraries are
 built from the repository's sources at first use, into
 ``build/torch_kernels/`` beside the package, under a name keyed on a hash
-of the source and the compiler flags: an edited source rebuilds, an
-unchanged one loads as it is. :func:`build` starts one ``nvcc`` per
-missing source, all together, and waits for every one of them.
+of the source, every ``csrc/*.cuh`` header and the compiler flags: an
+edited source or header rebuilds, an unchanged one loads as it is.
+:func:`build` starts one ``nvcc`` per missing source, all together, and
+waits for every one of them.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no CUDA toolkit.
@@ -69,13 +70,16 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives for the current source."""
-    source = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(
-        source + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where kernel ``name``'s library lives for the current sources: its
+    ``.cu`` file, every header of ``csrc`` (a source may include any of
+    them) and the compiler flags."""
+    digest = hashlib.sha256((csrc / SOURCES[name]).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(b"\0" + header.name.encode() + b"\0"
+                      + header.read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> float:

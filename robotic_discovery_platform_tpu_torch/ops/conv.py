@@ -52,9 +52,10 @@ _DTYPES = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, w, scale, bias, out, B, H, W, Cin, Cout, relu, dtypes, stream
+    # x, w, scale, bias, out, workspace, B, H, W, Cin, Cout, relu, splits,
+    # dtypes, stream
     "conv3x3_bn_relu": ("conv3x3_bn_relu_launch",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+                        [_P] * 6 + [_I] * 8 + [_P]),
     # x, w, scale, bias, out, P, Cin, Cout, relu, dtypes, stream
     "conv1x1": ("conv1x1_launch",
                 [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]),
@@ -67,12 +68,26 @@ _SIGNATURES = {
                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
-#: conv3x3_grad_weights launch shape (csrc/conv3x3_grad_weights.cu): a
-#: block owns 32 input x 64 output channels and walks 8x8 pixel tiles;
-#: the pixel tiles are split over enough blocks to give the 132 SMs about
-#: four blocks each, with the split partials' workspace capped
-DW_CIN_TILE, DW_COUT_TILE, DW_PIXEL_TILE = 32, 64, 8
-DW_TARGET_BLOCKS = 4 * 132
+#: the bf16 tensor-core kernels' tiles (csrc/conv3x3_bn_relu.cu and
+#: csrc/conv3x3_grad_weights.cu): both walk 8x16 pixel tiles and 64 output
+#: channels per block. The forward's K is walked in chunks of 16 input
+#: channels, or, for Cin not a multiple of 8, of 32 flattened (tap, ci);
+#: the weight gradient's block owns 64 input channels for all nine taps,
+#: or 32 flattened (tap, ci) rows.
+PIXEL_TILE = (8, 16)
+COUT_TILE = 64
+FWD_CIN_CHUNK, FWD_GATHER_CHUNK = 16, 32
+DW_CIN_TILE, DW_GATHER_TILE = 64, 32
+#: the card's SMs: the split counts fill one wave of blocks on them
+SMS = 132
+#: the forward's float32 split partials at the batched path's largest
+#: batch (8) stay under this cap
+FWD_WORKSPACE_CAP, FWD_CAP_BATCH = 64 * 2**20, 8  # bytes, frames
+#: the weight gradient splits its pixel tiles over one wave of blocks:
+#: one block of three warpgroups per SM, or, for Cin not a multiple of 8
+#: (the gather kernel: small blocks, bound by g's bytes), four; the split
+#: partials' workspace is capped
+DW_GATHER_BLOCKS_PER_SM = 4
 DW_WORKSPACE_CAP = 32 * 2**20  # bytes
 
 
@@ -131,6 +146,37 @@ def conv3x3_bn_relu_plain(x, w, scale, bias, *, relu: bool = True,
     return y.to(out_dtype).contiguous()
 
 
+def _tiles(h: int, w: int) -> int:
+    """8x16 pixel tiles of one h x w map."""
+    return -(-h // PIXEL_TILE[0]) * -(-w // PIXEL_TILE[1])
+
+
+def fwd_k_chunks(cin: int) -> int:
+    """How many K chunks the bf16 forward walks: 16-channel chunks of the
+    halo, or 32-wide chunks of K = 9*Cin when Cin is not a multiple of 8
+    (its pixels cannot take 16-byte copies)."""
+    if cin % 8:
+        return -(-9 * cin // FWD_GATHER_CHUNK)
+    return -(-cin // FWD_CIN_CHUNK)
+
+
+def fwd_plan(b: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int]:
+    """(splits, workspace floats) of the bf16 :func:`conv3x3_bn_relu`.
+
+    K is split over blocks when one image's grid gives fewer blocks than
+    the card has SMs: as many splits as fill them, at most one per K chunk,
+    and a float32 workspace of at most ``FWD_WORKSPACE_CAP`` at
+    ``FWD_CAP_BATCH`` frames. The split count depends on (h, w, cin, cout)
+    only, never on ``b``: it fixes each output's summation order, so a
+    frame gives the same bits alone and inside a batch.
+    """
+    blocks = _tiles(h, w) * -(-cout // COUT_TILE)
+    splits = min(fwd_k_chunks(cin), max(1, SMS // blocks))
+    per_split = FWD_CAP_BATCH * h * w * cout * 4
+    splits = max(1, min(splits, FWD_WORKSPACE_CAP // per_split))
+    return splits, (splits * b * h * w * cout if splits > 1 else 0)
+
+
 def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
     """Fused NHWC 3x3 SAME conv + per-channel scale/bias (+ ReLU).
 
@@ -162,10 +208,18 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
     w = w.to(x.dtype)
     code = _check_cuda("conv3x3_bn_relu", x, w, out_dtype, scale=scale,
                        bias=bias)
+    splits, ws_numel = (1, 0) if code == 0 else fwd_plan(b, h, width, cin,
+                                                          cout)
+    if code and cin % 8 == 0 and x.data_ptr() % 16:
+        raise ValueError("conv3x3_bn_relu: a bfloat16 x with Cin a multiple "
+                         "of 8 must start on a 16-byte address")
     out = torch.empty((b, h, width, cout), dtype=out_dtype, device=x.device)
+    ws = (torch.empty(ws_numel, dtype=torch.float32, device=x.device)
+          if ws_numel else None)
     err = _kernel("conv3x3_bn_relu")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, h, width, cin, cout, int(relu), code,
+        out.data_ptr(), None if ws is None else ws.data_ptr(), b, h, width,
+        cin, cout, int(relu), splits, code,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv3x3_bn_relu", err)
@@ -319,12 +373,18 @@ def conv3x3_grad_weights_plain(x, g):
 
 def dw_splits(b: int, h: int, w: int, cin: int, cout: int) -> int:
     """How many ways :func:`conv3x3_grad_weights` splits its pixel tiles:
-    enough blocks for about ``DW_TARGET_BLOCKS``, at most one split per
-    8x8 tile, and a float32 workspace of at most ``DW_WORKSPACE_CAP``."""
-    tile = DW_PIXEL_TILE
-    tiles = b * -(-h // tile) * -(-w // tile)
-    blocks = -(-cin // DW_CIN_TILE) * -(-cout // DW_COUT_TILE)
-    splits = min(tiles, max(1, -(-DW_TARGET_BLOCKS // blocks)))
+    as many as keep every block in the first wave (a second, partial wave
+    costs more than it spreads), at most one split per 8x16 tile, and a
+    float32 workspace of at most ``DW_WORKSPACE_CAP``. (The float32 kernel
+    walks 8x8 tiles, at least as many.)"""
+    tiles = b * _tiles(h, w)
+    if cin % 8:
+        m_tiles, wave = -(-9 * cin // DW_GATHER_TILE), \
+            DW_GATHER_BLOCKS_PER_SM * SMS
+    else:
+        m_tiles, wave = -(-cin // DW_CIN_TILE), SMS
+    blocks = m_tiles * -(-cout // COUT_TILE)
+    splits = min(tiles, max(1, wave // blocks))
     return max(1, min(splits, DW_WORKSPACE_CAP // (9 * cin * cout * 4)))
 
 
@@ -348,6 +408,9 @@ def conv3x3_grad_weights(x, g):
     code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
     if code is None:
         raise TypeError(f"conv3x3_grad_weights: unsupported dtype {x.dtype}")
+    if code and x.shape[3] % 8 == 0 and x.data_ptr() % 16:
+        raise ValueError("conv3x3_grad_weights: a bfloat16 x with Cin a "
+                         "multiple of 8 must start on a 16-byte address")
     for label, t in (("x", x), ("g", g)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(

@@ -48,6 +48,15 @@ _FIX = {
 }
 
 
+#: kernel name -> (C function, ctypes argument types):
+#: coefs, q, m1, m2, out, B, N, stream
+_SIGNATURES = {
+    "dequant_idct": ("dequant_idct_launch",
+                     [ctypes.c_void_p] * 5
+                     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def islow_basis() -> np.ndarray:
     """The exact [8, 8] int32 basis matrix of one ``jpeg_idct_islow`` pass.
@@ -181,9 +190,7 @@ def dequant_idct(coefs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, n, 64), dtype=torch.int32, device=coefs.device)
     if out.numel() == 0:
         return out
-    fn = build.function("dequant_idct", "dequant_idct_launch",
-                        [ctypes.c_void_p] * 5
-                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn = build.function("dequant_idct", *_SIGNATURES["dequant_idct"])
     err = fn(coefs.data_ptr(), q.data_ptr(), m1.data_ptr(), m2.data_ptr(),
              out.data_ptr(), b, n,
              torch.cuda.current_stream(coefs.device).cuda_stream)

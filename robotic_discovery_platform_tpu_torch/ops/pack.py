@@ -48,6 +48,14 @@ ROW_MAGIC = b"RDPP"
 #: [B, P] staging buffer stay 64-byte aligned.
 ROW_ALIGN = 64
 
+#: kernel name -> (C function, ctypes argument types):
+#: mask, out, rows, W, stream
+_SIGNATURES = {
+    "bitpack_mask": ("bitpack_mask_launch",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_void_p]),
+}
+
 
 def sidecar_floats(n_pts: int) -> int:
     """f32 slots in the per-frame sidecar: the scalars + the spline."""
@@ -110,9 +118,7 @@ def bitpack_mask(mask: torch.Tensor) -> torch.Tensor:
     b, h, w = mask.shape
     out = torch.empty((b, h, packed_row_bytes(w)), dtype=torch.uint8,
                       device=mask.device)
-    fn = build.function("bitpack_mask", "bitpack_mask_launch",
-                        [ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    fn = build.function("bitpack_mask", *_SIGNATURES["bitpack_mask"])
     err = fn(mask.data_ptr(), out.data_ptr(), b * h, w,
              torch.cuda.current_stream(mask.device).cuda_stream)
     build.check("bitpack_mask", err)

@@ -221,14 +221,66 @@ _TRAIN_SHAPES = [(256, 3, 64), (256, 64, 64), (128, 64, 128), (128, 128, 128),
 @pytest.mark.parametrize("s,cin,cout", sorted(set(_TRAIN_SHAPES)))
 def test_dw_split_count_fills_the_card_within_the_workspace_cap(s, cin, cout):
     """At the training batch (B = 4) the weight-gradient kernel's split
-    count lies in [1, number of 8x8 tiles], keeps the float32 workspace
-    under its cap, and gives at least the 132 SMs' worth of blocks unless
-    the tiles or the cap run out first."""
+    count lies in [1, number of 8x16 pixel tiles], keeps the float32
+    workspace under its cap, and fills one wave of blocks on the 132 SMs
+    (one per SM, four for the gather kernel of Cin = 3): no more blocks
+    than that unless one split already gives more, and one more split
+    would overshoot unless the tiles or the cap run out first."""
     splits = tconv.dw_splits(4, s, s, cin, cout)
-    tiles = 4 * (s // 8) ** 2
-    blocks = -(-cin // tconv.DW_CIN_TILE) * -(-cout // tconv.DW_COUT_TILE)
+    th, tw = tconv.PIXEL_TILE
+    tiles = 4 * -(-s // th) * -(-s // tw)
+    if cin % 8:
+        m_tiles = -(-9 * cin // tconv.DW_GATHER_TILE)
+        wave = tconv.DW_GATHER_BLOCKS_PER_SM * tconv.SMS
+    else:
+        m_tiles, wave = -(-cin // tconv.DW_CIN_TILE), tconv.SMS
+    blocks = m_tiles * -(-cout // tconv.COUT_TILE)
     per_split = 9 * cin * cout * 4
     assert 1 <= splits <= tiles
     assert splits == 1 or splits * per_split <= tconv.DW_WORKSPACE_CAP
-    assert (splits * blocks >= 132 or splits == tiles
+    assert splits == 1 or splits * blocks <= wave
+    assert ((splits + 1) * blocks > wave or splits == tiles
             or (splits + 1) * per_split > tconv.DW_WORKSPACE_CAP)
+
+
+# (H = W, Cin, Cout) of the bf16 forward's launches: the default model's
+# 18 (serving and training forward), their dx (Cin and Cout swapped), and
+# the non-bilinear model's 16^2 layers
+_FWD_SHAPES = sorted(set(_TRAIN_SHAPES) | {(s, co, ci) for s, ci, co in
+                                          _TRAIN_SHAPES}
+                     | {(16, 512, 1024), (16, 1024, 1024), (32, 1024, 512)})
+
+
+@pytest.mark.parametrize("s,cin,cout", _FWD_SHAPES)
+def test_fwd_split_count_fills_the_card_and_ignores_the_batch(s, cin, cout):
+    """The bf16 forward's split count lies in [1, K chunks]; it is the
+    same at B = 1, 4 and 8 (a frame's bits alone and inside a batch rest
+    on it); one image's grid times the splits reaches the 132 SMs unless
+    the K chunks or the workspace cap at B = 8 run out first, or one more
+    split would overshoot; the workspace at B = 8 stays under its cap."""
+    chunks = tconv.fwd_k_chunks(cin)
+    plans = {b: tconv.fwd_plan(b, s, s, cin, cout) for b in (1, 4, 8)}
+    splits = plans[1][0]
+    assert {p[0] for p in plans.values()} == {splits}
+    assert 1 <= splits <= chunks
+    th, tw = tconv.PIXEL_TILE
+    blocks = -(-s // th) * -(-s // tw) * -(-cout // tconv.COUT_TILE)
+    per_split = tconv.FWD_CAP_BATCH * s * s * cout * 4
+    assert (splits * blocks >= tconv.SMS // 2 or splits == chunks
+            or (splits + 1) * per_split > tconv.FWD_WORKSPACE_CAP)
+    assert (splits + 1) * blocks > tconv.SMS or splits == chunks or (
+        (splits + 1) * per_split > tconv.FWD_WORKSPACE_CAP)
+    for b, (n, ws) in plans.items():
+        assert ws == (n * b * s * s * cout if n > 1 else 0)
+    assert plans[8][1] * 4 <= tconv.FWD_WORKSPACE_CAP
+
+
+def test_fwd_splits_only_the_narrow_maps():
+    """The wide maps fill the card alone: no split, no workspace, one
+    kernel; the 16^2 and 32^2 maps split K."""
+    assert tconv.fwd_plan(1, 256, 256, 64, 64) == (1, 0)
+    assert tconv.fwd_plan(1, 256, 256, 3, 64) == (1, 0)
+    assert tconv.fwd_plan(1, 16, 16, 512, 512)[0] > 1
+    assert tconv.fwd_plan(1, 32, 32, 1024, 512)[0] > 1
+    # Cin = 3 flattens (tap, ci) into one 32-wide K chunk
+    assert tconv.fwd_k_chunks(3) == 1 and tconv.fwd_k_chunks(40) == 3

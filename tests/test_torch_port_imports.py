@@ -271,6 +271,20 @@ def test_kernel_build_is_keyed_on_the_sources():
             build.nvcc()
 
 
+def test_kernel_build_is_keyed_on_the_shared_headers(tmp_path):
+    """Editing a header of csrc/ (which any source may include) changes
+    every kernel's library path; an unrelated file does not."""
+    csrc = Path(shutil.copytree(build.CSRC, tmp_path / "csrc"))
+    before = {n: build.library_path(n, csrc) for n in build.SOURCES}
+    assert before == {n: build.library_path(n) for n in build.SOURCES}
+    (csrc / "notes.txt").write_text("not a source")
+    assert {n: build.library_path(n, csrc) for n in build.SOURCES} == before
+    header = csrc / "conv_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n, csrc) for n in build.SOURCES}
+    assert all(after[n] != before[n] for n in build.SOURCES)
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     """No CUDA device: exit non-zero, no result line. A directory holding
     chip_smoke.py and nothing else of the repo fails the same way."""

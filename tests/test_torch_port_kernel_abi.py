@@ -1,0 +1,89 @@
+"""The C interfaces of the port's CUDA kernels against their ctypes
+bindings.
+
+Each ``csrc/*.cu`` exports ``extern "C"`` functions, loaded through ctypes
+with the argument types in a ``_SIGNATURES`` table of ``ops/conv.py``,
+``ops/geometry_kernels.py``, ``ops/pack.py`` or ``ops/decode.py``. A
+binding whose count or kinds differ from the source passes a truncated
+pointer or a shifted argument on the card, where nothing reports it: this
+checks every binding against the source's parameter list, on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+
+import pytest
+
+from robotic_discovery_platform_tpu_torch.ops import (
+    build,
+    conv,
+    decode,
+    geometry_kernels,
+    pack,
+)
+
+_EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
+
+
+def _kind(param: str):
+    """The ctypes type that carries one C parameter."""
+    param = " ".join(param.split())
+    if "*" in param:
+        return ctypes.c_void_p
+    if param.startswith("long long"):
+        return ctypes.c_longlong
+    if param.startswith("int "):
+        return ctypes.c_int
+    raise AssertionError(f"no ctypes kind for C parameter {param!r}")
+
+
+def _exports() -> dict:
+    """(kernel name, C function) -> [ctypes kind per parameter], parsed
+    from every source in ``build.SOURCES``."""
+    out = {}
+    for name, source in build.SOURCES.items():
+        text = (build.CSRC / source).read_text()
+        for symbol, params in _EXTERN.findall(text):
+            out[(name, symbol)] = [_kind(p) for p in params.split(",")]
+    return out
+
+
+def _bindings() -> dict:
+    """(kernel name, C function) -> ctypes argument types of every binding.
+    ``geometry_kernels`` keys its table by C function, the other modules
+    by kernel name."""
+    out = {}
+    for module in (conv, pack, decode):
+        for name, (symbol, argtypes) in module._SIGNATURES.items():
+            out[(name, symbol)] = list(argtypes)
+    for symbol, (name, argtypes) in geometry_kernels._SIGNATURES.items():
+        out[(name, symbol)] = list(argtypes)
+    return out
+
+
+def test_every_export_has_a_binding_and_every_binding_an_export():
+    assert set(_exports()) == set(_bindings())
+
+
+@pytest.mark.parametrize("key", sorted(_bindings()), ids="/".join)
+def test_binding_matches_the_c_parameter_list(key):
+    """Same count, and a pointer where the source has one, a 32-bit int
+    where it has ``int``, a 64-bit int where it has ``long long``."""
+    want = _exports()[key]
+    got = _bindings()[key]
+    assert len(got) == len(want), f"{key}: {len(got)} ctypes args, C has {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g is w, f"{key}: argument {i} bound as {g.__name__}, C wants {w.__name__}"
+
+
+def test_the_parser_sees_the_redesigned_conv_interfaces():
+    """The forward conv takes a workspace and a split count (6 pointers, 8
+    ints, the stream); the weight gradient x, g, workspace, dw, 7 ints and
+    the stream."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _exports()[("conv3x3_bn_relu", "conv3x3_bn_relu_launch")] == (
+        [p] * 6 + [i] * 8 + [p])
+    assert _exports()[("conv3x3_grad_weights",
+                       "conv3x3_grad_weights_launch")] == [p] * 4 + [i] * 7 + [p]
