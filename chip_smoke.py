@@ -1268,8 +1268,18 @@ def rel_l2(torch, got, want) -> float:
 
 def timed(torch, kernel, plain, library, flops: float, nbytes: float,
           err: float, plain_iters: int = 20) -> dict:
-    t = {"ms": time_ms(torch, kernel),
-         "plain_ms": time_ms(torch, plain, iters=plain_iters),
+    """Times of a training-conv kernel, its plain version and one cuDNN
+    call. The float32 plain version is timed with cuDNN's autotuner on
+    (``cudnn.benchmark``, for that timing only): without it cuDNN picks,
+    at one shape with TF32 off, an algorithm some 300x slower than at the
+    others, which says nothing of the kernel."""
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        plain_ms = time_ms(torch, plain, iters=plain_iters)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    t = {"ms": time_ms(torch, kernel), "plain_ms": plain_ms,
          "library_ms": time_ms(torch, library), "max_abs_err": err}
     t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
     return t

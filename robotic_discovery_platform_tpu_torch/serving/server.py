@@ -35,6 +35,7 @@ queue 1 item 5).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Callable, Iterable, Iterator, NamedTuple
@@ -112,6 +113,17 @@ class FrameResult(NamedTuple):
     coverage: float
     valid: bool
     spline_wire: bytes = b""  # packed_spline for mask_format 1/2
+
+
+def _device_scope(device: torch.device):
+    """``device`` as the current CUDA device for the calls in the block (a
+    null context on the CPU). Every kernel wrapper takes tensors on the
+    current device only, so the direct path of a servicer on a card other
+    than the current one enters its own card first; the batched path
+    enters it through its stream (``serving/batching.py``)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 class VisionAnalysisService:
@@ -217,19 +229,20 @@ class VisionAnalysisService:
             )
         if self.dispatcher is not None:
             return self._analyze_batched(rgb, depth, mask_format)
-        k, scale = self._staged_geometry(w, h)
-        analyze = self.analyze_coef if coef else self.analyze
-        out = analyze(rgb, depth, k, scale)
-        prof = out.profile
-        scalars = torch.stack([
-            out.mask_coverage, prof.mean_curvature, prof.max_curvature,
-            prof.valid.to(torch.float32),
-        ]).cpu().numpy()
-        mask = out.mask.cpu().numpy()
-        coverage, mean_k, max_k, valid = (float(v) for v in scalars)
-        valid = bool(valid)
-        spline = (prof.spline_points.cpu().numpy() if valid
-                  else np.zeros((0, 3), np.float32))
+        with _device_scope(self.device):
+            k, scale = self._staged_geometry(w, h)
+            analyze = self.analyze_coef if coef else self.analyze
+            out = analyze(rgb, depth, k, scale)
+            prof = out.profile
+            scalars = torch.stack([
+                out.mask_coverage, prof.mean_curvature, prof.max_curvature,
+                prof.valid.to(torch.float32),
+            ]).cpu().numpy()
+            mask = out.mask.cpu().numpy()
+            valid = bool(scalars[3])
+            spline = (prof.spline_points.cpu().numpy() if valid
+                      else np.zeros((0, 3), np.float32))
+        coverage, mean_k, max_k, _ = (float(v) for v in scalars)
         if not valid:
             mean_k = max_k = 0.0
         spline_wire = b""
@@ -316,21 +329,22 @@ class VisionAnalysisService:
         ``max_batch`` -- so the first served frame pays no kernel build or
         first-launch cost. With on-chip decode on, the coefficient lane
         too (:meth:`warmup_coef`)."""
-        if self.dispatcher is None:
-            self.analyze_frame(np.zeros((height, width, 3), np.uint8),
-                               np.zeros((height, width), np.uint16))
-        else:
-            k = self._camera(width, height)
-            for b in self._buckets():
-                self.dispatcher.warm(
-                    np.zeros((b, height, width, 3), np.uint8),
-                    np.zeros((b, height, width), np.uint16),
-                    np.repeat(k[None], b, axis=0),
-                    np.full((b,), self.depth_scale, np.float32))
-        if self.onchip:
-            self.warmup_coef(width, height)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with _device_scope(self.device):
+            if self.dispatcher is None:
+                self.analyze_frame(np.zeros((height, width, 3), np.uint8),
+                                   np.zeros((height, width), np.uint16))
+            else:
+                k = self._camera(width, height)
+                for b in self._buckets():
+                    self.dispatcher.warm(
+                        np.zeros((b, height, width, 3), np.uint8),
+                        np.zeros((b, height, width), np.uint16),
+                        np.repeat(k[None], b, axis=0),
+                        np.full((b,), self.depth_scale, np.float32))
+            if self.onchip:
+                self.warmup_coef(width, height)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         log.info("warmed up %dx%d analyzer on %s", width, height, self.device)
 
     def warmup_coef(self, width: int, height: int,
@@ -343,17 +357,18 @@ class VisionAnalysisService:
         calls it before load arrives."""
         frame = ingest.blank_coefficient_frame(height, width, subsampling)
         depth = np.zeros((height, width), np.uint16)
-        if self.dispatcher is None:
-            self.analyze_frame(frame, depth)
-        else:
-            k = self._camera(width, height)
-            for b in self._buckets():
-                self.dispatcher.warm_coef(
-                    frame, np.zeros((b, height, width), np.uint16),
-                    np.repeat(k[None], b, axis=0),
-                    np.full((b,), self.depth_scale, np.float32))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with _device_scope(self.device):
+            if self.dispatcher is None:
+                self.analyze_frame(frame, depth)
+            else:
+                k = self._camera(width, height)
+                for b in self._buckets():
+                    self.dispatcher.warm_coef(
+                        frame, np.zeros((b, height, width), np.uint16),
+                        np.repeat(k[None], b, axis=0),
+                        np.full((b,), self.depth_scale, np.float32))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def close(self) -> None:
         """Stop the dispatcher (its pending frames drain or fail) and

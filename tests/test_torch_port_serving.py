@@ -366,3 +366,73 @@ def test_synthetic_frames_match_jax(h, w, seed):
         np.testing.assert_array_equal(a[1], b[1])
     np.testing.assert_array_equal(ours.intrinsics(), theirs.intrinsics())
     assert ours.depth_scale == theirs.depth_scale
+
+
+def _scope_service(tmp_path, device):
+    """A direct-path servicer built on the CPU (a blank forward) whose
+    ``device`` then reads ``device``: what its direct path enters is
+    recorded, and its analyzers run on the CPU tensors they were built
+    for (the camera geometry is staged before the switch)."""
+    def forward(x):
+        return torch.zeros((*x.shape[:3], 1), dtype=torch.float32)
+
+    service = VisionAnalysisService(
+        forward, cfg=ServerConfig(model_img_size=32,
+                                  metrics_csv=str(tmp_path / "m.csv")),
+        device="cpu")
+    service._staged_geometry(64, 48)
+    service.device = torch.device(device)
+    return service
+
+
+@pytest.mark.parametrize("entry", ["analyze_frame", "warmup", "warmup_coef"])
+def test_direct_path_enters_its_own_card(entry, tmp_path, monkeypatch):
+    """``analyze_frame``, ``warmup`` and ``warmup_coef`` of a servicer on
+    ``cuda:1`` run the analyzer inside ``torch.cuda.device(cuda:1)``: the
+    kernel wrappers take tensors on the current device only."""
+    import contextlib
+
+    entered, inside, calls = [], [], []
+
+    @contextlib.contextmanager
+    def device_cm(dev):
+        entered.append(torch.device(dev))
+        inside.append(True)
+        try:
+            yield
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(torch.cuda, "device", device_cm)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    service = _scope_service(tmp_path, "cuda:1")
+    for name in ("analyze", "analyze_coef"):
+        inner = getattr(service, name)
+
+        def recorded(*args, _inner=inner, _name=name):
+            calls.append((_name, bool(inside)))
+            return _inner(*args)
+
+        setattr(service, name, recorded)
+    if entry == "analyze_frame":
+        rgb, _, depth = render_scene(np.random.default_rng(0), 48, 64)
+        service.analyze_frame(rgb, depth)
+    else:
+        getattr(service, entry)(64, 48)
+    service.close()
+    want = "analyze_coef" if entry == "warmup_coef" else "analyze"
+    assert calls == [(want, True)]
+    assert entered and set(entered) == {torch.device("cuda", 1)}
+
+
+def test_direct_path_on_the_cpu_enters_no_card(tmp_path, monkeypatch):
+    entered = []
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: entered.append(dev))
+    service = _scope_service(tmp_path, "cpu")
+    rgb, _, depth = render_scene(np.random.default_rng(0), 48, 64)
+    service.analyze_frame(rgb, depth)
+    service.warmup(64, 48)
+    service.warmup_coef(64, 48)
+    service.close()
+    assert entered == []
