@@ -24,9 +24,15 @@ mismatch raises and the script exits non-zero:
    split, each frame of the stack equal bit for bit to the frame alone),
    then the geometry kernels (deprojection bitwise at
    480x640 stride 1 and 240x320 stride 2, the design contractions of 6400
-   edge-point slots, the curvature at 100 samples) and the mask bitpack
-   (bitwise, [8, 480, 640]); the transposed conv at the non-bilinear
-   ladder's four shapes (B = 1 and 8) and the dequant + IDCT (bitwise, one
+   edge-point slots -- called twice, equal bit for bit, 0 outside the
+   Gram matrix's band --, the curvature at 100 samples) and the mask
+   bitpack (bitwise, [8, 480, 640]); the transposed conv at the
+   non-bilinear ladder's four shapes (B = 1 and 8; each shape's path,
+   tensor cores or FMA, logged and the C entry's rule checked against
+   ``conv.convt_path``; each call repeated, equal bit for bit; at B = 8
+   every frame equal bit for bit to the frame alone; a ragged shape in
+   bfloat16 and float32 on the FMA path), with the profiler's device time
+   beside the back-to-back time; and the dequant + IDCT (bitwise, one
    480x640 4:2:0 frame's planes at B = 1 and 8, and a ragged N);
 3. the analyzer: the kernel forward against the plain forward, exact
    launch counts per frame (18 conv3x3_bn_relu + 1 conv1x1 + 1 each
@@ -46,7 +52,8 @@ mismatch raises and the script exits non-zero:
    gradient kernel against its plain version and the training conv's
    forward and dx (the conv kernel, unit epilogue) against theirs at the
    18 training shapes at B = 4, each called twice (equal bit for bit),
-   with their times, bounds and cuDNN's;
+   with their times, bounds and cuDNN's (the plain forward at
+   SLOW_PLAIN_FWD on a line of its own, apart from the per-step sums);
    one step's gradients on the kernels against plain torch convs; exact
    launches per train step (18 + 17 conv3x3_bn_relu, 18
    conv3x3_grad_weights; none per eval step); ``train_model`` on 20
@@ -173,6 +180,11 @@ LOSS_RTOL = 1e-2
 # float64-sum step than this factor times the plain step's distance
 BF16_GRAD_RATIO = 1.25
 TRAIN_SAMPLES = 20  # 16 train + 4 validation: 4 steps per epoch
+# the training shape (H = W, Cin, Cout) at which the float32 plain forward,
+# F.conv2d with TF32 off, takes some 300x its time at the others (with
+# cuDNN's autotuner on as well): a yardstick artefact, so phase 6 reports
+# it on a line of its own, apart from the per-step sums of plain times
+SLOW_PLAIN_FWD = (128, 256, 128)
 
 
 def log(msg: str) -> None:
@@ -505,6 +517,14 @@ def geometry_kernel_phase(torch, port) -> dict:
               f"magnitudes (max |err| {float((a - b).abs().max())})")
         err = max(err, float((a - b).abs().max()))
     n, c = pts.shape[0], cfg.num_ctrl
+    band = torch.arange(c, device="cuda")
+    band = (band[:, None] - band[None, :]).abs() <= deg
+    check(bool((got[0][~band] == 0).all()),
+          "bspline_design: a Gram entry outside the band is not 0")
+    again = gk.bspline_design(pts, wts, u, knots, deg)
+    check(all(bitwise_equal(torch, a.view(torch.int64), b.view(torch.int64))
+              for a, b in zip(again, got)),
+          "bspline_design: two calls on the same operands differ")
     t = timings(torch, lambda: gk.bspline_design(pts, wts, u, knots, deg),
                 lambda: gk.bspline_design_plain(pts, wts, u, knots, deg))
     t["max_abs_err"] = err
@@ -515,8 +535,8 @@ def geometry_kernel_phase(torch, port) -> dict:
     t["bound_ms"], t["bound_by"] = bound_ms(2.0 * n * (nz * nz + 3 * nz),
                                             nbytes, H100_F64_FLOPS)
     log(f"bspline_design N={n} C={c}: max|err| {err:.3g} (within "
-        f"{DESIGN_RTOL} of |BW|^T|.|); {timing_text(t)}; "
-        f"{int(s_w.sum())} weighted points")
+        f"{DESIGN_RTOL} of |BW|^T|.|), 0 outside the band, deterministic; "
+        f"{timing_text(t)}; {int(s_w.sum())} weighted points")
     results[("bspline_design",)] = t
 
     ctrl, _ = bspline.fit_bspline(s_pts, s_w, knots, deg,
@@ -609,22 +629,33 @@ def convt_kernel_phase(torch, conv) -> dict:
     ladder's four shapes at B = 1 and B = 8 in bfloat16 (both round
     float32 sums of the same products, in another order: every element
     within one bfloat16 ulp, plus the two orders' float32 summation bound
-    where a sum cancels to near zero, :func:`bf16_ulp_check`), and in
-    float32 at a ragged shape (relative L2 within CONVT_F32_REL); times
-    per launch against the plain version,
-    cuDNN's ``F.conv_transpose2d`` on the same operands in torch's layout
-    (``w.flip(0, 1).permute(2, 3, 0, 1)``) and the bound."""
+    where a sum cancels to near zero, :func:`bf16_ulp_check`), at a ragged
+    shape in bfloat16 (the same bar) and in float32 (relative L2 within
+    CONVT_F32_REL). Each shape's path (tensor cores or FMA) is logged, and
+    the C entry's rule must agree with ``conv.convt_path``; each call is
+    repeated on the same operands (equal bit for bit), and at B = 8 every
+    frame of the stack must equal the frame alone bit for bit. Times per
+    launch: CUDA events over back-to-back calls, and the profiler's device
+    time, against the plain version, cuDNN's ``F.conv_transpose2d`` on the
+    same operands in torch's layout (``w.flip(0, 1).permute(2, 3, 0, 1)``)
+    and the bound."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     results = {}
+    sums = {b: {} for b in (1, MAX_BATCH)}
     cases = [(b, s, s, cin, cout, torch.bfloat16)
              for b in (1, MAX_BATCH) for s, cin, cout in CONVT_SHAPES]
-    cases.append((2, 9, 13, 40, 24, torch.float32))
+    cases += [(2, 9, 13, 40, 24, torch.bfloat16),
+              (2, 9, 13, 40, 24, torch.float32)]
     for b, h, w, cin, cout, dtype in cases:
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda").to(dtype)
         wt = (torch.randn(2, 2, cin, cout, generator=gen, device="cuda")
               / cin ** 0.5).to(dtype)
         bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+        path = conv.convt_path(dtype, cin, cout)
+        check(conv.convt_path_of_kernel(dtype, cin, cout) == path,
+              f"conv_transpose2x2 {(cin, cout)} {dtype}: the C entry's path "
+              f"differs from convt_path's {path}")
         got = conv.conv_transpose2x2(x, wt, bias)
         want = conv.conv_transpose2x2_plain(x, wt, bias)
         torch.cuda.synchronize()
@@ -644,16 +675,33 @@ def convt_kernel_phase(torch, conv) -> dict:
                   f"{(b, h, w, cin, cout)} float32: relative L2 {rel} > "
                   f"{CONVT_F32_REL}")
             bar = f"relative L2 {rel:.3g} (bar {CONVT_F32_REL})"
+        check(bitwise_equal(torch, conv.conv_transpose2x2(x, wt, bias), got),
+              f"conv_transpose2x2 {(b, h, w, cin, cout)} {dtype}: two calls "
+              "on the same operands differ")
+        if b == MAX_BATCH:
+            check(all(bitwise_equal(torch, got[i:i + 1], conv.conv_transpose2x2(
+                x[i:i + 1], wt, bias)) for i in range(b)),
+                f"conv_transpose2x2 {(h, w, cin, cout)}: a frame of a B = "
+                f"{b} stack differs from the frame alone")
+            bar += "; every frame equal bit for bit to the frame alone"
         xc = x.permute(0, 3, 1, 2)
         wc = wt.flip(0, 1).permute(2, 3, 0, 1).contiguous(
             memory_format=torch.channels_last)
         bc = bias.view(1, -1, 1, 1)
+
+        def library():
+            return (F.conv_transpose2d(xc, wc, stride=2).float() + bc).to(dtype)
+
+        def kernel():
+            return conv.conv_transpose2x2(x, wt, bias)
+
         t = {
-            "ms": time_ms(torch, lambda: conv.conv_transpose2x2(x, wt, bias)),
+            "ms": time_ms(torch, kernel),
             "plain_ms": time_ms(torch, lambda: conv.conv_transpose2x2_plain(
                 x, wt, bias)),
-            "library_ms": time_ms(torch, lambda: (F.conv_transpose2d(
-                xc, wc, stride=2).float() + bc).to(dtype)),
+            "library_ms": time_ms(torch, library),
+            "device_ms": device_ms(torch, kernel),
+            "library_device_ms": device_ms(torch, library),
             "max_abs_err": err,
         }
         nbytes = (x.numel() + wt.numel() + 4 * b * h * w * cout) \
@@ -661,12 +709,23 @@ def convt_kernel_phase(torch, conv) -> dict:
         flops = 2.0 * b * h * w * cin * 4 * cout
         t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
         log(f"conv_transpose2x2 [{b},{h},{w},{cin}]->{cout} "
-            f"{str(dtype)[6:]}: {bar}, max|err| {err:.3g}; ms "
-            f"{t['ms']:.4f} plain {t['plain_ms']:.4f} cudnn "
-            f"{t['library_ms']:.4f} bound {t['bound_ms']:.5f} "
-            f"({t['bound_by']}) {flops / t['ms'] / 1e9:.1f} TFLOP/s")
-        if b == 1 and dtype == torch.bfloat16:
-            results[("conv_transpose2x2", h, cin, cout)] = t
+            f"{str(dtype)[6:]}, path {path}: {bar}, "
+            f"deterministic, max|err| {err:.3g}; ms {t['ms']:.4f} plain "
+            f"{t['plain_ms']:.4f} cudnn {t['library_ms']:.4f} bound "
+            f"{t['bound_ms']:.5f} ({t['bound_by']}); device ms "
+            f"{t['device_ms']:.4f} cudnn {t['library_device_ms']:.4f} "
+            f"(profiler), {flops / t['device_ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['bound_ms'] / t['device_ms']:.1%} of the bound")
+        if h == w and (h, cin, cout) in CONVT_SHAPES:
+            for f in ("ms", "device_ms", "library_ms", "library_device_ms",
+                      "plain_ms", "bound_ms"):
+                sums[b][f] = sums[b].get(f, 0.0) + t[f]
+            if b == 1:
+                results[("conv_transpose2x2", h, cin, cout)] = t
+    for b, row in sums.items():
+        log(f"conv_transpose2x2, the 4 launches of one non-bilinear "
+            f"{'frame' if b == 1 else 'dispatch'} at B = {b}: " + ", ".join(
+                f"{f} {v:.4f}" for f, v in row.items()))
     return results
 
 
@@ -1268,18 +1327,8 @@ def rel_l2(torch, got, want) -> float:
 
 def timed(torch, kernel, plain, library, flops: float, nbytes: float,
           err: float, plain_iters: int = 20) -> dict:
-    """Times of a training-conv kernel, its plain version and one cuDNN
-    call. The float32 plain version is timed with cuDNN's autotuner on
-    (``cudnn.benchmark``, for that timing only): without it cuDNN picks,
-    at one shape with TF32 off, an algorithm some 300x slower than at the
-    others, which says nothing of the kernel."""
-    benchmark = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
-    try:
-        plain_ms = time_ms(torch, plain, iters=plain_iters)
-    finally:
-        torch.backends.cudnn.benchmark = benchmark
-    t = {"ms": time_ms(torch, kernel), "plain_ms": plain_ms,
+    t = {"ms": time_ms(torch, kernel),
+         "plain_ms": time_ms(torch, plain, iters=plain_iters),
          "library_ms": time_ms(torch, library), "max_abs_err": err}
     t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
     return t
@@ -1317,11 +1366,20 @@ def train_kernel_phase(torch, conv) -> dict:
             if k == "dx" and i == 0:
                 continue  # the image input takes no gradient
             for f in keys:
-                sums[k][f] += t[f]
+                if not (k == "fwd" and f == "plain_ms"
+                        and shape == SLOW_PLAIN_FWD):
+                    sums[k][f] += t[f]
+    n_slow = MAIN_PATH_3X3.count(SLOW_PLAIN_FWD)
     for k, n in (("dw", 18), ("fwd", 18), ("dx", 17)):
+        apart = f" (plain_ms over the other {n - n_slow})" if k == "fwd" else ""
         log(f"train conv {k}, the {n} launches of one step at B = "
-            f"{TRAIN_BATCH}: " + ", ".join(f"{f} {v:.3f}"
-                                           for f, v in sums[k].items()))
+            f"{TRAIN_BATCH}{apart}: " + ", ".join(
+                f"{f} {v:.3f}" for f, v in sums[k].items()))
+    h, cin, cout = SLOW_PLAIN_FWD
+    slow = measured[SLOW_PLAIN_FWD]["fwd"]["plain_ms"]
+    log(f"train conv fwd plain at [{TRAIN_BATCH},{h},{h},{cin}]->{cout}, "
+        f"apart from the sum: {slow:.3f} ms x {n_slow} per step (F.conv2d in "
+        "float32, TF32 off)")
     return results
 
 

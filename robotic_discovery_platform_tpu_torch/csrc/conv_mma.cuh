@@ -1,9 +1,10 @@
 // Tensor-core building blocks shared by the bf16 paths of
-// conv3x3_bn_relu.cu and conv3x3_grad_weights.cu (sm_90a): 16-byte async
-// copies into shared memory, ldmatrix fragment loads, the
-// mma.sync.m16n8k16 bf16 product (the weight gradient) and the
-// wgmma.m64n64k16 warpgroup product with A in registers (the forward),
-// each with float32 accumulation.
+// conv3x3_bn_relu.cu, conv3x3_grad_weights.cu and conv_transpose2x2.cu
+// (sm_90a): 16-byte async copies into shared memory, ldmatrix fragment
+// loads, the mma.sync.m16n8k16 bf16 product (the weight gradient) and the
+// wgmma.m64n64k16 (the 3x3 forward) and m64n128k16 (the transposed conv)
+// warpgroup products with A in registers, each with float32
+// accumulation.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for
 // lane l of a warp: A (16x16, row-major) a0..a3 hold rows l/4 and l/4 + 8
@@ -74,14 +75,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // registers (warp w holds rows 16w.., each in the mma.m16n8k16 A layout)
 // by a B read from shared memory through a descriptor.
 
-// Shared-memory descriptor of an N-major B tile of 64 columns in the
+// Shared-memory descriptor of an N-major B tile of 64-column atoms in the
 // 128-byte swizzle: 128-byte rows (64 bf16), the 16-byte group g of row r
 // stored at group g ^ (r % 8), 8-row atoms of 1024 bytes, 1024-byte
-// aligned, one after the other along K (the stride byte offset; the
-// leading one, between 64-column atoms along N, is unused at N = 64).
-__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
+// aligned, one after the other along K (the stride byte offset); the
+// leading byte offset `atoms` is the distance between 64-column atoms
+// along N (unused at N = 64).
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p,
+                                                     int atoms = 1024) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)(atoms >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
          (1ull << 62);
 }
 
@@ -126,6 +129,42 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1)
+      : "memory");
+}
+
+// d (64x128 f32, 64 per thread: n8 block j in d[4j..4j+3]) = a (64x16
+// bf16, registers) * b (16x128 bf16, shared memory, N-major: two 64-column
+// atoms `atoms` bytes apart in the descriptor) + (scale_d ? d : 0): the
+// first product of a tile passes scale_d = 0, so no instruction outside
+// the pipeline has to zero the accumulator
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d)
       : "memory");
 }
 

@@ -12,7 +12,9 @@ its plain PyTorch version beside it.
   of the training conv.
 - :func:`conv_transpose2x2` (``csrc/conv_transpose2x2.cu``) replaces
   ``conv_transpose2x2`` of the same file: the non-bilinear U-Net's 2x2
-  stride-2 transposed conv + bias.
+  stride-2 transposed conv + bias; bf16 at widths that tile (every
+  ladder shape) on the tensor cores, the rest on the CUDA cores
+  (:func:`convt_path`).
 - :func:`conv3x3` is the training conv, a ``torch.autograd.Function``
   and the counterpart of that file's custom-VJP ``conv3x3``: its forward
   and dx launch :func:`conv3x3_bn_relu` with a unit epilogue (dx on the
@@ -51,21 +53,24 @@ _DTYPES = {
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: C function -> (kernel name, ctypes argument types)
 _SIGNATURES = {
     # x, w, scale, bias, out, workspace, B, H, W, Cin, Cout, relu, splits,
     # dtypes, stream
-    "conv3x3_bn_relu": ("conv3x3_bn_relu_launch",
-                        [_P] * 6 + [_I] * 8 + [_P]),
+    "conv3x3_bn_relu_launch": ("conv3x3_bn_relu", [_P] * 6 + [_I] * 8 + [_P]),
     # x, w, scale, bias, out, P, Cin, Cout, relu, dtypes, stream
-    "conv1x1": ("conv1x1_launch",
-                [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]),
+    "conv1x1_launch": (
+        "conv1x1", [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
+                    _P]),
     # x, g, workspace, dw, B, H, W, Cin, Cout, splits, dtypes, stream
-    "conv3x3_grad_weights": ("conv3x3_grad_weights_launch",
-                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _P]),
+    "conv3x3_grad_weights_launch": (
+        "conv3x3_grad_weights", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P]),
     # x, w, bias, out, B, H, W, Cin, Cout, dtypes, stream
-    "conv_transpose2x2": ("conv_transpose2x2_launch",
-                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "conv_transpose2x2_launch": (
+        "conv_transpose2x2", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # Cin, Cout, dtypes -> 1 tensor cores, 0 FMA
+    "conv_transpose2x2_path": ("conv_transpose2x2", [_I, _I, _I]),
 }
 
 #: the bf16 tensor-core kernels' tiles (csrc/conv3x3_bn_relu.cu and
@@ -100,8 +105,9 @@ def fold_batchnorm(gamma, beta, mean, var, eps: float = 1e-5):
     return scale, beta - mean * scale
 
 
-def _kernel(name: str):
-    return build.function(name, *_SIGNATURES[name])
+def _kernel(symbol: str):
+    name, argtypes = _SIGNATURES[symbol]
+    return build.function(name, symbol, argtypes)
 
 
 def _check_cuda(name: str, x, w, out_dtype, **vectors):
@@ -216,7 +222,7 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
     out = torch.empty((b, h, width, cout), dtype=out_dtype, device=x.device)
     ws = (torch.empty(ws_numel, dtype=torch.float32, device=x.device)
           if ws_numel else None)
-    err = _kernel("conv3x3_bn_relu")(
+    err = _kernel("conv3x3_bn_relu_launch")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), None if ws is None else ws.data_ptr(), b, h, width,
         cin, cout, int(relu), splits, code,
@@ -274,7 +280,7 @@ def conv1x1(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
     w = w.to(x.dtype)
     code = _check_cuda("conv1x1", x, w, out_dtype, scale=scale, bias=bias)
     out = torch.empty((b, h, width, cout), dtype=out_dtype, device=x.device)
-    err = _kernel("conv1x1")(
+    err = _kernel("conv1x1_launch")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b * h * width, cin, cout, int(relu), code,
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -313,6 +319,33 @@ def conv_transpose2x2_plain(x, w, bias=None, *, out_dtype=None):
     return y.to(out_dtype)
 
 
+#: conv_transpose2x2's tensor-core path: bf16 x with Cin a multiple of
+#: CONVT_CIN_STEP and Cout a multiple of COUT_TILE
+CONVT_CIN_STEP = 16
+
+
+def convt_path(dtype, cin: int, cout: int) -> str:
+    """Which kernel :func:`conv_transpose2x2` launches for a CUDA x of
+    ``dtype`` and these widths: ``"tensor_cores"`` (bf16 in, Cin % 16 ==
+    0, Cout % 64 == 0: the ``wgmma`` implicit GEMM) or ``"fma"`` (float32,
+    whose bar TF32 would break, and ragged widths: the CUDA-core kernel).
+    The C entry decides by the same rule (``conv_transpose2x2_path``);
+    this mirror is what the CPU tests pin and chip_smoke logs."""
+    if (dtype == torch.bfloat16 and cin % CONVT_CIN_STEP == 0
+            and cout % COUT_TILE == 0):
+        return "tensor_cores"
+    return "fma"
+
+
+def convt_path_of_kernel(dtype, cin: int, cout: int,
+                         out_dtype=None) -> str:
+    """The C entry's own answer to :func:`convt_path` (builds the kernel's
+    library; the card's machine only)."""
+    code = _DTYPES[(dtype, dtype if out_dtype is None else out_dtype)]
+    path = _kernel("conv_transpose2x2_path")(cin, cout, code)
+    return {1: "tensor_cores", 0: "fma"}[path]
+
+
 def conv_transpose2x2(x, w, bias, *, out_dtype=None):
     """NHWC 2x2 stride-2 transposed conv + bias: the non-bilinear ``Up``
     upsampler, ``[B, H, W, Cin] -> [B, 2H, 2W, Cout]``.
@@ -340,9 +373,13 @@ def conv_transpose2x2(x, w, bias, *, out_dtype=None):
     cout = w.shape[3]
     w = w.to(x.dtype)
     code = _check_cuda("conv_transpose2x2", x, w, out_dtype, bias=bias)
+    if (convt_path(x.dtype, cin, cout) == "tensor_cores"
+            and (x.data_ptr() % 16 or w.data_ptr() % 16)):
+        raise ValueError("conv_transpose2x2: the tensor-core path takes x "
+                         "and w on 16-byte addresses")
     out = torch.empty((b, 2 * h, 2 * width, cout), dtype=out_dtype,
                       device=x.device)
-    err = _kernel("conv_transpose2x2")(
+    err = _kernel("conv_transpose2x2_launch")(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h,
         width, cin, cout, code,
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -426,7 +463,7 @@ def conv3x3_grad_weights(x, g):
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     ws = (torch.empty((splits, 3, 3, cin, cout), dtype=torch.float32,
                       device=x.device) if splits > 1 else dw)
-    err = _kernel("conv3x3_grad_weights")(
+    err = _kernel("conv3x3_grad_weights_launch")(
         x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), b, h, w,
         cin, cout, splits, code,
         torch.cuda.current_stream(x.device).cuda_stream,

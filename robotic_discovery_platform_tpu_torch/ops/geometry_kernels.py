@@ -7,8 +7,10 @@ package's ``ops/pallas/geometry.py``).
   one pass; bitwise equal to its plain version.
 - :func:`bspline_design` (``csrc/bspline_design.cu``): the basis of the
   edge points' chord parameters contracted straight into the fit's Gram
-  matrix and right-hand side, in float64; the basis never reaches device
-  memory.
+  matrix and right-hand side, in float64, in one launch; the basis never
+  reaches device memory, and each point computes only the ``degree + 1``
+  nonzero entries of its row (mirrored in Python, and held against
+  ``bspline._basis_columns``, by tests/test_torch_port_geometry_kernels.py).
 - :func:`bspline_curvature` (``csrc/bspline_curvature.cu``): r, r', r''
   and the curvature formula at the sample parameters, in one launch.
 
@@ -40,9 +42,8 @@ _SIGNATURES = {
     # stats_n, H, W, stride, stream
     "deproject_edge_stats_launch": (
         "deproject_edge_stats", [_P] * 11 + [_I, _I, _I, _P]),
-    "bspline_design_blocks": ("bspline_design", [_I]),
-    # pts, w, u, knots, gram, rhs, part, N, D, K, degree, stream
-    "bspline_design_launch": ("bspline_design", [_P] * 7 + [_I] * 4 + [_P]),
+    # pts, w, u, knots, gram, rhs, N, D, K, degree, stream
+    "bspline_design_launch": ("bspline_design", [_P] * 6 + [_I] * 4 + [_P]),
     # ctrl, u, knots, m1, m2, kappa, valid, r, N, K, degree, stream
     "bspline_curvature_launch": (
         "bspline_curvature", [_P] * 8 + [_I] * 3 + [_P]),
@@ -167,19 +168,17 @@ def bspline_design(points, weights, u, knots, degree: int = 3):
     for label, t in (("points", points), ("weights", weights), ("u", u)):
         if t.dtype != torch.float64:
             raise TypeError(f"bspline_design: {label} must be float64")
+    if np.any(np.diff(np.asarray(knots, np.float64)) < 0):
+        raise ValueError("bspline_design: the knots must be non-decreasing")
     kn = bspline._static(knots, u)
     dev = _check_cuda("bspline_design", points, weights, u, kn)
     k = kn.shape[0]
     c = k - degree - 1
-    blocks = _fn("bspline_design_blocks")(n)
     gram = torch.empty((c, c), dtype=torch.float64, device=dev)
     rhs = torch.empty((c, d), dtype=torch.float64, device=dev)
-    part = torch.empty((blocks, c * c + c * d), dtype=torch.float64,
-                       device=dev)
     err = _fn("bspline_design_launch")(
         points.data_ptr(), weights.data_ptr(), u.data_ptr(), kn.data_ptr(),
-        gram.data_ptr(), rhs.data_ptr(), part.data_ptr(), n, d, k, degree,
-        _stream(dev))
+        gram.data_ptr(), rhs.data_ptr(), n, d, k, degree, _stream(dev))
     build.check("bspline_design", err)
     bspline_design.launches += 1
     return gram, rhs

@@ -121,6 +121,106 @@ def test_bspline_design_matches_jax_interpret(n, c):
         assert np.all(err <= 1e-4 * mag.numpy()), err.max()
 
 
+def _basis_window(u: float, knots, p: int):
+    """A pure-Python float64 mirror of ``basis_window`` in
+    csrc/bspline_design.cu: the span search, then the recursion over the
+    p + 1 entries s - p .. s that can be nonzero, with the kernel's
+    operations in the kernel's order (Python floats round each operation
+    to nearest, as ``__dsub_rn``/``__ddiv_rn``/``__dmul_rn``/``__dadd_rn``
+    do). Returns (s, [b(s - p), .., b(s)]); s = -1 when no span holds u."""
+    kn = [float(k) for k in knots]
+    last, n_knots = kn[-1], len(kn)
+    s = -1
+    for t in range(n_knots - 1):
+        lo, hi = kn[t], kn[t + 1]
+        in_span = u >= lo and (u < hi or (hi >= last and u <= hi))
+        if hi - lo > 0.0 and in_span:
+            s = t
+    b = [0.0] * p + [1.0]
+    if s < 0:
+        return -1, b
+    for d in range(1, p + 1):
+        for a in range(p - d, p + 1):
+            i = s - p + a
+            v = 0.0
+            if 0 <= i <= n_knots - 2 - d:
+                if a > p - d:
+                    dl = kn[i + d] - kn[i]
+                    left = (u - kn[i]) / dl if dl > 0.0 else 0.0
+                    v = left * b[a]
+                if a < p:
+                    dr = kn[i + d + 1] - kn[i + 1]
+                    right = (kn[i + d + 1] - u) / dr if dr > 0.0 else 0.0
+                    rt = right * b[a + 1]
+                    v = v + rt if a > p - d else rt
+            b[a] = v
+    return s, b
+
+
+def _window_rows(us, knots, p: int) -> np.ndarray:
+    """The full basis rows the windows imply: zeros outside each window."""
+    c = len(knots) - p - 1
+    rows = np.zeros((len(us), c))
+    for n, u in enumerate(us):
+        s, b = _basis_window(float(u), knots, p)
+        for a in range(p + 1):
+            if s >= 0 and 0 <= s - p + a < c:
+                rows[n, s - p + a] = b[a]
+    return rows
+
+
+@pytest.mark.parametrize("c,p", [(16, 3), (8, 2)])
+def test_windowed_basis_equals_the_full_recursion(c, p):
+    """The kernel's windowed basis rows equal ``_basis_columns``'s value
+    for value (np.array_equal: outside the window the full recursion may
+    leave a -0.0 where the window has +0.0) at every knot, 0, 1, just
+    below 1, outside [0, 1] and at 1000 seeded parameters."""
+    knots = tbspline.clamped_uniform_knots(c, p)
+    rng = np.random.default_rng(11)
+    us = np.concatenate([knots, [0.0, 1.0, np.nextafter(1.0, 0.0), -0.5,
+                                 1.5], rng.random(1000)])
+    want = tbspline._basis_columns(
+        torch.from_numpy(us)[:, None], torch.from_numpy(knots), p).numpy()
+    got = _window_rows(us, knots, p)
+    assert np.array_equal(got, want)
+    # every parameter in [0, 1] lands in a span: p + 1 entries, at most
+    # p + 1 of them nonzero
+    inside = (us >= 0) & (us <= 1)
+    assert all(_basis_window(float(u), knots, p)[0] >= 0 for u in us[inside])
+    assert not np.any(got[~inside])
+
+
+@pytest.mark.parametrize("c,p", [(16, 3), (8, 2)])
+def test_banded_design_equals_the_plain_version(c, p):
+    """The Gram matrix and right-hand side summed from the windows, block
+    by block at each point's span (the kernel's banded accumulation),
+    equal ``bspline_design_plain``'s within 1e-12 of the terms'
+    magnitudes; Gram entries outside the band are exactly 0 in both."""
+    knots = tbspline.clamped_uniform_knots(c, p)
+    pts, wts, _ = _design_inputs(640, 5)
+    pts, wts = pts.astype(np.float64), wts.astype(np.float64)
+    u = tbspline.chord_length_params(torch.from_numpy(pts),
+                                     torch.from_numpy(wts)).numpy()
+    gram, rhs = np.zeros((c, c)), np.zeros((c, 3))
+    for n in range(len(u)):
+        s, b = _basis_window(float(u[n]), knots, p)
+        if s < 0:
+            continue
+        b = np.asarray(b)
+        bw = b * wts[n]
+        gram[s - p:s + 1, s - p:s + 1] += np.outer(bw, b)
+        rhs[s - p:s + 1] += np.outer(bw, pts[n])
+    t64 = [torch.from_numpy(a) for a in (pts, wts, u)]
+    want = gk.bspline_design_plain(*t64, knots, p)
+    mag = gk.bspline_design_plain(t64[0].abs(), t64[1].abs(), t64[2], knots,
+                                  p)
+    for got, w, m in zip((gram, rhs), want, mag):
+        assert np.all(np.abs(got - w.numpy()) <= 1e-12 * m.numpy())
+    i, j = np.indices((c, c))
+    off_band = np.abs(i - j) > p
+    assert np.all(gram[off_band] == 0) and np.all(want[0].numpy()[off_band] == 0)
+
+
 def test_fit_bspline_fused_path_matches_the_reference():
     """The fused fit (design through bspline_design) and the reference fit
     are the same float64 computation on the CPU."""

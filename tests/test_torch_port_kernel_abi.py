@@ -52,14 +52,16 @@ def _exports() -> dict:
 
 def _bindings() -> dict:
     """(kernel name, C function) -> ctypes argument types of every binding.
-    ``geometry_kernels`` keys its table by C function, the other modules
-    by kernel name."""
+    ``conv`` and ``geometry_kernels`` key their tables by C function (a
+    kernel library there may export more than one), ``pack`` and
+    ``decode`` by kernel name."""
     out = {}
-    for module in (conv, pack, decode):
+    for module in (pack, decode):
         for name, (symbol, argtypes) in module._SIGNATURES.items():
             out[(name, symbol)] = list(argtypes)
-    for symbol, (name, argtypes) in geometry_kernels._SIGNATURES.items():
-        out[(name, symbol)] = list(argtypes)
+    for module in (conv, geometry_kernels):
+        for symbol, (name, argtypes) in module._SIGNATURES.items():
+            out[(name, symbol)] = list(argtypes)
     return out
 
 
@@ -87,3 +89,18 @@ def test_the_parser_sees_the_redesigned_conv_interfaces():
         [p] * 6 + [i] * 8 + [p])
     assert _exports()[("conv3x3_grad_weights",
                        "conv3x3_grad_weights_launch")] == [p] * 4 + [i] * 7 + [p]
+
+
+def test_the_parser_sees_the_convt_path_and_the_one_launch_design():
+    """The transposed conv exports its launch (x, w, bias, out, 6 ints, the
+    stream) and its path rule (Cin, Cout, dtypes); the design contractions
+    take no scratch and export no block count (one launch: pts, w, u,
+    knots, gram, rhs, N, D, K, degree, the stream)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    exports = _exports()
+    assert exports[("conv_transpose2x2", "conv_transpose2x2_launch")] == (
+        [p] * 4 + [i] * 6 + [p])
+    assert exports[("conv_transpose2x2", "conv_transpose2x2_path")] == [i] * 3
+    assert exports[("bspline_design", "bspline_design_launch")] == (
+        [p] * 6 + [i] * 4 + [p])
+    assert ("bspline_design", "bspline_design_blocks") not in exports

@@ -28,6 +28,8 @@ tree; inputs come from numpy seeds. Tolerances, fixed before measuring:
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -145,6 +147,33 @@ def test_conv_transpose2x2_layout_and_the_cpu_wrapper():
                              w.flip(0, 1).permute(2, 3, 0, 1), bias,
                              stride=2).permute(0, 2, 3, 1)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,cin,cout,want", [
+    # the non-bilinear ladder (input 16^2 .. 128^2) in bf16
+    (torch.bfloat16, 1024, 512, "tensor_cores"),
+    (torch.bfloat16, 512, 256, "tensor_cores"),
+    (torch.bfloat16, 256, 128, "tensor_cores"),
+    (torch.bfloat16, 128, 64, "tensor_cores"),
+    # float32 (TF32 would break its bar) and ragged widths
+    (torch.float32, 1024, 512, "fma"),
+    (torch.bfloat16, 40, 24, "fma"),
+    (torch.bfloat16, 48, 96, "fma"),
+    (torch.bfloat16, 8, 64, "fma"),
+])
+def test_conv_transpose2x2_path_rule(dtype, cin, cout, want):
+    """Which kernel a CUDA x takes: the tensor cores for bf16 with Cin %
+    16 == 0 and Cout % 64 == 0, the CUDA cores otherwise; the C entry's
+    rule (``tensor_cores`` in csrc/conv_transpose2x2.cu, which chip_smoke
+    asks on the card) names the same widths."""
+    assert conv.convt_path(dtype, cin, cout) == want
+    src = (Path(conv.__file__).resolve().parents[1] / "csrc"
+           / "conv_transpose2x2.cu").read_text()
+    rule = re.search(r"bool tensor_cores\(int Cin, int Cout, int dtypes\) "
+                     r"\{\s*return ([^;]*);", src).group(1)
+    assert " ".join(rule.split()) == (
+        f"(dtypes == 1 || dtypes == 2) && Cin % {conv.CONVT_CIN_STEP} == 0 "
+        f"&& Cout % {conv.COUT_TILE} == 0")
 
 
 @pytest.mark.parametrize("out,inp", [(9, 8), (72, 72), (18, 16), (5, 4)])
