@@ -517,9 +517,7 @@ def geometry_kernel_phase(torch, port) -> dict:
               f"magnitudes (max |err| {float((a - b).abs().max())})")
         err = max(err, float((a - b).abs().max()))
     n, c = pts.shape[0], cfg.num_ctrl
-    band = torch.arange(c, device="cuda")
-    band = (band[:, None] - band[None, :]).abs() <= deg
-    check(bool((got[0][~band] == 0).all()),
+    check(design_band_zero(torch, got[0], deg),
           "bspline_design: a Gram entry outside the band is not 0")
     again = gk.bspline_design(pts, wts, u, knots, deg)
     check(all(bitwise_equal(torch, a.view(torch.int64), b.view(torch.int64))
@@ -538,6 +536,7 @@ def geometry_kernel_phase(torch, port) -> dict:
         f"{DESIGN_RTOL} of |BW|^T|.|), 0 outside the band, deterministic; "
         f"{timing_text(t)}; {int(s_w.sum())} weighted points")
     results[("bspline_design",)] = t
+    design_cases(torch, gk, bspline)
 
     ctrl, _ = bspline.fit_bspline(s_pts, s_w, knots, deg,
                                   cfg.spline_smoothing)
@@ -604,6 +603,53 @@ def geometry_kernel_phase(torch, port) -> dict:
     return results
 
 
+def design_band_zero(torch, gram, degree: int) -> bool:
+    """Every Gram entry more than ``degree`` off the diagonal is 0."""
+    i = torch.arange(gram.shape[0], device=gram.device)
+    return bool((gram[(i[:, None] - i[None, :]).abs() > degree] == 0).all())
+
+
+def design_cases(torch, gk, bspline) -> None:
+    """bspline_design beside the main path's call: more points than one
+    pass of the cluster takes, a quadratic on 8 control points in 2-D, a
+    single point, parameters at every knot and outside [0, 1] -- each
+    within DESIGN_RTOL of its plain version's terms' magnitudes, 0 outside
+    the band -- and a NaN parameter (every output NaN, as the plain
+    version's)."""
+    rng = np.random.default_rng(SEED + 8)
+    for n, c, deg, d in ((20000, 16, 3, 3), (777, 8, 2, 2), (1, 16, 3, 3)):
+        knots = bspline.clamped_uniform_knots(c, deg)
+        edges = np.concatenate([knots, [-0.5, 1.5, np.nextafter(1.0, 0.0)]])
+        # sorted, as chord-length parameters are
+        u = rng.random(n) if n < len(edges) else np.sort(
+            np.concatenate([edges, rng.random(n - len(edges))]))
+        args = [torch.from_numpy(a).cuda() for a in (
+            rng.normal(size=(n, d)), rng.random(n) * (rng.random(n) > 0.2),
+            u)]
+        got = gk.bspline_design(*args, knots, deg)
+        want = gk.bspline_design_plain(*args, knots, deg)
+        mag = gk.bspline_design_plain(args[0].abs(), args[1].abs(), args[2],
+                                      knots, deg)
+        torch.cuda.synchronize()
+        check(all(bool(((a - b).abs() <= DESIGN_RTOL * m).all())
+                  for a, b, m in zip(got, want, mag))
+              and design_band_zero(torch, got[0], deg),
+              f"bspline_design N={n} C={c} degree {deg} D={d}: beyond "
+              f"{DESIGN_RTOL} of the terms' magnitudes, or nonzero outside "
+              "the band")
+        if n == 777:
+            args[2][5] = float("nan")
+            got = gk.bspline_design(*args, knots, deg)
+            want = gk.bspline_design_plain(*args, knots, deg)
+            check(all(bool(t.isnan().all()) for t in (*got, *want)),
+                  "bspline_design: a NaN parameter does not make every "
+                  "output NaN")
+    log("bspline_design N=20000 (C=16, cubic), N=777 (C=8, quadratic, "
+        "D=2) and N=1, parameters at every knot and outside [0, 1]: within "
+        f"{DESIGN_RTOL} of |BW|^T|.|, 0 outside the band; a NaN parameter "
+        "makes every output NaN, as in the plain version")
+
+
 def bf16_ulp_check(torch, got, want, mag, n: int) -> tuple[bool, int]:
     """Two bfloat16 roundings of float32 sums of the same ``n`` products
     (plus a bias) taken in different orders: every element within one
@@ -645,7 +691,10 @@ def convt_kernel_phase(torch, conv) -> dict:
     sums = {b: {} for b in (1, MAX_BATCH)}
     cases = [(b, s, s, cin, cout, torch.bfloat16)
              for b in (1, MAX_BATCH) for s, cin, cout in CONVT_SHAPES]
-    cases += [(2, 9, 13, 40, 24, torch.bfloat16),
+    # ragged: a pixel count no tile divides and a half-filled K chunk on
+    # the tensor cores; widths the tensor cores do not take, in both dtypes
+    cases += [(2, 9, 13, 48, 128, torch.bfloat16),
+              (2, 9, 13, 40, 24, torch.bfloat16),
               (2, 9, 13, 40, 24, torch.float32)]
     for b, h, w, cin, cout, dtype in cases:
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda").to(dtype)
@@ -722,6 +771,21 @@ def convt_kernel_phase(torch, conv) -> dict:
                 sums[b][f] = sums[b].get(f, 0.0) + t[f]
             if b == 1:
                 results[("conv_transpose2x2", h, cin, cout)] = t
+    # bf16 in, float32 out on the tensor cores: float32 sums of the same
+    # exact products in another order
+    x = torch.randn(2, 9, 13, 48, generator=gen, device="cuda").bfloat16()
+    wt = (torch.randn(2, 2, 48, 64, generator=gen, device="cuda")
+          / 48 ** 0.5).bfloat16()
+    bias = torch.randn(64, generator=gen, device="cuda") * 0.1
+    got = conv.conv_transpose2x2(x, wt, bias, out_dtype=torch.float32)
+    rel = rel_l2(torch, got, conv.conv_transpose2x2_plain(
+        x, wt, bias, out_dtype=torch.float32))
+    check(conv.convt_path_of_kernel(torch.bfloat16, 48, 64, torch.float32)
+          == "tensor_cores" and rel <= CONVT_F32_REL,
+          f"conv_transpose2x2 bf16 -> float32: relative L2 {rel} > "
+          f"{CONVT_F32_REL}, or not on the tensor cores")
+    log(f"conv_transpose2x2 [2,9,13,48]->64 bfloat16 -> float32, path "
+        f"tensor_cores: relative L2 {rel:.3g} (bar {CONVT_F32_REL})")
     for b, row in sums.items():
         log(f"conv_transpose2x2, the 4 launches of one non-bilinear "
             f"{'frame' if b == 1 else 'dispatch'} at B = {b}: " + ", ".join(

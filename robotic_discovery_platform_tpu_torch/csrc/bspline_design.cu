@@ -38,7 +38,8 @@
 //   exact zero, so the window's values equal the full row's value for
 //   value (at most a zero's sign differs, which no sum sees); the entries
 //   outside the window are zero. 2d divides at degree d instead of
-//   2 (K - 1 - d), and no local-memory array.
+//   2 (K - 1 - d), and no local-memory array (degrees 4 and 5, off the
+//   main path, hold two sums per lane and spill a few registers).
 // - Banded accumulation. A point adds a (p+1) x (p+1) Gram block and a
 //   (p+1) x D rhs block at offset s - p, so the Gram matrix is banded
 //   (|i - j| <= p). A warp's 32 points (consecutive, so nearly always one
@@ -126,16 +127,6 @@ __device__ __forceinline__ int basis_window(double u, const double* kn, int K,
   return s;
 }
 
-// c ? a : b, as a selp the compiler cannot turn into a load through a
-// selected address (which would put the array below in local memory)
-__device__ __forceinline__ double select(bool c, double a, double b) {
-  double r;
-  asm("{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\nselp.f64 %0, %1, %2, p;\n}"
-      : "=d"(r)
-      : "d"(a), "d"(b), "r"((int)c));
-  return r;
-}
-
 // Sums over a warp's lanes of 32 * NR values per lane: on return r[k]
 // (k < NR) of lane l holds the sum of value 32 k + l. Recursive halving:
 // at each step a lane keeps half of its values and sends the other half
@@ -158,8 +149,7 @@ __device__ __forceinline__ void transpose_reduce(double (&r)[32 * NR],
         if (i >= off) continue;
         const double lo = r[32 * k + i], hi = r[32 * k + i + off];
         r[32 * k + i] = __dadd_rn(
-            select(up, hi, lo),
-            __shfl_xor_sync(0xffffffffu, select(up, lo, hi), off));
+            up ? hi : lo, __shfl_xor_sync(0xffffffffu, up ? lo : hi, off));
       }
     }
     r[k] = r[32 * k];

@@ -50,9 +50,9 @@
 //
 // Other shapes -- float32 (TF32 would break the float32 bar), and bf16
 // with Cin % 16 or Cout % 64 nonzero -- take the first version's kernel
-// on the CUDA cores (below, namespace fma_path): a block of 256 threads owns
-// 64 input pixels x 64 GEMM columns (column n is tap n / Cout, channel n
-// % Cout) and walks Cin in steps of 16, staging both operand tiles in
+// on the CUDA cores (namespace fma_path): a block of 256 threads owns 64
+// input pixels x 64 GEMM columns (column n is tap n / Cout, channel n %
+// Cout) and walks Cin in steps of 16, staging both operand tiles in
 // shared memory as float32; each thread keeps a 4 x 4 register tile. The
 // C entry picks the path by dtype and shape (conv_transpose2x2_path, the
 // rule ops/conv.convt_path mirrors).
