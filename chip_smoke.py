@@ -30,10 +30,11 @@ mismatch raises and the script exits non-zero:
    non-bilinear ladder's four shapes (B = 1 and 8; each shape's path,
    tensor cores or FMA, logged and the C entry's rule checked against
    ``conv.convt_path``; each call repeated, equal bit for bit; at B = 8
-   every frame equal bit for bit to the frame alone; a ragged shape in
-   bfloat16 and float32 on the FMA path), with the profiler's device time
-   beside the back-to-back time; and the dequant + IDCT (bitwise, one
-   480x640 4:2:0 frame's planes at B = 1 and 8, and a ragged N);
+   every frame equal bit for bit to the frame alone; ragged shapes on
+   both paths, and bfloat16 in with float32 out), with the profiler's
+   device time beside the back-to-back time; and the dequant + IDCT
+   (bitwise, one 480x640 4:2:0 frame's planes at B = 1 and 8, and a
+   ragged N);
 3. the analyzer: the kernel forward against the plain forward, exact
    launch counts per frame (18 conv3x3_bn_relu + 1 conv1x1 + 1 each
    geometry kernel), the same frames against the reference geometry ops
@@ -181,9 +182,9 @@ LOSS_RTOL = 1e-2
 BF16_GRAD_RATIO = 1.25
 TRAIN_SAMPLES = 20  # 16 train + 4 validation: 4 steps per epoch
 # the training shape (H = W, Cin, Cout) at which the float32 plain forward,
-# F.conv2d with TF32 off, takes some 300x its time at the others (with
-# cuDNN's autotuner on as well): a yardstick artefact, so phase 6 reports
-# it on a line of its own, apart from the per-step sums of plain times
+# F.conv2d with TF32 off, takes hundreds of times its time at the others
+# (with cuDNN's autotuner on as well): a yardstick artefact, so phase 6
+# reports it on a line of its own, apart from the per-step sums
 SLOW_PLAIN_FWD = (128, 256, 128)
 
 
@@ -675,9 +676,10 @@ def convt_kernel_phase(torch, conv) -> dict:
     ladder's four shapes at B = 1 and B = 8 in bfloat16 (both round
     float32 sums of the same products, in another order: every element
     within one bfloat16 ulp, plus the two orders' float32 summation bound
-    where a sum cancels to near zero, :func:`bf16_ulp_check`), at a ragged
-    shape in bfloat16 (the same bar) and in float32 (relative L2 within
-    CONVT_F32_REL). Each shape's path (tensor cores or FMA) is logged, and
+    where a sum cancels to near zero, :func:`bf16_ulp_check`), at ragged
+    shapes in bfloat16 on both paths (the same bar), in float32 and with
+    bfloat16 in and float32 out (relative L2 within CONVT_F32_REL). Each
+    shape's path (tensor cores or FMA) is logged, and
     the C entry's rule must agree with ``conv.convt_path``; each call is
     repeated on the same operands (equal bit for bit), and at B = 8 every
     frame of the stack must equal the frame alone bit for bit. Times per
