@@ -19,14 +19,21 @@ mismatch raises and the script exits non-zero:
    conv at the batched path's B = 8), with its time, the plain version's,
    one cuDNN call's where one computes the same function, and the bound
    (the convs' lines also give TFLOP/s and the share of the bound): the
-   two convs (each called twice on the same operands, equal bit for bit;
-   at B = 8, for the four BATCH_3X3 shapes and every shape whose K is
-   split, each frame of the stack equal bit for bit to the frame alone),
-   then the geometry kernels (deprojection bitwise at
-   480x640 stride 1 and 240x320 stride 2, the design contractions of 6400
-   edge-point slots -- called twice, equal bit for bit, 0 outside the
-   Gram matrix's band --, the curvature at 100 samples) and the mask
-   bitpack (bitwise, [8, 480, 640]); the transposed conv at the
+   3x3 conv (called twice on the same operands, equal bit for bit; at
+   B = 8, for the four BATCH_3X3 shapes and every shape whose K is split,
+   each frame of the stack equal bit for bit to the frame alone); the 1x1
+   conv at CONV1X1_SHAPES (the head at B = 1 and 8, the general body in
+   bf16 and float32), CONV1X1_EDGES and two misaligned views (each shape's
+   path, head, tensor cores or FMA, logged and checked against the C
+   entry's; each call repeated, equal bit for bit; every frame of a
+   stack equal bit for bit to the frame alone; the profiler's device time
+   beside the back-to-back time, each beside cuDNN's); then the geometry
+   kernels (deprojection bitwise at 480x640 stride 1 and 240x320 stride
+   2, the design contractions of 6400 edge-point slots -- called twice,
+   equal bit for bit, 0 outside the Gram matrix's band --, the curvature
+   at 100 samples, called twice, equal bit for bit, no stack frame in
+   ``ptxas -v``, and at ``curvature_case_inputs``' edge cases) and the
+   mask bitpack (bitwise, [8, 480, 640]); the transposed conv at the
    non-bilinear ladder's four shapes (B = 1 and 8; each shape's path,
    tensor cores or FMA, logged and the C entry's rule checked against
    ``conv.convt_path``; each call repeated, equal bit for bit; at B = 8
@@ -115,6 +122,23 @@ MAIN_PATH_3X3 = [
     (256, 128, 64), (256, 64, 64),
 ]
 HEAD = (256, 64, 1)  # the conv1x1 head: H = W, Cin, Cout
+# conv1x1 shapes timed (B, H, W, Cin, Cout, dtype, out dtype): the head at
+# B = 1 (the main path) and at the batched dispatch's B = 8, and the
+# general body (ModelConfig.num_classes > 1) in both dtypes
+CONV1X1_SHAPES = [
+    (1, 256, 256, 64, 1, "bfloat16", "float32"),
+    (8, 256, 256, 64, 1, "bfloat16", "float32"),
+    (1, 64, 96, 48, 40, "bfloat16", "bfloat16"),
+    (1, 64, 96, 48, 40, "float32", "float32"),
+]
+# and checked only (..., relu): the head with ReLU and a ragged last run
+# of pixels, a float32 head whose Cin fills no 16-byte vector, a Cout the
+# tensor cores do not tile
+CONV1X1_EDGES = [
+    (3, 37, 53, 64, 1, "bfloat16", "float32", True),
+    (2, 9, 13, 6, 1, "float32", "float32", False),
+    (1, 64, 96, 48, 2, "bfloat16", "bfloat16", False),
+]
 # the non-bilinear model (ModelConfig(bilinear=False)): its 18
 # conv3x3_bn_relu launches, those shapes the default model does not have,
 # and its 4 conv_transpose2x2 launches (input H = W, Cin, Cout)
@@ -378,44 +402,107 @@ def kernel_phase(torch, conv) -> dict:
         f"{f} {sum(r[f] for r in rows):.4f}" for f in (
             "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")))
 
-    for b, h, w, cin, cout, dtype, odt, main in [
-        (1, 256, 256, 64, 1, torch.bfloat16, torch.float32, True),
-        (1, 64, 96, 48, 40, torch.bfloat16, torch.bfloat16, False),
-        (1, 64, 96, 48, 40, torch.float32, torch.float32, False),
-    ]:
-        x, wt, scale, bias = operands(b, h, w, cin, cout, dtype, 1)
-        got = conv.conv1x1(x, wt, scale, bias, out_dtype=odt)
-        want = conv.conv1x1_plain(x, wt, scale, bias, out_dtype=odt)
+    results.update(conv1x1_kernel_phase(torch, conv))
+    return results
+
+
+def conv1x1_kernel_phase(torch, conv) -> dict:
+    """conv1x1 against its plain version (within BF16_TOL or F32_TOL) at
+    CONV1X1_SHAPES and CONV1X1_EDGES, and on two misaligned views (x one
+    element past a 16-byte address: the head's and the tensor cores'
+    widths, which the FMA path then takes). Every call is repeated on the
+    same operands (equal bit for bit); at B = 8 every frame of the stack
+    equals the frame alone bit for bit; each shape's path
+    (``conv.conv1x1_path``) is logged and checked against the C entry's,
+    and the build's ``ptxas -v`` summary is logged. The timed
+    shapes give CUDA events over back-to-back calls and the profiler's
+    device time, each beside cuDNN's ``F.conv2d`` plus the epilogue on the
+    same operands, and the bound. Returns the B = 1 head's timings."""
+    from robotic_discovery_platform_tpu_torch.ops import build
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    results = {}
+    # (..., relu, timed, skip): x a contiguous view ``skip`` elements past
+    # an aligned start
+    cases = [(*c, False, True, 0) for c in CONV1X1_SHAPES]
+    cases += [(*c, False, 0) for c in CONV1X1_EDGES]
+    cases += [(1, 16, 24, 64, 1, "bfloat16", "float32", False, False, 1),
+              (1, 16, 24, 64, 16, "bfloat16", "bfloat16", False, False, 1)]
+    for b, h, w, cin, cout, dtype, odt, relu, timed, skip in cases:
+        dtype, odt = getattr(torch, dtype), getattr(torch, odt)
+        n = b * h * w * cin
+        x = torch.randn(n + skip, generator=gen, device="cuda").to(dtype)[
+            skip:].view(b, h, w, cin)
+        wt = (torch.randn(cin, cout, generator=gen, device="cuda")
+              / cin ** 0.5).to(dtype)
+        scale = torch.rand(cout, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+        shape = (f"[{b},{h},{w},{cin}]->{cout} "
+                 f"{str(dtype)[6:]}->{str(odt)[6:]}")
+        path = conv.conv1x1_path(dtype, cin, cout,
+                                 x_aligned=x.data_ptr() % 16 == 0)
+        check(conv.conv1x1_path_of_kernel(x, cout, odt) == path,
+              f"conv1x1 {shape}: the C entry's path differs from "
+              f"conv1x1_path's {path}")
+        check(not skip or path == "fma",
+              f"conv1x1 {shape}: a misaligned view takes path {path}")
+
+        def kernel():
+            return conv.conv1x1(x, wt, scale, bias, relu=relu, out_dtype=odt)
+
+        got = kernel()
+        want = conv.conv1x1_plain(x, wt, scale, bias, relu=relu,
+                                  out_dtype=odt)
         torch.cuda.synchronize()
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
         err = float((got.float() - want.float()).abs().max())
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-              f"conv1x1 {(b, h, w, cin, cout)} {dtype}: max |err| {err} over "
-              f"tolerance {tol}")
+              f"conv1x1 {shape}: max |err| {err} over tolerance {tol}")
+        check(bitwise_equal(torch, kernel(), got),
+              f"conv1x1 {shape}: two calls on the same operands differ")
+        bar = f"max|err| {err:.3g} (tol {tol}), deterministic"
+        if b > 1:
+            check(all(bitwise_equal(torch, got[i:i + 1], conv.conv1x1(
+                x[i:i + 1], wt, scale, bias, relu=relu, out_dtype=odt))
+                for i in range(b)),
+                f"conv1x1 {shape}: a frame of the stack differs from the "
+                "frame alone")
+            bar += ", every frame equal bit for bit to the frame alone"
+        if not timed:
+            note = " relu" if relu else " misaligned" if skip else ""
+            log(f"conv1x1 {shape}{note}, path {path}: {bar}")
+            continue
         xc = x.permute(0, 3, 1, 2)
         wc = wt.t().reshape(cout, cin, 1, 1).contiguous(
             memory_format=torch.channels_last)
         sc, bc = scale.view(1, -1, 1, 1), bias.view(1, -1, 1, 1)
+
+        def library():
+            return (F.conv2d(xc, wc).float() * sc + bc).to(odt)
+
         t = {
-            "ms": time_ms(torch, lambda: conv.conv1x1(
-                x, wt, scale, bias, out_dtype=odt)),
+            "ms": time_ms(torch, kernel),
             "plain_ms": time_ms(torch, lambda: conv.conv1x1_plain(
-                x, wt, scale, bias, out_dtype=odt)),
-            "library_ms": time_ms(torch, lambda: (
-                F.conv2d(xc, wc).float() * sc + bc).to(odt)),
+                x, wt, scale, bias, relu=relu, out_dtype=odt)),
+            "library_ms": time_ms(torch, library),
+            "device_ms": device_ms(torch, kernel),
+            "library_device_ms": device_ms(torch, library),
+            "max_abs_err": err,
         }
         nbytes = (x.numel() + wt.numel()) * x.element_size() + 8 * cout \
             + b * h * w * cout * torch.empty((), dtype=odt).element_size()
         flops = 2.0 * b * h * w * cin * cout
         t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
-        t["max_abs_err"] = err
-        log(f"conv1x1 [{b},{h},{w},{cin}]->{cout} {str(dtype)[6:]}->"
-            f"{str(odt)[6:]}: max|err| {err:.3g} (tol {tol}) ms "
-            f"{t['ms']:.4f} plain {t['plain_ms']:.4f} cudnn "
-            f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
-            f"({t['bound_by']})")
-        if main:
-            results[("conv1x1", h, cin, cout)] = t
+        log(f"conv1x1 {shape}, path {path}: {bar}; ms {t['ms']:.4f} plain "
+            f"{t['plain_ms']:.4f} cudnn {t['library_ms']:.4f} bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}); device ms "
+            f"{t['device_ms']:.4f} cudnn {t['library_device_ms']:.4f} "
+            f"(profiler), {nbytes / t['device_ms'] / 1e9:.2f} TB/s, "
+            f"{t['bound_ms'] / t['device_ms']:.1%} of the bound")
+        if (b, h, cin, cout) == (1, *HEAD):
+            results[("conv1x1", *HEAD)] = t
+    log(ptxas_summary(build, "conv1x1")[0])
     return results
 
 
@@ -455,9 +542,13 @@ def geometry_kernel_phase(torch, port) -> dict:
     versions at the main path's shapes, on a rendered scene's true mask:
     deprojection at 480x640 (stride 1) and 240x320 (stride 2), the design
     contractions of that frame's 6400 edge-point slots, the curvature at
-    its 100 samples, and the bitpack of a [8, 480, 640] batch (plus a
-    ragged one)."""
-    from robotic_discovery_platform_tpu_torch.ops import bspline, geometry
+    its 100 samples (on the fit's column-major control points; called
+    twice, equal bit for bit; ``ptxas -v`` reporting no stack frame; then
+    :func:`curvature_cases`), and the bitpack of a [8, 480, 640] batch
+    (plus a ragged one, the smallest launch timed: the floor of a
+    launch's device time)."""
+    from robotic_discovery_platform_tpu_torch.ops import (
+        bspline, build, geometry)
     from robotic_discovery_platform_tpu_torch.ops import geometry_kernels as gk
     from robotic_discovery_platform_tpu_torch.ops import pack
 
@@ -558,6 +649,13 @@ def geometry_kernel_phase(torch, port) -> dict:
           f"{float((got[2] - want[2]).abs().max())} beyond rtol {R_RTOL}")
     err = max(float((got[0] - want[0]).abs().max()),
               float((got[2] - want[2]).abs().max()))
+    again = gk.bspline_curvature(ctrl, u_fine, knots, deg)
+    check(all(bitwise_equal(torch, a, b) for a, b in zip(again, got)),
+          "bspline_curvature: two calls on the same operands differ")
+    report, stack = ptxas_summary(build, "bspline_curvature")
+    log(report)
+    check(not any(stack), "bspline_curvature: ptxas reports a stack frame "
+          "(a per-sample array fell to local memory)")
     ns = cfg.num_samples
     t = timings(torch, lambda: gk.bspline_curvature(ctrl, u_fine, knots, deg),
                 lambda: gk.bspline_curvature_plain(ctrl, u_fine, knots, deg))
@@ -573,8 +671,9 @@ def geometry_kernel_phase(torch, port) -> dict:
              + ns * (2 * 3 * (3 * deg) + 40))
     t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes, H100_F32_FLOPS)
     log(f"bspline_curvature N={ns} C={c}: validity equal, max|err| "
-        f"{err:.3g} (kappa max {kmax:.4g}); {timing_text(t)}")
+        f"{err:.3g} (kappa max {kmax:.4g}), deterministic; {timing_text(t)}")
     results[("bspline_curvature",)] = t
+    curvature_cases(torch, gk, bspline)
 
     gen = np.random.default_rng(SEED + 3)
     for shape, main in (((MAX_BATCH, FRAME_H, FRAME_W), True),
@@ -602,6 +701,119 @@ def geometry_kernel_phase(torch, port) -> dict:
         if main:
             results[("bitpack_mask",)] = t
     return results
+
+
+def curvature_case_inputs(bspline) -> list:
+    """bspline_curvature's cases beside the main path's call, as numpy:
+    (label, ctrl [C, 3] float32, u [N] float32, knots, degree). A helix of
+    control points (a tangent bounded away from 0) at N = 1000 (more than
+    one block), as a quadratic, at degree 5, at C = 32 (the kernel's
+    limit) and with u at every knot, 0 and 1; control points on a line
+    (kappa 0, every sample valid); coincident control points (their
+    tangent is zero but for rounding, which their millimetre coordinates
+    keep far below the 1e-6 guard: every sample invalid); a
+    NaN u (the plain version's flags and values: invalid, kappa 0, r
+    NaN)."""
+    rng = np.random.default_rng(SEED + 9)
+
+    def helix(c):
+        t = np.linspace(0.0, 3.0, c)
+        pts = np.stack([0.1 * np.cos(t), 0.1 * np.sin(t), 0.05 * t], axis=1)
+        return (pts + rng.normal(0.0, 0.005, pts.shape)).astype(np.float32)
+
+    def line(n):
+        return np.linspace(0.0, 1.0, n, dtype=np.float32)
+
+    cases = []
+    for label, c, deg, u in (("N=1000", 16, 3, line(1000)),
+                             ("degree 2", 8, 2, line(100)),
+                             ("degree 5", 16, 5, line(100)),
+                             ("C=32", 32, 3, line(100))):
+        cases.append((label, helix(c), u, bspline.clamped_uniform_knots(
+            c, deg), deg))
+    knots = bspline.clamped_uniform_knots(16, 3)
+    cases.append(("u at every knot, 0 and 1", helix(16), np.concatenate(
+        [knots, [0.0, 1.0]]).astype(np.float32), knots, 3))
+    x = np.cumsum(rng.uniform(0.5, 1.5, 16)) * 0.01
+    collinear = np.stack([x, np.zeros(16), np.zeros(16)], axis=1)
+    cases.append(("collinear", collinear.astype(np.float32), line(100),
+                  knots, 3))
+    coincident = np.tile(np.float32([1e-3, -2e-3, 5e-4]), (16, 1))
+    cases.append(("coincident", coincident, line(100), knots, 3))
+    u = line(100)
+    u[7] = np.nan
+    cases.append(("NaN u", helix(16), u, knots, 3))
+    return cases
+
+
+def curvature_within(got, want) -> tuple[bool, str]:
+    """A curvature profile against the plain version's, as numpy (kappa,
+    valid, r): validity equal; kappa within CURV_RTOL (relative) plus
+    CURV_RTOL * max|kappa|; r within R_RTOL plus R_RTOL * max|r| (the
+    largest finite), NaN where the plain version has NaN. Returns (within,
+    what differs)."""
+    (gk, gv, gr), (wk, wv, wr) = got, want
+    if not np.array_equal(gv, wv):
+        return False, f"validity differs at {np.flatnonzero(gv != wv)[:8]}"
+    kmax = float(np.abs(wk).max())
+    rmax = float(np.abs(np.nan_to_num(wr)).max())
+    if not np.allclose(gk, wk, rtol=CURV_RTOL, atol=CURV_RTOL * kmax,
+                       equal_nan=True):
+        return False, f"kappa max |err| {np.nanmax(np.abs(gk - wk))}"
+    if not np.allclose(gr, wr, rtol=R_RTOL, atol=R_RTOL * rmax,
+                       equal_nan=True):
+        return False, f"r max |err| {np.nanmax(np.abs(gr - wr))}"
+    return True, ""
+
+
+def curvature_cases(torch, gk, bspline) -> None:
+    """bspline_curvature at :func:`curvature_case_inputs`' cases against
+    its plain version (:func:`curvature_within`), each called twice (equal
+    bit for bit); the line's kappa is 0 and every sample valid, the
+    coincident points' every sample invalid."""
+    for label, ctrl, u, knots, deg in curvature_case_inputs(bspline):
+        args = (torch.from_numpy(ctrl).cuda(), torch.from_numpy(u).cuda())
+        got = gk.bspline_curvature(*args, knots, deg)
+        want = gk.bspline_curvature_plain(*args, knots, deg)
+        again = gk.bspline_curvature(*args, knots, deg)
+        torch.cuda.synchronize()
+        got_np, want_np = ([t.cpu().numpy() for t in x] for x in (got, want))
+        ok, what = curvature_within(got_np, want_np)
+        check(ok, f"bspline_curvature {label}: {what}")
+        check(all(bitwise_equal(torch, a, b) for a, b in zip(again, got)),
+              f"bspline_curvature {label}: two calls on the same operands "
+              "differ")
+        kappa, valid = got_np[0], got_np[1]
+        if label == "collinear":
+            check(bool(valid.all()) and not kappa.any(),
+                  "bspline_curvature collinear: kappa not 0 or a sample "
+                  "invalid")
+        if label == "coincident":
+            check(not valid.any() and not kappa.any(),
+                  "bspline_curvature coincident: a sample valid")
+    log("bspline_curvature N=1000, degree 2 (C=8), degree 5, C=32, u at "
+        "every knot, 0 and 1, collinear (kappa 0, all valid), coincident "
+        "(all invalid), a NaN u (invalid, kappa 0, r NaN): within "
+        f"CURV_RTOL {CURV_RTOL} / R_RTOL {R_RTOL} of the plain version, "
+        "validity equal, two calls equal bit for bit")
+
+
+def ptxas_summary(build, name: str) -> tuple[str, list]:
+    """What ``ptxas -v`` reported for kernel ``name``'s entry functions in
+    this process's build: (a line of registers, stack frames and spills,
+    the stack frame sizes), or a note and [] when its library was not
+    built here."""
+    import re
+
+    text = build.build_logs.get(name)
+    if text is None:
+        return f"{name}: library not built in this process", []
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+    stack = [int(v) for v in re.findall(r"(\d+) bytes stack frame", text)]
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", text)]
+    return (f"{name}: ptxas -v over {len(regs)} entry functions: registers "
+            f"{regs}, stack frames {stack} bytes, spill stores {spills} "
+            "bytes"), stack
 
 
 def design_band_zero(torch, gram, degree: int) -> bool:

@@ -12,7 +12,9 @@ package's ``ops/pallas/geometry.py``).
   nonzero entries of its row (mirrored in Python, and held against
   ``bspline._basis_columns``, by tests/test_torch_port_geometry_kernels.py).
 - :func:`bspline_curvature` (``csrc/bspline_curvature.cu``): r, r', r''
-  and the curvature formula at the sample parameters, in one launch.
+  and the curvature formula at the sample parameters, in one launch; each
+  sample computes only its windowed basis and the columns of the banded
+  derivative products it can reach (:func:`derivative_bands`).
 
 ``ops/geometry.compute_curvature_profile`` reaches them under
 ``GeometryConfig.kernel_impl`` "auto" (the default), "pallas" and
@@ -28,6 +30,7 @@ counts its launches in a plain integer attribute, ``launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -44,9 +47,10 @@ _SIGNATURES = {
         "deproject_edge_stats", [_P] * 11 + [_I, _I, _I, _P]),
     # pts, w, u, knots, gram, rhs, N, D, K, degree, stream
     "bspline_design_launch": ("bspline_design", [_P] * 6 + [_I] * 4 + [_P]),
-    # ctrl, u, knots, m1, m2, kappa, valid, r, N, K, degree, stream
+    # ctrl, u, knots, m1 band, m2 band, kappa, valid, r, N, K, degree,
+    # ctrl's two strides, stream
     "bspline_curvature_launch": (
-        "bspline_curvature", [_P] * 8 + [_I] * 3 + [_P]),
+        "bspline_curvature", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 
@@ -197,18 +201,47 @@ def bspline_curvature_plain(ctrl, u, knots, degree: int = 3):
     return bspline.curvature_profile(ctrl, knots, u, degree)
 
 
+def derivative_bands(knots_key: tuple, degree: int):
+    """The bands of the curvature's static derivative matrices, float64:
+    ``m1 = bspline._deriv_matrix_product(.., 1)`` [C+1, C] is nonzero only
+    at rows c and c + 1 of column c, ``m2`` (order 2) [C+2, C] only at rows
+    c .. c + 2 (products of two-banded matrices), so
+    ``m1b[c, t] = m1[c + t, c]`` (t < 2) and ``m2b[c, t] = m2[c + t, c]``
+    (t < 3) hold every nonzero."""
+    bands = []
+    for order in (1, 2):
+        m = bspline._deriv_matrix_product(knots_key, degree, order)
+        c = np.arange(m.shape[1])
+        bands.append(np.stack([m[c + t, c] for t in range(order + 1)], 1))
+    return tuple(bands)
+
+
+@functools.lru_cache(maxsize=64)
+def _curvature_tables(knots_key: tuple, degree: int, device: torch.device):
+    """(knots [K], m1 band [C, 2], m2 band [C, 3]) as float32 tensors on
+    ``device``, made once per knot vector, degree and device: the wrapper
+    neither rebuilds nor hashes the full derivative matrices per call.
+    Callers never write to them."""
+    tables = (np.asarray(knots_key, np.float64),
+              *derivative_bands(knots_key, degree))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+        device=device, dtype=torch.float32) for a in tables)
+
+
 def bspline_curvature(ctrl, u, knots, degree: int = 3):
     """Curvature profile of one frame's spline at ``u``:
     ``(kappa [N], valid [N] bool, r [N, 3])``, float32.
 
     Args:
-        ctrl: [C, 3] float32 control points; u: [N] float32 parameters.
+        ctrl: [C, 3] float32 control points, any strides (the fit's solve
+            leaves them column-major: the kernel reads them in place);
+            u: [N] float32 parameters.
         knots: the static knot vector (numpy); degree 2 to 5.
     """
     if ctrl.device.type == "cpu":
         return bspline_curvature_plain(ctrl, u, knots, degree)
-    knots_np = np.asarray(knots, np.float64)
-    c = knots_np.shape[0] - degree - 1
+    key = tuple(np.asarray(knots, np.float64).tolist())
+    c = len(key) - degree - 1
     if ctrl.shape != (c, 3) or u.dim() != 1:
         raise ValueError(
             f"bspline_curvature: want ctrl [{c}, 3] and u [N]; got "
@@ -216,20 +249,20 @@ def bspline_curvature(ctrl, u, knots, degree: int = 3):
         )
     if ctrl.dtype != torch.float32 or u.dtype != torch.float32:
         raise TypeError("bspline_curvature: ctrl and u must be float32")
-    ctrl, u = ctrl.contiguous(), u.contiguous()
-    key = tuple(knots_np.tolist())
-    kn = bspline._static(knots_np, u)
-    m1 = bspline._static(bspline._deriv_matrix_product(key, degree, 1), u)
-    m2 = bspline._static(bspline._deriv_matrix_product(key, degree, 2), u)
-    dev = _check_cuda("bspline_curvature", ctrl, u, kn, m1, m2)
+    u = u.contiguous()
+    dev = _check_cuda("bspline_curvature", u)
+    if ctrl.device != dev:
+        raise ValueError(f"bspline_curvature: ctrl on {ctrl.device}, u on "
+                         f"{dev}")
+    kn, m1b, m2b = _curvature_tables(key, degree, dev)
     n = u.shape[0]
     kappa = torch.empty((n,), dtype=torch.float32, device=dev)
     valid = torch.empty((n,), dtype=torch.bool, device=dev)
     r = torch.empty((n, 3), dtype=torch.float32, device=dev)
     err = _fn("bspline_curvature_launch")(
-        ctrl.data_ptr(), u.data_ptr(), kn.data_ptr(), m1.data_ptr(),
-        m2.data_ptr(), kappa.data_ptr(), valid.data_ptr(), r.data_ptr(), n,
-        knots_np.shape[0], degree, _stream(dev))
+        ctrl.data_ptr(), u.data_ptr(), kn.data_ptr(), m1b.data_ptr(),
+        m2b.data_ptr(), kappa.data_ptr(), valid.data_ptr(), r.data_ptr(), n,
+        len(key), degree, *ctrl.stride(), _stream(dev))
     build.check("bspline_curvature", err)
     bspline_curvature.launches += 1
     return kappa, valid, r

@@ -12,6 +12,9 @@ Tolerances, fixed before measuring:
 - fold_batchnorm: 1e-6 relative (float32 rsqrt on two backends).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,6 +78,112 @@ def test_conv1x1_matches_jax_interpret(b, h, w, cin, cout, relu):
         torch.from_numpy(bias), relu=relu, out_dtype=torch.float32).numpy()
     assert got.shape == want.shape == (b, h, w, cout)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bfloat16, as float32."""
+    return torch.from_numpy(a).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def _conv1x1_cout1_mirror(x, w, scale, bias, relu):
+    """A numpy mirror of csrc/conv1x1.cu's summation order for Cout = 1 and
+    bfloat16 x, w (as float32 values): x [P, Cin], w [Cin]. On the vector
+    head (``conv1x1_path``), G lanes share a pixel (the least power of two
+    covering its Cin / 8 chunks of 8 channels); lane g sums chunk g in
+    ascending channel order, and the G partials
+    meet in an xor butterfly (offsets G/2 .. 1). On the FMA path one sum
+    runs over Cin in ascending order. A product of two bfloat16 values is
+    exact in float32, so each float32 add here rounds as ``fmaf`` does.
+    Then the epilogue (multiply, add, ReLU) in float32."""
+    p_, cin = x.shape
+    if tconv.conv1x1_path(torch.bfloat16, cin, 1) == "fma":
+        acc = np.zeros(p_, np.float32)
+        for ci in range(cin):
+            acc = acc + x[:, ci] * w[ci]
+    else:
+        e = 8
+        chunks = cin // e
+        g_lanes = 1
+        while g_lanes < chunks:
+            g_lanes *= 2
+        part = []
+        for g in range(g_lanes):
+            acc = np.zeros(p_, np.float32)
+            for ci in range(g * e, g * e + e) if g < chunks else ():
+                acc = acc + x[:, ci] * w[ci]
+            part.append(acc)
+        m = g_lanes // 2
+        while m >= 1:
+            part = [part[i] + part[i ^ m] for i in range(g_lanes)]
+            m //= 2
+        acc = part[0]
+    y = acc * np.float32(scale[0]) + np.float32(bias[0])
+    return np.maximum(y, np.float32(0.0)) if relu else y
+
+
+@pytest.mark.parametrize("cin,relu", [(64, False), (64, True), (8, False),
+                                      (6, True)])
+def test_conv1x1_head_order_matches_jax_interpret(cin, relu):
+    """The head's summation order (its numpy mirror: the lane partials and
+    the butterfly at Cin = 64 and 8, one ascending sum at Cin = 6, which no
+    16-byte vector divides) against the JAX package's ``conv1x1`` in
+    interpret mode on the same bfloat16 operands, float32 out, at
+    atol = rtol = 1e-5."""
+    rng = np.random.default_rng(cin + 100 * relu)
+    x, wt, scale, bias = _operands(rng, 2, 9, 13, cin, 1, 1)
+    x, wt = _bf16(x), _bf16(wt)
+    want = np.asarray(jconv.conv1x1(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(wt, jnp.bfloat16),
+        jnp.asarray(scale), jnp.asarray(bias), relu=relu,
+        out_dtype=jnp.float32, interpret=True))
+    got = _conv1x1_cout1_mirror(x.reshape(-1, cin), wt[:, 0], scale, bias,
+                                relu)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want.reshape(-1), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "dtype,cin,cout,aligned,want",
+    [
+        (torch.bfloat16, 64, 1, True, "head"),     # the U-Net head
+        (torch.bfloat16, 8, 1, True, "head"),
+        (torch.float32, 64, 1, True, "head"),      # a float32 head: 4/vector
+        (torch.float32, 6, 1, True, "fma"),        # no whole vector
+        (torch.bfloat16, 6, 1, True, "fma"),
+        (torch.bfloat16, 264, 1, True, "fma"),     # past 32 vectors a pixel
+        (torch.float32, 128, 1, True, "head"),     # 32 vectors
+        (torch.bfloat16, 64, 1, False, "fma"),     # a misaligned view
+        (torch.bfloat16, 48, 40, True, "tensor_cores"),
+        (torch.bfloat16, 64, 16, False, "fma"),
+        (torch.bfloat16, 48, 2, True, "fma"),      # Cout not a multiple of 8
+        (torch.bfloat16, 40, 16, True, "fma"),     # Cin not a multiple of 16
+        (torch.float32, 48, 40, True, "fma"),      # TF32 would break 1e-4
+    ],
+)
+def test_conv1x1_path_rule(dtype, cin, cout, aligned, want):
+    """Which kernel a CUDA x takes: the vector head for Cout = 1 with Cin a
+    multiple of one 16-byte vector (at most 32 of them) on a 16-byte
+    address, the tensor cores for bf16 with Cin % 16 == 0 and Cout % 8 ==
+    0 on 16-byte addresses, FMA otherwise; the C entry's rule
+    (``pick_path`` in csrc/conv1x1.cu, which chip_smoke asks on the card)
+    names the same widths."""
+    assert tconv.conv1x1_path(dtype, cin, cout, x_aligned=aligned) == want
+    src = (Path(tconv.__file__).resolve().parents[1] / "csrc"
+           / "conv1x1.cu").read_text()
+    body = re.search(r"int pick_path\(bool x16, bool out16, int Cin, int "
+                     r"Cout, int dtypes\) \{(.*?)\n\}", src, re.S).group(1)
+    rules = [" ".join(r.split()) for r in re.findall(r"if \((.*?)\)\s*return",
+                                                     body, re.S)]
+    assert rules == [
+        "x16 && Cout == 1 && Cin % e == 0 && Cin <= e * "
+        "head::MAX_VECTORS",
+        "x16 && out16 && dtypes != 0 && Cout % "
+        f"{tconv.CONV1X1_COUT_STEP} == 0 && Cin % "
+        f"{tconv.CONV1X1_CIN_STEP} == 0",
+    ]
+    assert "const int e = dtypes == 0 ? 4 : 8;" in body
+    assert re.search(r"MAX_VECTORS = (\d+);", src).group(1) == str(
+        tconv.CONV1X1_HEAD_VECTORS)
 
 
 @pytest.mark.parametrize("op", ["conv3x3", "conv1x1"])

@@ -19,6 +19,7 @@ Tolerances, fixed before measuring:
   (curvature and spline rtol 1e-3, validity and counts exact).
 """
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,51 +122,69 @@ def test_bspline_design_matches_jax_interpret(n, c):
         assert np.all(err <= 1e-4 * mag.numpy()), err.max()
 
 
-def _basis_window(u: float, knots, p: int):
-    """A pure-Python float64 mirror of ``basis_window`` in
-    csrc/bspline_design.cu: the span search, then the recursion over the
-    p + 1 entries s - p .. s that can be nonzero, with the kernel's
-    operations in the kernel's order (Python floats round each operation
-    to nearest, as ``__dsub_rn``/``__ddiv_rn``/``__dmul_rn``/``__dadd_rn``
-    do). Returns (s, [b(s - p), .., b(s)]); s = -1 when no span holds u."""
-    kn = [float(k) for k in knots]
+def _basis_windows(u, knots, p: int, dtype=float):
+    """A pure-Python mirror of ``basis_window`` in csrc/bspline_design.cu
+    (``dtype=float``: float64) and of the same recursion in
+    csrc/bspline_curvature.cu (``dtype=np.float32``): the span search, then
+    the recursion over the p + 1 entries s - p .. s that can be nonzero,
+    with the kernels' operations in the kernels' order (each operation on
+    two ``dtype`` scalars rounds to nearest in ``dtype``, as
+    ``__dsub_rn``/``__fsub_rn`` and the rest do). Returns (s, windows):
+    ``windows[d]`` is the window after degree d, entry s - p + a at index
+    a, of which a >= p - d belong to degree d's row; s = -1 when no span
+    holds u."""
+    kn = [dtype(k) for k in knots]
+    u, zero, one = dtype(u), dtype(0.0), dtype(1.0)
     last, n_knots = kn[-1], len(kn)
     s = -1
     for t in range(n_knots - 1):
         lo, hi = kn[t], kn[t + 1]
         in_span = u >= lo and (u < hi or (hi >= last and u <= hi))
-        if hi - lo > 0.0 and in_span:
+        if hi - lo > zero and in_span:
             s = t
-    b = [0.0] * p + [1.0]
+    b = [zero] * p + [one]
+    windows = {0: list(b)}
     if s < 0:
-        return -1, b
+        return -1, windows
     for d in range(1, p + 1):
         for a in range(p - d, p + 1):
             i = s - p + a
-            v = 0.0
+            v = zero
             if 0 <= i <= n_knots - 2 - d:
                 if a > p - d:
                     dl = kn[i + d] - kn[i]
-                    left = (u - kn[i]) / dl if dl > 0.0 else 0.0
+                    left = (u - kn[i]) / dl if dl > zero else zero
                     v = left * b[a]
                 if a < p:
                     dr = kn[i + d + 1] - kn[i + 1]
-                    right = (kn[i + d + 1] - u) / dr if dr > 0.0 else 0.0
+                    right = (kn[i + d + 1] - u) / dr if dr > zero else zero
                     rt = right * b[a + 1]
                     v = v + rt if a > p - d else rt
             b[a] = v
-    return s, b
+        windows[d] = list(b)
+    return s, windows
 
 
-def _window_rows(us, knots, p: int) -> np.ndarray:
-    """The full basis rows the windows imply: zeros outside each window."""
-    c = len(knots) - p - 1
-    rows = np.zeros((len(us), c))
+def _basis_window(u: float, knots, p: int):
+    """(s, [b(s - p), .., b(s)]) of the degree-p row, float64: what
+    ``basis_window`` in csrc/bspline_design.cu computes."""
+    s, windows = _basis_windows(u, knots, p)
+    return s, windows[p if s >= 0 else 0]
+
+
+def _window_rows(us, knots, p: int, degree=None, dtype=float) -> np.ndarray:
+    """The full basis rows of ``degree`` (default p) that the degree-p
+    windows imply: zeros outside each window."""
+    degree = p if degree is None else degree
+    c = len(knots) - degree - 1
+    rows = np.zeros((len(us), c), np.float64 if dtype is float else dtype)
     for n, u in enumerate(us):
-        s, b = _basis_window(float(u), knots, p)
-        for a in range(p + 1):
-            if s >= 0 and 0 <= s - p + a < c:
-                rows[n, s - p + a] = b[a]
+        s, windows = _basis_windows(u, knots, p, dtype)
+        if s < 0:
+            continue
+        for a in range(p - degree, p + 1):
+            if 0 <= s - p + a < c:
+                rows[n, s - p + a] = windows[degree][a]
     return rows
 
 
@@ -265,6 +284,152 @@ def test_bspline_curvature_matches_jax_interpret(case):
                                atol=1e-3 * np.abs(jk).max())
     np.testing.assert_allclose(tr.numpy(), jr, rtol=1e-4,
                                atol=1e-5 * np.abs(jr).max())
+
+
+@pytest.mark.parametrize("c,p", [(16, 3), (8, 2)])
+def test_curvature_windows_equal_the_full_recursion(c, p):
+    """The curvature kernel's float32 windows of degree p, and the degree
+    p - 1 and p - 2 windows it keeps on the way, equal ``_basis_columns``'s
+    float32 rows of those degrees value for value, at every knot, 0, 1,
+    just below 1, outside [0, 1] and at 1000 seeded parameters."""
+    knots = tbspline.clamped_uniform_knots(c, p)
+    rng = np.random.default_rng(12)
+    us = np.concatenate([knots, [0.0, 1.0, np.nextafter(1.0, 0.0), -0.5,
+                                 1.5], rng.random(1000)]).astype(np.float32)
+    for degree in (p, p - 1, p - 2):
+        want = tbspline._basis_columns(
+            torch.from_numpy(us)[:, None],
+            torch.from_numpy(knots.astype(np.float32)), degree).numpy()
+        got = _window_rows(us, knots, p, degree, np.float32)
+        assert got.shape == want.shape
+        assert np.array_equal(got, want), degree
+
+
+def _fma32(a, b, c):
+    """fmaf on float32 operands, through float64: the product is exact
+    there, the sum rounds to float64 and then to float32 (one rounding
+    but at a float32 tie)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _curvature_mirror(ctrl, us, knots, p: int):
+    """A float32 mirror of csrc/bspline_curvature.cu: per sample the span
+    and the windows (``_basis_windows``), then only the columns
+    c = s - p .. s of (B_{p-1} m1) and (B_{p-2} m2), each over its band
+    (``derivative_bands``) in ascending row order, r, r' and r'' by fmaf in
+    ascending c, and the curvature formula in the kernel's roundings.
+    Returns (kappa [N], valid [N], r [N, 3]) as numpy."""
+    f32 = np.float32
+    c = len(knots) - p - 1
+    m1b, m2b = (b.astype(np.float32) for b in gk.derivative_bands(
+        tuple(np.asarray(knots, np.float64).tolist()), p))
+    n = len(us)
+    kappa = np.zeros(n, np.float32)
+    valid = np.zeros(n, bool)
+    r = np.zeros((n, 3), np.float32)
+    for i, u in enumerate(us):
+        if not np.isfinite(u):
+            r[i] = np.nan
+            continue
+        s, windows = _basis_windows(f32(u), knots, p, np.float32)
+        r0, r1, r2 = ([f32(0.0)] * 3 for _ in range(3))
+        if s >= 0:
+            b, b1, b2 = windows[p], windows[p - 1][1:], windows[p - 2][2:]
+            for a in range(p + 1):
+                cc = s - p + a
+                if not 0 <= cc < c:
+                    continue
+                d1 = d2 = f32(0.0)
+                if a >= 1:
+                    d1 = _fma32(b1[a - 1], m1b[cc, 0], d1)
+                if a <= p - 1:
+                    d1 = _fma32(b1[a], m1b[cc, 1], d1)
+                for t in range(3):
+                    if 0 <= a + t - 2 <= p - 2:
+                        d2 = _fma32(b2[a + t - 2], m2b[cc, t], d2)
+                for j in range(3):
+                    cj = f32(ctrl[cc, j])
+                    r0[j] = _fma32(b[a], cj, r0[j])
+                    r1[j] = _fma32(d1, cj, r1[j])
+                    r2[j] = _fma32(d2, cj, r2[j])
+        cx = r1[1] * r2[2] - r1[2] * r2[1]
+        cy = r1[2] * r2[0] - r1[0] * r2[2]
+        cz = r1[0] * r2[1] - r1[1] * r2[0]
+        num = np.sqrt(cx * cx + cy * cy + cz * cz)
+        den = np.sqrt(r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2])
+        valid[i] = den > f32(1e-6)
+        dd = max(den, f32(1e-6))
+        kappa[i] = num / (dd * dd * dd) if valid[i] else f32(0.0)
+        r[i] = r0
+    return kappa, valid, r
+
+
+def test_derivative_bands_hold_every_nonzero():
+    """The bands the curvature kernel takes are the derivative matrices'
+    entries (m1[c + t, c], m2[c + t, c]); everything else is 0."""
+    knots = tbspline.clamped_uniform_knots(16, 3)
+    key = tuple(knots.tolist())
+    m1b, m2b = gk.derivative_bands(key, 3)
+    for order, band in ((1, m1b), (2, m2b)):
+        m = tbspline._deriv_matrix_product(key, 3, order)
+        assert band.shape == (16, order + 1)
+        rebuilt = np.zeros_like(m)
+        for cc in range(16):
+            rebuilt[cc:cc + order + 1, cc] = band[cc]
+        assert np.array_equal(rebuilt, m)
+
+
+@pytest.mark.parametrize("case", ["random", "scene", "degenerate"])
+def test_banded_curvature_mirror_matches_jax_interpret(case):
+    """The kernel's banded sums (its float32 mirror) against the JAX
+    package's fused kernel in interpret mode, at the tolerances of
+    ``test_bspline_curvature_matches_jax_interpret``."""
+    c = 16
+    knots = jbspline.clamped_uniform_knots(c, 3)
+    rng = np.random.default_rng(21)
+    if case == "random":
+        ctrl = rng.normal(size=(c, 3)).astype(np.float32)
+    elif case == "scene":
+        x = np.linspace(-0.1, 0.1, c)
+        ctrl = np.stack([x, -0.05 + 0.4 * x ** 2, 0.8 + 0.01 * x],
+                        axis=1).astype(np.float32)
+    else:
+        ctrl = np.zeros((c, 3), np.float32)
+    u = np.linspace(0.0, 1.0, 100, dtype=np.float32)
+    jk, jv, jr = (np.asarray(a) for a in pgeom.bspline_curvature(
+        jnp.asarray(ctrl), jnp.asarray(u), pgeom.static_knots(knots), 3,
+        interpret=True))
+    tk, tv, tr = _curvature_mirror(ctrl, u, knots, 3)
+    np.testing.assert_array_equal(tv, jv)
+    if case == "degenerate":
+        assert not tv.any()
+        np.testing.assert_array_equal(tk, jk)
+        return
+    assert tv.all()
+    np.testing.assert_allclose(tk, jk, rtol=1e-3, atol=1e-3 * np.abs(jk).max())
+    np.testing.assert_allclose(tr, jr, rtol=1e-4, atol=1e-5 * np.abs(jr).max())
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_banded_curvature_mirror_holds_the_card_bars(index):
+    """chip_smoke's curvature cases (more than one block, degree 2 and 5,
+    C = 32, u at the knots, collinear and coincident control points, a NaN
+    u), rehearsed on the CPU: the kernel's float32 mirror within the card's
+    bars (``chip_smoke.curvature_within``) of the plain version; kappa 0 on
+    the line with every sample valid, every coincident sample invalid."""
+    label, ctrl, u, knots, deg = chip_smoke.curvature_case_inputs(
+        tbspline)[index]
+    want = [t.numpy() for t in gk.bspline_curvature_plain(
+        torch.from_numpy(ctrl), torch.from_numpy(u), knots, deg)]
+    got = _curvature_mirror(ctrl, u, knots, deg)
+    ok, what = chip_smoke.curvature_within(got, want)
+    assert ok, f"{label}: {what}"
+    if label == "collinear":
+        assert got[1].all() and not got[0].any()
+    if label == "coincident":
+        assert not got[1].any() and not got[0].any()
+    if label == "NaN u":
+        assert np.isnan(want[2][7]).all() and not want[1][7]
 
 
 @pytest.mark.parametrize("stride", [1, 2])
