@@ -24,10 +24,10 @@ mismatch raises and the script exits non-zero:
    each frame of the stack equal bit for bit to the frame alone); the 1x1
    conv at CONV1X1_SHAPES (the head at B = 1 and 8, the general body in
    bf16 and float32), CONV1X1_EDGES and two misaligned views (each shape's
-   path, head, tensor cores or FMA, logged and checked against the C
-   entry's; each call repeated, equal bit for bit; every frame of a
-   stack equal bit for bit to the frame alone; the profiler's device time
-   beside the back-to-back time, each beside cuDNN's); then the geometry
+   path, head or FMA, logged and checked against the C entry's; each call
+   repeated, equal bit for bit; every frame of a stack equal bit for bit
+   to the frame alone; the profiler's device time beside the back-to-back
+   time, each beside cuDNN's, and the host's cost per call); then the geometry
    kernels (deprojection bitwise at 480x640 stride 1 and 240x320 stride
    2, the design contractions of 6400 edge-point slots -- called twice,
    equal bit for bit, 0 outside the Gram matrix's band --, the curvature
@@ -87,6 +87,15 @@ mismatch raises and the script exits non-zero:
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
+
+    python3 chip_smoke.py --phase NAME
+
+runs one kernel phase alone (``kernel_phase``, ``conv1x1_kernel_phase``,
+``convt_kernel_phase``, ``decode_kernel_phase``, ``geometry_kernel_phase``
+or ``train_kernel_phase``): its log lines, then its timings as one JSON
+line. To compare a change with its parent on one card, unpack the parent
+(``git archive``) into a git-ignored directory and run the phase in each
+root in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -124,16 +133,17 @@ MAIN_PATH_3X3 = [
 HEAD = (256, 64, 1)  # the conv1x1 head: H = W, Cin, Cout
 # conv1x1 shapes timed (B, H, W, Cin, Cout, dtype, out dtype): the head at
 # B = 1 (the main path) and at the batched dispatch's B = 8, and the
-# general body (ModelConfig.num_classes > 1) in both dtypes
+# general body (ModelConfig.num_classes > 1) in both dtypes, and at the
+# four classes of the JAX package's "multi" model
 CONV1X1_SHAPES = [
     (1, 256, 256, 64, 1, "bfloat16", "float32"),
     (8, 256, 256, 64, 1, "bfloat16", "float32"),
     (1, 64, 96, 48, 40, "bfloat16", "bfloat16"),
     (1, 64, 96, 48, 40, "float32", "float32"),
+    (1, 64, 96, 48, 4, "bfloat16", "bfloat16"),
 ]
 # and checked only (..., relu): the head with ReLU and a ragged last run
-# of pixels, a float32 head whose Cin fills no 16-byte vector, a Cout the
-# tensor cores do not tile
+# of pixels, a float32 head whose Cin fills no 16-byte vector, two classes
 CONV1X1_EDGES = [
     (3, 37, 53, 64, 1, "bfloat16", "float32", True),
     (2, 9, 13, 6, 1, "float32", "float32", False),
@@ -252,6 +262,21 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(torch, fn, iters: int = 200) -> float:
+    """The host's time per call of ``fn`` in ms: ``iters`` calls enqueued
+    back to back after a warm-up, with no synchronisation between them
+    (the wrapper and the launch, not the device)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
 
 
 def device_rows(prof) -> list:
@@ -409,15 +434,16 @@ def kernel_phase(torch, conv) -> dict:
 def conv1x1_kernel_phase(torch, conv) -> dict:
     """conv1x1 against its plain version (within BF16_TOL or F32_TOL) at
     CONV1X1_SHAPES and CONV1X1_EDGES, and on two misaligned views (x one
-    element past a 16-byte address: the head's and the tensor cores'
-    widths, which the FMA path then takes). Every call is repeated on the
+    element past a 16-byte address, at the head's widths, which the FMA
+    path then takes, and at Cout = 16). Every call is repeated on the
     same operands (equal bit for bit); at B = 8 every frame of the stack
     equals the frame alone bit for bit; each shape's path
     (``conv.conv1x1_path``) is logged and checked against the C entry's,
     and the build's ``ptxas -v`` summary is logged. The timed
     shapes give CUDA events over back-to-back calls and the profiler's
     device time, each beside cuDNN's ``F.conv2d`` plus the epilogue on the
-    same operands, and the bound. Returns the B = 1 head's timings."""
+    same operands, the host's cost per call, and the bound. Returns every
+    timed shape's timings, the B = 1 head's also under its record key."""
     from robotic_discovery_platform_tpu_torch.ops import build
 
     F = torch.nn.functional
@@ -488,6 +514,7 @@ def conv1x1_kernel_phase(torch, conv) -> dict:
             "library_ms": time_ms(torch, library),
             "device_ms": device_ms(torch, kernel),
             "library_device_ms": device_ms(torch, library),
+            "host_ms": host_ms(torch, kernel),
             "max_abs_err": err,
         }
         nbytes = (x.numel() + wt.numel()) * x.element_size() + 8 * cout \
@@ -499,7 +526,9 @@ def conv1x1_kernel_phase(torch, conv) -> dict:
             f"{t['bound_ms']:.4f} ({t['bound_by']}); device ms "
             f"{t['device_ms']:.4f} cudnn {t['library_device_ms']:.4f} "
             f"(profiler), {nbytes / t['device_ms'] / 1e9:.2f} TB/s, "
-            f"{t['bound_ms'] / t['device_ms']:.1%} of the bound")
+            f"{t['bound_ms'] / t['device_ms']:.1%} of the bound; host ms "
+            f"per call {t['host_ms']:.4f}")
+        results[("conv1x1", b, h, w, cin, cout, str(dtype)[6:])] = t
         if (b, h, cin, cout) == (1, *HEAD):
             results[("conv1x1", *HEAD)] = t
     log(ptxas_summary(build, "conv1x1")[0])
@@ -659,6 +688,8 @@ def geometry_kernel_phase(torch, port) -> dict:
     ns = cfg.num_samples
     t = timings(torch, lambda: gk.bspline_curvature(ctrl, u_fine, knots, deg),
                 lambda: gk.bspline_curvature_plain(ctrl, u_fine, knots, deg))
+    t["host_ms"] = host_ms(
+        torch, lambda: gk.bspline_curvature(ctrl, u_fine, knots, deg))
     t["max_abs_err"] = err
     # in: ctrl, u, knots and the nonzero bands of m1 (2 per row, C + 1
     # rows) and m2 (3 per row, C + 2 rows); out: kappa, valid, r
@@ -671,7 +702,8 @@ def geometry_kernel_phase(torch, port) -> dict:
              + ns * (2 * 3 * (3 * deg) + 40))
     t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes, H100_F32_FLOPS)
     log(f"bspline_curvature N={ns} C={c}: validity equal, max|err| "
-        f"{err:.3g} (kappa max {kmax:.4g}), deterministic; {timing_text(t)}")
+        f"{err:.3g} (kappa max {kmax:.4g}), deterministic; {timing_text(t)}; "
+        f"host ms per call {t['host_ms']:.4f}")
     results[("bspline_curvature",)] = t
     curvature_cases(torch, gk, bspline)
 
@@ -800,15 +832,14 @@ def curvature_cases(torch, gk, bspline) -> None:
 
 def ptxas_summary(build, name: str) -> tuple[str, list]:
     """What ``ptxas -v`` reported for kernel ``name``'s entry functions in
-    this process's build: (a line of registers, stack frames and spills,
-    the stack frame sizes), or a note and [] when its library was not
-    built here."""
+    the build that made its library (the log kept beside it, whether this
+    process built it or loaded it): a line of registers, stack frames and
+    spills, and the stack frame sizes. Fails when there is no report."""
     import re
 
-    text = build.build_logs.get(name)
-    if text is None:
-        return f"{name}: library not built in this process", []
-    regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+    text = build.build_log(name)
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", text or "")]
+    check(bool(regs), f"{name}: no ptxas -v report beside its library")
     stack = [int(v) for v in re.findall(r"(\d+) bytes stack frame", text)]
     spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", text)]
     return (f"{name}: ptxas -v over {len(regs)} entry functions: registers "
@@ -2405,7 +2436,34 @@ def nonbilinear_phase(torch, port, conv, frames) -> dict:
             for key in legs["direct"]}
 
 
-def main() -> int:
+#: the phases ``--phase`` runs alone
+PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
+          "decode_kernel_phase", "geometry_kernel_phase",
+          "train_kernel_phase")
+
+
+def run_phase(torch, port, conv, name: str) -> int:
+    """One kernel phase alone: the card's line, the phase's log, then its
+    timings as one JSON line (keys joined by spaces)."""
+    import inspect
+
+    check(name in PHASES, f"--phase: {name!r} is none of {', '.join(PHASES)}")
+    fn = globals()[name]
+    args = {"torch": torch, "port": port, "conv": conv}
+    log(f"{name}: {torch.cuda.get_device_name(0)} [{nvidia_smi_line()}]")
+    results = fn(*(args[p] for p in inspect.signature(fn).parameters))
+    log(json.dumps({" ".join(map(str, k)): v for k, v in results.items()}))
+    return 0
+
+
+def main(argv: list | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    phase = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phase":
+            print("usage: chip_smoke.py [--phase NAME]", file=sys.stderr)
+            return 2
+        phase = argv[1]
     try:
         import torch
     except ImportError as exc:
@@ -2424,6 +2482,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if phase is not None:
+        return run_phase(torch, port, conv, phase)
     t_start = time.perf_counter()
 
     card = nvidia_smi_line()

@@ -16,9 +16,9 @@
 // 69.2 MB, 0.0207 ms) is bound by the bytes it reads; so is the general
 // body at the widths a U-Net head has.
 //
-// Three paths; the C entry picks one from the dtypes, Cin, Cout and the
-// 16-byte alignment of x and out (pick_path; ops/conv.conv1x1_path
-// mirrors the rule):
+// Two paths; the C entry picks one from the dtypes, Cin, Cout and the
+// 16-byte alignment of x (pick_path; ops/conv.conv1x1_path mirrors the
+// rule):
 // - head (Cout = 1, Cin a multiple of one 16-byte vector and at most 32
 //   of them, x on a 16-byte address): a streaming reduction. G lanes
 //   share a pixel (G the least power of two that covers its Cin / E
@@ -30,16 +30,11 @@
 //   meet in a fixed xor butterfly (offsets G/2, .., 1; every lane of the
 //   group ends with the same sum).
 //   The grid is sized to the SMs and each warp strides over pixel runs.
-// - tensor cores (bf16 in, Cout > 1 a multiple of 8, Cin a multiple of
-//   16, x and out on 16-byte addresses): the GEMM [P, Cin] x [Cin, Cout]
-//   on mma.sync.m16n8k16. A block of four warps owns 64 pixels x 64
-//   output channels and walks Cin in steps of 64: the x tile arrives by
-//   16-byte cp.async, the w tile by coalesced loads in its [k][n] layout;
-//   ldmatrix feeds the fragments (B transposed); float32 accumulation.
-// - FMA (float32 Cout > 1, where TF32 would break the float32 bar; ragged
-//   widths; a misaligned view): a register-tiled GEMM on the CUDA cores,
-//   operand tiles staged through shared memory as float32 by scalar
-//   loads, a 4 x 4 tile per thread, fmaf in ascending ci.
+// - FMA (Cout > 1 in either dtype; a head whose Cin fills no whole
+//   vector or more than 32; a misaligned view): a register-tiled GEMM on
+//   the CUDA cores, operand tiles staged through shared memory as float32
+//   by scalar loads, a 4 x 4 tile per thread, fmaf in ascending ci. The
+//   port's model has one class, so this body serves only other widths.
 // Every path sums a pixel's products in an order fixed by Cin and Cout
 // alone -- not by B, the pixel's place in a tile or the grid -- with no
 // split of K and no atomics, so a frame gives the same bits alone and
@@ -58,7 +53,6 @@ using conv_mma::store_out;
 
 constexpr int PATH_FMA = 0;
 constexpr int PATH_HEAD = 1;
-constexpr int PATH_TC = 2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -189,111 +183,6 @@ int launch(const void* x, const void* w, const float* scale,
 
 }  // namespace head
 
-// -- tensor cores: bf16, Cout > 1 -------------------------------------------
-
-namespace tc {
-
-constexpr int THREADS = 128;  // four warps, 16 pixels each
-constexpr int BM = 64;        // pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 64;        // input channels per shared-memory step
-constexpr int XS = BK + 8;    // x tile row stride (16 bytes of padding)
-constexpr int WS = BN + 8;    // w tile row stride
-
-template <typename TO>
-__global__ void __launch_bounds__(THREADS)
-tc_kernel(const __nv_bfloat16* __restrict__ x,
-          const __nv_bfloat16* __restrict__ w,
-          const float* __restrict__ scale, const float* __restrict__ bias,
-          TO* __restrict__ out, long long P, int Cin, int Cout, int relu) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BM * XS];
-  __shared__ __align__(16) __nv_bfloat16 ws[BK * WS];
-
-  const int t = threadIdx.x;
-  const int warp = t / 32, lane = t % 32;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int ntiles = min(BN, Cout - n0) / 8;  // n8 tiles of this block
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-
-  float c[BN / 8][4];
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) c[j][r] = 0.f;
-
-  for (int k0 = 0; k0 < Cin; k0 += BK) {
-    // x tile: BM pixels x BK channels, 16 bytes (8 channels) per copy
-    for (int i = t; i < BM * BK / 8; i += THREADS) {
-      const int m = i / (BK / 8), kc = (i % (BK / 8)) * 8;
-      const long long gm = m0 + m;
-      const bool ok = gm < P && k0 + kc < Cin;
-      conv_mma::cp_async16(xs + m * XS + kc,
-                           ok ? x + gm * Cin + k0 + kc : x, ok ? 16 : 0);
-    }
-    conv_mma::cp_async_commit();
-    // w tile: BK channels x BN output channels, [k][n] as in memory
-    for (int i = t; i < BK * BN; i += THREADS) {
-      const int k = i / BN, n = i % BN;
-      ws[k * WS + n] = (k0 + k < Cin && n0 + n < Cout)
-                           ? w[(size_t)(k0 + k) * Cout + n0 + n]
-                           : zero;
-    }
-    conv_mma::cp_async_wait<0>();
-    __syncthreads();
-    const int kw = min(BK, Cin - k0);  // a multiple of 16
-    for (int kk = 0; kk < kw; kk += 16) {
-      uint32_t a[4];
-      conv_mma::ldmatrix_x4(a, xs + (warp * 16 + conv_mma::frag_row(lane)) *
-                                        XS + kk + conv_mma::frag_col(lane));
-#pragma unroll
-      for (int j = 0; j < BN / 8; j += 2) {
-        if (j >= ntiles) break;  // uniform over the block
-        uint32_t bf[4];
-        conv_mma::ldmatrix_x4_trans(
-            bf, ws + (kk + conv_mma::frag_row(lane)) * WS + j * 8 +
-                    conv_mma::frag_col(lane));
-        conv_mma::mma_bf16(c[j], a, bf[0], bf[1]);
-        if (j + 1 < ntiles) conv_mma::mma_bf16(c[j + 1], a, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // accumulator: c[j][0..1] row lane/4, c[j][2..3] row lane/4 + 8, at
-  // columns j*8 + 2*(lane%4) + {0, 1}
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const long long p = m0 + warp * 16 + lane / 4 + half * 8;
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      if (j >= ntiles) break;
-      const int co = n0 + j * 8 + 2 * (lane % 4);
-      conv_mma::store_pair(
-          out + p * Cout + co,
-          epilogue(c[j][2 * half], scale[co], bias[co], relu),
-          epilogue(c[j][2 * half + 1], scale[co + 1], bias[co + 1], relu));
-    }
-  }
-}
-
-template <typename TO>
-int launch(const void* x, const void* w, const float* scale,
-           const float* bias, void* out, long long P, int Cin, int Cout,
-           int relu, cudaStream_t stream) {
-  const long long mblocks = (P + BM - 1) / BM;
-  const int nblocks = (Cout + BN - 1) / BN;
-  if (mblocks > 0x7fffffffLL || nblocks > 65535) return -1;
-  tc_kernel<TO><<<dim3((unsigned)mblocks, (unsigned)nblocks), THREADS, 0,
-                  stream>>>(static_cast<const __nv_bfloat16*>(x),
-                            static_cast<const __nv_bfloat16*>(w), scale, bias,
-                            static_cast<TO*>(out), P, Cin, Cout, relu);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace tc
-
 // -- FMA: every other case ----------------------------------------------------
 
 namespace fma_path {
@@ -386,12 +275,10 @@ int launch(const void* x, const void* w, const float* scale,
 
 // The path rule (ops/conv.conv1x1_path mirrors it). e: elements of x per
 // 16 bytes.
-int pick_path(bool x16, bool out16, int Cin, int Cout, int dtypes) {
+int pick_path(bool x16, int Cin, int Cout, int dtypes) {
   const int e = dtypes == 0 ? 4 : 8;
   if (x16 && Cout == 1 && Cin % e == 0 && Cin <= e * head::MAX_VECTORS)
     return PATH_HEAD;
-  if (x16 && out16 && dtypes != 0 && Cout % 8 == 0 && Cin % 16 == 0)
-    return PATH_TC;
   return PATH_FMA;
 }
 
@@ -409,13 +296,12 @@ int launch(int path, const void* x, const void* w, const float* scale,
 
 }  // namespace
 
-// Which path conv1x1_launch takes for x and out at these addresses, these
-// widths and this dtypes code: 1 = the vector head, 2 = the tensor cores,
-// 0 = FMA; -1 for an unknown dtypes code.
-extern "C" int conv1x1_path(const void* x, const void* out, int Cin,
-                            int Cout, int dtypes) {
+// Which path conv1x1_launch takes for x at this address, these widths and
+// this dtypes code: 1 = the vector head, 0 = FMA; -1 for an unknown
+// dtypes code.
+extern "C" int conv1x1_path(const void* x, int Cin, int Cout, int dtypes) {
   if (dtypes < 0 || dtypes > 2) return -1;
-  return pick_path(aligned16(x), aligned16(out), Cin, Cout, dtypes);
+  return pick_path(aligned16(x), Cin, Cout, dtypes);
 }
 
 // x [P, Cin], w [Cin, Cout] (x's dtype), scale/bias [Cout] f32 -> out [P,
@@ -431,12 +317,7 @@ extern "C" int conv1x1_launch(const void* x, const void* w,
   const float* s = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int path = pick_path(aligned16(x), aligned16(out), Cin, Cout, dtypes);
-  if (path == PATH_TC)
-    return dtypes == 1 ? tc::launch<__nv_bfloat16>(x, w, s, bi, out, P, Cin,
-                                                   Cout, relu, st)
-                       : tc::launch<float>(x, w, s, bi, out, P, Cin, Cout,
-                                           relu, st);
+  const int path = pick_path(aligned16(x), Cin, Cout, dtypes);
   switch (dtypes) {
     case 0:
       return launch<float, float>(path, x, w, s, bi, out, P, Cin, Cout, relu,

@@ -7,7 +7,10 @@ built from the repository's sources at first use, into
 of the source, every ``csrc/*.cuh`` header and the compiler flags: an
 edited source or header rebuilds, an unchanged one loads as it is.
 :func:`build` starts one ``nvcc`` per missing source, all together, and
-waits for every one of them.
+waits for every one of them. nvcc's output (the ``ptxas -v`` report of
+registers, stack frames and spills) stays beside each library, as
+``lib<name>-<hash>.log`` (:func:`build_log`), so a later process that
+loads the library still reads the report of the build that made it.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no CUDA toolkit.
@@ -44,15 +47,13 @@ SOURCES = {
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # register / shared-memory / spill report, kept in build_logs
+    # register / shared-memory / spill report, kept beside the library
     "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  # guarded_by: _lock
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}  # guarded_by: _lock
-#: kernel name -> nvcc's output from the build that made its library
-build_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -82,6 +83,18 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def log_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where nvcc's output for kernel ``name``'s library lives: beside it."""
+    return library_path(name, csrc).with_suffix(".log")
+
+
+def build_log(name: str) -> str | None:
+    """nvcc's output from the build that made kernel ``name``'s current
+    library, or None when it is not built."""
+    path = log_path(name)
+    return path.read_text() if path.is_file() else None
+
+
 def build(names=None) -> float:
     """Compile every kernel library in ``names`` (default: all) that is not
     built yet; returns the seconds spent. Raises with nvcc's output when a
@@ -89,7 +102,10 @@ def build(names=None) -> float:
     names = list(SOURCES) if names is None else list(names)
     t0 = time.perf_counter()
     with _lock:
-        missing = [n for n in names if not library_path(n).is_file()]
+        # a library without its log is built again, so every loaded
+        # library has its ptxas report
+        missing = [n for n in names if not (library_path(n).is_file()
+                                            and log_path(n).is_file())]
         if not missing:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -109,11 +125,14 @@ def build(names=None) -> float:
             failed = []
             for name, proc, tmp, final in jobs:
                 out, _ = proc.communicate()
-                build_logs[name] = out
                 if proc.returncode != 0:
                     failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
                     tmp.unlink(missing_ok=True)
                 else:
+                    log = final.with_suffix(".log")
+                    log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+                    log_tmp.write_text(out)
+                    os.replace(log_tmp, log)  # the log first: see missing
                     os.replace(tmp, final)
         finally:
             for _, proc, tmp, _ in jobs:

@@ -7,8 +7,8 @@ its plain PyTorch version beside it.
   (+ ReLU), f32 accumulation, one rounding to the output type.
 - :func:`conv1x1` (``csrc/conv1x1.cu``) replaces ``conv1x1`` of the same
   file (both its Cout = 1 squeeze body and its general body): a vector
-  streaming head for Cout = 1, the tensor cores for bf16 at widths that
-  tile, FMA for the rest (:func:`conv1x1_path`).
+  streaming head for Cout = 1, a register-tiled FMA GEMM for the rest
+  (:func:`conv1x1_path`).
 - :func:`conv3x3_grad_weights` (``csrc/conv3x3_grad_weights.cu``)
   replaces ``conv3x3_grad_weights`` of the same file: the weight gradient
   of the training conv.
@@ -65,7 +65,7 @@ _SIGNATURES = {
         "conv1x1", [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
                     _P]),
     # x, out, Cin, Cout, dtypes -> 1 head, 2 tensor cores, 0 FMA
-    "conv1x1_path": ("conv1x1", [_P, _P, _I, _I, _I]),
+    "conv1x1_path": ("conv1x1", [_P, _I, _I, _I]),
     # x, g, workspace, dw, B, H, W, Cin, Cout, splits, dtypes, stream
     "conv3x3_grad_weights_launch": (
         "conv3x3_grad_weights", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -254,43 +254,34 @@ def conv1x1_plain(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
     return y.to(out_dtype).contiguous()
 
 
-#: conv1x1's paths: the vector head takes Cout = 1 with Cin a multiple of
-#: one 16-byte vector of x (8 bf16 or 4 float32) and at most
-#: CONV1X1_HEAD_VECTORS of them per pixel (one per lane of a warp); the
-#: tensor cores bf16 with Cin % CONV1X1_CIN_STEP == 0 and
-#: Cout % CONV1X1_COUT_STEP == 0
+#: conv1x1's vector head takes Cout = 1 with Cin a multiple of one 16-byte
+#: vector of x (8 bf16 or 4 float32) and at most CONV1X1_HEAD_VECTORS of
+#: them per pixel (one per lane of a warp)
 CONV1X1_HEAD_VECTORS = 32
-CONV1X1_CIN_STEP, CONV1X1_COUT_STEP = 16, 8
-_CONV1X1_PATHS = {0: "fma", 1: "head", 2: "tensor_cores"}
+_CONV1X1_PATHS = {0: "fma", 1: "head"}
 
 
-def conv1x1_path(dtype, cin: int, cout: int, *, x_aligned: bool = True,
-                 out_aligned: bool = True) -> str:
+def conv1x1_path(dtype, cin: int, cout: int, *,
+                 x_aligned: bool = True) -> str:
     """Which kernel :func:`conv1x1` launches for a CUDA x of ``dtype`` and
     these widths: ``"head"`` (Cout = 1, Cin a multiple of one 16-byte
-    vector, x on a 16-byte address: the streaming reduction),
-    ``"tensor_cores"`` (bf16 in, Cout a multiple of 8, Cin of 16, x and
-    out on 16-byte addresses: ``mma.sync``) or ``"fma"`` (float32 with
-    Cout > 1, whose bar TF32 would break; ragged widths; a misaligned
-    view). The C entry decides by the same rule (``conv1x1_path``); this
-    mirror is what the CPU tests pin and chip_smoke logs."""
+    vector, x on a 16-byte address: the streaming reduction) or ``"fma"``
+    (Cout > 1, ragged widths, a misaligned view). The C entry decides by
+    the same rule (``conv1x1_path``); this mirror is what the CPU tests
+    pin and chip_smoke logs."""
     per_vector = 4 if dtype == torch.float32 else 8
     if (x_aligned and cout == 1 and cin % per_vector == 0
             and cin <= per_vector * CONV1X1_HEAD_VECTORS):
         return "head"
-    if (x_aligned and out_aligned and dtype == torch.bfloat16
-            and cout % CONV1X1_COUT_STEP == 0
-            and cin % CONV1X1_CIN_STEP == 0):
-        return "tensor_cores"
     return "fma"
 
 
 def conv1x1_path_of_kernel(x, cout: int, out_dtype=None) -> str:
     """The C entry's own answer to :func:`conv1x1_path` for a CUDA ``x``,
-    whose address decides the alignment (the wrapper allocates the output
-    aligned). Builds the kernel's library: the card's machine only."""
+    whose address decides the alignment. Builds the kernel's library: the
+    card's machine only."""
     code = _DTYPES[(x.dtype, x.dtype if out_dtype is None else out_dtype)]
-    path = _kernel("conv1x1_path")(x.data_ptr(), 0, x.shape[-1], cout, code)
+    path = _kernel("conv1x1_path")(x.data_ptr(), x.shape[-1], cout, code)
     return _CONV1X1_PATHS[path]
 
 

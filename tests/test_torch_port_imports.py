@@ -285,6 +285,34 @@ def test_kernel_build_is_keyed_on_the_shared_headers(tmp_path):
     assert all(after[n] != before[n] for n in build.SOURCES)
 
 
+def test_kernel_build_keeps_the_ptxas_report_beside_the_library(
+        tmp_path, monkeypatch):
+    """nvcc's output is written beside the library it built, so a later
+    process that only loads the library still reads its ptxas report; a
+    library whose report is missing is built again."""
+    report = "ptxas info    : Used 40 registers, 0 bytes stack frame"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\nimport sys\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n"
+        f"print({report!r})\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    assert build.build_log("conv1x1") is None
+    assert build.build(["conv1x1"]) > 0
+    assert build.library_path("conv1x1").read_bytes() == b"lib"
+    assert build.log_path("conv1x1") == build.library_path(
+        "conv1x1").with_suffix(".log")
+    assert build.build_log("conv1x1").strip() == report
+    assert build.build(["conv1x1"]) == 0.0  # built: nothing to do
+    build.log_path("conv1x1").unlink()
+    assert build.build(["conv1x1"]) > 0
+    assert build.build_log("conv1x1").strip() == report
+    assert sorted(p.suffix for p in build.BUILD_DIR.iterdir()) == [
+        ".log", ".so"]
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     """No CUDA device: exit non-zero, no result line. A directory holding
     chip_smoke.py and nothing else of the repo fails the same way."""

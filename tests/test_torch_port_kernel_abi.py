@@ -109,7 +109,7 @@ def test_the_parser_sees_the_convt_path_and_the_one_launch_design():
 def test_the_parser_sees_the_conv1x1_path_and_the_banded_curvature():
     """conv1x1 exports its launch (x, w, scale, bias, out, P as long long,
     Cin, Cout, relu, dtypes, the stream) and its path rule, which reads
-    the alignment of x and out (x, out, Cin, Cout, dtypes); the curvature
+    the alignment of x (x, Cin, Cout, dtypes); the curvature
     takes the derivative matrices' bands in the place of the matrices and
     ctrl's strides (ctrl, u, knots, m1 band, m2 band, kappa, valid, r, N,
     K, degree, two strides, the stream)."""
@@ -117,6 +117,6 @@ def test_the_parser_sees_the_conv1x1_path_and_the_banded_curvature():
     exports = _exports()
     assert exports[("conv1x1", "conv1x1_launch")] == (
         [p] * 5 + [ctypes.c_longlong] + [i] * 4 + [p])
-    assert exports[("conv1x1", "conv1x1_path")] == [p, p, i, i, i]
+    assert exports[("conv1x1", "conv1x1_path")] == [p, i, i, i]
     assert exports[("bspline_curvature", "bspline_curvature_launch")] == (
         [p] * 8 + [i] * 5 + [p])
