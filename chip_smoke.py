@@ -29,7 +29,10 @@ mismatch raises and the script exits non-zero:
    to the frame alone; the profiler's device time beside the back-to-back
    time, each beside cuDNN's, and the host's cost per call); then the geometry
    kernels (deprojection bitwise at 480x640 stride 1 and 240x320 stride
-   2, the design contractions of 6400 edge-point slots -- called twice,
+   2, one kernel and no copy per call in the profiler, ragged views,
+   frames with no and one valid pixel and a misaligned depth map each
+   called twice, two streams at once, no stack frame in ``ptxas -v``;
+   the design contractions of 6400 edge-point slots -- called twice,
    equal bit for bit, 0 outside the Gram matrix's band --, the curvature
    at 100 samples, called twice, equal bit for bit, no stack frame in
    ``ptxas -v``, and at ``curvature_case_inputs``' edge cases) and the
@@ -40,8 +43,9 @@ mismatch raises and the script exits non-zero:
    every frame equal bit for bit to the frame alone; ragged shapes on
    both paths, and bfloat16 in with float32 out), with the profiler's
    device time beside the back-to-back time; and the dequant + IDCT
-   (bitwise, one 480x640 4:2:0 frame's planes at B = 1 and 8, and a
-   ragged N);
+   (bitwise, one 480x640 4:2:0 frame's planes at B = 1 and 8, a ragged
+   N, every coefficient at +-2047 with q = 255, a misaligned address; the
+   per-frame sum of the three planes' device times);
 3. the analyzer: the kernel forward against the plain forward, exact
    launch counts per frame (18 conv3x3_bn_relu + 1 conv1x1 + 1 each
    geometry kernel), the same frames against the reference geometry ops
@@ -181,7 +185,8 @@ COEF_PSNR_DB = 30.0
 # or rounding adds per 8-point pass, 16 passes, plus the dequantizing
 # multiply, the level shift and the clamp per sample
 ISLOW_OPS_PER_BLOCK = 16 * 62 + 64 * 4
-DENSE_IDCT_MACS_PER_BLOCK = 2 * 64 * 64  # the kernel's two dense passes
+# the kernel's separable passes: A on 8 columns, then on 8 rows
+SEPARABLE_IDCT_MACS_PER_BLOCK = 2 * 8 * 64
 INT32_OPS_PER_SM_CLOCK = 64  # Hopper's int32 multiply-add rate per SM
 CONVT_F32_REL = 1e-5  # float32 transposed conv, kernel vs plain
 
@@ -295,11 +300,8 @@ def device_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
-    """Mean device time of one call of ``fn`` in ms: the kernels and copies
-    it launched, from torch.profiler, over ``iters`` calls after a
-    warm-up. For work far shorter than its launch cost, where CUDA events
-    around back-to-back calls time the host."""
+def profiled_rows(torch, fn, iters: int) -> list:
+    """:func:`device_rows` of ``iters`` calls of ``fn`` after a warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -310,7 +312,15 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(r[0] for r in device_rows(prof)) / iters
+    return device_rows(prof)
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn`` in ms: the kernels and copies
+    it launched, from torch.profiler, over ``iters`` calls after a
+    warm-up. For work far shorter than its launch cost, where CUDA events
+    around back-to-back calls time the host."""
+    total = sum(r[0] for r in profiled_rows(torch, fn, iters)) / iters
     # the profiler can record no device activity for a launch (seen once
     # for the 2 us bitpack); CUDA events around back-to-back calls then
     # give an upper bound (they include the host's cost per call)
@@ -619,6 +629,7 @@ def geometry_kernel_phase(torch, port) -> dict:
         results[("deproject_edge_stats", stride)] = t
         if stride == 1:
             maps = want
+    deproject_cases(torch, port, gk, build, views, (fx, fy, cx, cy, ds))
 
     cfg = port.GeometryConfig()
     e_pts, e_w, *_ = geometry._edge_points(*maps[:4], cfg, maps[4])
@@ -733,6 +744,110 @@ def geometry_kernel_phase(torch, port) -> dict:
         if main:
             results[("bitpack_mask",)] = t
     return results
+
+
+def deproject_cases(torch, port, gk, build, views, params) -> None:
+    """deproject_edge_stats beside the main path's calls (``views``: the
+    480x640 frame at stride 1 and its pooled 240x320 view at stride 2;
+    ``params``: fx, fy, cx, cy, depth_scale as 0-d tensors on the card,
+    the first four views of the intrinsics): the profiler sees one kernel
+    and no copy per call; ragged views (37x53 and 481x643, and their
+    pooled views at stride 2), a frame with no valid pixel, one with a
+    single valid pixel in a row's ragged tail and a depth map at a
+    misaligned address (the scalar path), each called twice, equal bit for
+    bit to each other and to the plain version; two streams calling at
+    once, each equal to the plain version, each on its own ticket counter,
+    every counter back at 0; and no stack frame in ``ptxas -v`` for this
+    kernel or dequant_idct."""
+    F = torch.nn.functional
+
+    def same(got, want) -> bool:
+        return all(bitwise_equal(torch, a, b) for a, b in
+                   zip([*got[:4], *got[4]], [*want[:4], *want[4]]))
+
+    m1, d1 = views[1]
+    iters = 10
+    rows = []
+    for _ in range(2):  # the profiler once dropped a 2 us launch's record
+        rows = profiled_rows(torch, lambda: gk.deproject_edge_stats(
+            m1, d1, *params), iters)
+        if rows:
+            break
+    check(len(rows) == 1 and rows[0][1] == iters
+          and "deproject" in rows[0][2],
+          f"deproject_edge_stats: want one kernel per call and no copy; "
+          f"the profiler saw {[(r[1], r[2]) for r in rows]} over {iters} "
+          "calls")
+    log(f"deproject_edge_stats: one kernel per call, no copy "
+        f"({rows[0][2][:60]}...)")
+
+    gen = np.random.default_rng(SEED + 6)
+    _, mask, depth = port.render_scene(gen, 512, 704)
+    big_m = torch.from_numpy((mask > 0).astype(np.uint8)).cuda()
+    big_d = torch.from_numpy(depth.astype(np.float32)).cuda()
+    cases = []
+    for label, (r0, c0, h, w) in (("37x53", (5, 7, 37, 53)),
+                                  ("481x643", (0, 0, 481, 643))):
+        m, d = big_m[r0:r0 + h, c0:c0 + w], big_d[r0:r0 + h, c0:c0 + w]
+        cases.append((f"{label} view", m, d, 1))
+        pooled = F.max_pool2d(torch.where(m > 0, d, 0.0)[None, None],
+                              2, 2)[0, 0]
+        cases.append((f"{label} pooled", (pooled > 0).to(torch.uint8),
+                      pooled, 2))
+    none_m = torch.zeros_like(m1)
+    cases.append(("no valid pixel", none_m, d1, 1))
+    one_m = torch.zeros((37, 53), dtype=torch.uint8, device="cuda")
+    one_m[36, 52] = 1
+    cases.append(("one valid pixel", one_m, big_d[:37, :53] + 1.0, 2))
+    buf = torch.empty(d1.numel() + 1, dtype=torch.float32, device="cuda")
+    shifted = buf[1:].view(d1.shape)
+    shifted.copy_(d1)
+    cases.append(("misaligned depth", m1, shifted, 1))
+    for label, m, d, stride in cases:
+        got = gk.deproject_edge_stats(m, d, *params, stride=stride)
+        again = gk.deproject_edge_stats(m, d, *params, stride=stride)
+        want = gk.deproject_edge_stats_plain(m, d, *params, stride=stride)
+        torch.cuda.synchronize()
+        check(same(got, again) and same(got, want),
+              f"deproject_edge_stats {label} {tuple(d.shape)} stride "
+              f"{stride}: two calls differ or differ from the plain version")
+        n = int(got[4][4])
+        check(n == {"no valid pixel": 0, "one valid pixel": 1}.get(label, n),
+              f"deproject_edge_stats {label}: count {n}")
+    log("deproject_edge_stats: 37x53 and 481x643 views and their pooled "
+        "views at stride 2, no valid pixel (sentinels, 0), one valid pixel "
+        "in a ragged tail, a misaligned depth map: each twice, bitwise, "
+        "equal to the plain version")
+
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    work = [(views[1], 1), (views[2], 2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(50):
+        for j, (st, ((m, d), stride)) in enumerate(zip(streams, work)):
+            with torch.cuda.stream(st):
+                outs[j].append(gk.deproject_edge_stats(m, d, *params,
+                                                       stride=stride))
+    torch.cuda.synchronize()
+    for j, ((m, d), stride) in enumerate(work):
+        want = gk.deproject_edge_stats_plain(m, d, *params, stride=stride)
+        check(all(same(got, want) for got in outs[j]),
+              f"deproject_edge_stats on stream {j} of 2: differs from the "
+              "plain version")
+    keys = {(torch.cuda.current_device(), st.cuda_stream) for st in streams}
+    check(keys <= set(gk._tickets), "deproject_edge_stats: a stream without "
+          "its own ticket counter")
+    check(all(int(t) == 0 for t in gk._tickets.values()),
+          "deproject_edge_stats: a ticket counter not back at 0")
+    log("deproject_edge_stats: two streams at once, 50 calls each (480x640 "
+        "stride 1, 240x320 stride 2), bitwise equal to the plain version; "
+        f"{len(gk._tickets)} ticket counters, each back at 0")
+
+    build.build(["deproject_edge_stats", "dequant_idct"])
+    for name in ("deproject_edge_stats", "dequant_idct"):
+        report, stack = ptxas_summary(build, name)
+        log(report)
+        check(not any(stack), f"{name}: ptxas reports a stack frame")
 
 
 def curvature_case_inputs(bspline) -> list:
@@ -1042,17 +1157,21 @@ def decode_kernel_phase(torch) -> dict:
     """dequant_idct against its plain version, bitwise, on coefficients
     spanning the full baseline range (|coef| <= 2047, q <= 255): one
     480x640 4:2:0 frame's planes (N = 4800 and 1200) at B = 1 and B = 8,
-    and a ragged N that no tile divides. Device time per launch (the
-    profiler) against the plain version; no single PyTorch call computes
-    the islow IDCT (and torch has no int32 matrix product on CUDA), so
-    there is no library time. The bound counts libjpeg's butterfly, the
-    least work (ISLOW_OPS_PER_BLOCK), at the card's int32 rate; the
-    kernel's dense form does DENSE_IDCT_MACS_PER_BLOCK."""
+    and a ragged N that no tile divides; then every coefficient at +2047,
+    at -2047 and at random signs of 2047 with q = 255 (the int32 sums
+    wrap), and coefficients at a misaligned address (the scalar path).
+    Device time per launch (the profiler) against the plain version, and
+    per coefficient frame the sum of its three planes' launches; no single
+    PyTorch call computes the islow IDCT (and torch has no int32 matrix
+    product on CUDA), so there is no library time. The bound counts
+    libjpeg's butterfly, the least work (ISLOW_OPS_PER_BLOCK), at the
+    card's int32 rate; the kernel's separable form does
+    SEPARABLE_IDCT_MACS_PER_BLOCK."""
     from robotic_discovery_platform_tpu_torch.ops import decode
 
     rng = np.random.default_rng(SEED + 5)
     rate = int32_ops_per_s(torch)
-    results = {}
+    results, per_launch = {}, {}
     cases = [(b, n) for b in (1, MAX_BATCH) for n in sorted(set(IDCT_PLANES))]
     cases.append((3, 1237))
     for b, n in cases:
@@ -1069,15 +1188,46 @@ def decode_kernel_phase(torch) -> dict:
                     lambda: decode.dequant_idct_plain(c, q))
         t["max_abs_err"] = 0.0
         blocks = b * n
-        nbytes = blocks * 64 * (2 + 4) + b * 64 * 4 + 2 * 64 * 64 * 4
+        # coefficients and tables in, samples out, and the 64 constants
+        nbytes = blocks * 64 * (2 + 4) + b * 64 * 4 + 64 * 4
         t["bound_ms"], t["bound_by"] = bound_ms(
             float(blocks * ISLOW_OPS_PER_BLOCK), nbytes, rate)
-        t["dense_ops_ms"] = blocks * DENSE_IDCT_MACS_PER_BLOCK / rate * 1e3
+        t["separable_ops_ms"] = (blocks * SEPARABLE_IDCT_MACS_PER_BLOCK
+                                 / rate * 1e3)
         log(f"dequant_idct [{b},{n},64]: bitwise; {timing_text(t)}; the "
-            f"dense form's operations alone {t['dense_ops_ms']:.6f} ms at "
-            f"{rate / 1e12:.2f} T int32 ops/s")
+            f"separable form's operations alone {t['separable_ops_ms']:.6f} "
+            f"ms at {rate / 1e12:.2f} T int32 ops/s")
+        per_launch[(b, n)] = t
         if b == 1:
             results[("dequant_idct", n)] = t
+    for b in (1, MAX_BATCH):
+        rows = [per_launch[(b, n)] for n in IDCT_PLANES]
+        unit = "one coefficient frame" if b == 1 else f"a B = {b} dispatch"
+        log(f"dequant_idct, the {len(rows)} launches of {unit} "
+            f"({'+'.join(map(str, IDCT_PLANES))} blocks a frame): device "
+            f"ms {sum(r['ms'] for r in rows):.4f}, "
+            f"plain {sum(r['plain_ms'] for r in rows):.4f}, bound "
+            f"{sum(r['bound_ms'] for r in rows):.6f}")
+
+    n = IDCT_PLANES[0]
+    q = torch.full((1, 64), 255, dtype=torch.int32, device="cuda")
+    signs = torch.from_numpy(rng.choice(np.array([-1, 1], np.int16),
+                                        (1, n, 64))).cuda()
+    buf = torch.empty(n * 64 + 1, dtype=torch.int16, device="cuda")
+    shifted = buf[1:].view(1, n, 64)
+    shifted.copy_(signs * 2047)
+    for label, c in (("+2047", torch.full_like(signs, 2047)),
+                     ("-2047", torch.full_like(signs, -2047)),
+                     ("+-2047", signs * 2047), ("misaligned +-2047", shifted)):
+        got = decode.dequant_idct(c, q)
+        want = decode.dequant_idct_plain(c, q)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"dequant_idct {label} [1,{n},64], q = 255: differs from the "
+              "plain version")
+    log(f"dequant_idct [1,{n},64] at +2047, -2047, random signs of 2047 "
+        "(q = 255: the int32 sums wrap) and at a misaligned address: "
+        "bitwise")
     return results
 
 

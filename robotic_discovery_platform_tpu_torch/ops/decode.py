@@ -13,7 +13,13 @@ linear between its two DESCALE roundings, so each pass is one integer
 
 - :func:`dequant_idct` (``csrc/dequant_idct.cu``) replaces the TPU kernel
   ``robotic_discovery_platform_tpu/ops/pallas/decode.py`` ``dequant_idct``
-  (bodies ``_idct_kernel`` and ``_idct_math``).
+  (bodies ``_idct_kernel`` and ``_idct_math``). It computes the two
+  matrices in their separable form: ``m1 = kron(A, I8).T`` is the 8-point
+  ``A`` on each column of the block and ``m2 = kron(I8, A).T`` on each
+  row, the same nonzero products summed modulo 2^32, so the output is the
+  dense products' bit for bit (mirrored in numpy by
+  tests/test_torch_port_decode.py, which also reads ``A`` from the
+  source).
 - :func:`dequant_idct_plain` computes the same map with PyTorch ops that
   run on the CPU and on the card: the two products in float64, where
   every partial sum is an integer below 2^48 and so exact, then an
@@ -49,10 +55,10 @@ _FIX = {
 
 
 #: kernel name -> (C function, ctypes argument types):
-#: coefs, q, m1, m2, out, B, N, stream
+#: coefs, q, out, B, N, stream
 _SIGNATURES = {
     "dequant_idct": ("dequant_idct_launch",
-                     [ctypes.c_void_p] * 5
+                     [ctypes.c_void_p] * 3
                      + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 
@@ -117,11 +123,11 @@ def _pass_matrices() -> tuple:
 
 
 @functools.lru_cache(maxsize=16)
-def _pass_matrices_on(device: torch.device, dtype: torch.dtype) -> tuple:
-    """The two pass matrices on ``device`` in ``dtype``, row-major (the
-    kernel reads them so), copied once."""
+def _pass_matrices_on(device: torch.device) -> tuple:
+    """The two pass matrices on ``device`` in float64, copied once (for the
+    plain version; the kernel applies ``islow_basis`` separably)."""
     return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(
-        device=device, dtype=dtype) for m in _pass_matrices())
+        device=device, dtype=torch.float64) for m in _pass_matrices())
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +151,7 @@ def dequant_idct_plain(coefs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     to int32 as XLA's int32 dot does (wrapping is order-free modulo
     2^32)."""
     b, n, _ = coefs.shape
-    m1, m2 = _pass_matrices_on(coefs.device, torch.float64)
+    m1, m2 = _pass_matrices_on(coefs.device)
     deq = coefs.to(torch.int64) * q.to(torch.int64)[:, None, :]
     deq = _wrap32(deq).reshape(b * n, 64)
     ws = _descale(_wrap32(torch.matmul(deq.double(), m1).to(torch.int64)),
@@ -186,13 +192,11 @@ def dequant_idct(coefs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
             f"dequant_idct: coefs are on {coefs.device} but the current "
             f"device is cuda:{torch.cuda.current_device()}")
     b, n, _ = coefs.shape
-    m1, m2 = _pass_matrices_on(coefs.device, torch.int32)
     out = torch.empty((b, n, 64), dtype=torch.int32, device=coefs.device)
     if out.numel() == 0:
         return out
     fn = build.function("dequant_idct", *_SIGNATURES["dequant_idct"])
-    err = fn(coefs.data_ptr(), q.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-             out.data_ptr(), b, n,
+    err = fn(coefs.data_ptr(), q.data_ptr(), out.data_ptr(), b, n,
              torch.cuda.current_stream(coefs.device).cuda_stream)
     build.check("dequant_idct", err)
     dequant_idct.launches += 1

@@ -4,7 +4,10 @@ package's ``ops/pallas/geometry.py``).
 
 - :func:`deproject_edge_stats` (``csrc/deproject_edge_stats.cu``): the
   pinhole deprojection maps and the masked x/y min/max and valid count in
-  one pass; bitwise equal to its plain version.
+  one launch that reads the five scalars in place and folds the blocks'
+  partial rows in its last block (a ticket counter per stream); bitwise
+  equal to its plain version (the tiling and the fold are mirrored in
+  numpy by tests/test_torch_port_geometry_kernels.py).
 - :func:`bspline_design` (``csrc/bspline_design.cu``): the basis of the
   edge points' chord parameters contracted straight into the fit's Gram
   matrix and right-hand side, in float64, in one launch; the basis never
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -41,10 +45,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "deproject_edge_stats_blocks": ("deproject_edge_stats", [_I, _I]),
-    # mask, depth, params, x, y, z, valid, part_f, part_n, stats_f,
-    # stats_n, H, W, stride, stream
+    # mask, depth, fx, fy, cx, cy, depth_scale, x, y, z, valid, part,
+    # stats_f, stats_n, ticket, H, W, stride, stream
     "deproject_edge_stats_launch": (
-        "deproject_edge_stats", [_P] * 11 + [_I, _I, _I, _P]),
+        "deproject_edge_stats", [_P] * 15 + [_I, _I, _I, _P]),
     # pts, w, u, knots, gram, rhs, N, D, K, degree, stream
     "bspline_design_launch": ("bspline_design", [_P] * 6 + [_I] * 4 + [_P]),
     # ctrl, u, knots, m1 band, m2 band, kappa, valid, r, N, K, degree,
@@ -91,6 +95,27 @@ def deproject_edge_stats_plain(mask, depth, fx, fy, cx, cy, depth_scale, *,
     return x, y, z, valid, geometry.masked_stats(x, y, valid)
 
 
+#: floats of one block's partial row: x_min, x_max, y_min, y_max, n
+_DEPROJECT_PART = 5
+_tickets: dict[tuple[int, int], torch.Tensor] = {}  # guarded_by: _tickets_lock
+_tickets_lock = threading.Lock()
+
+
+def _ticket(dev: torch.device) -> torch.Tensor:
+    """The zeroed int32 counter that :func:`deproject_edge_stats` takes its
+    blocks' tickets from on the current stream of ``dev``: one per (device,
+    stream), so concurrent streams never share one, made once on that
+    stream (warm up a stream before capturing it into a graph). The kernel
+    sets it back to 0 at its end."""
+    key = (dev.index, _stream(dev))
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None:
+            t = _tickets[key] = torch.zeros((1,), dtype=torch.int32,
+                                            device=dev)
+    return t
+
+
 def deproject_edge_stats(mask, depth, fx, fy, cx, cy, depth_scale, *,
                          stride: int = 1):
     """Fused pinhole deprojection + masked edge statistics of one frame.
@@ -98,13 +123,16 @@ def deproject_edge_stats(mask, depth, fx, fy, cx, cy, depth_scale, *,
     Args:
         mask: [H, W] mask (nonzero = set; uint8 is taken as it is).
         depth: [H, W] raw depth, float32 (z16 values are exact).
-        fx, fy, cx, cy, depth_scale: float32 scalars (0-d tensors on the
-            same device, or floats).
+        fx, fy, cx, cy, depth_scale: float32 scalars: one-element tensors
+            on the same device, read in place by the kernel (the 0-d views
+            of an intrinsics matrix need no copy), or floats.
         stride: the pooled-view stride, as in ``geometry.deproject``.
 
     Returns ``(x, y, z, valid, (x_min, x_max, y_min, y_max, n_valid))``:
     float32 maps, a bool map, float32 statistics with the +-1e30 sentinels
-    and an int32 count, all bitwise those of the plain version.
+    and an int32 count, all bitwise those of the plain version. On the
+    card this is one kernel launch and no copy when the five scalars are
+    float32 tensors on the card.
     """
     if depth.device.type == "cpu":
         return deproject_edge_stats_plain(mask, depth, fx, fy, cx, cy,
@@ -118,23 +146,28 @@ def deproject_edge_stats(mask, depth, fx, fy, cx, cy, depth_scale, *,
         mask = (mask > 0).to(torch.uint8)
     depth = depth.to(torch.float32).contiguous()
     mask = mask.contiguous()
-    dev = _check_cuda("deproject_edge_stats", mask, depth)
-    params = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev)
-                          for v in (fx, fy, cx, cy, depth_scale)])
+    params = [torch.as_tensor(v, dtype=torch.float32, device=depth.device)
+              for v in (fx, fy, cx, cy, depth_scale)]
+    if any(p.numel() != 1 for p in params):
+        raise ValueError("deproject_edge_stats: fx, fy, cx, cy and "
+                         "depth_scale must be scalars")
+    dev = _check_cuda("deproject_edge_stats", mask, depth, *params)
     h, w = depth.shape
     blocks = _fn("deproject_edge_stats_blocks")(h, w)
-    x, y, z = (torch.empty((h, w), dtype=torch.float32, device=dev)
-               for _ in range(3))
+    if blocks < 0:
+        raise ValueError(f"deproject_edge_stats: {h}x{w} is past the "
+                         "kernel's 32-bit indexing")
+    x, y, z = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
-    part_f = torch.empty((blocks, 4), dtype=torch.float32, device=dev)
-    part_n = torch.empty((blocks,), dtype=torch.int32, device=dev)
+    part = torch.empty((blocks, _DEPROJECT_PART), dtype=torch.float32,
+                       device=dev)
     stats_f = torch.empty((4,), dtype=torch.float32, device=dev)
     stats_n = torch.empty((1,), dtype=torch.int32, device=dev)
     err = _fn("deproject_edge_stats_launch")(
-        mask.data_ptr(), depth.data_ptr(), params.data_ptr(), x.data_ptr(),
-        y.data_ptr(), z.data_ptr(), valid.data_ptr(), part_f.data_ptr(),
-        part_n.data_ptr(), stats_f.data_ptr(), stats_n.data_ptr(), h, w,
-        int(stride), _stream(dev))
+        mask.data_ptr(), depth.data_ptr(), *(p.data_ptr() for p in params),
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), valid.data_ptr(),
+        part.data_ptr(), stats_f.data_ptr(), stats_n.data_ptr(),
+        _ticket(dev).data_ptr(), h, w, int(stride), _stream(dev))
     build.check("deproject_edge_stats", err)
     deproject_edge_stats.launches += 1
     return x, y, z, valid, (stats_f[0], stats_f[1], stats_f[2], stats_f[3],

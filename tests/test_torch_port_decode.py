@@ -17,6 +17,9 @@ Tolerances, fixed before measuring:
   within the port: identical (mask bytes, scalars, packed rows).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -220,6 +223,106 @@ def test_dequant_idct_wrapper_on_cpu_is_the_plain_version():
     flat = decode.dequant_idct(torch.from_numpy(dc),
                                torch.full((1, 64), 8, dtype=torch.int32))
     assert torch.unique(flat).numel() == 1
+
+
+def _source_basis() -> np.ndarray:
+    """``ISLOW_A`` of csrc/dequant_idct.cu as an [8, 8] int64 array."""
+    src = (Path(decode.__file__).resolve().parents[1] / "csrc"
+           / "dequant_idct.cu").read_text()
+    body = re.search(r"__constant__ int32_t ISLOW_A\[64\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    return np.asarray([int(v) for v in body.replace(",", " ").split()],
+                      np.int64).reshape(8, 8)
+
+
+def test_pass_matrices_are_the_separable_form_of_the_source_basis():
+    """The two [64, 64] pass matrices are exactly ``kron(A, I8).T`` and
+    ``kron(I8, A).T``, zero outside that pattern, for the ``A`` that the
+    kernel holds in its source (equal to ``islow_basis`` and to the JAX
+    package's basis)."""
+    a = _source_basis()
+    np.testing.assert_array_equal(a, decode.islow_basis())
+    np.testing.assert_array_equal(a, jdecode.islow_basis())
+    m1, m2 = decode._pass_matrices()
+    eye = np.eye(8, dtype=np.int64)
+    np.testing.assert_array_equal(m1, np.kron(a, eye).T)
+    np.testing.assert_array_equal(m2, np.kron(eye, a).T)
+    # flattened index 8*row + col: pass 1 mixes rows within a column,
+    # pass 2 columns within a row; every other entry is 0
+    k = np.arange(64)
+    same_col = (k[:, None] % 8) == (k[None, :] % 8)
+    same_row = (k[:, None] // 8) == (k[None, :] // 8)
+    assert not np.any(m1[~same_col]) and not np.any(m2[~same_row])
+    assert np.count_nonzero(m1) == np.count_nonzero(m2) == 8 * 64
+    for m, jm in zip((m1, m2), jdecode._pass_matrices()):
+        np.testing.assert_array_equal(m, np.asarray(jm))
+
+
+def _separable_mirror(c: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """A numpy mirror of csrc/dequant_idct.cu: each 8x8 block dequantized
+    in uint32, pass 1 applies A to each column and pass 2 to each row,
+    each sum taken in uint32 (wrapping) in the kernel's order, each DESCALE
+    an arithmetic shift of the value read as int32."""
+    a = _source_basis().astype(np.uint32)
+    b, n, _ = c.shape
+    x = (c.astype(np.int32).astype(np.uint32)
+         * q.astype(np.uint32)[:, None, :]).reshape(b * n, 8, 8)
+
+    def one_pass(v):  # v[..., k, lane] -> out[..., i, lane], A @ v
+        out = np.zeros_like(v)
+        for i in range(8):
+            for k in range(8):
+                out[:, i, :] += a[i, k] * v[:, k, :]
+        return out
+
+    def descale(v, shift):
+        return ((v + np.uint32(1 << (shift - 1))).view(np.int32)
+                >> shift).astype(np.uint32)
+
+    ws = descale(one_pass(x), 11)  # columns: x[block, row, col]
+    s = one_pass(ws.transpose(0, 2, 1)).transpose(0, 2, 1)  # rows
+    out = descale(s, 18).view(np.int32) + 128
+    return np.clip(out, 0, 255).astype(np.int32).reshape(b, n, 64)
+
+
+def _idct_case(case: str):
+    """(coefs int16 [B, N, 64], q uint16 [B, 64]) of a named case."""
+    rng = np.random.default_rng(17)
+    if case == "random":
+        return _coefs(2, 37, seed=9)
+    if case == "n1":
+        return _coefs(3, 1, seed=10)
+    if case == "ragged":
+        return _coefs(2, 1237, seed=11)
+    q = np.full((2, 64), 255, np.uint16)
+    shape = (2, 24, 64)
+    c = {"plus2047": np.full(shape, 2047),
+         "minus2047": np.full(shape, -2047),
+         "signs2047": rng.choice(np.array([-2047, 2047]), shape)}[case]
+    return c.astype(np.int16), q
+
+
+@pytest.mark.parametrize("case", ["random", "n1", "ragged", "plus2047",
+                                  "minus2047", "signs2047"])
+def test_separable_idct_mirror_matches_jax_bitwise(case):
+    """The separable uint32 passes, mirrored in numpy, bitwise equal to
+    JAX ``dequant_idct(impl="interpret")`` and to the port's plain
+    version: the full baseline range (|coef| <= 2047, q <= 255), N = 1, a
+    ragged N, and every coefficient at +-2047 with q = 255, where the
+    int32 sums wrap."""
+    c, q = _idct_case(case)
+    got = _separable_mirror(c, q)
+    want = np.asarray(jdecode.dequant_idct(c, q, impl="interpret"))
+    plain = decode.dequant_idct_plain(
+        torch.from_numpy(c), torch.from_numpy(q.astype(np.int32))).numpy()
+    assert got.dtype == want.dtype == plain.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(plain, want)
+    if case.endswith("2047"):  # pass 1's exact sums leave the int32 range
+        deq = (c.astype(np.int64) * q.astype(np.int64)[:, None, :])
+        exact = np.einsum("ir,mrj->mij", _source_basis(),
+                          deq.reshape(-1, 8, 8))
+        assert np.abs(exact).max() >= 2**31
 
 
 # -- the device half of the decode ----------------------------------------------

@@ -5,7 +5,7 @@ the default ``kernel_impl="auto"`` against JAX's ``"interpret"``.
 
 Tolerances, fixed before measuring:
 - deproject_edge_stats: maps, validity and the x/y min/max and count
-  bitwise;
+  bitwise (and a numpy mirror of the kernel's tiling and fold, bitwise);
 - bspline_design: the port's float64 against JAX's float32 on the same
   chord parameters, every Gram and right-hand-side entry within 1e-4 of
   the sum of its terms' magnitudes (|BW|^T|B| and |BW|^T|X|, float64);
@@ -18,6 +18,9 @@ Tolerances, fixed before measuring:
 - compute_curvature_profile: as tests/test_torch_port_geometry.py
   (curvature and spline rtol 1e-3, validity and counts exact).
 """
+
+import re
+from pathlib import Path
 
 import chip_smoke
 import jax
@@ -93,6 +96,135 @@ def test_deproject_edge_stats_matches_jax_interpret(kind, stride):
     plain = gk.deproject_edge_stats_plain(*args, stride=stride)
     for a, b in zip([*got[:4], *got[4]], [*plain[:4], *plain[4]]):
         assert torch.equal(a, b)
+
+
+def _deproject_source_constants() -> tuple[int, int, int]:
+    """(THREADS, PIX, PART) of csrc/deproject_edge_stats.cu: threads per
+    block, consecutive pixels of a row per thread, floats of a block's
+    partial row."""
+    src = (Path(gk.__file__).resolve().parents[1] / "csrc"
+           / "deproject_edge_stats.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
+                     .group(1)) for name in ("THREADS", "PIX", "PART"))
+
+
+def _deproject_mirror(mask, depth, params, stride: int):
+    """A numpy mirror of csrc/deproject_edge_stats.cu: each thread takes
+    PIX consecutive pixels of one row (reads past the row's end see mask
+    0 and depth 0), THREADS threads a block; every float32 operation in
+    the kernel's order, each rounded once (numpy float32 has no FMA);
+    each block's partial row (x_min, x_max, y_min, y_max, n as a float),
+    then the last block's fold of the rows in block order."""
+    threads, pix, _ = _deproject_source_constants()
+    f32, big = np.float32, np.float32(1e30)
+    fx, fy, cx, cy, ds = (f32(v) for v in params)
+    h, w = depth.shape
+    wq = -(-w // pix)
+    blocks = max(1, -(-h * wq // threads))
+    d = np.zeros((h, wq * pix), f32)
+    m = np.zeros((h, wq * pix), np.uint8)
+    d[:, :w], m[:, :w] = depth, mask
+    off = f32((stride - 1) * 0.5)
+    vv = np.arange(h, dtype=f32)[:, None] * f32(stride) + off
+    uu = np.arange(wq * pix, dtype=f32)[None, :] * f32(stride) + off
+    z = d * ds
+    ok = (m > 0) & (z > f32(0))
+    x = ((uu - cx) * z) / fx
+    y = ((vv - cy) * z) / fy
+    quad = np.arange(h)[:, None] * wq + np.arange(wq * pix)[None, :] // pix
+    block = quad // threads
+    rows = []
+    for b in range(blocks):
+        sel = ok & (block == b)
+        rows.append((x[sel].min(initial=big), x[sel].max(initial=-big),
+                     y[sel].min(initial=big), y[sel].max(initial=-big),
+                     f32(sel.sum())))
+    s, n = [big, -big, big, -big], 0
+    for row in rows:  # the last block's fold, in block order
+        s = [min(s[0], row[0]), max(s[1], row[1]), min(s[2], row[2]),
+             max(s[3], row[3])]
+        n += int(row[4])
+    return (x[:, :w], y[:, :w], z[:, :w], ok[:, :w],
+            (*(f32(v) for v in s), np.int32(n)))
+
+
+def _deproject_case(case: str):
+    """(mask, depth as float32, stride) of a tiling case."""
+    rng = np.random.default_rng(21)
+    h, w, stride = {"ragged": (37, 53, 1), "ragged_s2": (45, 70, 2),
+                    "scene": (96, 128, 1), "scene_s2": (48, 64, 2),
+                    "none_valid": (37, 53, 1), "one_valid": (45, 70, 2),
+                    "one_valid_tail": (37, 53, 1)}[case]
+    if case.startswith("scene"):
+        _, mask, depth = render_scene(rng, 96, 128)
+        mask = (mask > 0).astype(np.uint8)
+        if stride > 1:
+            md = np.where(mask > 0, depth, 0).reshape(
+                h, stride, w, stride).max(axis=(1, 3))
+            mask, depth = (md > 0).astype(np.uint8), md
+        return mask, depth.astype(np.float32), stride
+    mask = (rng.random((h, w)) > 0.5).astype(np.uint8)
+    depth = (rng.random((h, w)) * 800 + 100).astype(np.uint16)
+    depth[::5, ::3] = 0
+    if case == "none_valid":
+        depth[mask > 0] = 0  # masked pixels have no depth
+    elif case.startswith("one_valid"):
+        mask[:] = 0
+        r, c = (h // 2, w // 3) if case == "one_valid" else (h - 1, w - 1)
+        mask[r, c], depth[r, c] = 1, 500
+    return mask, depth.astype(np.float32), stride
+
+
+@pytest.mark.parametrize("case", ["ragged", "ragged_s2", "scene", "scene_s2",
+                                  "none_valid", "one_valid",
+                                  "one_valid_tail"])
+def test_deproject_tiling_mirror_matches_jax_interpret(case):
+    """The kernel's 4-pixel tiling and its block-ordered fold, mirrored in
+    numpy, bitwise equal to JAX's Pallas kernel in interpret mode and to
+    the port's plain version: W % 4 != 0 (53, 70), strides 1 and 2, a
+    frame with no valid pixel (the +-1e30 sentinels, count 0) and frames
+    with one valid pixel (one of them in the ragged tail of the last
+    row)."""
+    mask, depth, stride = _deproject_case(case)
+    _, pix, part = _deproject_source_constants()
+    assert part == gk._DEPROJECT_PART  # the wrapper sizes the scratch
+    h, w = depth.shape
+    assert (w % pix != 0) == case.startswith(("ragged", "none", "one"))
+    got = _deproject_mirror(mask, depth, PARAMS, stride)
+    n = int(got[4][4])
+    assert n == {"none_valid": 0, "one_valid": 1,
+                 "one_valid_tail": 1}.get(case, n)
+    if n == 0:
+        big = np.float32(1e30)
+        assert list(got[4][:4]) == [big, -big, big, -big]
+
+    want = pgeom.deproject_edge_stats(
+        jnp.asarray(mask), jnp.asarray(depth), *(jnp.float32(v)
+                                                 for v in PARAMS),
+        stride=stride, interpret=True)
+    plain = gk.deproject_edge_stats_plain(
+        torch.from_numpy(mask), torch.from_numpy(depth),
+        *(torch.tensor(v) for v in PARAMS), stride=stride)
+    for a, b, c in zip([*got[:4], *got[4]], [*want[:4], *want[4]],
+                       [*plain[:4], *plain[4]]):
+        b, c = np.asarray(b), c.numpy()
+        assert np.asarray(a).dtype == b.dtype == c.dtype
+        np.testing.assert_array_equal(np.asarray(a), b)
+        np.testing.assert_array_equal(c, b)
+
+
+def test_ticket_counter_is_per_stream(monkeypatch):
+    """The wrapper's ticket counter: one zeroed int32 per (device, stream),
+    the same tensor again for the same stream, another for another
+    stream."""
+    streams = iter([11, 11, 12])
+    monkeypatch.setattr(gk, "_stream", lambda dev: next(streams))
+    monkeypatch.setattr(gk, "_tickets", {})
+    dev = torch.device("cpu")
+    a, b, c = gk._ticket(dev), gk._ticket(dev), gk._ticket(dev)
+    assert a is b and a is not c
+    assert a.dtype == torch.int32 and a.shape == (1,) and int(a) == 0
+    assert set(gk._tickets) == {(None, 11), (None, 12)}
 
 
 def _design_inputs(n: int, seed: int):

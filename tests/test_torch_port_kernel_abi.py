@@ -120,3 +120,19 @@ def test_the_parser_sees_the_conv1x1_path_and_the_banded_curvature():
     assert exports[("conv1x1", "conv1x1_path")] == [p, i, i, i]
     assert exports[("bspline_curvature", "bspline_curvature_launch")] == (
         [p] * 8 + [i] * 5 + [p])
+
+
+def test_the_parser_sees_the_one_launch_deprojection_and_the_separable_idct():
+    """The deprojection takes its five scalars as device pointers and a
+    ticket counter, with no parameter row and one scratch of partial rows
+    (mask, depth, fx, fy, cx, cy, depth_scale, x, y, z, valid, part,
+    stats_f, stats_n, ticket, H, W, stride, the stream); the IDCT takes no
+    pass matrices (coefs, q, out, B, N, the stream)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    exports = _exports()
+    assert exports[("deproject_edge_stats", "deproject_edge_stats_launch")] == (
+        [p] * 15 + [i] * 3 + [p])
+    assert exports[("deproject_edge_stats", "deproject_edge_stats_blocks")] == (
+        [i, i])
+    assert exports[("dequant_idct", "dequant_idct_launch")] == (
+        [p] * 3 + [i, i] + [p])
