@@ -1272,20 +1272,12 @@ KERNELS = {
 }
 
 
-def launch_counters():
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from robotic_discovery_platform_tpu_torch.ops import conv, decode
-    from robotic_discovery_platform_tpu_torch.ops import geometry_kernels as gk
-    from robotic_discovery_platform_tpu_torch.ops import pack
+def launch_counters() -> dict:
+    """Each kernel's wrapper by name, whose ``launches`` counts its
+    launches."""
+    from robotic_discovery_platform_tpu_torch.ops import graphs
 
-    return {"conv3x3_bn_relu": conv.conv3x3_bn_relu, "conv1x1": conv.conv1x1,
-            "deproject_edge_stats": gk.deproject_edge_stats,
-            "bspline_design": gk.bspline_design,
-            "bspline_curvature": gk.bspline_curvature,
-            "bitpack_mask": pack.bitpack_mask,
-            "conv3x3_grad_weights": conv.conv3x3_grad_weights,
-            "dequant_idct": decode.dequant_idct,
-            "conv_transpose2x2": conv.conv_transpose2x2}
+    return {fn.__name__: fn for fn in graphs.launch_counters()}
 
 
 def reset_launches() -> None:
@@ -1305,17 +1297,20 @@ def launches_of(**counts) -> dict:
 
 
 def frame_launches(n: int, *, coef: bool = False, convt: bool = False,
-                   dispatches: int = 0, ones: int = 0) -> dict:
+                   dispatches: int = 0, ones: int = 0,
+                   served: bool = False) -> dict:
     """Launches of ``n`` direct frames (18 conv3x3_bn_relu, 1 conv1x1, 1
     each geometry kernel; 3 dequant_idct for a coefficient frame and 4
-    conv_transpose2x2 for the non-bilinear model), or of ``dispatches``
-    batched dispatches, ``ones`` of them of one frame (those take the
-    geometry kernels; every dispatch one bitpack)."""
+    conv_transpose2x2 for the non-bilinear model; with ``served``, the
+    servicer's direct path, one bitpack for the frame's packed row), or
+    of ``dispatches`` batched dispatches, ``ones`` of them of one frame
+    (those take the geometry kernels; every dispatch one bitpack)."""
     units = dispatches if dispatches else n
     geom = ones if dispatches else n
     return launches_of(
         conv3x3_bn_relu=18 * units, conv1x1=units, deproject_edge_stats=geom,
-        bspline_design=geom, bspline_curvature=geom, bitpack_mask=dispatches,
+        bspline_design=geom, bspline_curvature=geom,
+        bitpack_mask=dispatches if dispatches else n * served,
         dequant_idct=3 * units if coef else 0,
         conv_transpose2x2=4 * units if convt else 0)
 
@@ -1633,7 +1628,7 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
     stream_s = time.perf_counter() - t0
     launches = read_launches()
     n = len(requests)
-    want = frame_launches(n)
+    want = frame_launches(n, served=True)
     check(launches == want, f"servicer launch counts {launches} for {n} "
           f"frames, want {want}")
     verify(responses, "in-process")
@@ -1688,6 +1683,10 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
     direct_out, direct_s = concurrent_streams(service, streams)
     for order, out in zip(orders, direct_out):
         verify(out, "direct, concurrent streams", order)
+        # each stream's responses byte-equal to the one stream's: the
+        # graph's lock keeps concurrent frames from sharing its buffers
+        same_responses(out, [responses[i] for i in order],
+                       "direct, concurrent streams")
     log(f"direct path, {STREAMS} concurrent streams x {n} frames: "
         f"{STREAMS * n / direct_s:.1f} frames/s aggregate; proc_time_ms "
         f"median {np.median([r.proc_time_ms for o in direct_out for r in o]):.2f}"
@@ -1700,9 +1699,12 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
                              calibration_path=str(tmp / "none.npz"),
                              batch_window_ms=2.0, max_batch=MAX_BATCH)
     batched = port.VisionAnalysisService(folded, cfg=bcfg, device="cuda")
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     batched.warmup(FRAME_W, FRAME_H)
     warm_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved() - reserved
     dispatcher = batched.dispatcher
     dispatcher.dispatch_sizes.clear()
     reset_launches()
@@ -1733,7 +1735,9 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
     log(f"batched leg (batch_window_ms=2, max_batch={MAX_BATCH}), {STREAMS} "
         f"concurrent streams x {n} frames: warm-up of buckets "
         f"{sorted({dispatcher.bucket_for(b) for b in range(1, MAX_BATCH + 1)})}"
-        f" {warm_s:.1f} s; dispatch sizes {sizes} ({dispatches} dispatches); "
+        f" {warm_s:.1f} s (the captures; reserved memory +"
+        f"{reserved / 2**20:.0f} MiB); dispatch sizes {sizes} ({dispatches} "
+        "dispatches); "
         f"{STREAMS * n / batched_s:.1f} frames/s aggregate; proc_time_ms "
         f"median {np.median(proc):.2f} p90 {np.percentile(proc, 90):.2f} max "
         f"{max(proc):.2f}; launches {blaunches}; masks byte-equal to the "
@@ -2089,6 +2093,7 @@ def train_serve_phase(torch, port, frames, model_cfg=None,
     train loss must fall), then a server built from the registry's staging
     version serving 4 frames; returns the launches of the two legs."""
     from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.analysis import recompile
     from robotic_discovery_platform_tpu_torch.training import (
         checkpoint,
         synthetic,
@@ -2102,12 +2107,19 @@ def train_serve_phase(torch, port, frames, model_cfg=None,
                            checkpoint_dir=str(tmp / "ckpt"))
     model_cfg = port.ModelConfig() if model_cfg is None else model_cfg
     arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
+    guards = {name: len(recompile.stats_for(name))
+              for name in ("trainer.train_epoch", "trainer.eval_epoch")}
     reset_launches()
     t0 = time.perf_counter()
     res = trainer.train_model(cfg, model_cfg, arrays=arrays, device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = read_launches()
+    captures = {name: [s.traces for s in recompile.stats_for(name)[n:]]
+                for name, n in guards.items()}
+    check(cfg.epoch_mode == "auto" and captures["trainer.train_epoch"] == [1],
+          f"train_model did not take the scan epoch's one captured step: "
+          f"captures {captures}")
     steps = cfg.epochs * 4
     want = {k: 0 for k in train_launches}
     want.update(conv3x3_bn_relu=35 * steps, conv3x3_grad_weights=18 * steps)
@@ -2128,7 +2140,8 @@ def train_serve_phase(torch, port, frames, model_cfg=None,
         f"{train_s:.1f} s (epochs {' '.join(f'{v:.2f}' for v in res.epoch_seconds)}"
         f" s, checkpoint IO excluded); train loss {hist['train_loss']}, val "
         f"loss {hist['val_loss']}, val mIoU {hist['val_miou']}; launches "
-        f"{train_launches}; registered version {res.registry_version}")
+        f"{train_launches}; scan epoch captures {captures} (train, eval); "
+        f"registered version {res.registry_version}")
 
     store.set_alias(cfg.registered_model_name, "staging", 1)
     best = checkpoint.CheckpointManager(cfg.checkpoint_dir).restore()["best"]
@@ -2192,7 +2205,10 @@ def train_serve_phase(torch, port, frames, model_cfg=None,
     serve_launches = read_launches()
     service.close()
     n = len(frames)
-    want = frame_launches(n, convt=not model_cfg.bilinear)
+    # the server is not warmed: its first frame runs the analysis once
+    # eagerly (the warm-up) in the handler thread, captures it, then
+    # replays, so it launches one frame's kernels more
+    want = frame_launches(n + 1, convt=not model_cfg.bilinear, served=True)
     check(serve_launches == want, f"registry-served launches "
           f"{serve_launches}, want {want}")
     check(service.model_version == 1,
@@ -2208,7 +2224,8 @@ def train_serve_phase(torch, port, frames, model_cfg=None,
         f" statuses {[r.status for r in responses]}, masks equal to the "
         f"direct FoldedUNet's (coverage "
         f"{[round(float(r.mask_coverage), 2) for r in responses]}); "
-        f"launches {serve_launches}")
+        f"launches {serve_launches} (the frames and the first one's "
+        "warm-up)")
     return {k: train_launches[k] + serve_launches[k] for k in want}
 
 
@@ -2416,7 +2433,7 @@ def coef_phase(torch, port, folded, frames) -> dict:
             want = out
         else:
             got, launches = out, read_launches()
-    check(launches == frame_launches(n, coef=True),
+    check(launches == frame_launches(n, coef=True, served=True),
           f"served coefficient launches {launches}")
     same_responses(got, want, "format 2, direct")
     log(f"format-2 requests, direct: {n} responses byte-equal to the format-1 "
@@ -2435,8 +2452,15 @@ def coef_phase(torch, port, folded, frames) -> dict:
     bcfg = dataclasses.replace(cfg, metrics_csv=str(tmp / "batched.csv"),
                                batch_window_ms=2.0, max_batch=MAX_BATCH)
     batched = port.VisionAnalysisService(folded, cfg=bcfg, device="cuda")
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
     batched.warmup(FRAME_W, FRAME_H)
     batched.warmup_coef(FRAME_W, FRAME_H)
+    reserved = torch.cuda.memory_reserved() - reserved
+    log(f"batched servicer graphs at {FRAME_H}x{FRAME_W}, buckets "
+        f"{batched._buckets()}, both lanes: "
+        f"{sum(len(a.graphs.graphs) for a in batch_analyzers(batched))} "
+        f"graphs, reserved memory +{reserved / 2**20:.0f} MiB")
     orders = [[(s * 2 + j) % n for j in range(n)] for s in range(STREAMS)]
     batched.dispatcher.dispatch_sizes.clear()
     reset_launches()
@@ -2514,9 +2538,14 @@ def nonbilinear_phase(torch, port, conv, frames) -> dict:
     check(counts == frame_launches(n, convt=True),
           f"non-bilinear analyzer launches {counts} for {n} frames")
     masks = [m.cpu().numpy() for m in masks]
+    for i, (rgb, depth) in enumerate(frames[:2]):
+        check(tree_equal(torch, analyze(rgb, depth, k, 0.001),
+                         analyze.eager(rgb, depth, k, 0.001)),
+              f"non-bilinear frame {i}: replay differs from the eager run")
     log(f"non-bilinear analyzer: {n} frames, launches {counts} (18 + 4 + 1 + "
         f"3 per frame), {start.elapsed_time(end) / n:.3f} ms per frame (CUDA "
-        f"events); coverage {[round(100 * float(m.mean()), 1) for m in masks]}")
+        f"events); coverage {[round(100 * float(m.mean()), 1) for m in masks]}"
+        "; replays equal bit for bit to the eager runs")
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nb_"))
     requests = [port.raw_request(rgb, depth) for rgb, depth in frames]
@@ -2539,7 +2568,7 @@ def nonbilinear_phase(torch, port, conv, frames) -> dict:
                                   ones=sizes.get(1, 0))
         else:
             responses = list(service.analyze_stream(iter(requests)))
-            sizes, want = None, frame_launches(n, convt=True)
+            sizes, want = None, frame_launches(n, convt=True, served=True)
         legs[leg] = read_launches()
         service.close()
         check(legs[leg] == want, f"non-bilinear {leg} launches {legs[leg]}, "
@@ -2586,10 +2615,342 @@ def nonbilinear_phase(torch, port, conv, frames) -> dict:
             for key in legs["direct"]}
 
 
+# -- the CUDA graphs of the hot entries -----------------------------------------
+
+
+def batch_analyzers(service) -> list:
+    """The analyzers of a batched servicer's dispatcher."""
+    return service.dispatcher.analyzers()
+
+
+def tree_equal(torch, a, b) -> bool:
+    """Two results (FrameAnalysis trees or tensors) equal bit for bit."""
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+
+    la, lb = [], []
+    graphs.tree_map(la.append, a)
+    graphs.tree_map(lb.append, b)
+    return len(la) == len(lb) and all(bitwise_equal(torch, x, y)
+                                      for x, y in zip(la, lb))
+
+
+def capture_deltas(analyzer) -> list:
+    """Each captured graph's launches per replay, by kernel name."""
+    out = []
+    for _, cap in analyzer.graphs.graphs.values():
+        delta = dict.fromkeys(KERNELS, 0)
+        for fn, d in cap.launches:
+            delta[fn.__name__] = d
+        out.append(delta)
+    return out
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def replay_cases(torch, analyzer, calls: list, want_delta: dict,
+                 what: str) -> None:
+    """``calls`` (argument tuples of one static shape, whose graph the
+    analyzer has captured) replayed: launches exactly the capture's delta
+    times the replays, every result equal bit for bit to the same call run
+    eagerly, and a result not overwritten by the calls after it."""
+    delta, = capture_deltas(analyzer)
+    check(delta == want_delta, f"{what}: capture delta {delta}, want "
+          f"{want_delta}")
+    reset_launches()
+    got = [analyzer(*args) for args in calls]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(counts == scaled(delta, len(calls)), f"{what}: {len(calls)} "
+          f"replays launched {counts}, want {len(calls)} x {delta}")
+    for i, args in enumerate(calls):
+        check(tree_equal(torch, got[i], analyzer.eager(*args)),
+              f"{what} call {i}: replay differs from the eager run")
+
+
+def graph_phase(torch, port) -> dict:
+    """The hot entries as CUDA graphs (``ops/graphs.py``) on the default
+    model at 480x640: the frame analyzer, the coefficient analyzer and
+    the packed batch analyzer at buckets 1, 2, 4 and 8 -- each replay
+    equal bit for bit to the eager run of the same call, launches exactly
+    the capture's delta times the replays, one capture per static shape
+    within the JAX package's budgets; two graphs replayed at once from two
+    threads on two streams (every deprojection ticket counter back at 0,
+    results equal to the eager runs); and the train step (B = 4 at
+    256x256) replayed against the same capturable Adam step run eagerly
+    over 3 steps from one state, bit for bit, and against the
+    single-tensor Adam step within phase 6's bars (in float32). Times each
+    entry replayed against eager."""
+    import threading
+
+    from robotic_discovery_platform_tpu_torch.analysis import recompile
+    from robotic_discovery_platform_tpu_torch.ops import geometry_kernels as gk
+    from robotic_discovery_platform_tpu_torch.ops import pipeline
+    from robotic_discovery_platform_tpu_torch.serving import entropy, ingest
+
+    rng = np.random.default_rng(SEED)
+    frames = [port.render_scene(rng, FRAME_H, FRAME_W)[::2]
+              for _ in range(MAX_BATCH)]
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    folded = port.FoldedUNet(seeded_model(torch, port, x0), device="cuda")
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    qy, qc = ingest.quant_tables(COEF_QUALITY)
+    coefs = [encode_coefficients(entropy, rgb, qy, qc) for rgb, _ in frames]
+    recompile.reset()
+    times = {}
+
+    def replay_vs_eager(name, analyzer, args) -> None:
+        times[name] = {"replay_host_ms": host_ms(torch, lambda: analyzer(
+                           *args), iters=30),
+                       "replay_ms": time_ms(torch, lambda: analyzer(*args),
+                                            iters=30),
+                       "eager_host_ms": host_ms(torch, lambda: analyzer.eager(
+                           *args), iters=30),
+                       "eager_ms": time_ms(torch, lambda: analyzer.eager(
+                           *args), iters=30)}
+        log(f"graphs, {name}: replay {times[name]['replay_ms']:.3f} ms per "
+            f"call (CUDA events, back to back), host "
+            f"{times[name]['replay_host_ms']:.3f} ms; eager "
+            f"{times[name]['eager_ms']:.3f} ms, host "
+            f"{times[name]['eager_host_ms']:.3f} ms")
+
+    analyze = port.make_frame_analyzer(folded, img_size=256, device="cuda")
+    calls = [(rgb, depth, k, 0.001) for rgb, depth in frames[:4]]
+    analyze(*calls[0])
+    replay_cases(torch, analyze, calls, frame_launches(1), "frame analyzer")
+    replay_vs_eager("frame analyzer", analyze, calls[0])
+
+    coef = pipeline.make_coef_frame_analyzer(folded, img_size=256,
+                                             device="cuda")
+    ccalls = [(cf, depth, k, 0.001) for cf, (_, depth) in zip(coefs, frames)]
+    coef(*ccalls[0])
+    replay_cases(torch, coef, ccalls[:4], frame_launches(1, coef=True),
+                 "coefficient analyzer")
+    replay_vs_eager("coefficient analyzer", coef, ccalls[0])
+
+    batch = pipeline.make_batch_analyzer(folded, img_size=256, device="cuda",
+                                         pack=True)
+    for b in (1, 2, 4, 8):
+        one = pipeline.make_batch_analyzer(folded, img_size=256,
+                                           device="cuda", pack=True)
+        args = (np.stack([f[0] for f in frames[:b]]),
+                np.stack([f[1] for f in frames[:b]]),
+                np.repeat(k[None], b, axis=0), np.full((b,), 0.001,
+                                                       np.float32))
+        one(*args)
+        replay_cases(torch, one, [args, args], frame_launches(
+            0, dispatches=1, ones=int(b == 1)), f"batch analyzer, bucket {b}")
+        batch(*args)
+        if b == MAX_BATCH:
+            replay_vs_eager(f"batch analyzer, bucket {b}", one, args)
+    check(len(batch.graphs.graphs) == 4 and batch.graphs.guard.stats.traces
+          == 4, f"batch analyzer: {len(batch.graphs.graphs)} graphs for 4 "
+          "buckets")
+
+    # two graphs at once, from two threads on two caller streams
+    frame_want = [analyze.eager(*c).mask for c in calls]
+    coef_want = [coef.eager(*c).mask for c in ccalls[:4]]
+    errors, results = [], {"frame": [], "coef": []}
+
+    def hammer(name, analyzer, cs):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(5):
+                    for c in cs:
+                        results[name].append(analyzer(*c).mask)
+                torch.cuda.current_stream().synchronize()
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=hammer, args=a) for a in (
+        ("frame", analyze, calls), ("coef", coef, ccalls[:4]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    check(not any(t.is_alive() for t in threads), "a replay thread hung")
+    for name, want in (("frame", frame_want), ("coef", coef_want)):
+        check(all(torch.equal(m, want[i % 4])
+                  for i, m in enumerate(results[name])),
+              f"concurrent replays: a {name} mask differs from the eager run")
+    tickets = {key: int(t.item()) for key, t in gk._tickets.items()}
+    check(all(v == 0 for v in tickets.values()), f"ticket counters after "
+          f"concurrent replays: {tickets}")
+    log(f"graphs: the frame and coefficient analyzers replayed 20 times "
+        f"each from two threads on two streams at once: masks equal to the "
+        f"eager runs, every ticket counter at 0 ({len(tickets)} counters)")
+
+    snap = {name: [e["traces"] for e in entries]
+            for name, entries in recompile.snapshot().items()}
+    check(recompile.over_budget() == {}, f"capture budgets exceeded: "
+          f"{recompile.over_budget()}")
+    log(f"graphs: captures per guard instance {snap}, within budget")
+    del analyze, coef, batch
+    torch.cuda.empty_cache()
+    times["train step"] = step_replay(torch, port)
+    return {(name,): t for name, t in times.items()}
+
+
+def step_replay(torch, port) -> dict:
+    """The scan epoch's train step (``ops/graphs.StepGraph``: the first
+    call eager, then captured and replayed) against the same capturable
+    foreach Adam step run eagerly, over 3 steps from one state: losses,
+    parameters, BatchNorm statistics and Adam's state equal bit for bit;
+    in float32 compute, 3 replayed steps against the single-tensor Adam
+    step within LOSS_RTOL (loss) and GRAD_REL_L2 (the parameters'
+    change). Then replay against eager: ms per step
+    (CUDA events and host wall), the replayed step's busy share under the
+    profiler, and Adam's device time."""
+    from robotic_discovery_platform_tpu_torch.analysis import recompile
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+    from robotic_discovery_platform_tpu_torch.training import (
+        synthetic,
+        trainer,
+    )
+
+    cfg = port.ModelConfig()
+    imgs, masks = synthetic.generate_arrays(TRAIN_BATCH, 256, 256,
+                                            seed=SEED)
+    xs, ys = trainer.normalize_arrays(imgs, masks)
+    x, y = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    loss_fn = losses.make_loss_fn("bce")
+    dev = torch.device("cuda")
+
+    def setup(model_cfg, single: bool = False):
+        net = trainer.init_model(model_cfg, SEED, dev)
+        opt = (torch.optim.Adam(net.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                                eps=1e-8, foreach=False)
+               if single else trainer.make_optimizer(net, 1e-4))
+        out = torch.zeros((), device=dev)
+
+        def step():
+            out.copy_(trainer.train_step(net, opt, loss_fn, x, y))
+
+        return net, opt, out, step
+
+    def state(net, opt) -> list:
+        return ([t.detach().clone() for t in net.state_dict().values()]
+                + [t.clone() for s in opt.state.values()
+                   for t in s.values()])
+
+    def three_steps(*steps) -> list:
+        losses = [[] for _ in steps]
+        for _ in range(3):
+            for fn, out in steps:
+                fn()
+            torch.cuda.synchronize()
+            for row, (_, out) in zip(losses, steps):
+                row.append(out.clone())
+        return losses
+
+    net_e, opt_e, loss_e, step_e = setup(cfg)
+    net_r, opt_r, loss_r, step_r = setup(cfg)
+    check(opt_r.defaults["capturable"] and opt_r.defaults["foreach"],
+          f"the trainer's Adam on the card: {opt_r.defaults}")
+    graph = graphs.StepGraph(step_r, recompile.capture_guard(
+        "trainer.train_epoch", 2), dev)
+    eager_losses, replay_losses = three_steps((step_e, loss_e),
+                                              (graph, loss_r))
+    check(graph.capture is not None, "the train step was not captured")
+    check(all(bitwise_equal(torch, a, b) for a, b in zip(
+        eager_losses, replay_losses)), f"replayed train step losses "
+        f"{replay_losses} differ from the eager step's {eager_losses}")
+    check(all(bitwise_equal(torch, a, b) for a, b in zip(
+        state(net_r, opt_r), state(net_e, opt_e))),
+        "replayed train step: parameters, BatchNorm statistics or Adam "
+        "state differ from the eager capturable step's")
+    delta = dict.fromkeys(KERNELS, 0)
+    for fn, d in graph.capture.launches:
+        delta[fn.__name__] = d
+    check(delta == launches_of(conv3x3_bn_relu=18 + 17,
+                               conv3x3_grad_weights=18),
+          f"captured train step's launches {delta}")
+
+    # against the old single-tensor Adam, in float32 compute, where phase
+    # 6's bars hold two summation orders (in bfloat16 a rounding flip of
+    # one step's activations moves the next steps' gradients by percents)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    net_f, opt_f, loss_f, step_f = setup(f32)
+    net_s, opt_s, loss_s, step_s = setup(f32, single=True)
+    before = [p.detach().clone() for p in net_s.parameters()]
+    graph_f = graphs.StepGraph(step_f, recompile.capture_guard(
+        "trainer.train_epoch", 2), dev)
+    f32_losses, single_losses = three_steps((graph_f, loss_f),
+                                            (step_s, loss_s))
+    change_f, change_s = (torch.cat([(p.detach() - b).flatten() for p, b in
+                                     zip(n.parameters(), before)])
+                          for n in (net_f, net_s))
+    rel = rel_l2(torch, change_f, change_s)
+    worst = max(abs(float(a) - float(b)) / abs(float(b))
+                for a, b in zip(f32_losses, single_losses))
+    check(worst <= LOSS_RTOL and rel <= GRAD_REL_L2,
+          f"capturable foreach Adam vs single-tensor, float32: losses rel "
+          f"{worst} (bar {LOSS_RTOL}), parameter change relative L2 {rel} "
+          f"(bar {GRAD_REL_L2})")
+    log(f"train step graph: 3 bf16 steps replayed equal bit for bit to the "
+        f"eager capturable foreach Adam step (losses "
+        f"{[round(float(v), 6) for v in replay_losses]}); launches per "
+        f"replay {delta}; in float32, 3 replayed steps against single-tensor "
+        f"Adam: losses within {worst:.3g} (bar {LOSS_RTOL}), parameter "
+        f"change relative L2 {rel:.3g} (bar {GRAD_REL_L2})")
+    del net_s, opt_s, net_f, opt_f, graph_f, change_f, change_s, before
+    torch.cuda.empty_cache()
+
+    def timed_steps(fn, n: int = 10) -> tuple:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) / n,
+                (time.perf_counter() - t0) * 1e3 / n)
+
+    t = {}
+    for label in ("eager", "replay", "replay", "eager"):
+        ms, wall = timed_steps(step_e if label == "eager" else graph)
+        t.setdefault(f"{label}_ms", []).append(ms)
+        t.setdefault(f"{label}_host_wall_ms", []).append(wall)
+    busy = {label: device_busy(torch, lambda f=fn: [f() for _ in range(5)])
+            for label, fn in (("eager", step_e), ("replay", graph))}
+    from torch.profiler import ProfilerActivity, profile
+
+    # one more Adam update on the last step's gradients, alone
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt_e.step()
+        torch.cuda.synchronize()
+    adam_ms = sum(r[0] for r in device_rows(prof))
+    opt_e.zero_grad(set_to_none=True)
+    t["adam_device_ms"] = adam_ms
+    log(f"train step (B = {TRAIN_BATCH}, 256x256, bf16), eager vs replayed "
+        f"in turns (eager, replay, replay, eager; 10 steps each): ms per "
+        f"step (CUDA events) eager {' '.join(f'{v:.2f}' for v in t['eager_ms'])}"
+        f", replay {' '.join(f'{v:.2f}' for v in t['replay_ms'])}; host wall "
+        f"ms per step eager "
+        f"{' '.join(f'{v:.2f}' for v in t['eager_host_wall_ms'])}, replay "
+        f"{' '.join(f'{v:.2f}' for v in t['replay_host_wall_ms'])}; 5 steps "
+        f"under the profiler: eager {busy['eager']}, replay "
+        f"{busy['replay']}; capturable foreach Adam device time "
+        f"{adam_ms:.3f} ms (profiler, one step)")
+    del net_e, opt_e, net_r, opt_r, graph
+    torch.cuda.empty_cache()
+    return t
+
+
 #: the phases ``--phase`` runs alone
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
-          "train_kernel_phase")
+          "train_kernel_phase", "graph_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -2652,6 +3013,7 @@ def main(argv: list | None = None) -> int:
         frames.append((rgb, depth))
     results.update(geometry_kernel_phase(torch, port))
     folded, outs = analyzer_phase(torch, port, frames[:4])
+    graph_phase(torch, port)
     analyze = port.make_frame_analyzer(folded, img_size=256, device="cuda")
     k = port.default_intrinsics(FRAME_W, FRAME_H)
     want_masks = [analyze(rgb, depth, k, 0.001).mask.cpu().numpy()
@@ -2667,6 +3029,13 @@ def main(argv: list | None = None) -> int:
                                   port.ModelConfig(bilinear=False), epochs=1))
     launches = {k: launches[k] + sum(leg[k] for leg in legs)
                 for k in launches}
+    from robotic_discovery_platform_tpu_torch.analysis import recompile
+
+    check(recompile.over_budget() == {}, f"capture budgets exceeded: "
+          f"{recompile.over_budget()}")
+    log(f"captures since the graph phase, per guard instance: "
+        f"{ {n: [e['traces'] for e in v] for n, v in recompile.snapshot().items()} }"
+        ", all within budget")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps(kernel_record(results, launches)))

@@ -105,12 +105,23 @@ def _ticket(dev: torch.device) -> torch.Tensor:
     """The zeroed int32 counter that :func:`deproject_edge_stats` takes its
     blocks' tickets from on the current stream of ``dev``: one per (device,
     stream), so concurrent streams never share one, made once on that
-    stream (warm up a stream before capturing it into a graph). The kernel
-    sets it back to 0 at its end."""
+    stream. The kernel sets it back to 0 at its end.
+
+    A CUDA graph bakes in the counter of the stream it was captured on:
+    each ``ops/graphs.GraphCache`` captures on a stream of its own, so two
+    caches' graphs replayed at the same time never share a counter. The
+    counter must exist before the capture (the cache's warm-up makes it):
+    one made during a capture would live in the graph's memory pool, so
+    that raises."""
     key = (dev.index, _stream(dev))
     with _tickets_lock:
         t = _tickets.get(key)
         if t is None:
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "deproject_edge_stats: no ticket counter for the "
+                    "capturing stream; run the function on that stream "
+                    "once before capturing it")
             t = _tickets[key] = torch.zeros((1,), dtype=torch.int32,
                                             device=dev)
     return t

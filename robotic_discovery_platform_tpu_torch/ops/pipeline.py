@@ -10,6 +10,11 @@ which can end in :func:`pack_analysis`: one [B, P] uint8 payload per
 dispatch). The frames' host-to-device copy is the only transfer in; the
 result stays on the device until the caller reads it.
 
+Each analyzer is an :class:`Analyzer`: on the card one CUDA graph per
+static shape (``ops/graphs.GraphCache``, under the JAX package's capture
+budgets), replayed with the call's inputs copied into its static inputs;
+on the CPU the same function runs eagerly.
+
 The coefficient lane (:func:`make_coef_frame_analyzer`,
 :func:`make_coef_batch_analyzer`) takes entropy-decoded JPEG coefficient
 planes instead of pixels and runs the pixel half of the decode on the
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from robotic_discovery_platform_tpu_torch.ops import decode, geometry, pack
+from robotic_discovery_platform_tpu_torch.ops import graphs as graphs_lib
 from robotic_discovery_platform_tpu_torch.serving.entropy import block_grids
 from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
@@ -158,15 +164,11 @@ def confidence_margin(logits: torch.Tensor) -> torch.Tensor:
                       dim=(1, 2, 3))
 
 
-def _as_device_frame(frame_rgb, depth, device: torch.device):
-    """Host frames (numpy, possibly read-only wire views) or tensors ->
-    uint8 RGB and float32 raw depth on ``device``. Depth crosses as its
-    16-bit pattern and widens on the device (z16 is exact in float32)."""
-    if not isinstance(frame_rgb, torch.Tensor):
-        frame_rgb = torch.from_numpy(np.array(frame_rgb, np.uint8))
-    if not isinstance(depth, torch.Tensor):
-        depth = torch.from_numpy(
-            np.array(depth, np.uint16).view(np.int16))
+def _as_device_frame(frame_rgb: torch.Tensor, depth: torch.Tensor,
+                     device: torch.device):
+    """Frames and raw depth -> uint8 RGB and float32 raw depth on
+    ``device``. Depth crosses as its 16-bit pattern in int16 and widens on
+    the device (z16 is exact in float32)."""
     frame_rgb = frame_rgb.to(device, non_blocking=True)
     depth = depth.to(device, non_blocking=True)
     if depth.dtype == torch.int16:
@@ -174,33 +176,38 @@ def _as_device_frame(frame_rgb, depth, device: torch.device):
     return frame_rgb, depth.to(torch.float32)
 
 
-def _f32_on(a, device: torch.device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device, torch.float32)
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+def _depth_inputs(depths, intrinsics, depth_scales) -> tuple:
+    """Depths, intrinsics and depth scales as a graph takes them (see
+    :func:`_pixel_inputs`)."""
+    if not isinstance(depths, torch.Tensor):
+        depths = np.asarray(depths, np.uint16).view(np.int16)
+    if not isinstance(intrinsics, torch.Tensor):
+        intrinsics = np.asarray(intrinsics, np.float32)
+    if isinstance(depth_scales, torch.Tensor):
+        depth_scales = depth_scales.reshape(-1)
+    else:
+        depth_scales = np.asarray(depth_scales, np.float32).reshape(-1)
+    return depths, intrinsics, depth_scales
 
 
-def stage_batch(*tensors: torch.Tensor, device: torch.device) -> tuple:
-    """Host-to-device staging of one padded batch, off the analyzer's
-    critical path: ``non_blocking`` copies on the current stream (the
-    dispatcher's dispatch stream) from the dispatcher's pooled pinned host
-    buffers, so staging batch N+1 overlaps batch N's compute. The caller
-    keeps the host buffers untouched until the stream has passed the
-    copies. On a CPU ``device`` the tensors come back as they are.
-
-    ``tensors`` are a batch analyzer's arguments: (frames u8 [B, H, W, 3],
-    depths [B, H, W] as the z16 bit pattern in int16, intrinsics [B, 3, 3]
-    f32, depth scales [B] f32), or for the coefficient lane the three
-    int16 coefficient planes and the two int32 quant tables ahead of the
-    same depths, intrinsics and scales."""
-    return tuple(t.to(device, non_blocking=True) for t in tensors)
+def _pixel_inputs(frames_rgb, depths, intrinsics, depth_scales) -> tuple:
+    """A batch's analyzer inputs as the graph takes them, without a copy
+    where none is needed: numpy stays numpy (frames uint8, depths uint16
+    as their int16 bit pattern, intrinsics and depth scales float32),
+    tensors stay tensors (a caller that keeps intrinsics and depth scales
+    on the device as float32 tensors saves their host copies)."""
+    if not isinstance(frames_rgb, torch.Tensor):
+        frames_rgb = np.asarray(frames_rgb, np.uint8)
+    return (frames_rgb, *_depth_inputs(depths, intrinsics, depth_scales))
 
 
 def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
               threshold: float, device):
     """The shared core: ``(frames [B, H, W, 3] u8, depths [B, H, W] z16,
     intrinsics [B, 3, 3], depth_scales [B]) -> FrameAnalysis`` with a
-    leading B on every field, on ``device``."""
+    leading B on every field, tensors in and out on ``device``. It makes
+    no host copy once warm (the resize tables are made on first use per
+    geometry), so it can be captured into a CUDA graph."""
     check_supported(geom_cfg)
     device = resolve_device(device)
     if device.type == "cuda":
@@ -218,8 +225,8 @@ def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
                 torch.from_numpy(_resize_matrix(h, img_size)).to(device),
                 torch.from_numpy(_resize_matrix(w, img_size)).to(device),
             )
-        k = _f32_on(intrinsics, device)
-        scales = _f32_on(depth_scales, device)
+        k = intrinsics.to(device, torch.float32)
+        scales = depth_scales.to(device, torch.float32)
         with torch.no_grad():
             # frame by frame, so each frame's float32 resize sums are those
             # of a batch of one: a frame's mask does not depend on the batch
@@ -250,13 +257,71 @@ def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
     return analyze
 
 
+def _unbatched(out: FrameAnalysis) -> FrameAnalysis:
+    """A batch-of-one :class:`FrameAnalysis` without its leading axis."""
+    return FrameAnalysis(
+        mask=out.mask[0], mask_coverage=out.mask_coverage[0],
+        profile=geometry.CurvatureProfile(*(t[0] for t in out.profile)),
+        confidence_margin=out.confidence_margin[0])
+
+
+def _pixel_run(core, pack_pts):
+    """The analyzer core, then :func:`pack_analysis` when ``pack_pts`` is
+    the packed layout's sample count."""
+    def run(*inputs):
+        out = core(*inputs)
+        return out if pack_pts is None else pack_analysis(out, n_pts=pack_pts)
+
+    return run
+
+
+class Analyzer:
+    """A hot entry of the pipeline, dispatched as one CUDA graph per
+    static shape on the card (:class:`ops.graphs.GraphCache` under the
+    entry's capture guard: the JAX package's ``trace_guard`` name and
+    budget), eagerly on the CPU.
+
+    ``prepare(*args) -> (run, inputs, static)`` turns a call's arguments
+    into the graph's inputs (host or device tensors, numpy arrays), the
+    function over them and what else it bakes in. A call returns fresh
+    tensors (``unbatch``: without the leading batch of one), or with
+    ``row`` the packed row read back to the host, never the graph's
+    static outputs: a later call does not overwrite an earlier result.
+    :meth:`eager` runs the same function without a graph (the reference a
+    replay is held against on the card); ``graphs`` is the cache (its
+    ``guard`` and captures)."""
+
+    def __init__(self, prepare: Callable, name: str, budget: int,
+                 device: torch.device, *, unbatch: bool = False,
+                 row: bool = False):
+        self._prepare = prepare
+        self._unbatch = unbatch
+        self._row = row
+        self.graphs = graphs_lib.GraphCache(name, budget, device)
+
+    def __call__(self, *args):
+        run, inputs, static = self._prepare(*args)
+        if self._row:
+            return self.graphs(run, *inputs, static=static,
+                               finish=graphs_lib.read_back)[0]
+        out = self.graphs(run, *inputs, static=static, copy=True)
+        return _unbatched(out) if self._unbatch else out
+
+    def eager(self, *args):
+        run, inputs, _ = self._prepare(*args)
+        out = self.graphs.eager(run, *inputs)
+        return _unbatched(out) if self._unbatch and not self._row else out
+
+
 def make_frame_analyzer(
     forward: Callable[[torch.Tensor], torch.Tensor],
     img_size: int = 256,
     geom_cfg: GeometryConfig = GeometryConfig(),
     threshold: float = 0.5,
     device: str | torch.device = "cuda",
-):
+    *,
+    pack: bool = False,
+) -> Analyzer:
     """Build the single-frame analyzer around ``forward`` (NHWC float32
     -> NHWC float32 logits, e.g. :class:`ops.unet_infer.FoldedUNet`).
 
@@ -264,21 +329,25 @@ def make_frame_analyzer(
     intrinsics [3, 3], depth_scale) -> FrameAnalysis`` with unbatched
     fields on ``device``. Inputs may be numpy arrays or tensors; a caller
     that keeps the intrinsics and depth scale on the device as float32
-    tensors saves their per-frame copies.
+    tensors saves their host copies. On the card each camera geometry
+    (H, W) is one CUDA graph (capture guard ``pipeline.frame_analyzer``,
+    budget 2: one mid-run camera change before the guard flags).
+
+    ``pack=True`` (the servicer's direct path) ends the graph in
+    :func:`pack_analysis` and returns the frame's packed row ``[P]`` as a
+    host numpy array: one device-to-host copy, made and waited for before
+    the graph is released to the next call.
     """
     core = _analyzer(forward, img_size, geom_cfg, threshold, device)
     device = resolve_device(device)
+    run = _pixel_run(core, geom_cfg.num_samples if pack else None)
 
-    def analyze(frame_rgb, depth, intrinsics, depth_scale) -> FrameAnalysis:
-        out = core(_leading(frame_rgb), _leading(depth),
-                   _f32_on(intrinsics, device)[None],
-                   _f32_on(depth_scale, device)[None])
-        return FrameAnalysis(
-            mask=out.mask[0], mask_coverage=out.mask_coverage[0],
-            profile=geometry.CurvatureProfile(*(t[0] for t in out.profile)),
-            confidence_margin=out.confidence_margin[0])
+    def prepare(frame_rgb, depth, intrinsics, depth_scale):
+        return run, _pixel_inputs(_leading(frame_rgb), _leading(depth),
+                                    _leading(intrinsics), depth_scale), ()
 
-    return analyze
+    return Analyzer(prepare, "pipeline.frame_analyzer", 2, device,
+                    unbatch=not pack, row=pack)
 
 
 def make_batch_analyzer(
@@ -289,30 +358,34 @@ def make_batch_analyzer(
     device: str | torch.device = "cuda",
     *,
     pack: bool = False,
-):
+) -> Analyzer:
     """Batched analyzer for cross-stream micro-batching: one forward over
     ``[B, H, W, 3]``, the geometry over the batch.
 
     Returns ``analyze(frames [B, H, W, 3] u8, depths [B, H, W] (z16, as
-    uint16 numpy or the int16 bit pattern of :func:`stage_batch`),
-    intrinsics [B, 3, 3], depth_scales [B])``: a :class:`FrameAnalysis`
-    with a leading B, or with ``pack=True`` the ``[B, P]`` uint8 payload
-    of :func:`pack_analysis` (the dispatcher's one device-to-host copy).
-    The call returns once the work is enqueued on the current stream.
+    uint16 numpy or the int16 bit pattern of the dispatcher's pinned
+    staging), intrinsics [B, 3, 3], depth_scales [B])``: a
+    :class:`FrameAnalysis` with a leading B, or with ``pack=True`` the
+    ``[B, P]`` uint8 payload of :func:`pack_analysis` (the dispatcher's one
+    device-to-host copy). On the card each (B, H, W) is one CUDA graph
+    (capture guard ``pipeline.batch_analyzer``, budget 8: the dispatcher's
+    power-of-two buckets of one geometry); the inputs are copied into its
+    static inputs on the cache's stream, and the call returns once the
+    replay is enqueued, with the current stream waiting for it.
     """
     core = _analyzer(forward, img_size, geom_cfg, threshold, device)
-    if not pack:
-        return core
+    device = resolve_device(device)
+    run = _pixel_run(core, geom_cfg.num_samples if pack else None)
 
-    def analyze(frames_rgb, depths, intrinsics, depth_scales) -> torch.Tensor:
-        return pack_analysis(core(frames_rgb, depths, intrinsics,
-                                  depth_scales), n_pts=geom_cfg.num_samples)
+    def prepare(frames_rgb, depths, intrinsics, depth_scales):
+        return run, _pixel_inputs(frames_rgb, depths, intrinsics,
+                                    depth_scales), ()
 
-    return analyze
+    return Analyzer(prepare, "pipeline.batch_analyzer", 8, device)
 
 
 def _leading(a):
-    """A frame with a leading batch axis of one (numpy or tensor)."""
+    """An array with a leading batch axis of one (numpy or tensor)."""
     return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
 
 
@@ -415,15 +488,36 @@ def decode_coef_batch(y, cb, cr, qy, qc, *, height: int, width: int,
                        cr_pix[:, :height, :width])
 
 
-def coef_planes(frame):
+def _coef_arrays(frame) -> tuple:
     """A :class:`serving.entropy.CoefficientFrame` -> its planes and tables
-    as host tensors with a leading batch of one (copies: the planes may be
-    read-only views of the wire bytes; the tables widened to int32)."""
-    planes = tuple(torch.from_numpy(np.array(a, np.int16))[None]
+    with a leading batch of one, numpy, copied only where widened (the
+    planes may be read-only views of the wire bytes; the tables widen to
+    int32)."""
+    planes = tuple(np.asarray(a, np.int16)[None]
                    for a in (frame.y, frame.cb, frame.cr))
-    tables = tuple(torch.from_numpy(np.asarray(a, np.int32))[None]
+    tables = tuple(np.asarray(a, np.int32)[None]
                    for a in (frame.qy, frame.qc))
     return planes + tables
+
+
+def coef_planes(frame) -> tuple:
+    """:func:`_coef_arrays` as host tensors (copies: the planes may be
+    read-only views of the wire bytes)."""
+    return tuple(torch.from_numpy(np.array(a)) for a in _coef_arrays(frame))
+
+
+def _coef_run(core, height: int, width: int, subsampling: str, pack_pts):
+    """The coefficient lane's function over device tensors: the decode,
+    then :func:`_pixel_run`'s."""
+    pixels = _pixel_run(core, pack_pts)
+
+    def run(y, cb, cr, qy, qc, depths, intrinsics, depth_scales):
+        with torch.no_grad():
+            frames = decode_coef_batch(y, cb, cr, qy, qc, height=height,
+                                       width=width, subsampling=subsampling)
+        return pixels(frames, depths, intrinsics, depth_scales)
+
+    return run
 
 
 def make_coef_batch_analyzer(
@@ -437,33 +531,30 @@ def make_coef_batch_analyzer(
     width: int,
     subsampling: str = "420",
     pack: bool = False,
-):
+) -> Analyzer:
     """Batched analyzer whose input is coefficient planes: the decode
     (:func:`decode_coef_batch`) ahead of the batch analyzer's core, on the
     device. The frame geometry is fixed per analyzer (the dispatcher
     groups coefficient frames by geometry and subsampling).
 
     Returns ``analyze(y, cb, cr, qy, qc, depths, intrinsics,
-    depth_scales)`` (the tensors :func:`stage_batch` stages): a
+    depth_scales)`` (the tensors the dispatcher stages): a
     :class:`FrameAnalysis` with a leading B, or with ``pack=True`` the
-    ``[B, P]`` uint8 payload of :func:`pack_analysis`.
+    ``[B, P]`` uint8 payload of :func:`pack_analysis`. On the card each B
+    is one CUDA graph (capture guard ``pipeline.coef_batch_analyzer``,
+    budget 8).
     """
     block_grids(height, width, subsampling)  # validates the geometry
     core = _analyzer(forward, img_size, geom_cfg, threshold, device)
     device = resolve_device(device)
+    run = _coef_run(core, height, width, subsampling,
+                    geom_cfg.num_samples if pack else None)
 
-    def analyze(y, cb, cr, qy, qc, depths, intrinsics, depth_scales):
-        y, cb, cr, qy, qc = (t.to(device, non_blocking=True)
-                             for t in (y, cb, cr, qy, qc))
-        with torch.no_grad():
-            frames = decode_coef_batch(y, cb, cr, qy, qc, height=height,
-                                       width=width, subsampling=subsampling)
-        out = core(frames, depths, intrinsics, depth_scales)
-        if pack:
-            return pack_analysis(out, n_pts=geom_cfg.num_samples)
-        return out
+    def prepare(y, cb, cr, qy, qc, depths, intrinsics, depth_scales):
+        return run, (y, cb, cr, qy, qc,
+                     *_depth_inputs(depths, intrinsics, depth_scales)), ()
 
-    return analyze
+    return Analyzer(prepare, "pipeline.coef_batch_analyzer", 8, device)
 
 
 def make_coef_frame_analyzer(
@@ -472,7 +563,9 @@ def make_coef_frame_analyzer(
     geom_cfg: GeometryConfig = GeometryConfig(),
     threshold: float = 0.5,
     device: str | torch.device = "cuda",
-):
+    *,
+    pack: bool = False,
+) -> Analyzer:
     """Single-frame analyzer of the coefficient lane (the direct path).
 
     Returns ``analyze(frame: CoefficientFrame, depth [H, W] u16,
@@ -480,22 +573,23 @@ def make_coef_frame_analyzer(
     fields on ``device``: the frame's planes and tables go to the device,
     are decoded there as a batch of one and analyzed as
     :func:`make_frame_analyzer` analyzes pixels. The decoded RGB never
-    reaches the host. Any geometry and subsampling the frame carries."""
+    reaches the host. Any geometry and subsampling the frame carries; on
+    the card each is one CUDA graph (capture guard
+    ``pipeline.frame_analyzer``, budget 2, as the pixel analyzer).
+    ``pack=True`` returns the packed row on the host, as
+    :func:`make_frame_analyzer` does."""
     core = _analyzer(forward, img_size, geom_cfg, threshold, device)
     device = resolve_device(device)
+    runs: dict[tuple, Callable] = {}
 
-    def analyze(frame, depth, intrinsics, depth_scale) -> FrameAnalysis:
-        y, cb, cr, qy, qc = (t.to(device, non_blocking=True)
-                             for t in coef_planes(frame))
-        with torch.no_grad():
-            rgb = decode_coef_batch(y, cb, cr, qy, qc, height=frame.height,
-                                    width=frame.width,
-                                    subsampling=frame.subsampling)
-        out = core(rgb, _leading(depth), _f32_on(intrinsics, device)[None],
-                   _f32_on(depth_scale, device)[None])
-        return FrameAnalysis(
-            mask=out.mask[0], mask_coverage=out.mask_coverage[0],
-            profile=geometry.CurvatureProfile(*(t[0] for t in out.profile)),
-            confidence_margin=out.confidence_margin[0])
+    def prepare(frame, depth, intrinsics, depth_scale):
+        geom = (frame.height, frame.width, frame.subsampling)
+        run = runs.get(geom)
+        if run is None:
+            run = runs[geom] = _coef_run(
+                core, *geom, geom_cfg.num_samples if pack else None)
+        return run, (*_coef_arrays(frame), *_depth_inputs(
+            _leading(depth), _leading(intrinsics), depth_scale)), geom
 
-    return analyze
+    return Analyzer(prepare, "pipeline.frame_analyzer", 2, device,
+                    unbatch=not pack, row=pack)

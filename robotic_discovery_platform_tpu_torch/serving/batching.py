@@ -10,11 +10,11 @@ host stages and fans out:
    frames, groups them by camera geometry, pads each group to the next
    power-of-two bucket in a pooled host staging buffer (pinned, so the
    host-to-device copy is asynchronous), and on a dedicated CUDA stream
-   stages the batch (``ops/pipeline.stage_batch``), enqueues the batched
-   analyzer (``ops/pipeline.make_batch_analyzer(pack=True)``) and the one
-   device-to-host copy of its ``[B, P]`` packed payload into a pooled
-   pinned landing buffer, and records an event. It never waits on the
-   device.
+   enqueues the batched analyzer (``ops/pipeline.make_batch_analyzer(
+   pack=True)``: on the card it copies the batch into the static inputs
+   of the bucket's CUDA graph and replays it) and the one device-to-host
+   copy of its ``[B, P]`` packed payload into a pooled pinned landing
+   buffer, and records an event. It never waits on the device.
 2. **In-flight window** -- at most ``max_inflight`` dispatches are
    launched but not completed (1 = serial: launch N+1 only after N's
    result reached the host; 2 = batch N+1 stages and computes while N's
@@ -64,7 +64,6 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from robotic_discovery_platform_tpu_torch.ops import pipeline as pipeline_lib
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     DeadlineQueue,
     OverloadedError,
@@ -504,6 +503,12 @@ class BatchDispatcher:
         """Frames queued for the collector."""
         return self._q.qsize()
 
+    def analyzers(self) -> list:
+        """The analyzers dispatches go to: the pixel lane's, then each
+        coefficient geometry's built so far."""
+        with self._coef_lock:
+            return [self._analyze, *self._coef_analyzers.values()]
+
     def bucket_for(self, n: int) -> int:
         """The padded bucket a group of ``n`` frames dispatches as."""
         return _bucket(n, self._max_batch)
@@ -678,17 +683,23 @@ class BatchDispatcher:
             return self._coef_analyzers.setdefault(key, analyze)
 
     def _enqueue(self, bufs: _BucketBuffers, template: _Pending):
-        """Stage, analyze and start the D2H copy of one batch of frames
-        like ``template``; returns (out, host, event). Never waits on the
-        device."""
+        """Analyze one staged batch of frames like ``template`` and start
+        the D2H copy of its payload; returns (out, host, event). Never
+        waits on the device.
+
+        On the card the analyzer copies the pinned staging tensors into
+        its (bucket, geometry) graph's static inputs and replays the graph
+        on its cache's stream, which first waits for the dispatch stream;
+        the dispatch stream then waits for the replay before the D2H copy.
+        So with ``max_inflight > 1``, dispatch N+1's input copy follows
+        dispatch N's D2H copy of its output, and the dispatch's event
+        covers the copies out of the staging buffers."""
         analyze = (self._coef_analyze_for(template.frame_rgb)
                    if isinstance(bufs, _CoefBucketBuffers) else self._analyze)
         if not self._cuda:
             return analyze(*bufs.tensors), None, None
         with torch.cuda.stream(self._stream):
-            staged = pipeline_lib.stage_batch(*bufs.tensors,
-                                              device=self.device)
-            out = analyze(*staged)
+            out = analyze(*bufs.tensors)
             host = self._egress_take(tuple(out.shape))
             host.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
@@ -697,7 +708,8 @@ class BatchDispatcher:
 
     def warm(self, frames, depths, intrinsics, scales) -> None:
         """Run the analyzer once at this batch shape and wait for it, so
-        the first live dispatch of the bucket pays no first-use costs."""
+        the first live dispatch of the bucket pays no first-use costs: on
+        the card, the bucket's graph is captured here."""
         self._warm([_Pending(f, d, _intrinsics_f32(k), float(s))
                     for f, d, k, s in zip(frames, depths, intrinsics,
                                           scales)])

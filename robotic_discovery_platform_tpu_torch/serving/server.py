@@ -9,12 +9,16 @@ Every answered frame appends one row to the metrics CSV.
 
 Two paths, as in the JAX package: with ``ServerConfig.batch_window_ms``
 at 0 (the default) each frame runs the single-frame analyzer
-(:func:`ops.pipeline.make_frame_analyzer` around the folded U-Net) in its
-handler thread; above 0, frames of concurrent streams meet in the batch
-dispatcher (``serving/batching.py``) and come back as packed rows
-(:class:`serving.egress.PackedResult`). Coefficient frames (``Image.format
-= 2``, or baseline JPEGs under ``ServerConfig.onchip_decode``) take the
-coefficient lane on either path: the single-frame coefficient analyzer
+(:func:`ops.pipeline.make_frame_analyzer` around the folded U-Net,
+``pack=True``) in its handler thread: on the card its camera geometry's
+CUDA graph replays under the graph's lock and the frame's packed row comes
+back in one device-to-host copy before the lock is released; above 0,
+frames of concurrent streams meet in the batch dispatcher
+(``serving/batching.py``) and come back as packed rows. Both read the
+response fields off a :class:`serving.egress.PackedResult` alike.
+Coefficient frames (``Image.format = 2``, or baseline JPEGs under
+``ServerConfig.onchip_decode``) take the coefficient lane on either path:
+the single-frame coefficient analyzer
 (``ops/pipeline.make_coef_frame_analyzer``) or the dispatcher's
 ``submit_coef``; their pixels are decoded on the device. A dispatcher at
 its backlog cap ends the stream with
@@ -115,6 +119,22 @@ class FrameResult(NamedTuple):
     spline_wire: bytes = b""  # packed_spline for mask_format 1/2
 
 
+def _fields(packed: egress.PackedResult, h: int, w: int,
+            mask_format: int) -> FrameResult:
+    """A frame's response fields off its packed row."""
+    coverage, mean_k, max_k, valid, _ = packed.scalars()
+    if mask_format == egress.MASK_FORMAT_BITS:
+        # the wire payload is the packed rows behind a header
+        mask_bytes = egress.encode_bits_wire(packed.mask_bits, h, w)
+    else:
+        mask_bytes = egress.encode_mask(packed.unpack_mask(), mask_format)
+    spline_wire = packed.spline_wire() if mask_format else b""
+    spline = (np.zeros((0, 3), np.float32) if mask_format
+              else packed.spline())
+    return FrameResult(mean_k, max_k, spline, mask_bytes, coverage, valid,
+                       spline_wire)
+
+
 def _device_scope(device: torch.device):
     """``device`` as the current CUDA device for the calls in the block (a
     null context on the CPU). Every kernel wrapper takes tensors on the
@@ -159,13 +179,15 @@ class VisionAnalysisService:
         self.depth_scale = (cfg.default_depth_scale if depth_scale is None
                             else float(depth_scale))
         self.onchip = ingest.resolve_onchip_decode(cfg.onchip_decode)
+        # the direct path's analyzers end in the packed row and read it
+        # back to the host before they release their graph
         self.analyze = pipeline.make_frame_analyzer(
             forward, img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
-            device=self.device,
+            device=self.device, pack=True,
         )
         self.analyze_coef = pipeline.make_coef_frame_analyzer(
             forward, img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
-            device=self.device,
+            device=self.device, pack=True,
         )
         self.dispatcher = None
         if cfg.batch_window_ms > 0:
@@ -216,10 +238,12 @@ class VisionAnalysisService:
 
     def analyze_frame(self, rgb, depth: np.ndarray,
                       mask_format: int = 0) -> FrameResult:
-        """One decoded frame -> its response fields (the device result is
-        read back here, once). ``rgb`` is [H, W, 3] uint8 pixels or a
-        :class:`~serving.entropy.CoefficientFrame` (the coefficient
-        lane)."""
+        """One decoded frame -> its response fields. ``rgb`` is [H, W, 3]
+        uint8 pixels or a :class:`~serving.entropy.CoefficientFrame` (the
+        coefficient lane). Directly, the frame's graph replays under its
+        lock and its packed row comes back in one device-to-host copy;
+        batched, the row is the dispatch's. Both read the fields off the
+        row alike."""
         coef = isinstance(rgb, entropy.CoefficientFrame)
         h, w = rgb.shape[:2]
         if depth.shape != (h, w):
@@ -228,57 +252,18 @@ class VisionAnalysisService:
                 f"frame is {w}x{h}"
             )
         if self.dispatcher is not None:
-            return self._analyze_batched(rgb, depth, mask_format)
-        with _device_scope(self.device):
-            k, scale = self._staged_geometry(w, h)
-            analyze = self.analyze_coef if coef else self.analyze
-            out = analyze(rgb, depth, k, scale)
-            prof = out.profile
-            scalars = torch.stack([
-                out.mask_coverage, prof.mean_curvature, prof.max_curvature,
-                prof.valid.to(torch.float32),
-            ]).cpu().numpy()
-            mask = out.mask.cpu().numpy()
-            valid = bool(scalars[3])
-            spline = (prof.spline_points.cpu().numpy() if valid
-                      else np.zeros((0, 3), np.float32))
-        coverage, mean_k, max_k, _ = (float(v) for v in scalars)
-        if not valid:
-            mean_k = max_k = 0.0
-        spline_wire = b""
-        if mask_format:
-            # packed wire formats carry the spline as f32 LE triples
-            spline_wire = np.ascontiguousarray(spline, "<f4").tobytes()
-            spline = np.zeros((0, 3), np.float32)
-        return FrameResult(mean_k, max_k, spline,
-                           egress.encode_mask(mask, mask_format), coverage,
-                           valid, spline_wire)
-
-    def _analyze_batched(self, rgb, depth: np.ndarray,
-                         mask_format: int) -> FrameResult:
-        """One frame (pixels, or a CoefficientFrame for ``submit_coef``)
-        through the batch dispatcher: the response fields off its packed
-        row (the direct path's values, bit for bit)."""
-        h, w = rgb.shape[:2]
-        submit = (self.dispatcher.submit_coef
-                  if isinstance(rgb, entropy.CoefficientFrame)
-                  else self.dispatcher.submit)
-        packed = submit(rgb, depth, self._camera(w, h), self.depth_scale)
+            submit = (self.dispatcher.submit_coef if coef
+                      else self.dispatcher.submit)
+            packed = submit(rgb, depth, self._camera(w, h), self.depth_scale)
+        else:
+            with _device_scope(self.device):
+                k, scale = self._staged_geometry(w, h)
+                analyze = self.analyze_coef if coef else self.analyze
+                packed = egress.PackedResult(analyze(rgb, depth, k, scale))
         try:
-            coverage, mean_k, max_k, valid, _ = packed.scalars()
-            if mask_format == egress.MASK_FORMAT_BITS:
-                # the wire payload is the packed rows behind a header
-                mask_bytes = egress.encode_bits_wire(packed.mask_bits, h, w)
-            else:
-                mask_bytes = egress.encode_mask(packed.unpack_mask(),
-                                                mask_format)
-            spline_wire = packed.spline_wire() if mask_format else b""
-            spline = (np.zeros((0, 3), np.float32) if mask_format
-                      else packed.spline())
+            return _fields(packed, h, w, mask_format)
         finally:
             packed.release()
-        return FrameResult(mean_k, max_k, spline, mask_bytes, coverage, valid,
-                           spline_wire)
 
     def analyze_stream(self, requests: Iterable,
                        active: Callable[[], bool] = lambda: True
@@ -326,8 +311,11 @@ class VisionAnalysisService:
     def warmup(self, width: int, height: int) -> None:
         """Run blank frames of the camera's size through the analyzer the
         served frames will take -- with batching, every bucket up to
-        ``max_batch`` -- so the first served frame pays no kernel build or
-        first-launch cost. With on-chip decode on, the coefficient lane
+        ``max_batch`` -- so the first served frame pays no kernel build,
+        warm-up or graph capture: on the card this is where each graph of
+        the geometry is captured (``ops/graphs.py``; a capture is checked
+        for this thread's calls only, so handler and dispatcher threads
+        may already run). With on-chip decode on, the coefficient lane
         too (:meth:`warmup_coef`)."""
         with _device_scope(self.device):
             if self.dispatcher is None:
@@ -349,9 +337,10 @@ class VisionAnalysisService:
 
     def warmup_coef(self, width: int, height: int,
                     subsampling: str = "420") -> None:
-        """Warm the coefficient lane for a camera geometry: a blank (mid-
-        gray, standard tables) coefficient frame through the direct
-        coefficient analyzer, or with batching through every bucket
+        """Warm the coefficient lane for a camera geometry, capturing its
+        graphs on the card: a blank (mid-gray, standard tables)
+        coefficient frame through the direct coefficient analyzer, or
+        with batching through every bucket
         (``BatchDispatcher.warm_coef``). :meth:`warmup` calls it when
         on-chip decode is on; a server whose clients send ``format = 2``
         calls it before load arrives."""

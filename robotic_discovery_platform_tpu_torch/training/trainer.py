@@ -13,11 +13,30 @@ a kernel ``conv_impl`` the DoubleConv convs are the custom-VJP
 ``ops/conv.conv3x3``, 18 forward, 17 dx and 18 dw kernel launches at the
 default width), the loss, ``backward()`` and one Adam step. Adam is
 ``optax.adam(lr)`` of the JAX package (b1 0.9, b2 0.999, eps 1e-8 outside
-the root) as ``torch.optim.Adam`` in its single-tensor form. An eval step
+the root) as ``torch.optim.Adam`` in its multi-tensor (foreach) form,
+capturable on the card (its step count a device tensor). An eval step
 runs the inference forward (plain convs, no kernel launches, as in JAX)
-and the metrics. Epochs are per-batch loops; the JAX package's
-whole-epoch scan and its mesh are refused (``utils/config.
-check_supported``).
+and the metrics.
+
+Two epoch forms, chosen by the JAX package's rule
+(:func:`resolve_epoch_mode`):
+
+- ``"scan"`` (:class:`ScanEpochs`, the JAX package's whole-epoch
+  ``lax.scan`` of ``make_epoch_runners``): the training and validation
+  arrays live on the device, each epoch's ``[n_batches, batch]`` order is
+  one host-to-device copy, and one step -- the gather of a batch by the
+  order's row at a device counter, the train step, the loss written to a
+  device row -- is captured as a CUDA graph (``ops/graphs.StepGraph``,
+  capture guard ``trainer.train_epoch``) and replayed once per batch: one
+  host launch per step. The validation step likewise
+  (``trainer.eval_epoch``). An epoch makes one host fetch of the losses
+  and one of the validation metrics. On the CPU the same epoch runs
+  eagerly.
+- ``"stream"`` (:class:`StreamEpochs`): the per-batch loop over a
+  prefetching iterator, for a dataset directory or arrays past
+  ``scan_max_bytes``.
+
+The mesh is refused (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -31,11 +50,13 @@ import numpy as np
 import torch
 
 from robotic_discovery_platform_tpu_torch import tracking
+from robotic_discovery_platform_tpu_torch.analysis import recompile
 from robotic_discovery_platform_tpu_torch.models import losses as losses_lib
 from robotic_discovery_platform_tpu_torch.models.unet import UNet
 from robotic_discovery_platform_tpu_torch.models.weights import (
     to_flax_variables,
 )
+from robotic_discovery_platform_tpu_torch.ops import graphs
 from robotic_discovery_platform_tpu_torch.training import data as data_lib
 from robotic_discovery_platform_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -60,10 +81,15 @@ def init_model(model_cfg: ModelConfig, seed: int,
 
 
 def make_optimizer(net: UNet, learning_rate: float) -> torch.optim.Adam:
-    """``optax.adam(learning_rate)``: the same update, per tensor."""
+    """``optax.adam(learning_rate)``: the same update in the multi-tensor
+    (foreach) form. On the card it is capturable: the step count lives on
+    the device and the bias corrections are computed there, so a CUDA
+    graph can capture the update (and checkpoints carry ``step`` as a
+    tensor, restored to the parameters' device by ``load_state_dict``)."""
+    capturable = next(net.parameters()).is_cuda
     return torch.optim.Adam(net.parameters(), lr=learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8, foreach=False,
-                            fused=False)
+                            betas=(0.9, 0.999), eps=1e-8, foreach=True,
+                            capturable=capturable)
 
 
 def train_step(net: UNet, optimizer: torch.optim.Optimizer,
@@ -143,6 +169,147 @@ def _state_copy(net: UNet) -> dict:
     return {k: v.detach().clone() for k, v in net.state_dict().items()}
 
 
+def resolve_epoch_mode(cfg: TrainConfig, data_bytes: int | None,
+                       mesh=None) -> str:
+    """``"scan"`` or ``"stream"`` by the JAX package's rule
+    (``training/trainer.py``): ``"scan"``, or ``"auto"`` with in-memory
+    arrays of at most ``cfg.scan_max_bytes``, takes the scan epoch when
+    the arrays are in memory and there is no mesh; ``"scan"`` over a
+    dataset directory (``data_bytes`` None) or a mesh raises ValueError.
+    ``data_bytes`` is the normalized arrays' size."""
+    in_memory = data_bytes is not None
+    fits = (data_bytes or 0) <= cfg.scan_max_bytes
+    if cfg.epoch_mode == "scan" and (not in_memory or mesh is not None):
+        raise ValueError(
+            "epoch_mode='scan' needs an in-memory dataset and no mesh")
+    use_scan = in_memory and mesh is None and (
+        cfg.epoch_mode == "scan" or (cfg.epoch_mode == "auto" and fits))
+    if cfg.epoch_mode == "auto" and in_memory and mesh is None and not fits:
+        log.info("dataset is %.1f GiB > scan_max_bytes; using the streamed "
+                 "per-batch path", data_bytes / 2**30)
+    return "scan" if use_scan else "stream"
+
+
+#: the validation metrics, in the order of a metrics row
+METRICS = ("loss", "miou", "dice", "accuracy")
+
+
+class StreamEpochs:
+    """The per-batch epoch: each batch staged from the prefetching
+    iterator, one train step (or eval step) dispatched per batch, the
+    losses fetched at the epoch's end."""
+
+    def __init__(self, net: UNet, optimizer: torch.optim.Optimizer,
+                 loss_fn: Callable, train_batches, val_batches,
+                 device: torch.device):
+        self.net, self.optimizer, self.loss_fn = net, optimizer, loss_fn
+        self.train_batches, self.val_batches = train_batches, val_batches
+        self.device = device
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        if self.device.type == "cuda":  # staged through pinned memory
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def train(self) -> float:
+        losses = [train_step(self.net, self.optimizer, self.loss_fn,
+                             self._to_device(bx), self._to_device(by))
+                  for bx, by in self.train_batches]
+        return float(np.mean(torch.stack(losses).cpu().numpy()))
+
+    def validate(self) -> dict:
+        agg: dict[str, list] = {}
+        for bx, by in self.val_batches:
+            for k, v in eval_step(self.net, self.loss_fn,
+                                  self._to_device(bx),
+                                  self._to_device(by)).items():
+                agg.setdefault(k, []).append(v)
+        return {k: float(np.mean(torch.stack(v).cpu().numpy()))
+                for k, v in agg.items()}
+
+
+class ScanEpochs:
+    """The JAX package's whole-epoch scan (``make_epoch_runners``) on one
+    device: the arrays resident there, one captured step replayed per
+    batch, one host fetch per epoch for the losses and one for the
+    validation metrics (see the module docstring).
+
+    ``rng`` is the epoch order's generator, ``np.random.default_rng(
+    seed)`` as in the JAX package: each :meth:`train` draws one shuffled
+    ``[n_batches, batch]`` order (``data.epoch_order``); the validation
+    order is drawn once, unshuffled. The steps read the module's own
+    parameters and BatchNorm buffers and the optimizer's state, and update
+    them in place, so checkpoints and the registry read the trained
+    values."""
+
+    def __init__(self, net: UNet, optimizer: torch.optim.Optimizer,
+                 loss_fn: Callable, train: tuple, val: tuple,
+                 batch_size: int, rng: np.random.Generator,
+                 device: torch.device):
+        self.net, self.optimizer, self.loss_fn = net, optimizer, loss_fn
+        self.batch_size, self.rng = batch_size, rng
+        self.device = device
+
+        def resident(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+                device)
+
+        self.xs, self.ys = (resident(a) for a in train)
+        self.xv, self.yv = (resident(a) for a in val)
+        self.n_train = len(train[0])
+        n_batches = max(1, -(-self.n_train // batch_size))
+        self.order = torch.zeros((n_batches, batch_size), dtype=torch.int64,
+                                 device=device)
+        self.slot = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.losses = torch.zeros((n_batches,), dtype=torch.float32,
+                                  device=device)
+        self.val_order = torch.from_numpy(data_lib.epoch_order(
+            len(val[0]), batch_size, False, rng)).to(device)
+        self.val_slot = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.metrics = torch.zeros((self.val_order.shape[0], len(METRICS)),
+                                   dtype=torch.float32, device=device)
+        self._train_graph = graphs.StepGraph(
+            self._train_body, recompile.capture_guard("trainer.train_epoch",
+                                                      2), device)
+        self._eval_graph = graphs.StepGraph(
+            self._eval_body, recompile.capture_guard("trainer.eval_epoch", 2),
+            device)
+
+    def _train_body(self) -> None:
+        idx = self.order.index_select(0, self.slot).view(-1)
+        loss = train_step(self.net, self.optimizer, self.loss_fn,
+                          self.xs.index_select(0, idx),
+                          self.ys.index_select(0, idx))
+        self.losses.index_copy_(0, self.slot, loss.view(1))
+        self.slot.add_(1)
+
+    def _eval_body(self) -> None:
+        idx = self.val_order.index_select(0, self.val_slot).view(-1)
+        m = eval_step(self.net, self.loss_fn, self.xv.index_select(0, idx),
+                      self.yv.index_select(0, idx))
+        self.metrics.index_copy_(0, self.val_slot,
+                                 torch.stack([m[k] for k in METRICS])[None])
+        self.val_slot.add_(1)
+
+    def train(self) -> float:
+        order = data_lib.epoch_order(self.n_train, self.batch_size, True,
+                                     self.rng)
+        self.order.copy_(torch.from_numpy(order))
+        self.slot.zero_()
+        for _ in range(order.shape[0]):
+            self._train_graph()
+        return float(np.mean(self.losses.cpu().numpy()))
+
+    def validate(self) -> dict:
+        self.val_slot.zero_()
+        for _ in range(self.val_order.shape[0]):
+            self._eval_graph()
+        rows = self.metrics.cpu().numpy()
+        return {k: float(np.mean(np.ascontiguousarray(rows[:, j])))
+                for j, k in enumerate(METRICS)}
+
+
 def train_model(cfg: TrainConfig = TrainConfig(),
                 model_cfg: ModelConfig = ModelConfig(),
                 arrays: tuple | None = None, resume: bool = False,
@@ -162,11 +329,6 @@ def train_model(cfg: TrainConfig = TrainConfig(),
         device: where the network trains.
     """
     t_start = time.time()
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_model(mesh=...): the mesh trainer is ROADMAP queue 1 "
-            "item 14; the port trains on one device"
-        )
     check_supported(cfg)
     check_supported(model_cfg)
     if cfg.checkpoint_every < 1:
@@ -177,13 +339,20 @@ def train_model(cfg: TrainConfig = TrainConfig(),
     if arrays is not None:
         xs, ys = normalize_arrays(*arrays)
         n_samples, ds = len(xs), None
+        data_bytes = int(xs.nbytes) + int(ys.nbytes)
     else:
         ds = data_lib.PairedSegmentationData(cfg.dataset_dir, cfg.img_size)
-        n_samples = len(ds)
+        n_samples, data_bytes = len(ds), None
     train_idx, val_idx = data_lib.train_val_split(
         n_samples, cfg.validation_split, cfg.seed)
     if len(val_idx) == 0:
         raise ValueError("dataset too small for a validation split")
+    mode = resolve_epoch_mode(cfg, data_bytes, mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            "train_model(mesh=...): the mesh trainer is ROADMAP queue 1 "
+            "item 14; the port trains on one device"
+        )
 
     net = init_model(model_cfg, cfg.seed, device)
     optimizer = make_optimizer(net, cfg.learning_rate)
@@ -203,34 +372,30 @@ def train_model(cfg: TrainConfig = TrainConfig(),
         log.info("resumed from checkpoint at epoch %d", epoch)
 
     batch_size = cfg.batch_size
-    if ds is not None:
-        train_batches = data_lib.StreamingBatches(
-            ds, train_idx, batch_size, shuffle=True, seed=cfg.seed,
-            workers=cfg.loader_workers)
-        val_batches = data_lib.StreamingBatches(
-            ds, val_idx, batch_size, shuffle=False,
-            workers=cfg.loader_workers)
+    # the epochs read the restored state: a scan epoch's graphs are
+    # captured on its first epoch, after the restore
+    if mode == "scan":
+        epochs = ScanEpochs(net, optimizer, loss_fn,
+                            (xs[train_idx], ys[train_idx]),
+                            (xs[val_idx], ys[val_idx]), batch_size,
+                            np.random.default_rng(cfg.seed), device)
+    elif ds is not None:
+        epochs = StreamEpochs(
+            net, optimizer, loss_fn,
+            data_lib.StreamingBatches(ds, train_idx, batch_size,
+                                      shuffle=True, seed=cfg.seed,
+                                      workers=cfg.loader_workers),
+            data_lib.StreamingBatches(ds, val_idx, batch_size, shuffle=False,
+                                      workers=cfg.loader_workers),
+            device)
     else:
-        train_batches = data_lib.Batches(xs[train_idx], ys[train_idx],
-                                         batch_size, shuffle=True,
-                                         seed=cfg.seed)
-        val_batches = data_lib.Batches(xs[val_idx], ys[val_idx], batch_size,
-                                       shuffle=False)
-
-    def to_device(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-        if device.type == "cuda":  # staged through pinned memory, async
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
-
-    def run_val() -> dict:
-        agg: dict[str, list] = {}
-        for bx, by in val_batches:
-            for k, v in eval_step(net, loss_fn, to_device(bx),
-                                  to_device(by)).items():
-                agg.setdefault(k, []).append(v)
-        return {k: float(np.mean(torch.stack(v).cpu().numpy()))
-                for k, v in agg.items()}
+        epochs = StreamEpochs(
+            net, optimizer, loss_fn,
+            data_lib.Batches(xs[train_idx], ys[train_idx], batch_size,
+                             shuffle=True, seed=cfg.seed),
+            data_lib.Batches(xs[val_idx], ys[val_idx], batch_size,
+                             shuffle=False),
+            device)
 
     tracking.set_tracking_uri(cfg.tracking_uri)
     tracking.set_experiment(cfg.experiment_name)
@@ -259,14 +424,11 @@ def train_model(cfg: TrainConfig = TrainConfig(),
             if epoch >= cfg.epochs:
                 log.warning("checkpoint epoch %d >= cfg.epochs %d; nothing to "
                             "train, evaluating only", epoch, cfg.epochs)
-                final_metrics = run_val()
+                final_metrics = epochs.validate()
             for epoch in range(start_epoch, cfg.epochs):
                 t_epoch = time.time()
-                losses = [train_step(net, optimizer, loss_fn, to_device(bx),
-                                     to_device(by))
-                          for bx, by in train_batches]
-                train_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
-                val = final_metrics = run_val()
+                train_loss = epochs.train()
+                val = final_metrics = epochs.validate()
                 tracking.log_metric("train_loss", train_loss, step=epoch)
                 tracking.log_metric("val_loss", val["loss"], step=epoch)
                 tracking.log_metric("val_miou", val["miou"], step=epoch)

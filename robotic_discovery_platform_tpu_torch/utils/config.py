@@ -13,9 +13,7 @@ Settings the port does not implement yet raise ``NotImplementedError`` in
   ``egress_workers > 0`` (the encode pool) and the JAX package's
   ``RDP_*`` environment overrides of those settings;
 - ``ModelConfig.norm`` other than ``"batch"``;
-- ``TrainConfig.epoch_mode="scan"`` (the whole-epoch ``lax.scan``; its
-  card analogue is a CUDA graph) and any non-default ``MeshConfig`` (the
-  mesh trainer).
+- any non-default ``MeshConfig`` (the mesh trainer).
 """
 
 from __future__ import annotations
@@ -71,11 +69,14 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The trainer's settings (``training/trainer.train_model``), the JAX
-    package's names and defaults. ``epoch_mode`` "auto" and "stream" both
-    take the per-batch loop; "scan" raises. ``donate_state``,
-    ``scan_max_bytes`` and ``tp_min_channels`` steer TPU-side buffer
-    donation, the scan epoch and tensor parallelism: accepted, and no-ops
-    on the card."""
+    package's names and defaults. ``epoch_mode`` picks the epoch form by
+    the JAX package's rule (``trainer.resolve_epoch_mode``): "scan", or
+    "auto" with in-memory arrays of at most ``scan_max_bytes``, runs the
+    whole-epoch scan (on the card one captured step replayed per batch);
+    "stream", or "auto" over a dataset directory, the per-batch loop.
+    ``donate_state`` (XLA buffer donation of the train state) and
+    ``tp_min_channels`` (tensor parallelism) are accepted and have no
+    effect on the card: the port updates the state in place."""
 
     learning_rate: float = 1e-4
     batch_size: int = 4
@@ -223,12 +224,6 @@ def check_supported(cfg: Any) -> None:
             raise ValueError(
                 f"epoch_mode must be one of {EPOCH_MODES}, got "
                 f"{cfg.epoch_mode!r}"
-            )
-        if cfg.epoch_mode == "scan":
-            raise NotImplementedError(
-                "TrainConfig.epoch_mode='scan' (the whole-epoch scan; a CUDA "
-                "graph on the card) is ROADMAP queue 1 item 7; use 'auto' or "
-                "'stream'"
             )
     if isinstance(cfg, MeshConfig) and cfg != MeshConfig():
         raise NotImplementedError(
