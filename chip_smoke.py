@@ -106,6 +106,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -2205,10 +2206,10 @@ def train_serve_phase(torch, port, frames, model_cfg=None,
     serve_launches = read_launches()
     service.close()
     n = len(frames)
-    # the server is not warmed: its first frame runs the analysis once
-    # eagerly (the warm-up) in the handler thread, captures it, then
-    # replays, so it launches one frame's kernels more
-    want = frame_launches(n + 1, convt=not model_cfg.bilinear, served=True)
+    # the server is not warmed: its first frame is answered by the
+    # graph's warm-up run, captured right after, so it launches one
+    # frame's kernels like every later, replayed frame
+    want = frame_launches(n, convt=not model_cfg.bilinear, served=True)
     check(serve_launches == want, f"registry-served launches "
           f"{serve_launches}, want {want}")
     check(service.model_version == 1,
@@ -2224,8 +2225,8 @@ def train_serve_phase(torch, port, frames, model_cfg=None,
         f" statuses {[r.status for r in responses]}, masks equal to the "
         f"direct FoldedUNet's (coverage "
         f"{[round(float(r.mask_coverage), 2) for r in responses]}); "
-        f"launches {serve_launches} (the frames and the first one's "
-        "warm-up)")
+        f"launches {serve_launches} (the first frame the warm-up run, "
+        "the rest replays)")
     return {k: train_launches[k] + serve_launches[k] for k in want}
 
 
@@ -2542,6 +2543,11 @@ def nonbilinear_phase(torch, port, conv, frames) -> dict:
         check(tree_equal(torch, analyze(rgb, depth, k, 0.001),
                          analyze.eager(rgb, depth, k, 0.001)),
               f"non-bilinear frame {i}: replay differs from the eager run")
+    delta, = capture_deltas(analyze)
+    check(delta == frame_launches(1, convt=True),
+          f"non-bilinear analyzer: capture delta {delta}")
+    check_replay_kernels(torch, lambda: analyze(*frames[0], k, 0.001), delta,
+                         "non-bilinear analyzer")
     log(f"non-bilinear analyzer: {n} frames, launches {counts} (18 + 4 + 1 + "
         f"3 per frame), {start.elapsed_time(end) / n:.3f} ms per frame (CUDA "
         f"events); coverage {[round(100 * float(m.mean()), 1) for m in masks]}"
@@ -2645,6 +2651,57 @@ def capture_deltas(analyzer) -> list:
     return out
 
 
+def kernel_functions() -> dict:
+    """Each kernel function of the port's sources, by name, to the wrapper
+    that launches it: one of them runs per launch the wrapper counts (the
+    split-K ``fold_kernel`` runs beside a conv's and is left out)."""
+    root = Path(__file__).resolve().parent
+    names = {}
+    for wrapper, (source, _, _) in KERNELS.items():
+        for fn in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                             r"\([^)]*\)\s*)?(\w+)\s*\(",
+                             (root / source).read_text()):
+            if fn != "fold_kernel":
+                check(names.setdefault(fn, wrapper) == wrapper,
+                      f"kernel function {fn} in two sources")
+    return names
+
+
+def profiled_kernels(torch, fn) -> dict:
+    """The port's kernels that one call of ``fn`` ran on the card, by
+    wrapper, from the profiler's device rows (a CUDA graph's kernels are
+    traced one by one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = kernel_functions()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNELS, 0)
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CPU"):
+            continue
+        m = re.search(r"(\w+)\s*[<(]",
+                      e.key.replace("(anonymous namespace)::", ""))
+        if m and m.group(1) in names:
+            counts[names[m.group(1)]] += e.count
+    return counts
+
+
+def check_replay_kernels(torch, replay, delta: dict, what: str) -> None:
+    """One call of ``replay`` ran on the card exactly the kernels its
+    capture's launch delta says: the profiler's rows, not the counts. The
+    profiler once dropped a short launch's record, so up to three
+    profiled calls."""
+    for _ in range(3):
+        seen = profiled_kernels(torch, replay)
+        if seen == delta:
+            return
+    check(False, f"{what}: one replay ran {seen} on the card (profiler), "
+          f"the capture delta says {delta}")
+
+
 def scaled(counts: dict, n: int) -> dict:
     return {k: v * n for k, v in counts.items()}
 
@@ -2654,7 +2711,8 @@ def replay_cases(torch, analyzer, calls: list, want_delta: dict,
     """``calls`` (argument tuples of one static shape, whose graph the
     analyzer has captured) replayed: launches exactly the capture's delta
     times the replays, every result equal bit for bit to the same call run
-    eagerly, and a result not overwritten by the calls after it."""
+    eagerly, a result not overwritten by the calls after it, and one
+    replay's kernels on the card (profiler) those of the delta."""
     delta, = capture_deltas(analyzer)
     check(delta == want_delta, f"{what}: capture delta {delta}, want "
           f"{want_delta}")
@@ -2667,6 +2725,7 @@ def replay_cases(torch, analyzer, calls: list, want_delta: dict,
     for i, args in enumerate(calls):
         check(tree_equal(torch, got[i], analyzer.eager(*args)),
               f"{what} call {i}: replay differs from the eager run")
+    check_replay_kernels(torch, lambda: analyzer(*calls[0]), delta, what)
 
 
 def graph_phase(torch, port) -> dict:
@@ -2792,6 +2851,7 @@ def graph_phase(torch, port) -> dict:
     del analyze, coef, batch
     torch.cuda.empty_cache()
     times["train step"] = step_replay(torch, port)
+    scan_resume_leg(torch, port)
     return {(name,): t for name, t in times.items()}
 
 
@@ -2870,6 +2930,7 @@ def step_replay(torch, port) -> dict:
     check(delta == launches_of(conv3x3_bn_relu=18 + 17,
                                conv3x3_grad_weights=18),
           f"captured train step's launches {delta}")
+    check_replay_kernels(torch, graph, delta, "train step graph")
 
     # against the old single-tensor Adam, in float32 compute, where phase
     # 6's bars hold two summation orders (in bfloat16 a rounding flip of
@@ -2945,6 +3006,70 @@ def step_replay(torch, port) -> dict:
     del net_e, opt_e, net_r, opt_r, graph
     torch.cuda.empty_cache()
     return t
+
+
+def scan_resume_leg(torch, port) -> None:
+    """``train_model`` resumed on the card in the scan epoch (``"auto"``)
+    from a checkpoint written by the single-tensor Adam of checkpoints
+    older than the scan epoch (foreach and capturable off, step on the
+    host), after one step of it: the resumed epoch is captured and
+    replayed, its losses finite, and the checkpoint it writes carries
+    capturable foreach Adam whose step went on from 1."""
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.analysis import recompile
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.training import (
+        checkpoint,
+        synthetic,
+        trainer,
+    )
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    cfg = port.TrainConfig(epochs=2, batch_size=TRAIN_BATCH, img_size=256,
+                           learning_rate=1e-4, loss="bce", seed=SEED,
+                           tracking_uri=f"file:{tmp}/mlruns",
+                           checkpoint_dir=str(tmp / "ckpt"),
+                           async_checkpointing=False)
+    model_cfg = port.ModelConfig()
+    arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
+    xs, ys = trainer.normalize_arrays(*arrays)
+    net = trainer.init_model(model_cfg, SEED, torch.device("cuda"))
+    old = torch.optim.Adam(net.parameters(), lr=cfg.learning_rate,
+                           betas=(0.9, 0.999), eps=1e-8, foreach=False)
+    trainer.train_step(net, old, losses.make_loss_fn("bce"),
+                       torch.from_numpy(xs[:TRAIN_BATCH]).cuda(),
+                       torch.from_numpy(ys[:TRAIN_BATCH]).cuda())
+    saved = old.state_dict()
+    check(not saved["param_groups"][0]["foreach"]
+          and not saved["param_groups"][0]["capturable"]
+          and all(not s["step"].is_cuda for s in saved["state"].values()),
+          "the single-tensor Adam's state is not the old form")
+    checkpoint.CheckpointManager(cfg.checkpoint_dir).save(1, {
+        "model": net.state_dict(), "optimizer": saved, "epoch": 1,
+        "best_val_loss": float("inf"), "best": net.state_dict()})
+    del net, old
+    guards = len(recompile.stats_for("trainer.train_epoch"))
+    res = trainer.train_model(cfg, model_cfg, arrays=arrays, resume=True,
+                              register=False, device="cuda")
+    torch.cuda.synchronize()
+    captures = [s.traces
+                for s in recompile.stats_for("trainer.train_epoch")[guards:]]
+    hist = [h["value"] for h in tracking.store_for(
+        cfg.tracking_uri).get_metric_history(res.run_id, "train_loss")]
+    written = checkpoint.CheckpointManager(cfg.checkpoint_dir).restore()
+    group, = written["optimizer"]["param_groups"]
+    steps = {float(s["step"]) for s in written["optimizer"]["state"].values()}
+    check(res.epochs_run == 1 and captures == [1] and len(hist) == 1
+          and np.isfinite(hist[0]), f"scan resume on the card: epochs "
+          f"{res.epochs_run}, captures {captures}, train loss {hist}")
+    check(group["foreach"] and group["capturable"] and steps == {5.0},
+          f"scan resume: the checkpoint it wrote has Adam foreach "
+          f"{group['foreach']}, capturable {group['capturable']}, steps "
+          f"{steps} (want 1 + 4)")
+    log(f"scan resume from a single-tensor Adam checkpoint: 1 epoch of 4 "
+        f"replayed steps, train loss {hist[0]:.6f}, the train step "
+        f"captured once; the checkpoint it wrote holds capturable foreach "
+        f"Adam at step 5")
 
 
 #: the phases ``--phase`` runs alone

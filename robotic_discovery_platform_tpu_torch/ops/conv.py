@@ -40,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from robotic_discovery_platform_tpu_torch.ops import build
+from robotic_discovery_platform_tpu_torch.ops import build, graphs
 from robotic_discovery_platform_tpu_torch.utils.config import (
     CONV_IMPLS,
     PLAIN_CONV_IMPLS,
@@ -233,7 +233,7 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv3x3_bn_relu", err)
-    conv3x3_bn_relu.launches += 1
+    graphs.count_launch(conv3x3_bn_relu)
     return out
 
 
@@ -321,7 +321,7 @@ def conv1x1(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv1x1", err)
-    conv1x1.launches += 1
+    graphs.count_launch(conv1x1)
     return out
 
 
@@ -420,7 +420,7 @@ def conv_transpose2x2(x, w, bias, *, out_dtype=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv_transpose2x2", err)
-    conv_transpose2x2.launches += 1
+    graphs.count_launch(conv_transpose2x2)
     return out
 
 
@@ -504,7 +504,7 @@ def conv3x3_grad_weights(x, g):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv3x3_grad_weights", err)
-    conv3x3_grad_weights.launches += 1
+    graphs.count_launch(conv3x3_grad_weights)
     return dw
 
 

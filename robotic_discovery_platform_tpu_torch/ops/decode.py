@@ -41,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from robotic_discovery_platform_tpu_torch.ops import build
+from robotic_discovery_platform_tpu_torch.ops import build, graphs
 
 # islow fixed-point constants: FIX(x) at CONST_BITS = 13.
 _CONST_BITS = 13
@@ -199,7 +199,7 @@ def dequant_idct(coefs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     err = fn(coefs.data_ptr(), q.data_ptr(), out.data_ptr(), b, n,
              torch.cuda.current_stream(coefs.device).cuda_stream)
     build.check("dequant_idct", err)
-    dequant_idct.launches += 1
+    graphs.count_launch(dequant_idct)
     return out
 
 

@@ -39,7 +39,12 @@ import threading
 import numpy as np
 import torch
 
-from robotic_discovery_platform_tpu_torch.ops import build, bspline, geometry
+from robotic_discovery_platform_tpu_torch.ops import (
+    bspline,
+    build,
+    geometry,
+    graphs,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -180,7 +185,7 @@ def deproject_edge_stats(mask, depth, fx, fy, cx, cy, depth_scale, *,
         part.data_ptr(), stats_f.data_ptr(), stats_n.data_ptr(),
         _ticket(dev).data_ptr(), h, w, int(stride), _stream(dev))
     build.check("deproject_edge_stats", err)
-    deproject_edge_stats.launches += 1
+    graphs.count_launch(deproject_edge_stats)
     return x, y, z, valid, (stats_f[0], stats_f[1], stats_f[2], stats_f[3],
                             stats_n[0])
 
@@ -228,7 +233,7 @@ def bspline_design(points, weights, u, knots, degree: int = 3):
         points.data_ptr(), weights.data_ptr(), u.data_ptr(), kn.data_ptr(),
         gram.data_ptr(), rhs.data_ptr(), n, d, k, degree, _stream(dev))
     build.check("bspline_design", err)
-    bspline_design.launches += 1
+    graphs.count_launch(bspline_design)
     return gram, rhs
 
 
@@ -308,7 +313,7 @@ def bspline_curvature(ctrl, u, knots, degree: int = 3):
         m2b.data_ptr(), kappa.data_ptr(), valid.data_ptr(), r.data_ptr(), n,
         len(key), degree, *ctrl.stride(), _stream(dev))
     build.check("bspline_curvature", err)
-    bspline_curvature.launches += 1
+    graphs.count_launch(bspline_curvature)
     return kappa, valid, r
 
 

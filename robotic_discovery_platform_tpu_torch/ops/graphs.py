@@ -14,25 +14,30 @@ the whole analysis where eager dispatch issues some hundred.
   capture guard (``analysis/recompile.py``, the counterpart of
   ``trace_guard``). It owns each graph's static inputs and outputs. All
   graphs of one cache replay on the cache's stream under its lock, and
-  share its memory pool: they are never replayed at the same time.
-  Results are the static outputs, valid until the cache's next call;
-  ``finish`` copies or reads them back under the lock.
+  share its memory pool: they are never replayed at the same time. A
+  call's ``finish`` turns the outputs into its result (copies, a host
+  read-back, a copy into the caller's buffer) under the lock, before the
+  next call can replay. A key's first call answers with its warm-up's
+  outputs and captures right after, so it runs the function once.
 - :class:`StepGraph`: a step with no inputs (its state lives in device
   tensors), run eagerly once, then captured and replayed on the caller's
   stream: the trainer's scan epoch.
 
-Each kernel wrapper counts its launches in ``launches``. A capture records
-each wrapper's count during the capture, takes it back (nothing ran), and
-every replay adds it again, so a count means the same with and without
-graphs (the counts are read around the capture, so a capture meant to be
-counted exactly runs while no other thread launches: at warm-up). A
-capture or replay that fails raises; nothing falls back to eager
-dispatch on the card. On a CPU device the function runs eagerly (the
-tests), and a new key still counts as one capture.
+Each kernel wrapper counts its launches in ``launches`` through
+:func:`count_launch`, which also counts the launches onto a stream being
+captured for that capture. A capture takes them back from the counts
+(nothing ran) and every replay adds them again, so a count means the same
+with and without graphs, and launches onto other streams during a capture
+(other threads' work) stay counted as run. A capture or replay that fails
+raises; nothing falls back to eager dispatch on the card. On a CPU device
+the function runs eagerly (the tests), and a new key still counts as one
+capture.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
 from typing import Any, Callable
 
@@ -57,6 +62,39 @@ def launch_counters() -> tuple:
             geometry_kernels.bspline_design,
             geometry_kernels.bspline_curvature, pack.bitpack_mask,
             decode.dequant_idct)
+
+
+#: capture stream's handle -> the wrappers' launches recorded into it
+_recording: dict = {}
+
+
+def _current_stream_key() -> int:
+    """The handle of the current device's current stream."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def count_launch(wrapper: Callable) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``,
+    and, when it goes onto a stream that :func:`recording_launches` is
+    recording, in that stream's record."""
+    wrapper.launches += 1
+    if _recording:
+        counts = _recording.get(_current_stream_key())
+        if counts is not None:
+            counts[wrapper] = counts.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches(stream_key: int):
+    """The kernel launches onto the stream ``stream_key`` inside the
+    block, by wrapper: a dict that :func:`count_launch` fills. From any
+    thread (a captured backward runs on autograd's own thread, on the
+    forward's stream); launches onto other streams stay out."""
+    counts = _recording[stream_key] = {}
+    try:
+        yield counts
+    finally:
+        del _recording[stream_key]
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -85,22 +123,21 @@ class Capture:
 
     def __init__(self, fn: Callable[[], Any], stream: torch.cuda.Stream,
                  pool=None):
-        counters = launch_counters()
-        before = [f.launches for f in counters]
         self.graph = torch.cuda.CUDAGraph()
-        try:
-            # thread_local: handler and dispatcher threads may use the card
-            # while this thread captures; only this thread's calls are
-            # checked
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.outputs = fn()
-        finally:
-            # the wrappers counted launches that were only recorded
-            delta = [f.launches - b for f, b in zip(counters, before)]
-            for f, d in zip(counters, delta):
-                f.launches -= d
-        self.launches = [(f, d) for f, d in zip(counters, delta) if d]
+        with recording_launches(stream.cuda_stream) as counts:
+            try:
+                # thread_local: handler and dispatcher threads may use the
+                # card while this thread captures; only this thread's calls
+                # are checked, and only launches onto the capture stream
+                # are counted in ``counts``
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = fn()
+            finally:
+                # the wrappers counted launches that were only recorded
+                for f, d in counts.items():
+                    f.launches -= d
+        self.launches = list(counts.items())
 
     def replay(self) -> Any:
         self.graph.replay()
@@ -150,13 +187,16 @@ def _host_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def _copy_for(t: torch.Tensor, stream: torch.cuda.Stream) -> torch.Tensor:
-    """A copy of a static output, made on the current stream and marked in
-    use on ``stream`` (the caller's), so the allocator keeps its memory
-    until that stream is done with it."""
-    out = t.clone()
-    out.record_stream(stream)
-    return out
+def _in_use_on(t: torch.Tensor, stream: torch.cuda.Stream) -> None:
+    """Mark a device tensor in use on ``stream`` (the caller's), so the
+    allocator keeps its memory until that stream is done with it."""
+    if t.is_cuda:
+        t.record_stream(stream)
+
+
+def clone(out: Any) -> Any:
+    """A ``finish``: fresh copies of every output tensor."""
+    return tree_map(torch.Tensor.clone, out)
 
 
 def read_back(t: torch.Tensor) -> np.ndarray:
@@ -174,17 +214,17 @@ def read_back(t: torch.Tensor) -> np.ndarray:
 class GraphCache:
     """``fn(*inputs)`` captured once per static key on ``device``.
 
-    ``cache(fn, *inputs, static=(), finish=None, copy=False)`` returns
-    ``fn``'s outputs for ``inputs``. On the card these are the static
-    outputs of the key's graph after a replay, valid until the cache's
-    next call; ``copy=True`` returns fresh copies of them for the caller's
-    stream, and ``finish(outputs)``, when given, is computed under the
-    cache's lock on its stream before the next call can replay. On the
-    CPU they are ``fn``'s eager result. ``inputs`` are tensors (on the
-    device, pinned or pageable) or numpy arrays; the key is their shapes
-    and dtypes and ``static`` (what else ``fn`` bakes in). ``fn`` runs
-    only to warm up and capture a new key, whose first call counts one
-    capture on ``guard``.
+    ``cache(fn, *inputs, static=(), finish=f)`` returns ``f`` of ``fn``'s
+    outputs for ``inputs``. On the card the outputs are the key's graph's
+    static outputs after a replay (on a key's first call, its warm-up's),
+    and ``f`` runs on the cache's stream under its lock, before the next
+    call can replay: it copies them or reads them back. Device tensors it
+    returns are marked in use on the caller's stream, which waits for the
+    cache's. On the CPU ``f`` takes ``fn``'s eager result. ``inputs`` are
+    tensors (on the device, pinned or pageable) or numpy arrays; the key
+    is their shapes and dtypes and ``static`` (what else ``fn`` bakes
+    in). ``fn`` runs only to warm up and capture a new key, whose first
+    call counts one capture on ``guard``.
     """
 
     def __init__(self, name: str, budget: int | None,
@@ -197,14 +237,13 @@ class GraphCache:
         self._pool = None
 
     def __call__(self, fn: Callable, *inputs, static: tuple = (),
-                 finish: Callable | None = None, copy: bool = False):
+                 finish: Callable):
         key = (static, tuple(_spec(x) for x in inputs))
         if self.device.type != "cuda":
             if key not in self.graphs:
                 self.guard.count(signature(inputs))
                 self.graphs[key] = None
-            out = fn(*(_host_tensor(x) for x in inputs))
-            return out if finish is None else finish(out)
+            return finish(fn(*(_host_tensor(x) for x in inputs)))
         with self._lock:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
@@ -217,21 +256,22 @@ class GraphCache:
             with torch.cuda.stream(stream):
                 entry = self.graphs.get(key)
                 if entry is None:
-                    entry = self.graphs[key] = self._capture(fn, inputs)
-                static_in, cap = entry
-                for s, x in zip(static_in, inputs):
-                    _to_static(s, x)
-                out = cap.replay()
-                if copy:
-                    out = tree_map(lambda t: _copy_for(t, caller), out)
-                if finish is not None:
-                    out = finish(out)
+                    out, self.graphs[key] = self._capture(fn, inputs)
+                else:
+                    static_in, cap = entry
+                    for s, x in zip(static_in, inputs):
+                        _to_static(s, x)
+                    out = cap.replay()
+                out = finish(out)
+                tree_map(functools.partial(_in_use_on, stream=caller), out)
             caller.wait_stream(stream)
             return out
 
     def _capture(self, fn: Callable, inputs) -> tuple:
-        """Static inputs holding the first call's inputs, one warm-up call
-        on the cache's stream (the current one), then the capture."""
+        """A new key on the cache's stream (the current one): static
+        inputs holding the call's inputs, one warm-up call on them (its
+        outputs answer the call), then the capture; returns (outputs,
+        (static inputs, Capture))."""
         self.guard.count(signature(inputs))
         static = []
         for x in inputs:
@@ -239,9 +279,9 @@ class GraphCache:
             s = torch.empty(shape, dtype=dtype, device=self.device)
             _to_static(s, x)
             static.append(s)
-        fn(*static)
-        return static, Capture(lambda: fn(*static), self._stream,
-                               self._pool)
+        out = fn(*static)
+        return out, (static, Capture(lambda: fn(*static), self._stream,
+                                     self._pool))
 
     def eager(self, fn: Callable, *inputs):
         """``fn`` on ``inputs`` moved to the device, without a graph: the

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from robotic_discovery_platform_tpu_torch.ops import build
+from robotic_discovery_platform_tpu_torch.ops import build, graphs
 
 #: f32 scalars ahead of the spline block in the sidecar: coverage,
 #: mean curvature, max curvature, validity, confidence margin.
@@ -122,7 +122,7 @@ def bitpack_mask(mask: torch.Tensor) -> torch.Tensor:
     err = fn(mask.data_ptr(), out.data_ptr(), b * h, w,
              torch.cuda.current_stream(mask.device).cuda_stream)
     build.check("bitpack_mask", err)
-    bitpack_mask.launches += 1
+    graphs.count_launch(bitpack_mask)
     return out
 
 

@@ -275,6 +275,14 @@ def _pixel_run(core, pack_pts):
     return run
 
 
+def _frame_finish(pack: bool) -> Callable:
+    """A frame analyzer's ``finish``: the packed row ``[P]`` read back to
+    the host, or copies of the fields without the leading batch of one."""
+    if pack:
+        return lambda out: graphs_lib.read_back(out)[0]
+    return lambda out: _unbatched(graphs_lib.clone(out))
+
+
 class Analyzer:
     """A hot entry of the pipeline, dispatched as one CUDA graph per
     static shape on the card (:class:`ops.graphs.GraphCache` under the
@@ -283,34 +291,29 @@ class Analyzer:
 
     ``prepare(*args) -> (run, inputs, static)`` turns a call's arguments
     into the graph's inputs (host or device tensors, numpy arrays), the
-    function over them and what else it bakes in. A call returns fresh
-    tensors (``unbatch``: without the leading batch of one), or with
-    ``row`` the packed row read back to the host, never the graph's
-    static outputs: a later call does not overwrite an earlier result.
-    :meth:`eager` runs the same function without a graph (the reference a
+    function over them and what else it bakes in. ``finish`` turns run's
+    outputs into the call's result before the graph is released (fresh
+    tensors or a host read-back, never the graph's static outputs: a later
+    call does not overwrite an earlier result); a call may pass its own
+    (the batch dispatcher copies into its landing buffer). :meth:`eager`
+    runs the same function and ``finish`` without a graph (the reference a
     replay is held against on the card); ``graphs`` is the cache (its
     ``guard`` and captures)."""
 
     def __init__(self, prepare: Callable, name: str, budget: int,
-                 device: torch.device, *, unbatch: bool = False,
-                 row: bool = False):
+                 device: torch.device, finish: Callable):
         self._prepare = prepare
-        self._unbatch = unbatch
-        self._row = row
+        self._finish = finish
         self.graphs = graphs_lib.GraphCache(name, budget, device)
 
-    def __call__(self, *args):
+    def __call__(self, *args, finish: Callable | None = None):
         run, inputs, static = self._prepare(*args)
-        if self._row:
-            return self.graphs(run, *inputs, static=static,
-                               finish=graphs_lib.read_back)[0]
-        out = self.graphs(run, *inputs, static=static, copy=True)
-        return _unbatched(out) if self._unbatch else out
+        return self.graphs(run, *inputs, static=static,
+                           finish=finish or self._finish)
 
     def eager(self, *args):
         run, inputs, _ = self._prepare(*args)
-        out = self.graphs.eager(run, *inputs)
-        return _unbatched(out) if self._unbatch and not self._row else out
+        return self._finish(self.graphs.eager(run, *inputs))
 
 
 def make_frame_analyzer(
@@ -347,7 +350,7 @@ def make_frame_analyzer(
                                     _leading(intrinsics), depth_scale), ()
 
     return Analyzer(prepare, "pipeline.frame_analyzer", 2, device,
-                    unbatch=not pack, row=pack)
+                    _frame_finish(pack))
 
 
 def make_batch_analyzer(
@@ -370,8 +373,10 @@ def make_batch_analyzer(
     device-to-host copy). On the card each (B, H, W) is one CUDA graph
     (capture guard ``pipeline.batch_analyzer``, budget 8: the dispatcher's
     power-of-two buckets of one geometry); the inputs are copied into its
-    static inputs on the cache's stream, and the call returns once the
-    replay is enqueued, with the current stream waiting for it.
+    static inputs on the cache's stream, and the call returns copies of
+    the outputs (or what a ``finish=`` given to the call makes of them:
+    the dispatcher copies them into its landing buffer) once they are
+    enqueued, with the current stream waiting for them.
     """
     core = _analyzer(forward, img_size, geom_cfg, threshold, device)
     device = resolve_device(device)
@@ -381,7 +386,8 @@ def make_batch_analyzer(
         return run, _pixel_inputs(frames_rgb, depths, intrinsics,
                                     depth_scales), ()
 
-    return Analyzer(prepare, "pipeline.batch_analyzer", 8, device)
+    return Analyzer(prepare, "pipeline.batch_analyzer", 8, device,
+                    graphs_lib.clone)
 
 
 def _leading(a):
@@ -554,7 +560,8 @@ def make_coef_batch_analyzer(
         return run, (y, cb, cr, qy, qc,
                      *_depth_inputs(depths, intrinsics, depth_scales)), ()
 
-    return Analyzer(prepare, "pipeline.coef_batch_analyzer", 8, device)
+    return Analyzer(prepare, "pipeline.coef_batch_analyzer", 8, device,
+                    graphs_lib.clone)
 
 
 def make_coef_frame_analyzer(
@@ -592,4 +599,4 @@ def make_coef_frame_analyzer(
             _leading(depth), _leading(intrinsics), depth_scale)), geom
 
     return Analyzer(prepare, "pipeline.frame_analyzer", 2, device,
-                    unbatch=not pack, row=pack)
+                    _frame_finish(pack))

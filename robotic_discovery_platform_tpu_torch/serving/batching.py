@@ -263,9 +263,12 @@ class BatchDispatcher:
         analyze_batch: ``(frames [B,H,W,3] u8, depths [B,H,W] int16 z16
             pattern, intrinsics [B,3,3] f32, scales [B] f32) -> [B, P]
             uint8`` packed payload (``ops/pipeline.make_batch_analyzer(
-            pack=True)`` around the model), called with staged tensors on
-            ``device`` inside the dispatch stream; it must not wait on its
-            own result.
+            pack=True)`` around the model), called with the pooled
+            staging tensors (pinned on the card) inside the dispatch
+            stream; on the card also with ``finish=``, which it applies to
+            the payload on the device and whose result it returns (an
+            :class:`ops.pipeline.Analyzer`). It must not wait on its own
+            result.
         window_ms: how long the first frame of a batch waits for
             co-arriving frames.
         max_batch: frames per dispatch at most.
@@ -280,9 +283,10 @@ class BatchDispatcher:
         coef_analyzer_factory: ``(height, width, subsampling) ->
             analyze(y, cb, cr, qy, qc, depths, intrinsics, scales) -> [B,
             P] uint8`` for coefficient-lane frames
-            (``ops/pipeline.make_coef_batch_analyzer(pack=True)``), built
-            on a geometry's first coefficient dispatch and kept; None
-            fails coefficient frames.
+            (``ops/pipeline.make_coef_batch_analyzer(pack=True)``, called
+            as ``analyze_batch`` is), built on a geometry's first
+            coefficient dispatch and kept; None fails coefficient
+            frames.
     """
 
     def __init__(self, analyze_batch: Callable, window_ms: float = 2.0,
@@ -688,23 +692,30 @@ class BatchDispatcher:
         waits on the device.
 
         On the card the analyzer copies the pinned staging tensors into
-        its (bucket, geometry) graph's static inputs and replays the graph
-        on its cache's stream, which first waits for the dispatch stream;
-        the dispatch stream then waits for the replay before the D2H copy.
-        So with ``max_inflight > 1``, dispatch N+1's input copy follows
-        dispatch N's D2H copy of its output, and the dispatch's event
-        covers the copies out of the staging buffers."""
+        its (bucket, geometry) graph's static inputs, replays the graph
+        and runs :meth:`_land`, all on its cache's stream under the
+        cache's lock (that stream first waits for the dispatch stream, and
+        the dispatch stream then waits for it). So with ``max_inflight >
+        1``, dispatch N+1's input copy follows dispatch N's D2H copy of its
+        output on that one stream, and the dispatch's event covers the
+        copies out of the staging buffers and into the landing buffer."""
         analyze = (self._coef_analyze_for(template.frame_rgb)
                    if isinstance(bufs, _CoefBucketBuffers) else self._analyze)
         if not self._cuda:
             return analyze(*bufs.tensors), None, None
         with torch.cuda.stream(self._stream):
-            out = analyze(*bufs.tensors)
-            host = self._egress_take(tuple(out.shape))
-            host.copy_(out, non_blocking=True)
+            host = analyze(*bufs.tensors, finish=self._land)
             event = torch.cuda.Event()
             event.record(self._stream)
         return None, host, event
+
+    def _land(self, out: torch.Tensor) -> torch.Tensor:
+        """The analyzer's ``finish`` on the card: the D2H copy of a
+        dispatch's ``[B, P]`` payload into a pooled pinned landing buffer,
+        started on the current stream."""
+        host = self._egress_take(tuple(out.shape))
+        host.copy_(out, non_blocking=True)
+        return host
 
     def warm(self, frames, depths, intrinsics, scales) -> None:
         """Run the analyzer once at this batch shape and wait for it, so

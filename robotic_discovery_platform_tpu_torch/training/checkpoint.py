@@ -7,8 +7,8 @@ A checkpoint is ``<directory>/<step>/state.pt``: a tree of dicts, lists
 and tensors (the trainer saves the module's and the optimizer's state
 dicts, the epoch, the best validation loss and the best-so-far state).
 The card's capturable Adam keeps its step count as a device tensor; it is
-saved on the host like every tensor, and ``Adam.load_state_dict`` puts it
-back on the parameters' device.
+saved on the host like every tensor, and the trainer's
+``restore_optimizer`` puts it back where this device's Adam keeps it.
 The format is the port's own; the registry artifact
 (``models/weights.save_model``) is the format both packages share.
 

@@ -84,12 +84,33 @@ def make_optimizer(net: UNet, learning_rate: float) -> torch.optim.Adam:
     """``optax.adam(learning_rate)``: the same update in the multi-tensor
     (foreach) form. On the card it is capturable: the step count lives on
     the device and the bias corrections are computed there, so a CUDA
-    graph can capture the update (and checkpoints carry ``step`` as a
-    tensor, restored to the parameters' device by ``load_state_dict``)."""
+    graph can capture the update (checkpoints carry ``step`` as a tensor;
+    :func:`restore_optimizer` puts it back)."""
     capturable = next(net.parameters()).is_cuda
     return torch.optim.Adam(net.parameters(), lr=learning_rate,
                             betas=(0.9, 0.999), eps=1e-8, foreach=True,
                             capturable=capturable)
+
+
+def restore_optimizer(optimizer: torch.optim.Adam, state: dict) -> None:
+    """Load a checkpoint's optimizer ``state`` and keep the form that
+    :func:`make_optimizer` chose for this device. ``load_state_dict``
+    takes each group's ``foreach`` and ``capturable`` from the file, which
+    may come from the other device or from the single-tensor Adam of
+    older checkpoints: a non-capturable Adam cannot be captured on the
+    card, and a capturable one refuses CPU parameters. So each group gets
+    its own flags back, and each ``step`` becomes a float32 tensor on the
+    parameters' device when capturable, on the host otherwise."""
+    forms = [{k: g[k] for k in ("foreach", "capturable")}
+             for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, form in zip(optimizer.param_groups, forms):
+        group.update(form)
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = torch.as_tensor(st["step"]).to(
+                    p.device if form["capturable"] else "cpu", torch.float32)
 
 
 def train_step(net: UNet, optimizer: torch.optim.Optimizer,
@@ -363,7 +384,7 @@ def train_model(cfg: TrainConfig = TrainConfig(),
     if resume and ckpt.latest_step() is not None:
         restored = ckpt.restore()
         net.load_state_dict(restored["model"])
-        optimizer.load_state_dict(restored["optimizer"])
+        restore_optimizer(optimizer, restored["optimizer"])
         epoch = int(restored["epoch"])
         best_val_loss = float(restored["best_val_loss"])
         if np.isfinite(best_val_loss):

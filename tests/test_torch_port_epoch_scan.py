@@ -237,6 +237,19 @@ def test_scan_epoch_fetches_rows_of_every_step(arrays):
 # -- resume -------------------------------------------------------------------------
 
 
+def _fix_epoch_order(monkeypatch) -> None:
+    """Every shuffled epoch takes one fixed order of the 12 training
+    samples, so runs that start apart take the same batches."""
+    fixed = tdata.epoch_order(12, 4, True, np.random.default_rng(7))
+
+    def epoch_order(n, batch_size, shuffle, rng):
+        if shuffle:
+            return fixed.copy()
+        return np.arange(n).reshape(-1, batch_size)
+
+    monkeypatch.setattr(tdata, "epoch_order", epoch_order)
+
+
 def test_resumed_scan_run_equals_an_unbroken_one(tmp_path, arrays,
                                                  monkeypatch):
     """One epoch, then resume to three, against three epochs unbroken:
@@ -248,14 +261,7 @@ def test_resumed_scan_run_equals_an_unbroken_one(tmp_path, arrays,
     package's does (tests/test_torch_port_training.py holds that against
     the JAX package); here every epoch takes one fixed order, so the two
     runs differ only by the checkpoint round trip."""
-    fixed = tdata.epoch_order(12, 4, True, np.random.default_rng(7))
-
-    def epoch_order(n, batch_size, shuffle, rng):
-        if shuffle:
-            return fixed.copy()
-        return np.arange(n).reshape(-1, batch_size)
-
-    monkeypatch.setattr(tdata, "epoch_order", epoch_order)
+    _fix_epoch_order(monkeypatch)
     unbroken_cfg, _ = _cfgs(tmp_path / "unbroken", epochs=3)
     unbroken = trainer.train_model(unbroken_cfg, TRAIN_MODEL, arrays=arrays,
                                    register=False, device="cpu")
@@ -288,3 +294,57 @@ def test_resumed_scan_run_equals_an_unbroken_one(tmp_path, arrays,
             assert torch.equal(v, b["optimizer"]["state"][pid][k]), (pid, k)
     assert a["epoch"] == b["epoch"] == 3
     assert a["best_val_loss"] == b["best_val_loss"]
+
+
+#: optimizer group forms of checkpoints written elsewhere: the card's
+#: capturable Adam, and the single-tensor Adam of older checkpoints
+FORMS = {"card": dict(foreach=True, capturable=True),
+         "single_tensor": dict(foreach=False, capturable=False)}
+
+
+@pytest.mark.parametrize("written_by", sorted(FORMS))
+def test_resume_keeps_this_devices_adam_form(tmp_path, arrays, monkeypatch,
+                                             written_by):
+    """A checkpoint whose optimizer groups carry another Adam form resumes
+    into this device's (on the CPU: foreach, not capturable, ``step`` a
+    float32 host tensor) and continues as an unbroken run does, bit for
+    bit; the checkpoint the resumed run writes carries this device's
+    form. ``load_state_dict`` alone would keep the file's flags: a
+    capturable Adam refuses CPU parameters."""
+    net = trainer.init_model(TRAIN_MODEL, 0, torch.device("cpu"))
+    opt = trainer.make_optimizer(net, 1e-4)
+    x, y = (torch.from_numpy(a[:4]) for a in
+            trainer.normalize_arrays(*arrays))
+    trainer.train_step(net, opt, losses.make_loss_fn("bce"), x, y)
+    state = opt.state_dict()
+    state["param_groups"][0].update(FORMS[written_by])
+    fresh = trainer.make_optimizer(net, 1e-4)
+    trainer.restore_optimizer(fresh, state)
+    group, = fresh.param_groups
+    assert group["foreach"] and not group["capturable"]
+    assert all(s["step"].dtype == torch.float32 and not s["step"].is_cuda
+               and float(s["step"]) == 1.0 for s in fresh.state.values())
+
+    _fix_epoch_order(monkeypatch)
+    unbroken_cfg, _ = _cfgs(tmp_path / "unbroken", epochs=2)
+    unbroken = trainer.train_model(unbroken_cfg, TRAIN_MODEL, arrays=arrays,
+                                   register=False, device="cpu")
+    first_cfg, _ = _cfgs(tmp_path / "resumed", epochs=1)
+    trainer.train_model(first_cfg, TRAIN_MODEL, arrays=arrays,
+                        register=False, device="cpu")
+    manager = checkpoint.CheckpointManager(first_cfg.checkpoint_dir)
+    saved = manager.restore()
+    saved["optimizer"]["param_groups"][0].update(FORMS[written_by])
+    manager.save(1, saved)
+    resumed_cfg = dataclasses.replace(first_cfg, epochs=2)
+    resumed = trainer.train_model(resumed_cfg, TRAIN_MODEL, arrays=arrays,
+                                  resume=True, register=False, device="cpu")
+    got = _history(tracking.store_for(resumed_cfg.tracking_uri),
+                   resumed.run_id)
+    want = _history(tracking.store_for(unbroken_cfg.tracking_uri),
+                    unbroken.run_id)
+    for key in KEYS:
+        assert got[key] == want[key][1:], key
+    written = checkpoint.CheckpointManager(resumed_cfg.checkpoint_dir)
+    group, = written.restore()["optimizer"]["param_groups"]
+    assert group["foreach"] and not group["capturable"]

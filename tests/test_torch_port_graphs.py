@@ -14,6 +14,7 @@ float32 computation and are compared bit for bit.
 
 import contextlib
 import logging
+import threading
 
 import jax
 import numpy as np
@@ -167,16 +168,32 @@ class _FakeGraph:
         self.replays += 1
 
 
+class _FakeStream:
+    """Stands in for a ``torch.cuda.Stream``: its handle."""
+
+    def __init__(self, handle: int):
+        self.cuda_stream = handle
+
+
+#: the capture stream of the fake captures
+CAPTURE = _FakeStream(1)
+
+
 @pytest.fixture
 def fake_capture(monkeypatch):
     """``torch.cuda.graph`` as a plain context (the body runs once, as a
-    capture records it once) and a fake graph: the capture helper's
-    arithmetic on the CPU."""
+    capture records it once), a fake graph, and each thread's current
+    stream a handle it sets in ``stream.handle`` (default: the capture
+    stream's): the capture helper's arithmetic on the CPU."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph",
                         lambda *a, **kw: contextlib.nullcontext())
     for fn in graphs.launch_counters():
         monkeypatch.setattr(fn, "launches", 0)
+    stream = threading.local()
+    monkeypatch.setattr(graphs, "_current_stream_key",
+                        lambda: getattr(stream, "handle", 1))
+    return stream
 
 
 @pytest.mark.parametrize("replays", [0, 1, 5])
@@ -188,12 +205,14 @@ def test_capture_launches_are_the_capture_delta_times_replays(fake_capture,
     conv.conv1x1.launches = 7  # launches before the capture stay
 
     def step():
-        conv.conv3x3_bn_relu.launches += 18
-        conv.conv1x1.launches += 1
-        decode.dequant_idct.launches += 3
+        for _ in range(18):
+            graphs.count_launch(conv.conv3x3_bn_relu)
+        graphs.count_launch(conv.conv1x1)
+        for _ in range(3):
+            graphs.count_launch(decode.dequant_idct)
         return "out"
 
-    cap = graphs.Capture(step, stream=None)
+    cap = graphs.Capture(step, CAPTURE)
     assert conv.conv3x3_bn_relu.launches == 0 and conv.conv1x1.launches == 7
     assert cap.outputs == "out"
     for _ in range(replays):
@@ -207,18 +226,60 @@ def test_capture_launches_are_the_capture_delta_times_replays(fake_capture,
 
 def test_failed_capture_raises_and_takes_its_launches_back(fake_capture):
     def step():
-        conv.conv3x3_bn_relu.launches += 18
+        for _ in range(18):
+            graphs.count_launch(conv.conv3x3_bn_relu)
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")
 
     with pytest.raises(RuntimeError, match="capturing"):
-        graphs.Capture(step, stream=None)
+        graphs.Capture(step, CAPTURE)
     assert conv.conv3x3_bn_relu.launches == 0
+    graphs.count_launch(conv.conv1x1)  # the record closed with the capture
+    assert conv.conv1x1.launches == 1 and graphs._recording == {}
+
+
+def test_capture_delta_holds_the_launches_onto_its_stream(fake_capture):
+    """Launches onto the capture stream are the graph's from any thread
+    (a captured backward runs on autograd's thread, on the forward's
+    stream); another thread's launches onto its own stream during the
+    capture ran: they stay in the counts and out of the delta."""
+    started = threading.Event()
+
+    def other_stream():
+        fake_capture.handle = 2
+        started.wait()
+        for _ in range(5):
+            graphs.count_launch(conv.conv1x1)
+
+    def capture_stream():  # autograd's thread, on the forward's stream
+        started.wait()
+        graphs.count_launch(conv.conv3x3_grad_weights)
+
+    def step():
+        started.set()
+        for t in threads:
+            t.join()  # the other threads launch mid-capture
+        graphs.count_launch(conv.conv3x3_bn_relu)
+        return "out"
+
+    threads = [threading.Thread(target=fn)
+               for fn in (other_stream, capture_stream)]
+    for t in threads:
+        t.start()
+    cap = graphs.Capture(step, CAPTURE)
+    assert dict(cap.launches) == {conv.conv3x3_grad_weights: 1,
+                                  conv.conv3x3_bn_relu: 1}
+    assert conv.conv1x1.launches == 5 and conv.conv3x3_bn_relu.launches == 0
+    assert conv.conv3x3_grad_weights.launches == 0
+    cap.replay()
+    assert (conv.conv1x1.launches, conv.conv3x3_bn_relu.launches,
+            conv.conv3x3_grad_weights.launches) == (5, 1, 1)
 
 
 def test_graph_cache_on_the_cpu_counts_one_capture_per_key():
     """On the CPU the cache runs ``fn`` eagerly on every call, counts one
-    capture per new (static, shapes, dtypes) key, and applies ``finish``."""
+    capture per new (static, shapes, dtypes) key, and returns ``finish``
+    of its outputs."""
     recompile.reset()
     cache = graphs.GraphCache("pipeline.batch_analyzer", 8,
                               torch.device("cpu"))
@@ -229,12 +290,12 @@ def test_graph_cache_on_the_cpu_counts_one_capture_per_key():
         return x.to(torch.float32) + y
 
     a = np.ones((2, 3), np.uint8)
-    out = cache(fn, a, torch.zeros(3))
+    out = cache(fn, a, torch.zeros(3), finish=graphs.clone)
     assert torch.equal(out, torch.ones(2, 3))
-    cache(fn, a, torch.zeros(3))
-    cache(fn, np.ones((4, 3), np.uint8), torch.zeros(3))
-    cache(fn, np.ones((4, 3), np.int16), torch.zeros(3))
-    cache(fn, a, torch.zeros(3), static=("420",))
+    cache(fn, a, torch.zeros(3), finish=graphs.clone)
+    cache(fn, np.ones((4, 3), np.uint8), torch.zeros(3), finish=graphs.clone)
+    cache(fn, np.ones((4, 3), np.int16), torch.zeros(3), finish=graphs.clone)
+    cache(fn, a, torch.zeros(3), static=("420",), finish=graphs.clone)
     row = cache(fn, a, torch.zeros(3), finish=graphs.read_back)
     assert isinstance(row, np.ndarray) and row.shape == (2, 3)
     assert len(calls) == 6

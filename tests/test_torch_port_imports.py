@@ -29,7 +29,10 @@ from robotic_discovery_platform_tpu_torch.serving.server import (
 from robotic_discovery_platform_tpu_torch.training.synthetic import (
     generate_arrays,
 )
-from robotic_discovery_platform_tpu_torch.training.trainer import train_model
+from robotic_discovery_platform_tpu_torch.training.trainer import (
+    resolve_epoch_mode,
+    train_model,
+)
 from robotic_discovery_platform_tpu_torch.utils import config
 from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
 
@@ -225,7 +228,10 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
                 config.ServerConfig().model_alias) == (
                     1e-4, 4, "Actuator-Segmenter", "staging")
         config.check_supported(config.TrainConfig(epoch_mode="stream"))
-        config.check_supported(config.TrainConfig(epoch_mode="scan"))
+        scan = config.TrainConfig(epoch_mode="scan")
+        config.check_supported(scan)
+        # and taken: in-memory data trains in the scan epoch
+        assert resolve_epoch_mode(scan, data_bytes=1 << 20) == "scan"
     elif case == "mesh_section":
         config.check_supported(config.MeshConfig())
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):
