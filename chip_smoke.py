@@ -766,16 +766,22 @@ def deproject_cases(torch, port, gk, build, views, params) -> None:
         return all(bitwise_equal(torch, a, b) for a, b in
                    zip([*got[:4], *got[4]], [*want[:4], *want[4]]))
 
+    def one_kernel_per_call(rows) -> bool:
+        return (len(rows) == 1 and rows[0][1] == iters
+                and "deproject" in rows[0][2])
+
     m1, d1 = views[1]
     iters = 10
     rows = []
-    for _ in range(2):  # the profiler once dropped a 2 us launch's record
+    # the profiler now and then drops a short launch's record (seen with
+    # none and with 9 of 10 kept), so up to three profiles, one of which
+    # must see exactly one kernel per call
+    for _ in range(3):
         rows = profiled_rows(torch, lambda: gk.deproject_edge_stats(
             m1, d1, *params), iters)
-        if rows:
+        if one_kernel_per_call(rows):
             break
-    check(len(rows) == 1 and rows[0][1] == iters
-          and "deproject" in rows[0][2],
+    check(one_kernel_per_call(rows),
           f"deproject_edge_stats: want one kernel per call and no copy; "
           f"the profiler saw {[(r[1], r[2]) for r in rows]} over {iters} "
           "calls")
