@@ -36,7 +36,11 @@ mismatch raises and the script exits non-zero:
    equal bit for bit, 0 outside the Gram matrix's band --, the curvature
    at 100 samples, called twice, equal bit for bit, no stack frame in
    ``ptxas -v``, and at ``curvature_case_inputs``' edge cases) and the
-   mask bitpack (bitwise, [8, 480, 640]); the transposed conv at the
+   mask bitpack (``bitpack_phase``: bitwise at [8, 480, 640], [1, 480,
+   640] and ragged widths, into a fresh tensor, into the mask bytes of
+   payload rows and from or to misaligned addresses; ``pack_analysis``
+   rows byte-equal to the former assembly and the CPU's; device time at
+   both main shapes); the transposed conv at the
    non-bilinear ladder's four shapes (B = 1 and 8; each shape's path,
    tensor cores or FMA, logged and the C entry's rule checked against
    ``conv.convt_path``; each call repeated, equal bit for bit; at B = 8
@@ -57,7 +61,20 @@ mismatch raises and the script exits non-zero:
    the direct path, and batched (``batch_window_ms=2``, ``max_batch=8``):
    every batched response byte-equal to the direct path's, one bitpack
    and 18 conv3x3 launches per dispatch, dispatch sizes, frames/s and the
-   device's busy share;
+   device's busy share; then the precision tiers (``precision_phase``):
+   the calibrated model's bf16 and int8 weights made on the card bitwise
+   equal to the CPU's, their kernel logits within LOGITS_REL_L2 of their
+   plain forward, and its int8 servicer refused by the parity gate at
+   the default bars; its projection onto the int8 grid from a temporary
+   registry through ``build_service`` and ``warmup`` at "f32", "bf16" and
+   "int8" (identity legs: one function at every tier; each gate's
+   report, launches per frame those of f32, frames/s over one stream),
+   and that int8 servicer refused with ``quant_parity_min_iou = 1.01``;
+   then int8 of the calibrated net and bf16 of it computing in float32,
+   tiers that serve another function, up past gates whose bars sit at
+   the report of the same comparison made apart (the servicer's report
+   equal to it, its masks the tier net's), and refused with the IoU
+   floor 1e-9 above it;
 5. geometry on a rendered scene's true mask, card against CPU;
 6. training at the reference configuration (``ModelConfig()``,
    ``TrainConfig`` batch 4 at 256x256, lr 1e-4, loss "bce"): the weight
@@ -94,12 +111,15 @@ The line before the last is the kernels' JSON record, the last line
 
     python3 chip_smoke.py --phase NAME
 
-runs one kernel phase alone (``kernel_phase``, ``conv1x1_kernel_phase``,
-``convt_kernel_phase``, ``decode_kernel_phase``, ``geometry_kernel_phase``
-or ``train_kernel_phase``): its log lines, then its timings as one JSON
-line. To compare a change with its parent on one card, unpack the parent
-(``git archive``) into a git-ignored directory and run the phase in each
-root in turns: parent, change, change, parent.
+runs one phase alone (any of ``PHASES``: ``kernel_phase``,
+``conv1x1_kernel_phase``, ``convt_kernel_phase``, ``decode_kernel_phase``,
+``geometry_kernel_phase``, ``train_kernel_phase``, ``graph_phase``,
+``bitpack_phase``, ``bitpack_timing_phase``, ``precision_phase`` or
+``trained_tier_phase``, which ``main`` does not run): its
+log lines, then its results as one JSON line. To compare a change with
+its parent on one card, unpack the parent (``git archive``) into a
+git-ignored directory and run the phase in each root in turns: parent,
+change, change, parent.
 """
 
 from __future__ import annotations
@@ -226,6 +246,13 @@ TRAIN_SAMPLES = 20  # 16 train + 4 validation: 4 steps per epoch
 # (with cuDNN's autotuner on as well): a yardstick artefact, so phase 6
 # reports it on a line of its own, apart from the per-step sums
 SLOW_PLAIN_FWD = (128, 256, 128)
+# the mask bitpack's main-path shapes (a full dispatch, a direct servicer
+# frame; each goes into its packed payload rows), and ragged or small ones
+BITPACK_MAIN = ((MAX_BATCH, FRAME_H, FRAME_W), (1, FRAME_H, FRAME_W))
+BITPACK_EDGES = ((3, 37, 53), (2, 6, 641), (2, 6, 33), (2, 6, 7))
+PAYLOAD_PTS = 100  # GeometryConfig.num_samples: the payload's spline block
+# the precision tiers' served streams: passes over the 8 frames
+TIER_PASSES = 2
 
 
 def log(msg: str) -> None:
@@ -584,9 +611,7 @@ def geometry_kernel_phase(torch, port) -> dict:
     contractions of that frame's 6400 edge-point slots, the curvature at
     its 100 samples (on the fit's column-major control points; called
     twice, equal bit for bit; ``ptxas -v`` reporting no stack frame; then
-    :func:`curvature_cases`), and the bitpack of a [8, 480, 640] batch
-    (plus a ragged one, the smallest launch timed: the floor of a
-    launch's device time)."""
+    :func:`curvature_cases`), and the bitpack (:func:`bitpack_phase`)."""
     from robotic_discovery_platform_tpu_torch.ops import (
         bspline, build, geometry)
     from robotic_discovery_platform_tpu_torch.ops import geometry_kernels as gk
@@ -719,32 +744,155 @@ def geometry_kernel_phase(torch, port) -> dict:
     results[("bspline_curvature",)] = t
     curvature_cases(torch, gk, bspline)
 
-    gen = np.random.default_rng(SEED + 3)
-    for shape, main in (((MAX_BATCH, FRAME_H, FRAME_W), True),
-                        ((3, 37, 53), False)):
-        m_np = (gen.random(shape) < 0.5).astype(np.uint8) * gen.choice(
-            np.array([1, 7, 255], np.uint8), shape)
-        m = torch.from_numpy(m_np).cuda()
+    results.update(bitpack_phase(torch))
+    return results
+
+
+def bitpack_values(shape, seed: int) -> np.ndarray:
+    """A [B, H, W] mask of values drawn from {0, 1, 7, 255}."""
+    values = np.array([0, 1, 7, 255], np.uint8)
+    return values[np.random.default_rng(seed).integers(0, 4, shape)]
+
+
+def payload_rows(torch, b: int, h: int, w: int, shift: int = 0):
+    """[B, P + 64] rows on the card filled with 0xA5, P the packed payload
+    row's bytes, and the column range [lo, hi) of their mask bytes
+    (``shift`` bytes past the payload's own: a misaligned destination)."""
+    from robotic_discovery_platform_tpu_torch.ops import pack
+
+    p = pack.frame_payload_bytes(h, w, PAYLOAD_PTS) + 64
+    rows = torch.full((b, p), 0xA5, dtype=torch.uint8, device="cuda")
+    lo = pack.HEADER_BYTES + 4 * pack.sidecar_floats(PAYLOAD_PTS) + shift
+    return rows, lo, lo + h * pack.packed_row_bytes(w)
+
+
+def bitpack_phase(torch) -> dict:
+    """The mask bitpack (csrc/bitpack_mask.cu) against its plain version
+    and np.packbits, bit for bit, at BITPACK_MAIN and BITPACK_EDGES: into
+    a fresh tensor; into the mask bytes of payload rows (``out=``, the
+    main path's form: 4-byte aligned, frames a row pitch apart) and 1 byte
+    past them (misaligned: the per-byte path), every other byte untouched;
+    and from a mask 1 byte past 16-byte alignment. One launch per call.
+    Then :func:`pack_rows_case`, the timings of the fresh-tensor form
+    (:func:`bitpack_timing_phase`) and those of the ``out=`` form, whose
+    time at [8, 480, 640] the kernels' line reports."""
+    from robotic_discovery_platform_tpu_torch.ops import pack
+
+    masks = {}
+    for i, shape in enumerate(BITPACK_MAIN + BITPACK_EDGES):
+        b, h, w = shape
+        m_np = bitpack_values(shape, SEED + 3 + i)
+        m = masks[shape] = torch.from_numpy(m_np).cuda()
+        before = pack.bitpack_mask.launches
         got = pack.bitpack_mask(m)
-        want = pack.bitpack_mask_plain(m)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want)
+        check(pack.bitpack_mask.launches == before + 1,
+              f"bitpack_mask {list(shape)}: not one launch per call")
+        plain = pack.bitpack_mask_plain(m)
+        check(torch.equal(got, plain)
               and np.array_equal(got.cpu().numpy(),
                                  np.packbits(m_np != 0, axis=-1)),
-              f"bitpack_mask {shape}: differs from the plain version or "
-              "np.packbits")
+              f"bitpack_mask {list(shape)}: differs from the plain version "
+              "or np.packbits")
+        n = h * pack.packed_row_bytes(w)
+        for shift in (0, 1):
+            rows, lo, hi = payload_rows(torch, b, h, w, shift)
+            want = rows.clone()
+            want[:, lo:hi] = plain.reshape(b, n)
+            out = pack.bitpack_mask(m, out=rows[:, lo:hi])
+            check(out.data_ptr() == rows[:, lo:hi].data_ptr()
+                  and torch.equal(rows, want),
+                  f"bitpack_mask {list(shape)} into payload rows at byte "
+                  f"{lo}: bits or the bytes around them differ")
+        buf = torch.empty(m.numel() + 16, dtype=torch.uint8, device="cuda")
+        off = buf[1:1 + m.numel()].view(shape)
+        off.copy_(m)
+        check(torch.equal(pack.bitpack_mask(off), plain),
+              f"bitpack_mask {list(shape)} from a misaligned mask: differs")
+    torch.cuda.synchronize()
+    log(f"bitpack_mask at {[list(s) for s in masks]}: bitwise against its "
+        "plain version and np.packbits, into a fresh tensor, into payload "
+        "rows (aligned and 1 byte off; the bytes around untouched) and from "
+        "a misaligned mask; one launch per call")
+    pack_rows_case(torch)
+    results = bitpack_timing_phase(torch)
+    for shape in BITPACK_MAIN:
         b, h, w = shape
+        rows, lo, hi = payload_rows(torch, b, h, w)
+        view, m = rows[:, lo:hi], masks[shape]
+        t = device_ms(torch, lambda: pack.bitpack_mask(m, out=view))
+        log(f"bitpack_mask {list(shape)} into its payload rows: device ms "
+            f"{t:.4f}")
+        results[("bitpack_mask", "rows", *shape)] = {"ms": t}
+    # the kernels' line: the form the main path runs, into the rows
+    results[("bitpack_mask",)] = dict(
+        results[("bitpack_mask", *BITPACK_MAIN[0])],
+        ms=results[("bitpack_mask", "rows", *BITPACK_MAIN[0])]["ms"])
+    return results
+
+
+def bitpack_timing_phase(torch) -> dict:
+    """The bitpack's device time into a fresh tensor (the form every
+    version of its wrapper has) at BITPACK_MAIN, and at [3, 37, 53] (the
+    floor of one launch), beside its plain version's and the byte bound.
+    It times the package beside this file: to time another version on
+    the same card, copy this file into that version's root under another
+    name and run it there with ``--phase bitpack_timing_phase``."""
+    from robotic_discovery_platform_tpu_torch.ops import pack
+
+    results = {}
+    for shape in BITPACK_MAIN + BITPACK_EDGES[:1]:
+        b, h, w = shape
+        m = torch.from_numpy(bitpack_values(shape, SEED + 4)).cuda()
         t = timings(torch, lambda: pack.bitpack_mask(m),
                     lambda: pack.bitpack_mask_plain(m))
         t["max_abs_err"] = 0.0
-        nbytes = b * h * w + b * h * ((w + 7) // 8)
-        t["bound_ms"], t["bound_by"] = bound_ms(16.0 * b * h * (w + 7) // 8,
-                                                nbytes, H100_F32_FLOPS)
-        log(f"bitpack_mask {list(shape)}: bitwise (and np.packbits); "
-            f"{timing_text(t)}")
-        if main:
-            results[("bitpack_mask",)] = t
+        wb = (w + 7) // 8
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            16.0 * b * h * wb, b * h * w + b * h * wb, H100_F32_FLOPS)
+        log(f"bitpack_mask {list(shape)}: {timing_text(t)}")
+        results[("bitpack_mask", *shape)] = t
     return results
+
+
+def pack_rows_case(torch) -> None:
+    """``pipeline.pack_analysis`` of a batch at each BITPACK_MAIN shape on
+    the card, byte-equal to the rows assembled as before the bits went
+    straight into the row (packed into a tensor of their own, then copied
+    in) and to the CPU's rows of the same leaves."""
+    from robotic_discovery_platform_tpu_torch.ops import geometry, pack
+    from robotic_discovery_platform_tpu_torch.ops import pipeline
+
+    for b, h, w in BITPACK_MAIN:
+        rng = np.random.default_rng(SEED + 5 + b)
+        valid = rng.random(b) < 0.7
+        leaves = [(rng.random((b, h, w)) < 0.3).astype(np.uint8),
+                  (rng.random(b) * 100).astype(np.float32),
+                  np.where(valid, rng.random(b), np.nan).astype(np.float32),
+                  rng.random(b).astype(np.float32) + 1, valid,
+                  rng.normal(size=(b, PAYLOAD_PTS, 3)).astype(np.float32),
+                  rng.random(b).astype(np.float32)]
+
+        def analysis(device):
+            mask, cov, mean, maxk, ok, spline, margin = (
+                torch.from_numpy(np.asarray(a)).to(device) for a in leaves)
+            count = torch.full((b,), 7, dtype=torch.int32, device=device)
+            prof = geometry.CurvatureProfile(mean, maxk, spline, ok, count,
+                                             count, ~ok)
+            return pipeline.FrameAnalysis(mask, cov, prof, margin)
+
+        card = analysis("cuda")
+        row = pipeline.pack_analysis(card, n_pts=PAYLOAD_PTS)
+        former = row.clone()
+        lo = pack.HEADER_BYTES + 4 * pack.sidecar_floats(PAYLOAD_PTS)
+        former[:, lo:lo + h * pack.packed_row_bytes(w)] = pack.bitpack_mask(
+            card.mask).reshape(b, -1)
+        cpu = pipeline.pack_analysis(analysis("cpu"), n_pts=PAYLOAD_PTS)
+        check(torch.equal(row, former)
+              and np.array_equal(row.cpu().numpy(), cpu.numpy()),
+              f"pack_analysis [{b}, {h}, {w}]: rows differ from the former "
+              "assembly or the CPU's")
+    log(f"pack_analysis at {[list(s) for s in BITPACK_MAIN]}: rows "
+        "byte-equal to the former assembly and to the CPU's")
 
 
 def deproject_cases(torch, port, gk, build, views, params) -> None:
@@ -1753,6 +1901,328 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
         f"{device_busy(torch, lambda: concurrent_streams(batched, streams))}")
     batched.close()
     return {k: launches[k] + blaunches[k] for k in launches}
+
+
+# -- phase 4b: the precision tiers -------------------------------------------
+
+
+def register_models(port, nets: dict, uri: str) -> None:
+    """Each of ``nets`` (alias -> UNet) as the next version of the served
+    model name in the registry at ``uri``, under its alias."""
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.models import weights
+
+    name = port.ServerConfig().model_name
+    tracking.set_tracking_uri(uri)
+    tracking.set_experiment("Actuator Segmentation")
+    store = tracking.store_for(uri)
+    with tracking.start_run():
+        for alias, net in nets.items():
+            version = tracking.log_model(weights.to_flax_variables(net),
+                                         net.cfg, registered_model_name=name)
+            store.set_alias(name, alias, version)
+
+
+def precision_phase(torch, port, frames=None) -> dict:
+    """The precision tiers at full width, on the calibrated
+    ``ModelConfig()`` net (:func:`seeded_model`) in a temporary registry.
+
+    That net is random, with its head bias at frame 0's median logit: an
+    int8 grid moves its masks and their curvature far past the gate's
+    bars (as it moves the JAX package's own fixture's), so registered as
+    it is (alias "raw") its int8 servicer must refuse to come up at the
+    default bars. For bf16 and int8 on it: the tier's weights made on the
+    card bitwise equal to the CPU's (and the same report), and the tier's
+    kernel logits within LOGITS_REL_L2 of the plain forward of the same
+    net.
+
+    Identity legs, at the default bars: the net projected onto the int8
+    grid (a fixed point of the projection; alias "staging": what a model
+    trained on that grid registers). ``ModelConfig()`` computes in bf16
+    already and the grid net's int8 tier is the grid net, so at f32, bf16
+    and int8 the servicer serves one and the same function: for each,
+    ``build_service`` and ``warmup`` at 480x640 (the gate's report
+    logged), then the 8 frames served TIER_PASSES times over one raw
+    stream (launches per frame those of f32, statuses OK or DEGRADED,
+    frames/s); then that int8 servicer with ``quant_parity_min_iou =
+    1.01`` must refuse to come up.
+
+    Legs whose tier serves another function than its reference
+    (:func:`tier_leg`): int8 of the raw net, and bf16 of the raw net
+    computing in float32 (alias "float32"). The default bars refuse both
+    (a moved edge pixel moves a 480x640 top edge's curvature by far more
+    than 0.5 1/m, in the JAX package too), so their bars sit at the
+    report of the gate's comparison made apart. Returns the served legs'
+    launches."""
+    import copy
+
+    from robotic_discovery_platform_tpu_torch.models.unet import (
+        with_compute_dtype,
+    )
+    from robotic_discovery_platform_tpu_torch.ops import quant
+
+    if frames is None:
+        rng = np.random.default_rng(SEED)
+        frames = [port.render_scene(rng, FRAME_H, FRAME_W)[::2]
+                  for _ in range(8)]
+    rgb0, _ = frames[0]
+    x0 = port.preprocess(torch.from_numpy(rgb0).cuda()[None], 256)
+    net = seeded_model(torch, port, x0)
+    # a fixed point of the int8 projection (a second pass can move a scale
+    # by one ulp), so the grid net's int8 tier is the grid net itself
+    on_grid = net.state_dict()
+    for _ in range(4):
+        again = quant.quantize_unet_variables(on_grid)[0]
+        if all(bitwise_equal(torch, again[k], v) for k, v in on_grid.items()):
+            break
+        on_grid = again
+    else:
+        raise AssertionError("the int8 projection found no fixed point")
+    grid = with_compute_dtype(net, net.cfg.compute_dtype, on_grid)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_precision_"))
+    uri = f"file:{tmp}/mlruns"
+    register_models(port, {"raw": net, "staging": grid,
+                           "float32": with_compute_dtype(net, "float32")},
+                    uri)
+    base = port.ServerConfig(tracking_uri=uri,
+                             metrics_csv=str(tmp / "metrics.csv"),
+                             calibration_path=str(tmp / "none.npz"))
+
+    def refused(cfg, what: str) -> None:
+        try:
+            port.build_service(cfg, warmup_shape=(FRAME_W, FRAME_H),
+                               device="cuda")
+        except RuntimeError as exc:
+            check("parity gate" in str(exc), f"{what}: raised {exc!r}")
+            log(f"precision: {what}: refused ({exc})")
+        else:
+            raise AssertionError(f"{what}: the servicer came up")
+
+    raw_card = copy.deepcopy(net).cuda()
+    for tier in ("bf16", "int8"):
+        tier_net, report = quant.apply_precision(raw_card, tier)
+        cpu_net, cpu_report = quant.apply_precision(net, tier)
+        check(report == cpu_report,
+              f"{tier}: card report {report} != CPU {cpu_report}")
+        state = tier_net.state_dict()
+        for key, want in cpu_net.state_dict().items():
+            check(bitwise_equal(torch, state[key].cpu(), want),
+                  f"{tier}: {key} made on the card differs from the CPU's")
+        folded = port.FoldedUNet(tier_net, device="cuda")
+        with torch.no_grad():
+            got, want = folded(x0), folded.forward_plain(x0)
+        rel = float(torch.linalg.vector_norm(got - want)
+                    / torch.linalg.vector_norm(want))
+        check(bool(torch.isfinite(got).all()) and rel <= LOGITS_REL_L2,
+              f"{tier}: kernel vs plain logits relative L2 {rel} > "
+              f"{LOGITS_REL_L2}")
+        log(f"precision {tier} of the calibrated net: weights made on the "
+            f"card bitwise equal to the CPU's, report {report}; kernel vs "
+            f"plain logits relative L2 {rel:.3g} (tol {LOGITS_REL_L2})")
+    refused(dataclasses.replace(base, precision="int8", model_alias="raw"),
+            "int8 of the calibrated net at the default bars")
+
+    requests = [port.raw_request(rgb, depth, mask_format=1)
+                for rgb, depth in frames] * TIER_PASSES
+    n = len(requests)
+    launches = dict.fromkeys(KERNELS, 0)
+    rates = {}
+    for tier in ("f32", "bf16", "int8"):
+        t0 = time.perf_counter()
+        service = port.build_service(dataclasses.replace(base, precision=tier),
+                                     warmup_shape=(FRAME_W, FRAME_H),
+                                     device="cuda")
+        warm_s = time.perf_counter() - t0
+        try:
+            check(service.precision == tier,
+                  f"{tier}: the servicer serves {service.precision!r}")
+            check((service.parity is None) == (tier == "f32"),
+                  f"{tier}: parity report {service.parity}")
+            reset_launches()
+            t0 = time.perf_counter()
+            responses = list(service.analyze_stream(iter(requests)))
+            torch.cuda.synchronize()
+            stream_s = time.perf_counter() - t0
+            counts = read_launches()
+        finally:
+            service.close()
+        want = frame_launches(n, served=True)
+        check(counts == want, f"{tier}: launches {counts} for {n} frames, "
+              f"want {want}")
+        check(all(r.status.startswith(("OK", "DEGRADED")) for r in responses),
+              f"{tier}: statuses {[r.status for r in responses]}")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        rates[tier] = n / stream_s
+        log(f"precision {tier} (the grid net; identity: every tier the same "
+            f"function): build_service + warmup "
+            f"{warm_s:.2f} s, gate {json.dumps(service.parity)}; {n} frames "
+            f"over one stream at {rates[tier]:.1f} frames/s; statuses "
+            f"{sorted({r.status for r in responses})}; launches per frame "
+            "as f32's")
+    refused(dataclasses.replace(base, precision="int8",
+                                quant_parity_min_iou=1.01),
+            "int8 of the grid net with quant_parity_min_iou=1.01")
+    for tier, alias in (("int8", "raw"), ("bf16", "float32")):
+        counts, rates[f"{tier} of {alias}"] = tier_leg(
+            torch, port, dataclasses.replace(base, precision=tier,
+                                             model_alias=alias),
+            frames, requests, refused)
+        launches = {k: launches[k] + counts[k] for k in launches}
+    log("precision tiers, frames/s over one stream (same run): "
+        + ", ".join(f"{t} {r:.1f}" for t, r in rates.items()))
+    return launches
+
+
+def apart_report(torch, port, pristine, tier: str, n: int, camera,
+                 geom_cfg=None, img_size: int = 256) -> tuple:
+    """The warm-up gate's comparison made apart from a servicer: ``n``
+    golden frames at 480x640 through eager analyzers of ``pristine`` and
+    of its ``tier`` (``camera`` = (intrinsics, depth scale)). Returns the
+    parity report, the reference's coverage per frame and the tier's
+    analyzer."""
+    from robotic_discovery_platform_tpu_torch.ops import quant
+
+    k, scale = camera
+    tier_net, _ = quant.apply_precision(pristine, tier)
+    kw = {} if geom_cfg is None else {"geom_cfg": geom_cfg}
+    analyzers = [port.make_frame_analyzer(
+        port.FoldedUNet(m, device="cuda"), img_size=img_size,
+        device="cuda", **kw) for m in (pristine, tier_net)]
+    ref, got = ([a.eager(rgb, depth, k, scale) for rgb, depth in
+                 quant.golden_frames(n, FRAME_H, FRAME_W)]
+                for a in analyzers)
+    coverage = [round(float(o.mask_coverage), 2) for o in ref]
+    return quant.parity_report(ref, got), coverage, analyzers[1]
+
+
+def trained_tier_phase(torch, port) -> dict:
+    """The gate's figures for trained nets at full width: ``ModelConfig()``
+    trained from a seeded init for 25 and then 50 Adam steps (lr 1e-3,
+    batches of TRAIN_BATCH at 256x256, bce) on synthetic scenes; after
+    each, the gate's comparison made apart (:func:`apart_report`, 8
+    golden frames at 480x640, focal-length default intrinsics, depth
+    scale 0.001) for int8 of the net and for bf16 of the net computing in
+    float32 (``ModelConfig()`` computes in bf16: its own bf16 tier is
+    itself), with the verdict at the default bars. Not run by ``main``:
+    ``--phase trained_tier_phase``."""
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.models.unet import (
+        with_compute_dtype,
+    )
+    from robotic_discovery_platform_tpu_torch.ops import quant
+    from robotic_discovery_platform_tpu_torch.training import (
+        synthetic,
+        trainer,
+    )
+
+    bars = port.ServerConfig()
+    bars = (bars.quant_parity_min_iou, bars.quant_parity_max_curv_err)
+    camera = (port.default_intrinsics(FRAME_W, FRAME_H).astype(np.float32),
+              np.float32(0.001))
+    xs, ys = trainer.normalize_arrays(
+        *synthetic.generate_arrays(32, 256, 256, seed=SEED))
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    net = trainer.init_model(port.ModelConfig(), SEED, torch.device("cuda"))
+    optimizer = trainer.make_optimizer(net, 1e-3)
+    loss_fn = losses.make_loss_fn("bce")
+    order = np.random.default_rng(SEED)
+    results, steps = {}, 0
+    for until in (25, 50):
+        net.train()
+        while steps < until:
+            idx = torch.from_numpy(
+                order.choice(len(xs), TRAIN_BATCH, replace=False)).cuda()
+            loss = trainer.train_step(net, optimizer, loss_fn, xs[idx],
+                                      ys[idx])
+            steps += 1
+        net.eval()
+        check(bool(torch.isfinite(loss)), f"{steps} steps: loss {loss}")
+        for tier, pristine in (("int8", net),
+                               ("bf16", with_compute_dtype(net, "float32"))):
+            with torch.no_grad():
+                report, coverage, _ = apart_report(torch, port, pristine,
+                                                   tier, 8, camera)
+            passes = quant.parity_gates_pass(report, *bars)
+            results[(f"trained{steps}", tier)] = dict(
+                report, coverage=coverage, passes_default_bars=passes)
+            log(f"trained {steps} steps (loss {float(loss):.4f}), {tier} of "
+                f"the net computing in {pristine.cfg.compute_dtype}: "
+                f"{json.dumps(report)}; coverage {coverage}; at the default "
+                f"bars {'passes' if passes else 'refused'}")
+    return results
+
+
+def tier_leg(torch, port, cfg, frames, requests, refused) -> tuple:
+    """A tier that serves another function than its reference, from the
+    registry under ``cfg`` (a bf16 or int8 tier and a model alias).
+
+    The gate's comparison made apart first: the golden frames at 480x640
+    through eager analyzers of the registered net and of its tier (the
+    servicer's camera, depth scale and geometry settings), whose report
+    must show moved masks (worst IoU below 1) on non-trivial ones (0 <
+    coverage < 100 on at least two frames). Then ``build_service`` and
+    ``warmup`` with the bars at that report: the servicer must come up,
+    keep that very report, serve ``requests`` with f32's launches per
+    frame and, for ``frames``, the tier net's masks byte for byte. Last,
+    a floor a hair above that mean IoU must refuse to come up. Returns
+    (launches, frames/s over one stream)."""
+    from robotic_discovery_platform_tpu_torch.ops import quant
+
+    probe = port.build_service(cfg, device="cuda")
+    try:
+        k = probe._camera(FRAME_W, FRAME_H)
+        scale = np.float32(probe.depth_scale)
+        geom_cfg, pristine = probe.geom_cfg, probe._pristine
+    finally:
+        probe.close()
+    want, coverage, tier_analyze = apart_report(
+        torch, port, pristine, cfg.precision, cfg.quant_parity_frames,
+        (k, scale), geom_cfg, cfg.model_img_size)
+    what = f"{cfg.precision} of {cfg.model_alias!r}"
+    check(want["mask_iou_min"] < 1.0
+          and sum(0 < c < 100 for c in coverage) >= 2,
+          f"{what}: the tier does not move non-trivial masks: {want}, "
+          f"coverage {coverage}")
+    bars = dict(quant_parity_min_iou=want["mask_iou_mean"],
+                quant_parity_max_curv_err=want["curvature_err_max"])
+    t0 = time.perf_counter()
+    service = port.build_service(dataclasses.replace(cfg, **bars),
+                                 warmup_shape=(FRAME_W, FRAME_H),
+                                 device="cuda")
+    warm_s = time.perf_counter() - t0
+    try:
+        check(service.precision == cfg.precision and service.parity == want,
+              f"{what}: serves {service.precision!r} with gate report "
+              f"{service.parity}, want {want}")
+        reset_launches()
+        t0 = time.perf_counter()
+        responses = list(service.analyze_stream(iter(requests)))
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        service.close()
+    n = len(requests)
+    want_launches = frame_launches(n, served=True)
+    check(counts == want_launches, f"{what}: launches {counts} for {n} "
+          f"frames, want {want_launches}")
+    check(all(r.status.startswith(("OK", "DEGRADED")) for r in responses),
+          f"{what}: statuses {[r.status for r in responses]}")
+    for i, ((rgb, depth), r) in enumerate(zip(frames, responses)):
+        mask = tier_analyze.eager(rgb, depth, k, scale).mask.cpu().numpy()
+        check(np.array_equal(port.decode_mask_wire(r.mask), mask),
+              f"{what}: frame {i}'s served mask is not the tier net's")
+    rate = n / stream_s
+    log(f"precision {what} (another function than its reference): gate "
+        f"made apart {json.dumps(want)}, golden coverage {coverage}; "
+        f"build_service + warmup {warm_s:.2f} s with the bars at that "
+        f"report, the servicer's report equal to it; {n} frames over one "
+        f"stream at {rate:.1f} frames/s, the tier net's masks, launches per "
+        "frame as f32's")
+    bars["quant_parity_min_iou"] += 1e-9
+    refused(dataclasses.replace(cfg, **bars),
+            f"{what} with the IoU floor 1e-9 above its report")
+    return counts, rate
 
 
 # -- phase 5: geometry -------------------------------------------------------
@@ -3081,7 +3551,8 @@ def scan_resume_leg(torch, port) -> None:
 #: the phases ``--phase`` runs alone
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
-          "train_kernel_phase", "graph_phase")
+          "train_kernel_phase", "graph_phase", "bitpack_phase",
+          "bitpack_timing_phase", "precision_phase", "trained_tier_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -3093,8 +3564,10 @@ def run_phase(torch, port, conv, name: str) -> int:
     fn = globals()[name]
     args = {"torch": torch, "port": port, "conv": conv}
     log(f"{name}: {torch.cuda.get_device_name(0)} [{nvidia_smi_line()}]")
-    results = fn(*(args[p] for p in inspect.signature(fn).parameters))
-    log(json.dumps({" ".join(map(str, k)): v for k, v in results.items()}))
+    results = fn(*(args[p] for p in inspect.signature(fn).parameters
+                   if p in args))
+    log(json.dumps({k if isinstance(k, str) else " ".join(map(str, k)): v
+                    for k, v in results.items()}))
     return 0
 
 
@@ -3150,7 +3623,8 @@ def main(argv: list | None = None) -> int:
     want_masks = [analyze(rgb, depth, k, 0.001).mask.cpu().numpy()
                   for rgb, depth in frames]
     launches = servicer_phase(torch, port, folded, frames, want_masks)
-    legs = [coef_phase(torch, port, folded, frames)]
+    legs = [precision_phase(torch, port, frames),
+            coef_phase(torch, port, folded, frames)]
     geometry_phase(torch, port)
     results.update(train_kernel_phase(torch, conv))
     step_phase(torch, port)

@@ -22,6 +22,8 @@ Package map:
   ``ops/geometry_kernels.py``: the geometry kernels of one frame;
 - ``ops/pack.py``: the mask bitpack kernel and the packed row layout;
 - ``ops/pipeline.py``: the single-frame and batched analyzers;
+  ``ops/quant.py``: the serving precision tiers (bf16 activations, int8
+  weight grids) and their parity metrics;
 - ``io/frames.py``: synthetic scenes and calibration files;
 - ``serving/``: wire messages, ingest, egress, metrics CSV, the servicer
   (built from the registry when given no forward) and its gRPC adapter,

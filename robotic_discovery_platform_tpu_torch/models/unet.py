@@ -31,6 +31,7 @@ with Flax's ``nn.ConvTranspose`` and no kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -378,3 +379,17 @@ class UNet(nn.Module):
         for i in range(4):
             y = getattr(self, f"Up_{i}")(y, xs[3 - i], train, self._interp)
         return self.Conv_0(y).to(torch.float32)
+
+
+def with_compute_dtype(net: UNet, dtype: str,
+                       state: dict | None = None) -> UNet:
+    """A copy of ``net`` whose activations compute in ``dtype`` (a
+    ``ModelConfig.compute_dtype`` name), on ``net``'s device and in its
+    train/eval mode, holding ``state`` (default: ``net``'s own); the
+    parameters stay float32. The JAX package's
+    ``models/unet.with_compute_dtype``, which the precision tiers use
+    (``ops/quant.apply_precision``)."""
+    device = next(net.parameters()).device
+    clone = UNet(dataclasses.replace(net.cfg, compute_dtype=dtype)).to(device)
+    clone.load_state_dict(net.state_dict() if state is None else state)
+    return clone.train(net.training)

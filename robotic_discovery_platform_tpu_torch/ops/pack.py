@@ -48,12 +48,16 @@ ROW_MAGIC = b"RDPP"
 #: [B, P] staging buffer stay 64-byte aligned.
 ROW_ALIGN = 64
 
+#: the kernel's limit on the pixels of one call (csrc/bitpack_mask.cu)
+MAX_PIXELS = 1 << 30
+
 #: kernel name -> (C function, ctypes argument types):
-#: mask, out, rows, W, stream
+#: mask, out, frames, H, W, out's frame stride in bytes, stream
 _SIGNATURES = {
     "bitpack_mask": ("bitpack_mask_launch",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_void_p]),
+                      ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_void_p]),
 }
 
 
@@ -97,13 +101,46 @@ def bitpack_mask_plain(mask: torch.Tensor) -> torch.Tensor:
     return packed.to(torch.uint8)
 
 
-def bitpack_mask(mask: torch.Tensor) -> torch.Tensor:
+def _check_out(out: torch.Tensor, mask: torch.Tensor) -> None:
+    """``out`` must be a ``[B, H * ceil(W/8)]`` uint8 view on the mask's
+    device whose frames are contiguous and do not overlap."""
+    if mask.dim() != 3:
+        raise ValueError(
+            f"bitpack_mask: want a [B, H, W] mask; got {tuple(mask.shape)}")
+    b, h, w = mask.shape
+    n = h * packed_row_bytes(w)
+    if (out.dim() != 2 or tuple(out.shape) != (b, n)
+            or out.dtype != torch.uint8 or out.device != mask.device):
+        raise ValueError(
+            f"bitpack_mask: out must be a [{b}, {n}] uint8 view on "
+            f"{mask.device}; got {tuple(out.shape)} {out.dtype} on "
+            f"{out.device}"
+        )
+    if n and (out.stride(1) != 1 or (b > 1 and out.stride(0) < n)):
+        raise ValueError(
+            f"bitpack_mask: out's frames must be contiguous rows that do "
+            f"not overlap; got strides {out.stride()}"
+        )
+
+
+def bitpack_mask(mask: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Bitpack a ``[B, H, W]`` uint8 mask to ``[B, H, ceil(W/8)]`` uint8,
     MSB first: ``np.unpackbits(out, axis=-1)[..., :W]`` is the exact
     mask (any nonzero pixel is a set bit; a ragged tail packs as
-    zeros)."""
+    zeros).
+
+    ``out``, if given, is a ``[B, H * ceil(W/8)]`` uint8 view (each frame
+    one contiguous run of bytes, frames at any stride: a column range of
+    the packed payload rows) that receives the bits in place of a fresh
+    tensor, and is returned."""
+    if out is not None:
+        _check_out(out, mask)
     if mask.device.type == "cpu":
-        return bitpack_mask_plain(mask)
+        bits = bitpack_mask_plain(mask)
+        if out is None:
+            return bits
+        return out.copy_(bits.reshape(out.shape))
     if mask.dim() != 3 or mask.dtype != torch.uint8:
         raise ValueError(
             f"bitpack_mask: want a [B, H, W] uint8 mask; got "
@@ -116,14 +153,22 @@ def bitpack_mask(mask: torch.Tensor) -> torch.Tensor:
         )
     mask = mask.contiguous()
     b, h, w = mask.shape
-    out = torch.empty((b, h, packed_row_bytes(w)), dtype=torch.uint8,
-                      device=mask.device)
+    if b * h * w >= MAX_PIXELS:
+        raise ValueError(
+            f"bitpack_mask: {b * h * w} pixels; the kernel's 32-bit indices "
+            f"take fewer than {MAX_PIXELS}")
+    if out is None:
+        result = out = torch.empty((b, h, packed_row_bytes(w)),
+                                   dtype=torch.uint8, device=mask.device)
+        stride = h * packed_row_bytes(w)
+    else:
+        result, stride = out, out.stride(0)
     fn = build.function("bitpack_mask", *_SIGNATURES["bitpack_mask"])
-    err = fn(mask.data_ptr(), out.data_ptr(), b * h, w,
+    err = fn(mask.data_ptr(), out.data_ptr(), b, h, w, stride,
              torch.cuda.current_stream(mask.device).cuda_stream)
     build.check("bitpack_mask", err)
     graphs.count_launch(bitpack_mask)
-    return out
+    return result
 
 
 bitpack_mask.launches = 0

@@ -96,8 +96,9 @@ def pack_analysis(out: FrameAnalysis, *, n_pts: int) -> torch.Tensor:
     lo = pack.HEADER_BYTES + side.shape[1]
     row[:, :pack.HEADER_BYTES] = header
     row[:, pack.HEADER_BYTES:lo] = side
-    row[:, lo:lo + h * pack.packed_row_bytes(w)] = pack.bitpack_mask(
-        out.mask).reshape(b, -1)
+    # the bits land in the row itself: no packed tensor, no copy
+    bits = row[:, lo:lo + h * pack.packed_row_bytes(w)]
+    pack.bitpack_mask(out.mask, out=bits)
     return row
 
 

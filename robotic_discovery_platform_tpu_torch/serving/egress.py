@@ -18,8 +18,9 @@ import zlib
 from typing import Callable
 
 import numpy as np
+import torch
 
-from robotic_discovery_platform_tpu_torch.ops import pack
+from robotic_discovery_platform_tpu_torch.ops import geometry, pack, pipeline
 
 #: ``AnalysisRequest.mask_format`` wire values (protos/vision.proto)
 MASK_FORMAT_PNG = 0
@@ -203,6 +204,31 @@ class PackedResult:
     def unpack_mask(self) -> np.ndarray:
         """[H, W] uint8 0/1 mask, the exact mask the analyzer emitted."""
         return np.unpackbits(self.mask_bits, axis=1)[:, :self.w]
+
+    def to_analysis(self):
+        """The row as an unbatched :class:`ops.pipeline.FrameAnalysis` of
+        CPU tensors (the diagnostic profile fields zeroed, the spline zeros
+        when invalid): what the warm-up parity gate reads off a packed
+        path's result. Mask and scalars are exact through the pack."""
+        coverage, mean_k, max_k, valid, margin = self.scalars()
+        zero = torch.zeros((), dtype=torch.int32)
+        spline = (self.spline() if valid
+                  else np.zeros((self.n_pts, 3), np.float32))
+        prof = geometry.CurvatureProfile(
+            mean_curvature=torch.tensor(mean_k, dtype=torch.float32),
+            max_curvature=torch.tensor(max_k, dtype=torch.float32),
+            spline_points=torch.from_numpy(spline),
+            valid=torch.tensor(valid),
+            num_cloud_points=zero,
+            num_edge_points=zero,
+            truncated=torch.tensor(False),
+        )
+        return pipeline.FrameAnalysis(
+            mask=torch.from_numpy(self.unpack_mask()),
+            mask_coverage=torch.tensor(coverage, dtype=torch.float32),
+            profile=prof,
+            confidence_margin=torch.tensor(margin, dtype=torch.float32),
+        )
 
     def release(self) -> None:
         """Return this row's share of the staging buffer. Idempotent."""

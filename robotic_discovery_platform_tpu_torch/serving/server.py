@@ -32,9 +32,16 @@ protobuf; ``serving/grpc_service.py`` puts it behind a gRPC server.
 
 :func:`build_service` makes a servicer from the settings alone: with no
 forward it loads the registered model (:func:`resolve_serving_model`: the
-``model_alias`` version first, else the latest) and folds it onto the
-kernels. Hot reload of a newly registered version is not ported (ROADMAP
-queue 1 item 5).
+``model_alias`` version first, else the latest), transforms it for the
+precision tier (``ServerConfig.precision`` or ``RDP_PRECISION``,
+``ops/quant.py``) and folds it onto the kernels. A bf16 or int8 tier
+must pass its parity gate at the end of :meth:`VisionAnalysisService.
+warmup` (golden frames through the untransformed net against the served
+path) or the servicer refuses to come up. Hot reload of a newly
+registered version, and the re-quantization it brings, are not ported
+(ROADMAP queue 1 item 5); neither are the JAX package's
+``rdp_quant_parity_*`` gauges (item 23) or its per-zoo-model gates (item
+12).
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ import torch
 
 from robotic_discovery_platform_tpu_torch import tracking
 from robotic_discovery_platform_tpu_torch.io.frames import load_calibration
-from robotic_discovery_platform_tpu_torch.ops import pipeline
+from robotic_discovery_platform_tpu_torch.models.unet import UNet
+from robotic_discovery_platform_tpu_torch.ops import pipeline, quant
 from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
 from robotic_discovery_platform_tpu_torch.serving import (
     egress,
@@ -161,6 +169,10 @@ class VisionAnalysisService:
             cfg.geometry_stride``).
         metrics: the metrics writer (default: one on ``cfg.metrics_csv``).
         device: where frames are analyzed.
+        pristine: the untransformed net that ``forward`` was made from at a
+            bf16 or int8 tier (:func:`build_service` passes it): the
+            warm-up's parity gate runs it as the f32 reference. A non-f32
+            tier without it raises ``ValueError``.
     """
 
     def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor],
@@ -169,8 +181,21 @@ class VisionAnalysisService:
                  cfg: ServerConfig = ServerConfig(),
                  geom_cfg: GeometryConfig | None = None,
                  metrics: MetricsWriter | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 pristine: UNet | None = None):
         check_supported(cfg)
+        # resolved once (RDP_PRECISION overrides the field)
+        self.precision = quant.resolve_precision(cfg.precision)
+        if self.precision != "f32" and pristine is None:
+            raise ValueError(
+                f"precision {self.precision!r} needs the untransformed net "
+                "for its warm-up parity gate; a servicer given only a "
+                "forward serves 'f32' (build_service transforms the "
+                "registered model and keeps it)"
+            )
+        self._pristine = pristine
+        #: the warm-up parity gate's report (None at f32 and before warmup)
+        self.parity: dict | None = None
         self.cfg = cfg
         self.device = resolve_device(device)
         self.geom_cfg = (geom_cfg if geom_cfg is not None
@@ -251,19 +276,25 @@ class VisionAnalysisService:
                 f"depth frame is {depth.shape[1]}x{depth.shape[0]}; color "
                 f"frame is {w}x{h}"
             )
-        if self.dispatcher is not None:
-            submit = (self.dispatcher.submit_coef if coef
-                      else self.dispatcher.submit)
-            packed = submit(rgb, depth, self._camera(w, h), self.depth_scale)
-        else:
-            with _device_scope(self.device):
-                k, scale = self._staged_geometry(w, h)
-                analyze = self.analyze_coef if coef else self.analyze
-                packed = egress.PackedResult(analyze(rgb, depth, k, scale))
+        packed = self._packed(rgb, depth)
         try:
             return _fields(packed, h, w, mask_format)
         finally:
             packed.release()
+
+    def _packed(self, rgb, depth: np.ndarray) -> egress.PackedResult:
+        """One frame's packed row, from the path the servicer serves
+        (:meth:`analyze_frame`)."""
+        h, w = rgb.shape[:2]
+        coef = isinstance(rgb, entropy.CoefficientFrame)
+        if self.dispatcher is not None:
+            submit = (self.dispatcher.submit_coef if coef
+                      else self.dispatcher.submit)
+            return submit(rgb, depth, self._camera(w, h), self.depth_scale)
+        with _device_scope(self.device):
+            k, scale = self._staged_geometry(w, h)
+            analyze = self.analyze_coef if coef else self.analyze
+            return egress.PackedResult(analyze(rgb, depth, k, scale))
 
     def analyze_stream(self, requests: Iterable,
                        active: Callable[[], bool] = lambda: True
@@ -316,7 +347,9 @@ class VisionAnalysisService:
         the geometry is captured (``ops/graphs.py``; a capture is checked
         for this thread's calls only, so handler and dispatcher threads
         may already run). With on-chip decode on, the coefficient lane
-        too (:meth:`warmup_coef`)."""
+        too (:meth:`warmup_coef`). A bf16 or int8 tier then runs its
+        parity gate (:meth:`_parity_gate`), which raises ``RuntimeError``
+        when the tier fails it."""
         with _device_scope(self.device):
             if self.dispatcher is None:
                 self.analyze_frame(np.zeros((height, width, 3), np.uint8),
@@ -331,9 +364,61 @@ class VisionAnalysisService:
                         np.full((b,), self.depth_scale, np.float32))
             if self.onchip:
                 self.warmup_coef(width, height)
+            # after every capture of the warm-up: the gate replays the
+            # served graphs and runs its reference without one
+            self._parity_gate(width, height)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         log.info("warmed up %dx%d analyzer on %s", width, height, self.device)
+
+    def _parity_gate(self, width: int, height: int) -> None:
+        """The warm-up parity gate of a bf16 or int8 tier (none at f32):
+        ``quant_parity_frames`` golden frames of the camera's size through
+        a reference analyzer of the untransformed net, run eagerly (no
+        graph capture, no capture budget, no graph memory), and through
+        the path the servicer serves (the direct packed analyzer, or the
+        dispatcher), compared by ``ops/quant.parity_report``. Fails
+        closed: raises ``RuntimeError`` below ``quant_parity_min_iou`` or
+        above ``quant_parity_max_curv_err``; the report of a passing gate
+        is kept in ``self.parity``. Runs inside :meth:`warmup`'s device
+        scope."""
+        if self.precision == "f32":
+            return
+        cfg = self.cfg
+        ref = pipeline.make_frame_analyzer(
+            FoldedUNet(self._pristine, device=self.device),
+            img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
+            device=self.device)
+        k = self._camera(width, height)
+        scale = np.float32(self.depth_scale)
+        refs, gots = [], []
+        for rgb, depth in quant.golden_frames(cfg.quant_parity_frames,
+                                              height, width):
+            refs.append(ref.eager(rgb, depth, k, scale))
+            packed = self._packed(rgb, depth)
+            try:
+                gots.append(packed.to_analysis())
+            finally:
+                packed.release()
+        report = quant.parity_report(refs, gots)
+        if not quant.parity_gates_pass(report, cfg.quant_parity_min_iou,
+                                       cfg.quant_parity_max_curv_err):
+            raise RuntimeError(
+                f"{self.precision} serving of model {cfg.model_name!r} "
+                f"failed its parity gate vs the f32 goldens: mean IoU "
+                f"{report['mask_iou_mean']:.4f} "
+                f"(floor {cfg.quant_parity_min_iou}), max |d curvature| "
+                f"{report['curvature_err_max']:.4f} (ceiling "
+                f"{cfg.quant_parity_max_curv_err}) over "
+                f"{report['frames']} frames"
+            )
+        log.info(
+            "%s parity gate passed for %s: mean IoU %.4f, curvature err "
+            "mean %.4g / max %.4g over %d goldens", self.precision,
+            cfg.model_name, report["mask_iou_mean"],
+            report["curvature_err_mean"], report["curvature_err_max"],
+            report["frames"])
+        self.parity = report
 
     def warmup_coef(self, width: int, height: int,
                     subsampling: str = "420") -> None:
@@ -380,12 +465,23 @@ def build_service(cfg: ServerConfig, forward=None, *,
     from ``cfg.calibration_path`` (intrinsics and depth scale) when that
     file exists, else the focal-length default and
     ``cfg.default_depth_scale``. ``warmup_shape`` = (width, height) runs
-    blank frames first.
+    blank frames first, then a bf16 or int8 tier's parity gate (a failed
+    gate closes the servicer and raises).
+
+    At a bf16 or int8 tier (``cfg.precision``, overridden by
+    ``RDP_PRECISION``) the registered net is transformed
+    (``ops/quant.apply_precision``) and folded, and the untransformed net
+    is kept for the gate. A caller's own ``forward`` serves only at f32
+    (there is no untransformed net to gate it against): another tier
+    raises ``ValueError``.
     """
-    version = None
+    version = net = report = None
     if forward is None:
         _, net, version = resolve_serving_model(cfg, device=device)
-        forward = FoldedUNet(net, device=device)
+        served, report = quant.apply_precision(net, cfg.precision)
+        if report is not None:
+            log.info("serving precision tier %s: %s", report["tier"], report)
+        forward = FoldedUNet(served, device=device)
     intrinsics, depth_scale = None, cfg.default_depth_scale
     try:
         mtx, _, scale = load_calibration(cfg.calibration_path)
@@ -397,8 +493,13 @@ def build_service(cfg: ServerConfig, forward=None, *,
         log.warning("no calibration at %s (%s); using focal-length defaults",
                     cfg.calibration_path, exc)
     service = VisionAnalysisService(forward, intrinsics, depth_scale, cfg,
-                                    geom_cfg, device=device)
+                                    geom_cfg, device=device,
+                                    pristine=None if report is None else net)
     service.model_version = version
     if warmup_shape is not None:
-        service.warmup(*warmup_shape)
+        try:
+            service.warmup(*warmup_shape)
+        except BaseException:
+            service.close()
+            raise
     return service

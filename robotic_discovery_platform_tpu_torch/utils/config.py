@@ -7,7 +7,6 @@ parsing for them.
 Settings the port does not implement yet raise ``NotImplementedError`` in
 :func:`check_supported`, naming the ROADMAP item that brings them:
 
-- ``ServerConfig.precision`` other than ``"f32"`` (precision tiers);
 - on the batched path (``batch_window_ms > 0``): ``batch_impl="scan"``,
   ``serving_mesh > 1`` (the multi-device router), ``egress_pack=False``,
   ``egress_workers > 0`` (the encode pool) and the JAX package's
@@ -38,8 +37,12 @@ PLAIN_CONV_IMPLS = ("flax", "xla")
 #: ``TrainConfig.epoch_mode`` values, the JAX package's names
 EPOCH_MODES = ("auto", "scan", "stream")
 
+#: ``ServerConfig.precision`` tiers, the JAX package's names
+#: (``ops/quant.py``; ``RDP_PRECISION`` overrides the field on either path,
+#: ``ops/quant.resolve_precision``)
+PRECISIONS = ("f32", "bf16", "int8")
+
 #: the JAX package's environment overrides of batched-serving settings
-#: (``RDP_PRECISION`` is refused with the precision tiers)
 _BATCH_ENV_OVERRIDES = ("RDP_INFLIGHT", "RDP_SERVING_CHIPS",
                         "RDP_DISPATCH_MODE", "RDP_EGRESS_WORKERS")
 
@@ -160,7 +163,18 @@ class ServerConfig:
     # "fifo" rejects the newcomer (serving/admission.py)
     admission_policy: str = "deadline"
     geometry_stride: int = 1
+    # serving precision tier (ops/quant.py): "f32" serves the model as
+    # configured; "bf16" computes activations in bfloat16; "int8" also
+    # puts every conv kernel on a per-output-channel int8 grid. The
+    # RDP_PRECISION environment variable overrides it.
     precision: str = "f32"
+    # warm-up parity gate of a bf16/int8 tier (ignored at f32): golden
+    # frames through an f32 reference and the tier's path; the server
+    # refuses to come up below the mean mask IoU floor or above the worst
+    # |delta curvature| (1/m) ceiling
+    quant_parity_frames: int = 4
+    quant_parity_min_iou: float = 0.90
+    quant_parity_max_curv_err: float = 0.5
     # on-chip split JPEG decode: baseline-JPEG color payloads are
     # entropy-decoded on the host (serving/entropy.py) and ride the
     # coefficient lane; the RDP_ONCHIP_DECODE environment variable
@@ -212,10 +226,10 @@ def check_supported(cfg: Any) -> None:
     if isinstance(cfg, GeometryConfig):
         resolve_kernel_impl(cfg.kernel_impl)
     if isinstance(cfg, ServerConfig):
-        if cfg.precision != "f32":
-            raise NotImplementedError(
-                f"ServerConfig.precision={cfg.precision!r}: precision tiers "
-                "are ROADMAP queue 1 item 8; use 'f32'"
+        if cfg.precision.strip().lower() not in PRECISIONS:
+            raise ValueError(
+                f"unknown precision {cfg.precision!r} (choose from "
+                f"{PRECISIONS})"
             )
         if cfg.batch_window_ms > 0:
             _check_batched(cfg)

@@ -181,10 +181,17 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         with pytest.raises(ValueError, match="unknown kernel_impl"):
             config.check_supported(config.GeometryConfig(kernel_impl="cuda"))
     elif case == "precision_bf16":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        # the tiers are served (tests/test_torch_port_quant.py), but only
+        # with the untransformed net for the warm-up gate; an unknown tier
+        # is refused
+        monkeypatch.delenv("RDP_PRECISION", raising=False)
+        with pytest.raises(ValueError, match="untransformed net"):
             VisionAnalysisService(lambda x: x,
                                   cfg=config.ServerConfig(precision="bf16"),
                                   device="cpu")
+        config.check_supported(config.ServerConfig(precision="bf16"))
+        with pytest.raises(ValueError, match="unknown precision"):
+            config.check_supported(config.ServerConfig(precision="fp4"))
     elif case == "batch_window":
         # batched serving builds (and stops) with the JAX package's defaults
         cfg = config.ServerConfig(batch_window_ms=2.0,

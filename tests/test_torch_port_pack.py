@@ -23,13 +23,18 @@ from robotic_discovery_platform_tpu_torch.ops import pipeline as tpipe
 from robotic_discovery_platform_tpu_torch.serving import egress
 
 
+def _mask(shape, seed):
+    """A mask of values drawn from {0, 1, 7, 255}."""
+    values = np.array([0, 1, 7, 255], np.uint8)
+    return values[np.random.default_rng(seed).integers(0, 4, shape)]
+
+
 @pytest.mark.parametrize("b,h,w", [(1, 5, 1), (2, 7, 7), (3, 4, 8),
                                    (2, 6, 9), (1, 11, 13), (2, 3, 160),
-                                   (1, 2, 641)])
+                                   (1, 2, 641), (3, 37, 53), (2, 5, 33),
+                                   (1, 480, 640), (8, 24, 640)])
 def test_bitpack_matches_packbits_and_jax(b, h, w):
-    rng = np.random.default_rng(b * h * w)
-    values = np.array([0, 1, 7, 255], np.uint8)
-    mask = values[rng.integers(0, 4, (b, h, w))]
+    mask = _mask((b, h, w), b * h * w)
     want = np.packbits(mask != 0, axis=-1)
     launches = tpack.bitpack_mask.launches
     got = tpack.bitpack_mask(torch.from_numpy(mask))
@@ -41,6 +46,61 @@ def test_bitpack_matches_packbits_and_jax(b, h, w):
         np.asarray(jpack.bitpack_mask(jnp.asarray(mask), impl="interpret")))
     np.testing.assert_array_equal(
         np.unpackbits(got.numpy(), axis=-1)[..., :w], (mask != 0))
+
+
+@pytest.mark.parametrize("b,h,w,pitch,lo", [
+    (8, 24, 640, 3200, 36 + 12 * 100), (1, 480, 640, 39680, 1236),
+    (3, 37, 53, 400, 48), (2, 5, 33, 31, 3), (2, 4, 7, 5, 1)])
+def test_bitpack_into_a_strided_view(b, h, w, pitch, lo):
+    """``out=`` a column range of [B, pitch] rows (the payload rows'
+    layout): the bits land there, every other byte is untouched, the view
+    is returned, and the CPU path counts no launch."""
+    mask = _mask((b, h, w), h + w)
+    n = h * tpack.packed_row_bytes(w)
+    rows = torch.full((b, pitch), 0xA5, dtype=torch.uint8)
+    view = rows[:, lo:lo + n]
+    launches = tpack.bitpack_mask.launches
+    got = tpack.bitpack_mask(torch.from_numpy(mask), out=view)
+    assert tpack.bitpack_mask.launches == launches
+    assert got.data_ptr() == view.data_ptr() and got.shape == (b, n)
+    want = rows.clone()
+    want[:, lo:lo + n] = torch.from_numpy(
+        np.packbits(mask != 0, axis=-1).reshape(b, n))
+    assert torch.equal(rows, want)
+
+
+def test_bitpack_out_must_fit():
+    mask = torch.zeros((2, 3, 16), dtype=torch.uint8)
+    rows = torch.zeros((2, 64), dtype=torch.uint8)
+    # a short row, one frame, int16, strided bytes, overlapping frames
+    for bad in (rows[:, :5], rows[:1, :6], rows[:, :6].to(torch.int16),
+                rows[:, ::2][:, :6], rows.as_strided((2, 6), (3, 1))):
+        with pytest.raises(ValueError, match="bitpack_mask: out"):
+            tpack.bitpack_mask(mask, out=bad)
+
+
+# -- the word path's gathering multiply ---------------------------------------
+
+
+@pytest.mark.parametrize("pattern", range(16))
+def test_nibble_multiply_gathers_without_carries(pattern):
+    """csrc/bitpack_mask.cu's ``nibble``: after the compare each of a
+    word's four bytes holds its pixel's bit at bit 8k (pixel k in byte k,
+    little-endian); the multiply by 2^31 + 2^22 + 2^13 + 2^4 puts pixel k
+    at bit 31 - k, MSB first, and no two partial products share a bit, so
+    the product is their OR (no carry reaches the top nibble). The card's
+    bitwise checks hold the kernel itself (chip_smoke.bitpack_phase)."""
+    pixels = [(pattern >> (3 - k)) & 1 for k in range(4)]  # pixel 0 first
+    bits = sum(p << (8 * k) for k, p in enumerate(pixels))
+    terms = [1 << 31, 1 << 22, 1 << 13, 1 << 4]
+    product = bits * sum(terms)
+    partials = [bits * t for t in terms]
+    ored = 0
+    for part in partials:
+        assert ored & part == 0
+        ored |= part
+    assert product == ored
+    assert ((product & 0xFFFFFFFF) >> 28) == pattern
 
 
 @pytest.mark.parametrize("h,w,n", [(480, 640, 100), (7, 13, 3), (1, 1, 0),
@@ -90,8 +150,12 @@ def _analysis(mod, geom, leaves, to):
                              confidence_margin=to(leaves["margin"]))
 
 
-@pytest.mark.parametrize("b,h,w", [(3, 120, 160), (2, 9, 13)])
+@pytest.mark.parametrize("b,h,w", [(3, 120, 160), (2, 9, 13), (2, 48, 640),
+                                   (2, 37, 53)])
 def test_pack_analysis_rows_match_jax_and_parse_back(b, h, w):
+    """The rows byte-equal to the JAX package's (and so to the rows the
+    port built before its bits went straight into the row: those were
+    checked equal to the JAX package's here), and parsed back exactly."""
     n_pts = 100
     leaves = _leaves(b, h, w, n_pts, b + h)
     want = np.asarray(jpipe.pack_analysis(
