@@ -104,7 +104,21 @@ mismatch raises and the script exits non-zero:
    directly and batched, the training conv at the ladder's new shapes,
    one train step (no conv_transpose2x2 launch: training runs the plain
    transposed conv), and ``train_model`` for one epoch into a temporary
-   registry with a server built from it (phase 6's last leg).
+   registry with a server built from it (phase 6's last leg);
+9. a server that can be deployed (``deploy_phase``): two registered
+   versions of ``ModelConfig()`` served by ``grpc_service.build_server``
+   with a metrics endpoint, directly and batched, each leg under 8 live
+   streams while the ``staging`` alias moves 40 times: health over gRPC,
+   every response one version's answer, each new generation on streams
+   no live generation held (and few streams in all: they are handed on),
+   every swapped-out generation collected, ``memory_allocated`` and
+   ``memory_reserved`` back within DEPLOY_SLACK and
+   DEPLOY_RESERVED_SLACK, each graph pool holding only its graphs'
+   outputs,
+   ``/metrics``, ``/debug/events``, ``/debug/profile`` during traffic,
+   drain with a stream in flight and the shutdown order; with the
+   seconds from an alias move to the swap, ``proc_time_ms`` in reload
+   windows and steady, frames/s and memory.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
@@ -114,8 +128,9 @@ The line before the last is the kernels' JSON record, the last line
 runs one phase alone (any of ``PHASES``: ``kernel_phase``,
 ``conv1x1_kernel_phase``, ``convt_kernel_phase``, ``decode_kernel_phase``,
 ``geometry_kernel_phase``, ``train_kernel_phase``, ``graph_phase``,
-``bitpack_phase``, ``bitpack_timing_phase``, ``precision_phase`` or
-``trained_tier_phase``, which ``main`` does not run): its
+``bitpack_phase``, ``bitpack_timing_phase``, ``precision_phase``,
+``deploy_phase`` or ``trained_tier_phase``, which ``main`` does not
+run): its
 log lines, then its results as one JSON line. To compare a change with
 its parent on one card, unpack the parent (``git archive``) into a
 git-ignored directory and run the phase in each root in turns: parent,
@@ -124,6 +139,7 @@ change, change, parent.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -131,6 +147,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -1503,9 +1520,9 @@ def kernel_record(results: dict, launches: dict) -> dict:
 # -- phase 3: the analyzer ---------------------------------------------------
 
 
-def seeded_model(torch, port, x0, cfg=None):
+def seeded_model(torch, port, x0, cfg=None, seed: int = SEED):
     """Full-width model (default: the default model; ``cfg`` for another)
-    with conv weights from a seeded generator
+    with conv weights from a generator seeded with ``seed``
     and BatchNorm statistics as a trained network keeps them: each
     layer's mean and variance measured on its input for frame 0 (a float32
     forward, layer by layer), perturbed from a numpy seed, with scale and
@@ -1517,11 +1534,11 @@ def seeded_model(torch, port, x0, cfg=None):
     mask, not an all-or-nothing one."""
     cfg = port.ModelConfig() if cfg is None else cfg
     net = port.UNet(cfg).init_weights(
-        torch.Generator().manual_seed(SEED)).eval()
+        torch.Generator().manual_seed(seed)).eval()
     calib = port.UNet(dataclasses.replace(cfg, compute_dtype="float32")).eval()
     calib.load_state_dict(net.state_dict())
     calib = calib.to("cuda")
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
 
     def calibrate(bn, inputs):
         x = inputs[0].double().reshape(-1, inputs[0].shape[-1])
@@ -3549,10 +3566,526 @@ def scan_resume_leg(torch, port) -> None:
 
 
 #: the phases ``--phase`` runs alone
+# -- phase 9: a server that can be deployed ------------------------------------
+
+#: alias moves per leg: more than the 32 side streams PyTorch's pool hands
+#: out per device and priority, so a capture that could land on a stream
+#: a live graph cache uses would
+DEPLOY_RELOADS = 40
+#: memory_allocated after the last reload, its grace period and a
+#: collection may differ from its value after the first generation's
+#: warm-up by at most this many bytes: a generation left reachable holds
+#: its folded weights (about 35 MB in bf16) and graph outputs, far more;
+#: set before the phase's first run: memory_allocated, and (set before
+#: its first check) memory_reserved, after the last reload against their
+#: values after the first warm-up
+DEPLOY_SLACK = 4 * 2**20
+DEPLOY_RESERVED_SLACK = 128 * 2**20
+DEPLOY_GRACE_S = 0.5  # reload_grace_s of the phase's servers
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(port: int, path: str, timeout: float = 30.0) -> bytes:
+    """GET ``path`` from the phase's own metrics endpoint on localhost."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://localhost:{port}{path}",
+                                timeout=timeout) as resp:
+        return resp.read()
+
+
+def metric_value(text: str, name: str, **labels) -> float:
+    """The sample of ``name`` with exactly ``labels`` (in any order) in a
+    /metrics page (0.0 when absent)."""
+    for line in text.splitlines():
+        key, _, value = line.rpartition(" ")
+        family, _, rest = key.partition("{")
+        if family != name:
+            continue
+        got = dict(re.findall(r'(\w+)="([^"]*)"', rest))
+        if got == {k: str(v) for k, v in labels.items()}:
+            return float(value)
+    return 0.0
+
+
+def graph_pool_report(torch) -> str:
+    """The caching allocator's CUDA graph pools: their segments, and the
+    blocks still allocated in them (a block left allocated keeps its whole
+    pool reserved)."""
+    segments = [s for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0)]
+    held = [b["size"] for s in segments for b in s["blocks"]
+            if b["state"] == "active_allocated"]
+    pools = {tuple(s["segment_pool_id"]) for s in segments}
+    return (f"{len(pools)} graph pools in {len(segments)} segments, "
+            f"{sum(s['total_size'] for s in segments) / 2**20:.1f} MiB, "
+            f"{len(held)} blocks allocated in them "
+            f"({sum(held) / 2**20:.2f} MiB; largest "
+            f"{sorted(held)[-3:]})")
+
+
+def check_graph_pools(torch, caches: list, what: str) -> int:
+    """Each cache's private graph pool holds, allocated, exactly its live
+    graphs' static outputs: everything else a capture allocated was freed
+    inside the pool, and no other thread's allocation (serving threads
+    allocate while a reload captures) landed there. Returns the blocks
+    checked."""
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+
+    segments = torch.cuda.memory_snapshot()
+    checked = 0
+    for cache in caches:
+        if cache._pool is None:
+            continue
+        held = sorted(b["address"] for s in segments
+                      if tuple(s.get("segment_pool_id", (0, 0)))
+                      == tuple(cache._pool)
+                      for b in s["blocks"] if b["state"] == "active_allocated")
+        outputs = []
+        for _, cap in cache.graphs.values():
+            graphs.tree_map(lambda t: outputs.append(
+                t.untyped_storage().data_ptr()), cap.outputs)
+        check(held == sorted(outputs),
+              f"{what}: graph pool {cache._pool} holds {len(held)} blocks, "
+              f"its graphs' outputs are {len(outputs)}")
+        checked += len(held)
+    return checked
+
+
+def cache_streams(engine) -> list:
+    """Every graph cache of one servicer generation (``serving.server.
+    Engine``): the direct analyzers', and the dispatcher's analyzers'."""
+    analyzers = [engine.analyze, engine.analyze_coef]
+    if engine.dispatcher is not None:
+        analyzers += engine.dispatcher.analyzers()
+    return [a.graphs for a in analyzers]
+
+
+def stream_handles(caches) -> set:
+    """The streams graph caches warm, capture and replay on (those that
+    ran on the card)."""
+    return {c.stream_handle for c in caches} - {None}
+
+
+def generation_refs(engine) -> list:
+    """Weak references to what holds one generation's memory: its graph
+    caches and its folded weights."""
+    return [weakref.ref(x) for x in (*cache_streams(engine), engine.forward)]
+
+
+def deploy_leg(torch, port, uri: str, tmp: Path, requests: list,
+               expect: dict, batched: bool, profile: bool) -> dict:
+    """One server from the registry at ``uri`` (``build_server`` with a
+    640x480 warm-up and a metrics endpoint), 8 closed-loop streams
+    through ``analyze_stream`` while the ``staging`` alias moves
+    between versions 1 and 2 DEPLOY_RELOADS times, then the checks of
+    ``deploy_phase``; returns the leg's figures."""
+    import gc
+    import threading
+
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.observability import journal
+    from robotic_discovery_platform_tpu_torch.serving import (
+        grpc_service,
+        health,
+    )
+    from robotic_discovery_platform_tpu_torch.serving.proto import (
+        health_pb2,
+        vision_grpc,
+        vision_pb2,
+    )
+
+    leg = "batched" if batched else "direct"
+    name = port.ServerConfig().model_name
+    store = tracking.store_for(uri)
+    store.set_alias(name, "staging", 1)
+    mport = free_port()
+    cfg = port.ServerConfig(
+        address="localhost:0", tracking_uri=uri,
+        metrics_csv=str(tmp / f"{leg}.csv"),
+        calibration_path=str(tmp / "none.npz"), reload_poll_s=0.2,
+        reload_grace_s=DEPLOY_GRACE_S, drain_grace_s=5.0,
+        metrics_port=mport, batch_window_ms=2.0 if batched else 0.0,
+        max_batch=MAX_BATCH)
+    cursor = journal.JOURNAL.snapshot()["next_cursor"]
+    server, servicer = grpc_service.build_server(
+        cfg, warmup_shape=(FRAME_W, FRAME_H), device="cuda")
+    server.start()
+    channel = grpc.insecure_channel(f"localhost:{servicer.bound_port}")
+    hstub = health.HealthStub(channel)
+    for service in ("", "evofab.vision.VisionAnalysisService"):
+        status = hstub.Check(health_pb2.HealthCheckRequest(
+            service=service), timeout=30).status
+        check(status == health.SERVING,
+              f"{leg}: health of {service!r} is {status} after warm-up")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()  # what earlier phases left cached
+    mem0 = torch.cuda.memory_allocated()
+    res0 = torch.cuda.memory_reserved()
+    page0 = http_get(mport, "/metrics").decode()
+    before = {st: metric_value(page0, "rdp_frames_total", model="seg",
+                               status=st) for st in ("ok", "degraded")}
+
+    stop = threading.Event()
+    got: list = [[] for _ in range(STREAMS)]  # (t, frame index, response)
+    errors: list = []
+
+    def stream(i: int) -> None:
+        order = [(i + j) % len(requests) for j in range(len(requests))]
+
+        def feed():
+            n = 0
+            while not stop.is_set():
+                yield requests[order[n % len(order)]]
+                n += 1
+
+        try:
+            n = 0
+            for resp in servicer.analyze_stream(feed()):
+                got[i].append((time.perf_counter(), order[n % len(order)],
+                               resp))
+                n += 1
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=stream, args=(i,), daemon=True)
+               for i in range(STREAMS)]
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    profile_out: dict = {}
+    if profile:
+        def take_profile():
+            try:
+                profile_out["reply"] = json.loads(
+                    http_get(mport, "/debug/profile?seconds=1", timeout=120))
+            except BaseException as exc:  # noqa: BLE001 - checked below
+                profile_out["error"] = exc
+
+        profiler = threading.Thread(target=take_profile, daemon=True)
+    swaps, windows, disjoint = [], [], 0
+    version = 1
+    # every generation that went live, and the streams each ran on
+    generations = [generation_refs(servicer._engine)]
+    handles = [stream_handles(cache_streams(servicer._engine))]
+    per_generation = len(handles[0])
+    for k in range(DEPLOY_RELOADS):
+        if profile and k == DEPLOY_RELOADS // 2:
+            profiler.start()  # a profile while reloads capture
+        prev = servicer._engine
+        target = 2 if version == 1 else 1
+        t0 = time.perf_counter()
+        store.set_alias(name, "staging", target)
+        deadline = t0 + 120
+        while servicer.current_version != target:
+            check(time.perf_counter() < deadline,
+                  f"{leg}: no swap to version {target} within 120 s")
+            check(not errors, f"{leg}: a stream failed: {errors[:1]}")
+            time.sleep(0.001)
+        t1 = time.perf_counter()
+        swaps.append(t1 - t0)
+        windows.append((t0, t1, target))
+        version = target
+        # the new generation warmed and captured on streams that no
+        # generation still alive holds: the one it replaced, and those
+        # whose grace has not ended
+        eng = servicer._engine
+        new = stream_handles(cache_streams(eng))
+        check(len(new) == per_generation,
+              f"{leg} reload {k}: the new generation ran on {len(new)} "
+              f"streams, the first on {per_generation}")
+        live = stream_handles(
+            c for refs in generations for c in (r() for r in refs[:-1])
+            if c is not None)
+        check(stream_handles(cache_streams(prev)) <= live,
+              f"{leg} reload {k}: the replaced generation's streams are "
+              "not among the live ones")
+        check(not new & live, f"{leg} reload {k}: the new generation "
+              f"captured on streams {new & live} of a live one")
+        disjoint += 1
+        generations.append(generation_refs(eng))
+        handles.append(new)
+        del prev, eng
+    if profile:
+        profiler.join(timeout=180)
+    time.sleep(0.5)  # frames served by the last swap's version
+    t_end = time.perf_counter()
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    check(not errors, f"{leg}: a stream failed: {errors[:1]}")
+    check(not any(t.is_alive() for t in threads), f"{leg}: a stream hung")
+    responses = [r for g in got for r in g]
+    n_frames = len(responses)
+
+    # every response OK and equal to v1's or v2's answer for its frame
+    served_by = []
+    for t, i, resp in responses:
+        mask = port.decode_mask_wire(resp.mask)
+        versions = [v for v in (1, 2)
+                    if np.array_equal(mask, expect[v][i][0])]
+        check(versions, f"{leg} frame {i}: mask equal to neither version's "
+              f"(status {resp.status!r})")
+        for v in versions:
+            _, mean_k, max_k, valid = expect[v][i]
+            check(resp.status == ("OK" if valid else
+                                  "DEGRADED: insufficient geometry"),
+                  f"{leg} frame {i}: status {resp.status!r}, version {v} "
+                  f"{'has' if valid else 'lacks'} its geometry")
+            check(not valid or np.allclose(
+                [resp.mean_curvature, resp.max_curvature], [mean_k, max_k],
+                rtol=GEOM_RTOL, atol=0),
+                  f"{leg} frame {i}: curvature {resp.mean_curvature} vs "
+                  f"version {v}'s {mean_k} beyond rtol {GEOM_RTOL}")
+        served_by.append((t, versions))
+    statuses = collections.Counter(resp.status for _, _, resp in responses)
+    ends = [w[1] for w in windows[1:]] + [t_end]
+    for k, ((_, t1, v), t_next) in enumerate(zip(windows, ends)):
+        check(any(t1 <= t <= t_next and vs == [v] for t, vs in served_by),
+              f"{leg}: no frame served by version {v} after swap {k}")
+    in_reload = [resp.proc_time_ms for t, _, resp in responses
+                 if any(a <= t <= b for a, b, _ in windows)]
+    steady = [resp.proc_time_ms for t, _, resp in responses
+              if not any(a <= t <= b for a, b, _ in windows)]
+
+    # the old generations are gone once their grace has passed, and the
+    # reloader's next polls return their graph memory to the card
+    time.sleep(DEPLOY_GRACE_S + 0.5)
+    uncollected = sum(any(r() is not None for r in refs)
+                      for refs in generations[:-1])
+    gc.collect()
+    time.sleep(4 * 0.2)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    res1 = torch.cuda.memory_reserved()
+    pools = graph_pool_report(torch)
+    pooled = check_graph_pools(torch, cache_streams(servicer._engine), leg)
+    torch.cuda.empty_cache()
+    res2 = torch.cuda.memory_reserved()
+    check(abs(mem1 - mem0) <= DEPLOY_SLACK,
+          f"{leg}: memory_allocated {mem1} after {DEPLOY_RELOADS} reloads "
+          f"vs {mem0} after the first warm-up: beyond the "
+          f"{DEPLOY_SLACK}-byte slack")
+    check(res1 <= res0 + DEPLOY_RESERVED_SLACK,
+          f"{leg}: memory_reserved {res1} after {DEPLOY_RELOADS} reloads "
+          f"and their grace vs {res0} after the first warm-up: beyond the "
+          f"{DEPLOY_RESERVED_SLACK}-byte slack")
+    alive = sum(any(r() is not None for r in refs)
+                for refs in generations[:-1])
+    check(alive == 0, f"{leg}: {alive} swapped-out generations still alive")
+    # streams are handed on: the second half of the reloads ran on
+    # streams the first half had used (the process may hold more free
+    # streams than two generations need, from earlier graph caches)
+    half = len(handles) // 2
+    used = set().union(*handles[:half])
+    fresh = set().union(*handles[half:]) - used
+    check(not fresh, f"{leg}: the last {len(handles) - half} generations "
+          f"ran on {len(fresh)} streams the first {half} never used")
+    n_streams = len(used | fresh)
+
+    page = http_get(mport, "/metrics").decode()
+    served = sum(metric_value(page, "rdp_frames_total", model="seg",
+                              status=st) - before[st]
+                 for st in ("ok", "degraded"))
+    ok = metric_value(page, "rdp_frames_total", model="seg",
+                      status="ok") - before["ok"]
+    check(served == n_frames and ok == statuses["OK"],
+          f"{leg}: /metrics counts {served} frames served ({ok} ok), want "
+          f"{n_frames} ({statuses['OK']} OK)")
+    inflight = metric_value(page, "rdp_inflight_streams")
+    check(inflight == 0, f"{leg}: rdp_inflight_streams {inflight} after "
+          "the streams ended")
+    if profile:
+        check("reply" in profile_out,
+              f"{leg}: /debug/profile failed: {profile_out.get('error')}")
+        trace_file = Path(profile_out["reply"]["profile_dir"]) / "trace.json"
+        names = kernel_functions()
+        seen = set()
+        for event in json.loads(trace_file.read_text()).get(
+                "traceEvents", []):
+            m = re.search(r"(\w+)\s*[<(]", str(event.get("name", "")).replace(
+                "(anonymous namespace)::", ""))
+            if m and m.group(1) in names:
+                seen.add(names[m.group(1)])
+        check({"conv3x3_bn_relu", "deproject_edge_stats"} <= seen,
+              f"{leg}: the profile taken during traffic shows the port's "
+              f"kernels {sorted(seen)}")
+        log(f"{leg}: /debug/profile?seconds=1 during reloads: "
+            f"{trace_file.stat().st_size} bytes, the port's kernels "
+            f"{sorted(seen)}")
+
+    # drain with one stream in flight
+    import queue
+
+    q: queue.Queue = queue.Queue()
+
+    def held():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            yield item
+
+    live = servicer.analyze_stream(held())
+    q.put(requests[0])
+    first = next(live)
+    check(first.status == "OK", f"{leg}: held stream status {first.status}")
+    drained: dict = {}
+
+    def drain():
+        t = time.perf_counter()
+        drained["ok"] = servicer.drain(timeout_s=30.0)
+        drained["s"] = time.perf_counter() - t
+
+    drainer = threading.Thread(target=drain, daemon=True)
+    drainer.start()
+    time.sleep(0.5)
+    check(drainer.is_alive() and servicer.active_streams == 1,
+          f"{leg}: drain returned with a stream in flight")
+    status = hstub.Check(health_pb2.HealthCheckRequest(), timeout=30).status
+    check(status == health.NOT_SERVING,
+          f"{leg}: health {status} while draining")
+    stub = vision_grpc.VisionAnalysisServiceStub(channel)
+    pb = vision_pb2.AnalysisRequest(
+        color_image=vision_pb2.Image(
+            data=requests[0].color_image.data, width=FRAME_W,
+            height=FRAME_H, format=1),
+        depth_image=vision_pb2.Image(
+            data=requests[0].depth_image.data, width=FRAME_W,
+            height=FRAME_H, format=1))
+    try:
+        list(stub.AnalyzeActuatorPerformance(iter([pb]), timeout=30))
+        refused = None
+    except grpc.RpcError as exc:
+        refused = exc.code()
+    check(refused == grpc.StatusCode.UNAVAILABLE,
+          f"{leg}: a new stream while draining got {refused}")
+    q.put(None)
+    check(list(live) == [], f"{leg}: the held stream answered past its end")
+    drainer.join(timeout=60)
+    check(drained.get("ok") is True,
+          f"{leg}: drain returned {drained.get('ok')} after the stream ended")
+    events = json.loads(http_get(mport, f"/debug/events?since={cursor}"))
+    kinds = [(e["kind"], e["attrs"].get("version"))
+             for e in events["events"]]
+    check(("server.ready", "1") in kinds,
+          f"{leg}: /debug/events lacks server.ready of version 1: {kinds}")
+    check(any(kind == "server.drain" for kind, _ in kinds),
+          f"{leg}: /debug/events lacks server.drain: {kinds}")
+    channel.close()
+    t = time.perf_counter()
+    grpc_service.shutdown(server, servicer)
+    shutdown_s = time.perf_counter() - t
+    wall = t_end - t_start
+    swaps_sorted = sorted(swaps)
+    log(f"{leg} leg ({STREAMS} streams, reload_poll_s 0.2, "
+        f"{DEPLOY_RELOADS} reloads): alias move to swap s min "
+        f"{swaps_sorted[0]:.3f} median {np.median(swaps):.3f} max "
+        f"{swaps_sorted[-1]:.3f}; {n_frames} frames {dict(statuses)}, each "
+        f"equal to version 1's or 2's; {n_frames / wall:.1f} frames/s over "
+        f"{wall:.1f} s; proc_time_ms in reload windows p50 "
+        f"{np.percentile(in_reload, 50):.2f} p99 "
+        f"{np.percentile(in_reload, 99):.2f} ({len(in_reload)} frames), "
+        f"steady p50 {np.percentile(steady, 50):.2f} p99 "
+        f"{np.percentile(steady, 99):.2f} ({len(steady)} frames); "
+        f"{disjoint} new generations on streams no live one held, "
+        f"{n_streams} streams in all ({per_generation} a generation); "
+        f"memory_allocated {mem0 / 2**20:.1f} -> {mem1 / 2**20:.1f} MiB "
+        f"(slack {DEPLOY_SLACK / 2**20:.0f}), memory_reserved "
+        f"{res0 / 2**20:.1f} -> {res1 / 2**20:.1f} MiB (slack "
+        f"{DEPLOY_RESERVED_SLACK / 2**20:.0f}; {res2 / 2**20:.1f} after "
+        f"empty_cache; {uncollected} swapped-out generations left for the "
+        f"collector; {pools}; the serving generation's pools "
+        f"hold its {pooled} graph outputs and nothing else); drain with a "
+        f"stream in flight {drained['s']:.2f} s; shutdown {shutdown_s:.2f} s"
+        f"; [{nvidia_smi_line()}]")
+    return {"frames": n_frames, "wall_s": wall}
+
+
+def deploy_phase(torch, port) -> dict:
+    """A server that can be deployed: two versions of ``ModelConfig()``
+    (seeds 0 and 1, BatchNorm calibrated as in the serving cell) in a
+    temporary file registry, served by ``grpc_service.build_server``
+    directly and batched, each leg under 8 live streams while the
+    ``staging`` alias moves DEPLOY_RELOADS times (``deploy_leg``):
+    health over gRPC, every response byte-equal to one version's answer,
+    new generations on streams no live one held, memory back within
+    DEPLOY_SLACK and DEPLOY_RESERVED_SLACK, /metrics, /debug/events,
+    /debug/profile (direct leg),
+    drain and the shutdown order. Returns the launches of the phase's
+    run."""
+    import os
+
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.models import weights
+
+    log(f"deploy_phase: {torch.cuda.get_device_name(0)} "
+        f"[{nvidia_smi_line()}]")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_deploy_"))
+    os.environ["RDP_PROFILE_DIR"] = str(tmp / "profiles")
+    rng = np.random.default_rng(SEED)
+    frames = []
+    for _ in range(8):
+        rgb, _, depth = port.render_scene(rng, FRAME_H, FRAME_W)
+        frames.append((rgb, depth))
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    uri = f"file:{tmp}/mlruns"
+    name = port.ServerConfig().model_name
+    tracking.set_tracking_uri(uri)
+    tracking.set_experiment("Actuator Segmentation")
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    expect = {}
+    with tracking.start_run():
+        for version, seed in ((1, 0), (2, 1)):
+            net = seeded_model(torch, port, x0, seed=seed)
+            check(tracking.log_model(weights.to_flax_variables(net), net.cfg,
+                                     registered_model_name=name) == version,
+                  f"registry version of seed {seed}")
+            analyze = port.make_frame_analyzer(
+                port.FoldedUNet(net, device="cuda"), img_size=256,
+                device="cuda")
+            expect[version] = []
+            for rgb, depth in frames:
+                out = analyze(rgb, depth, k, 0.001)
+                expect[version].append((
+                    out.mask.cpu().numpy(),
+                    float(out.profile.mean_curvature),
+                    float(out.profile.max_curvature),
+                    bool(out.profile.valid)))
+            del analyze, net
+    differ = sum(not np.array_equal(a[0], b[0])
+                 for a, b in zip(expect[1], expect[2]))
+    check(differ > 0, "the two versions' masks are equal on every frame")
+    log(f"deploy_phase: versions 1 and 2 registered; masks differ on "
+        f"{differ} of {len(frames)} frames; frames with geometry "
+        f"{[sum(e[3] for e in expect[v]) for v in (1, 2)]}")
+    requests = [port.raw_request(rgb, depth, mask_format=1)
+                for rgb, depth in frames]
+    reset_launches()
+    legs = [deploy_leg(torch, port, uri, tmp, requests, expect,
+                       batched=False, profile=True),
+            deploy_leg(torch, port, uri, tmp, requests, expect,
+                       batched=True, profile=False)]
+    launches = read_launches()
+    log(f"deploy_phase: launches {launches}")
+    return launches
+
+
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
           "train_kernel_phase", "graph_phase", "bitpack_phase",
-          "bitpack_timing_phase", "precision_phase", "trained_tier_phase")
+          "bitpack_timing_phase", "precision_phase", "trained_tier_phase",
+          "deploy_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -3632,6 +4165,7 @@ def main(argv: list | None = None) -> int:
     legs.append(nonbilinear_phase(torch, port, conv, frames))
     legs.append(train_serve_phase(torch, port, frames,
                                   port.ModelConfig(bilinear=False), epochs=1))
+    legs.append(deploy_phase(torch, port))
     launches = {k: launches[k] + sum(leg[k] for leg in legs)
                 for k in launches}
     from robotic_discovery_platform_tpu_torch.analysis import recompile

@@ -26,8 +26,15 @@ Package map:
   weight grids) and their parity metrics;
 - ``io/frames.py``: synthetic scenes and calibration files;
 - ``serving/``: wire messages, ingest, egress, metrics CSV, the servicer
-  (built from the registry when given no forward) and its gRPC adapter,
-  the batch dispatcher and its admission queue;
+  (built from the registry when given no forward; hot reload, readiness
+  and drain) and its gRPC adapter and entry point (``python -m
+  robotic_discovery_platform_tpu_torch.serving.server``), the
+  grpc.health.v1 service, the batch dispatcher and its admission queue;
+- ``resilience/``, ``observability/``: the circuit breaker, retry policy
+  and fault sites; the metrics registry, ``/metrics`` and ``/debug/*``
+  endpoint, spans, event journal and SLO tracker (copies of the JAX
+  package's); ``utils/profiling.py``: stage timers and the
+  ``torch.profiler`` capture behind ``/debug/profile``;
 - ``training/``: ``train_model`` (and ``python -m
   robotic_discovery_platform_tpu_torch.training``), the data pipeline,
   synthetic data and checkpoints; ``tracking/``: the file-backed

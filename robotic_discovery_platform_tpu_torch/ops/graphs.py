@@ -5,7 +5,7 @@ program per static shape.
 On the card an entry runs as one captured graph per static shape: a
 warm-up on the cache's own side stream builds every lazy device constant
 (resize tables, knot tables, packed-row headers, derivative bands, the
-deprojection ticket counter of that stream, cuBLAS workspaces), then
+deprojection ticket counter of that stream), then
 ``torch.cuda.graph`` captures one call, and every later call copies its
 inputs into the graph's static inputs and replays it: one host launch for
 the whole analysis where eager dispatch issues some hundred.
@@ -14,7 +14,12 @@ the whole analysis where eager dispatch issues some hundred.
   capture guard (``analysis/recompile.py``, the counterpart of
   ``trace_guard``). It owns each graph's static inputs and outputs. All
   graphs of one cache replay on the cache's stream under its lock, and
-  share its memory pool: they are never replayed at the same time. A
+  share its memory pool: they are never replayed at the same time. The
+  stream is the cache's own (:func:`dedicated_stream`), never one of
+  PyTorch's pooled side streams, so a cache that warms up and captures
+  while other caches replay (a hot reload's new generation under live
+  traffic) never captures on a stream that a live cache uses, however
+  many caches the process has made. A
   call's ``finish`` turns the outputs into its result (copies, a host
   read-back, a copy into the caller's buffer) under the lock, before the
   next call can replay. A key's first call answers with its warm-up's
@@ -22,6 +27,12 @@ the whole analysis where eager dispatch issues some hundred.
 - :class:`StepGraph`: a step with no inputs (its state lives in device
   tensors), run eagerly once, then captured and replayed on the caller's
   stream: the trainer's scan epoch.
+
+Captures run one at a time in the process, each with cuBLAS's cached
+workspaces cleared before and after it, so the workspace a graph bakes
+in lives in that graph's private memory pool and goes with it; a
+profiler starts and stops only while no capture is in progress
+(:func:`no_capture`, for ``utils/profiling.capture_profile``).
 
 Each kernel wrapper counts its launches in ``launches`` through
 :func:`count_launch`, which also counts the launches onto a stream being
@@ -37,8 +48,12 @@ capture.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
+import gc
+import queue
 import threading
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -97,6 +112,167 @@ def recording_launches(stream_key: int):
         del _recording[stream_key]
 
 
+# -- streams of their own ------------------------------------------------------
+
+#: CU_STREAM_NON_BLOCKING: no implicit synchronisation with the legacy
+#: default stream (PyTorch's pooled side streams are made the same way)
+_NON_BLOCKING = 1
+_driver_lock = threading.Lock()
+_driver = None  # guarded_by: _driver_lock
+_free_lock = threading.Lock()
+#: device index -> handles of dedicated streams whose owner is gone
+_free_streams: dict[int, queue.SimpleQueue] = {}  # guarded_by: _free_lock
+
+
+def _cuda_driver() -> ctypes.CDLL:
+    """The CUDA driver library with the argument types of the calls
+    used here (PyTorch has loaded and initialised it already)."""
+    global _driver
+    with _driver_lock:
+        if _driver is None:
+            lib = ctypes.CDLL("libcuda.so.1")
+            ptr = ctypes.POINTER(ctypes.c_void_p)
+            for name, args in (
+                    ("cuDeviceGet", (ctypes.POINTER(ctypes.c_int),
+                                     ctypes.c_int)),
+                    ("cuDevicePrimaryCtxRetain", (ptr, ctypes.c_int)),
+                    ("cuDevicePrimaryCtxRelease_v2", (ctypes.c_int,)),
+                    ("cuCtxPushCurrent_v2", (ctypes.c_void_p,)),
+                    ("cuCtxPopCurrent_v2", (ptr,)),
+                    ("cuStreamCreate", (ptr, ctypes.c_uint))):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = args, ctypes.c_int
+            _driver = lib
+        return _driver
+
+
+def _check(result: int, call: str) -> None:
+    if result != 0:
+        raise RuntimeError(f"{call} failed with CUDA driver error {result}")
+
+
+def _new_stream(index: int) -> int:
+    """A new non-blocking stream in device ``index``'s primary context
+    (the one PyTorch uses), made by the CUDA driver: its handle."""
+    cu = _cuda_driver()
+    dev, ctx = ctypes.c_int(), ctypes.c_void_p()
+    _check(cu.cuDeviceGet(ctypes.byref(dev), index), "cuDeviceGet")
+    _check(cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev.value),
+           "cuDevicePrimaryCtxRetain")
+    try:
+        _check(cu.cuCtxPushCurrent_v2(ctx), "cuCtxPushCurrent")
+        try:
+            handle = ctypes.c_void_p()
+            _check(cu.cuStreamCreate(ctypes.byref(handle), _NON_BLOCKING),
+                   "cuStreamCreate")
+            return handle.value
+        finally:
+            _check(cu.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p())),
+                   "cuCtxPopCurrent")
+    finally:
+        cu.cuDevicePrimaryCtxRelease_v2(dev.value)
+
+
+def dedicated_stream(device: torch.device, owner: Any) -> torch.cuda.Stream:
+    """A non-blocking CUDA stream on ``device`` that no other live owner
+    has, held until ``owner`` is collected: not one of PyTorch's pooled
+    side streams (32 per device and priority, handed out round robin, so
+    the 33rd draw shares a stream with the 1st), but one of the port's
+    own, made by the CUDA driver. A stream whose owner is gone is handed
+    to the next owner (its earlier work is ordered before the new
+    owner's on the stream itself), so the port makes as many streams as
+    owners were ever alive at once, and the per-stream state others keep
+    (the deprojection's ticket counter) stays bounded."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    with _free_lock:
+        free = _free_streams.setdefault(index, queue.SimpleQueue())
+    try:
+        handle = free.get_nowait()
+    except queue.Empty:
+        handle = _new_stream(index)
+    # SimpleQueue.put is safe wherever the collector runs a finalizer
+    weakref.finalize(owner, free.put, handle)
+    return torch.cuda.ExternalStream(handle, device=torch.device("cuda",
+                                                                 index))
+
+
+#: one capture at a time in the process: each clears cuBLAS's cached
+#: workspaces, which must not happen during another capture
+_capture_lock = threading.Lock()
+
+
+def _clear_cublas_workspaces() -> None:
+    """Drop cuBLAS's cached per-(handle, stream) workspaces, so the
+    capture that follows allocates its own inside its graph's private
+    pool (and frees it there) instead of baking in one that outlives it:
+    without this every new capture stream keeps a 32 MiB workspace for
+    the life of the process (PyTorch's CUDA graph trees do the same). A
+    build of PyTorch without CUDA has no workspaces to drop."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """No garbage collection while the block runs: a collection during a
+    capture could destroy a dead generation's CUDA graph on the capturing
+    thread, a call that invalidates the capture. Objects that die by
+    reference count on other threads destroy theirs there, which a
+    thread-local capture allows; cycles wait for the next collection."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+@contextlib.contextmanager
+def no_capture():
+    """The block runs while no CUDA graph capture is in progress in the
+    process: it waits for the capture in progress to end and holds new
+    ones back until it exits (a profiler's start and stop)."""
+    with _capture_lock:
+        yield
+
+
+#: one entry per GraphCache on the card that has died, its graphs
+#: destroyed (appended by the cache's finalizer: list.append is safe
+#: wherever the collector runs it)
+_dead_caches: list = []
+_release_lock = threading.Lock()
+_released = 0  # guarded_by: _release_lock
+
+
+def _cache_died(graphs: dict) -> None:
+    """A cache's finalizer: destroy its graphs at once, so their private
+    memory pool has no user left, and count the death."""
+    graphs.clear()
+    _dead_caches.append(None)
+
+
+def release_dead_pools() -> bool:
+    """Return the cached memory of the graph pools of caches that died
+    since the last call to the card (``torch.cuda.empty_cache``, which
+    frees a private pool only once its graphs are gone, and otherwise
+    waits for the next capture). A hot reload's poller calls it, so a
+    swapped-out generation's graphs do not keep their memory reserved
+    once its grace period has ended. Runs while no capture is in
+    progress; returns whether it released anything."""
+    global _released
+    with _release_lock:
+        dead = len(_dead_caches)
+        if dead == _released:
+            return False
+        with _capture_lock:
+            torch.cuda.empty_cache()
+        _released = dead
+        return True
+
+
 def tree_map(fn: Callable, tree: Any) -> Any:
     """``fn`` over every tensor of a tensor, tuple or NamedTuple tree."""
     if isinstance(tree, torch.Tensor):
@@ -129,10 +305,19 @@ class Capture:
                 # thread_local: handler and dispatcher threads may use the
                 # card while this thread captures; only this thread's calls
                 # are checked, and only launches onto the capture stream
-                # are counted in ``counts``
-                with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self.outputs = fn()
+                # are counted in ``counts``. The caching allocator sends
+                # the allocations made on the capture stream (and only
+                # those) to ``pool``: other threads allocate on their own
+                # streams, outside the capture.
+                with _capture_lock, _no_collection():
+                    _clear_cublas_workspaces()
+                    try:
+                        with torch.cuda.graph(
+                                self.graph, pool=pool, stream=stream,
+                                capture_error_mode="thread_local"):
+                            self.outputs = fn()
+                    finally:
+                        _clear_cublas_workspaces()
             finally:
                 # the wrappers counted launches that were only recorded
                 for f, d in counts.items():
@@ -225,6 +410,11 @@ class GraphCache:
     is their shapes and dtypes and ``static`` (what else ``fn`` bakes
     in). ``fn`` runs only to warm up and capture a new key, whose first
     call counts one capture on ``guard``.
+
+    On the card the cache's stream is its own (:func:`dedicated_stream`,
+    made at its first call): ``stream_handle``. Once the cache is
+    collected its graphs go at once and :func:`release_dead_pools` can
+    return their pool's memory.
     """
 
     def __init__(self, name: str, budget: int | None,
@@ -236,6 +426,13 @@ class GraphCache:
         self._stream = None
         self._pool = None
 
+    @property
+    def stream_handle(self) -> int | None:
+        """The handle of the stream every warm-up, capture and replay of
+        this cache runs on (None before the first call on the card)."""
+        stream = self._stream
+        return None if stream is None else stream.cuda_stream
+
     def __call__(self, fn: Callable, *inputs, static: tuple = (),
                  finish: Callable):
         key = (static, tuple(_spec(x) for x in inputs))
@@ -246,8 +443,9 @@ class GraphCache:
             return finish(fn(*(_host_tensor(x) for x in inputs)))
         with self._lock:
             if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
+                self._stream = dedicated_stream(self.device, owner=self)
                 self._pool = torch.cuda.graph_pool_handle()
+                weakref.finalize(self, _cache_died, self.graphs)
             caller = torch.cuda.current_stream(self.device)
             stream = self._stream
             # inputs made on the caller's stream are ready; and a caller

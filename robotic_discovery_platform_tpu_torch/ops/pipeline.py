@@ -202,6 +202,14 @@ def _pixel_inputs(frames_rgb, depths, intrinsics, depth_scales) -> tuple:
     return (frames_rgb, *_depth_inputs(depths, intrinsics, depth_scales))
 
 
+def mask_coverage(count: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Percent of an h x w frame covered, from the exact pixel counts: the
+    float32 count times the float32 constant 100 / (h * w). That is the
+    JAX package's jitted ``100 * jnp.mean`` of the 0/1 mask, which XLA
+    folds into this one product (eager ``jnp.mean`` rounds twice)."""
+    return count.to(torch.float32) * (100.0 / (h * w))
+
+
 def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
               threshold: float, device):
     """The shared core: ``(frames [B, H, W, 3] u8, depths [B, H, W] z16,
@@ -247,11 +255,8 @@ def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
             else:
                 profile = geometry.compute_curvature_profile(
                     masks, raw_depth, k, scales, geom_cfg)
-            # an exact count times the float32 reciprocal of the pixel
-            # count, then the percent scaling: the JAX package's
-            # 100 * jnp.mean of the 0/1 mask, to the bit
-            count = torch.sum(masks, dim=(1, 2), dtype=torch.int64)
-            coverage = 100.0 * (count.to(torch.float32) * (1.0 / (h * w)))
+            coverage = mask_coverage(
+                torch.sum(masks, dim=(1, 2), dtype=torch.int64), h, w)
         return FrameAnalysis(mask=masks, mask_coverage=coverage,
                              profile=profile, confidence_margin=margin)
 

@@ -58,6 +58,7 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -324,8 +325,14 @@ class BatchDispatcher:
         # consecutive stale sheds with no completion between: after 8 the
         # next frame rides anyway, so the estimate can refresh
         self._sheds_since_complete = 0  # guarded_by: _inflight_lock
-        self._q = DeadlineQueue(max_backlog, policy=admission,
-                                on_evict=self._on_evicted)
+        # the queue calls back through a weak reference: a bound method
+        # would make dispatcher and queue a cycle, and a stopped dispatcher
+        # (a hot reload's old one, with its graphs) would then wait for the
+        # garbage collector instead of going when its last user lets go
+        this = weakref.ref(self)
+        self._q = DeadlineQueue(
+            max_backlog, policy=admission,
+            on_evict=lambda p: this() is not None and this()._on_evicted(p))
         self._cq: queue.Queue[_Dispatch | None] = queue.Queue()
         self._slots = threading.Semaphore(self._max_inflight)
         self._inflight_lock = threading.Lock()

@@ -1,26 +1,54 @@
 """The gRPC face of the servicer: proto messages in and out of
 :meth:`serving.server.VisionAnalysisService.analyze_stream`, on the wire
 contract of ``protos/vision.proto`` (the same service, method path and
-messages as the JAX package's server).
+messages as the JAX package's server), beside the standard
+``grpc.health.v1`` service (``serving/health.py``).
 
 grpc and protobuf are imported inside the functions that need them, so the
 servicer core runs where neither is installed.
+
+Run a server on the card (the counterpart of ``python -m
+robotic_discovery_platform_tpu.serving.server``)::
+
+    python -m robotic_discovery_platform_tpu_torch.serving.server \
+        [--device cuda] [--server.field value ...]
+
+It serves the registered model (``--server.tracking_uri``,
+``--server.model_name``, ``--server.model_alias``), warms a 640x480
+camera, marks itself ready, polls the registry for new versions every
+``--server.reload_poll_s`` seconds, serves ``/metrics`` and ``/debug/*``
+on ``--server.metrics_port`` when that is set, and on SIGINT (or
+KeyboardInterrupt) drains before it stops: readiness down, in-flight
+streams given ``drain_grace_s``, then the gRPC server stopped and the
+servicer closed.
 """
 
 from __future__ import annotations
 
+import argparse
+
+from robotic_discovery_platform_tpu_torch.observability import (
+    exposition,
+    trace,
+)
+from robotic_discovery_platform_tpu_torch.serving import health as health_lib
 from robotic_discovery_platform_tpu_torch.serving import messages
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     OverloadedError,
 )
 from robotic_discovery_platform_tpu_torch.serving.server import (
+    StreamRefusedError,
     VisionAnalysisService,
     build_service,
 )
 from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
     ServerConfig,
+    parse_config,
 )
+from robotic_discovery_platform_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 def request_from_proto(msg) -> messages.AnalysisRequest:
@@ -63,10 +91,15 @@ class GrpcVisionService:
         import grpc
 
         requests = (request_from_proto(r) for r in request_iterator)
+        # the client's trace (W3C traceparent metadata): its stream's log
+        # lines and error statuses carry the same [trace=...] stamp
+        remote = trace.from_metadata(context.invocation_metadata())
         try:
-            for resp in self.service.analyze_stream(requests,
-                                                    active=context.is_active):
+            for resp in self.service.analyze_stream(
+                    requests, active=context.is_active, parent=remote):
                 yield response_to_proto(resp)
+        except StreamRefusedError as exc:  # draining: fail over
+            context.abort(grpc.StatusCode.UNAVAILABLE, str(exc))
         except OverloadedError as exc:  # shed: retryable by the client
             context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
 
@@ -78,17 +111,78 @@ def build_server(cfg: ServerConfig, forward=None, *,
     """An unstarted (grpc.Server, VisionAnalysisService) pair on
     ``cfg.address``; the bound port is ``servicer.bound_port``. The
     servicer is :func:`serving.server.build_service`'s: with no
-    ``forward`` it serves the registered model."""
+    ``forward`` it serves the registered model.
+
+    As the JAX package's ``build_server``: the process's tracing identity
+    becomes "replica"; the ``/metrics`` endpoint starts when
+    ``cfg.metrics_port`` (or ``RDP_METRICS_PORT``) asks for one (a failed
+    start raises); readiness flips after the warm-up, or at once with
+    none; the registry reloader starts; the grpc.health.v1 service is
+    registered beside the analysis service."""
     from concurrent import futures
 
     import grpc
 
     from robotic_discovery_platform_tpu_torch.serving.proto import vision_grpc
 
-    servicer = build_service(cfg, forward, geom_cfg=geom_cfg,
-                             warmup_shape=warmup_shape, device=device)
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=cfg.max_workers))
-    vision_grpc.add_VisionAnalysisServiceServicer_to_server(
-        GrpcVisionService(servicer), server)
-    servicer.bound_port = server.add_insecure_port(cfg.address)
+    trace.set_identity(role="replica")
+    servicer = build_service(cfg, forward, geom_cfg=geom_cfg, device=device)
+    try:
+        servicer.metrics_server = exposition.maybe_start_metrics_server(
+            cfg.metrics_port)
+        if warmup_shape is not None:
+            servicer.warmup(*warmup_shape)  # flips readiness at its end
+        else:
+            servicer.mark_ready()
+        servicer.start_reloader()
+        server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=cfg.max_workers))
+        vision_grpc.add_VisionAnalysisServiceServicer_to_server(
+            GrpcVisionService(servicer), server)
+        health_lib.add_HealthServicer_to_server(servicer.health, server)
+        servicer.bound_port = server.add_insecure_port(cfg.address)
+    except BaseException:
+        servicer.close()
+        raise
     return server, servicer
+
+
+def shutdown(server, servicer: VisionAnalysisService) -> None:
+    """The shutdown order of :func:`serve`: readiness down first so load
+    balancers stop routing here, a bounded drain of the streams in flight,
+    the gRPC server's stop with ``drain_grace_s`` of grace, then the
+    servicer's close."""
+    servicer.drain()
+    server.stop(grace=servicer.cfg.drain_grace_s).wait()
+    servicer.close()
+
+
+def serve(cfg: ServerConfig = ServerConfig(), warmup_shape=(640, 480),
+          device="cuda") -> None:
+    """Run a server until interrupted, then :func:`shutdown` it."""
+    server, servicer = build_server(cfg, warmup_shape=warmup_shape,
+                                    device=device)
+    server.start()
+    log.info("vision analysis server listening on %s (port %d)",
+             cfg.address, servicer.bound_port)
+    try:
+        server.wait_for_termination()
+    except KeyboardInterrupt:
+        log.info("interrupt: beginning graceful shutdown")
+    finally:
+        shutdown(server, servicer)
+
+
+def main(argv: list[str] | None = None) -> None:
+    """``python -m robotic_discovery_platform_tpu_torch.serving.server``:
+    ``--device`` (default "cuda"), then the config flags of
+    :func:`utils.config.parse_config` (``--config FILE``,
+    ``--server.field value``)."""
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--device", default="cuda")
+    args, rest = parser.parse_known_args(argv)
+    serve(parse_config(rest).server, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

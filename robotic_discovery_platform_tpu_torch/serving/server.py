@@ -4,8 +4,8 @@ The port of the JAX package's ``serving/server.py`` ``_analyze_frame``
 and the per-stream loop of ``_stream_frames``: each request is decoded,
 analyzed on the device, its mask encoded in the requested wire format,
 and answered with status ``"OK"``, ``"DEGRADED: insufficient geometry"``
-or ``"ERROR: <Type>: <message>"``; a failing frame never ends its stream.
-Every answered frame appends one row to the metrics CSV.
+or ``"ERROR: <Type>: <message> [trace=<id>]"``; a failing frame never
+ends its stream. Every answered frame appends one row to the metrics CSV.
 
 Two paths, as in the JAX package: with ``ServerConfig.batch_window_ms``
 at 0 (the default) each frame runs the single-frame analyzer
@@ -30,24 +30,63 @@ of :class:`serving.messages.AnalysisRequest` to an iterator of
 :class:`serving.messages.AnalysisResponse` and needs neither grpc nor
 protobuf; ``serving/grpc_service.py`` puts it behind a gRPC server.
 
-:func:`build_service` makes a servicer from the settings alone: with no
-forward it loads the registered model (:func:`resolve_serving_model`: the
-``model_alias`` version first, else the latest), transforms it for the
-precision tier (``ServerConfig.precision`` or ``RDP_PRECISION``,
-``ops/quant.py``) and folds it onto the kernels. A bf16 or int8 tier
-must pass its parity gate at the end of :meth:`VisionAnalysisService.
-warmup` (golden frames through the untransformed net against the served
-path) or the servicer refuses to come up. Hot reload of a newly
-registered version, and the re-quantization it brings, are not ported
-(ROADMAP queue 1 item 5); neither are the JAX package's
-``rdp_quant_parity_*`` gauges (item 23) or its per-zoo-model gates (item
-12).
+**Generations.** Everything a frame touches -- the served forward, the
+untransformed net of the precision tier's gate, the direct analyzers and
+the dispatcher -- is one immutable :class:`Engine`. A frame reads
+``self._engine`` once and uses only that; a hot reload swaps it under
+``_reload_lock``. :func:`build_service` makes a servicer from the
+settings alone: with no forward it loads the registered model
+(:func:`resolve_serving_model`: the ``model_alias`` version first, else
+the latest), transforms it for the precision tier
+(``ServerConfig.precision`` or ``RDP_PRECISION``, ``ops/quant.py``) and
+folds it onto the kernels. A bf16 or int8 tier must pass its parity gate
+at the end of :meth:`VisionAnalysisService.warmup` (golden frames through
+the untransformed net against the served path) or the servicer refuses to
+come up.
+
+**Hot reload** (:meth:`VisionAnalysisService.start_reloader`,
+:meth:`~VisionAnalysisService.maybe_reload`, as in the JAX package): the
+registry is polled every ``reload_poll_s`` through a circuit breaker
+(``resilience/breaker.py``); when the version moves, the new generation is
+loaded, transformed for the tier again and folded, and its graphs are
+warmed and captured off the serving path while live traffic replays the
+old generation's graphs; then it is swapped in atomically, and the old
+dispatcher is stopped ``reload_grace_s`` later. Each graph cache captures
+on a stream of its own (``ops/graphs.dedicated_stream``), so a new
+generation never captures on a stream that a live cache replays on, and
+once the old generation's grace period has passed and its in-flight
+frames are done nothing holds its graphs, static buffers or weights; the
+poller's next round returns their graph pools' memory to the card. Like
+the JAX reload, a reload does not run the tier's parity gate again: only
+:meth:`warmup` gates (ROADMAP queue 3). A reload that fails keeps the
+current generation. A servicer over a caller's own forward has no
+registry version and never reloads.
+
+**Readiness and drain**: a grpc.health.v1 status registry
+(``serving/health.py``) reads NOT_SERVING until warm-up (or, with no
+warm-up, until :func:`serving.grpc_service.build_server` marks the
+service ready) and again once :meth:`VisionAnalysisService.drain` begins;
+a draining or closed service refuses new streams
+(:class:`StreamRefusedError`; the gRPC adapter answers UNAVAILABLE).
+
+**Instruments** (``observability/instruments.py``): in-flight streams,
+frames by status, per-stage latency (decode, device, encode, total) as
+histograms and streaming summaries, end-to-end latency, the SLO tracker
+when ``slo_ms > 0``, a ``serving.stream`` span per stream whose trace ID
+stamps the stream's log lines and error statuses, the serving precision
+and the tier gate's report. The "device" stage is the host's clock around
+the packed row's read-back, which waits for the device already: no
+instrument adds a device synchronisation or a read of a device tensor to
+a frame. Not ported: the JAX package's per-zoo-model gates and labels
+(ROADMAP queue 1 item 12), the brownout controller and the rollout's
+``set_draining`` (items 22 and 12), and the dispatcher's own instruments
+(item 23).
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
+import threading
 import time
 from typing import Callable, Iterable, Iterator, NamedTuple
 
@@ -57,11 +96,29 @@ import torch
 from robotic_discovery_platform_tpu_torch import tracking
 from robotic_discovery_platform_tpu_torch.io.frames import load_calibration
 from robotic_discovery_platform_tpu_torch.models.unet import UNet
-from robotic_discovery_platform_tpu_torch.ops import pipeline, quant
+from robotic_discovery_platform_tpu_torch.observability import (
+    events,
+    instruments as obs,
+    journal as journal_lib,
+    recorder as recorder_lib,
+    slo as slo_lib,
+    trace,
+)
+from robotic_discovery_platform_tpu_torch.ops import graphs, pipeline, quant
+from robotic_discovery_platform_tpu_torch.ops.pipeline import Analyzer
 from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
+from robotic_discovery_platform_tpu_torch.resilience import (
+    CircuitBreaker,
+    CircuitOpenError,
+    inject,
+)
+from robotic_discovery_platform_tpu_torch.resilience import (
+    sites as fault_sites,
+)
 from robotic_discovery_platform_tpu_torch.serving import (
     egress,
     entropy,
+    health as health_lib,
     ingest,
 )
 from robotic_discovery_platform_tpu_torch.serving.admission import (
@@ -69,6 +126,7 @@ from robotic_discovery_platform_tpu_torch.serving.admission import (
 )
 from robotic_discovery_platform_tpu_torch.serving.batching import (
     BatchDispatcher,
+    DeadlineExceeded,
 )
 from robotic_discovery_platform_tpu_torch.serving.messages import (
     AnalysisResponse,
@@ -81,11 +139,23 @@ from robotic_discovery_platform_tpu_torch.utils.config import (
     check_supported,
 )
 from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
+from robotic_discovery_platform_tpu_torch.utils.logging import get_logger
+from robotic_discovery_platform_tpu_torch.utils.profiling import StageTimer
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 STATUS_OK = "OK"
 STATUS_DEGRADED = "DEGRADED: insufficient geometry"
+#: the service name ``serving/proto/vision_grpc.py`` registers
+VISION_SERVICE = "evofab.vision.VisionAnalysisService"
+#: the ``model`` label of the frame counters: the JAX package's default
+#: zoo model (``models/variants.DEFAULT_MODEL``), the port's only model
+MODEL_LABEL = "seg"
+
+
+class StreamRefusedError(RuntimeError):
+    """A new stream on a draining or closed service: the client retries
+    against another replica (the gRPC adapter answers UNAVAILABLE)."""
 
 
 def resolve_serving_version(cfg: ServerConfig,
@@ -93,8 +163,10 @@ def resolve_serving_version(cfg: ServerConfig,
     """The registry version a server runs: ``cfg.model_alias``'s when that
     alias is set, else the latest of ``cfg.model_name``. Raises KeyError
     when the model has no version. ``store`` defaults to one scoped to
-    ``cfg.tracking_uri`` (the process-global tracking URI is left
-    alone)."""
+    ``cfg.tracking_uri`` (the process-global tracking URI is left alone:
+    the reload poller calls this from its own thread). The
+    ``serving.resolve`` fault site (``RDP_FAULTS``) fires here."""
+    inject(fault_sites.SERVING_RESOLVE)
     store = tracking.store_for(cfg.tracking_uri) if store is None else store
     version = store.get_alias(cfg.model_name, cfg.model_alias)
     if version is not None:
@@ -115,6 +187,18 @@ def resolve_serving_model(cfg: ServerConfig,
     return model_cfg, net, version
 
 
+def tier_forward(net: UNet, precision: str, device: torch.device
+                 ) -> tuple[FoldedUNet, UNet | None]:
+    """``net`` transformed for a precision tier (``ops/quant.
+    apply_precision``) and folded onto the kernels: ``(forward,
+    untransformed net)``, the latter None at f32 (no gate)."""
+    served, report = quant.apply_precision(net, precision)
+    if report is not None:
+        log.info("serving precision tier %s: %s", report["tier"], report)
+    return FoldedUNet(served, device=device), (None if report is None
+                                               else net)
+
+
 class FrameResult(NamedTuple):
     """One analyzed frame's response fields."""
 
@@ -125,6 +209,21 @@ class FrameResult(NamedTuple):
     coverage: float
     valid: bool
     spline_wire: bytes = b""  # packed_spline for mask_format 1/2
+
+
+class Engine(NamedTuple):
+    """One served model generation: everything a frame touches, swapped as
+    a unit so a hot reload can never mix one generation's forward with
+    another's graphs (the JAX package's ``Engine``)."""
+
+    version: int | None
+    forward: Callable[[torch.Tensor], torch.Tensor]
+    #: the untransformed net the tier's gate runs as its f32 reference
+    #: (None at f32)
+    pristine: UNet | None
+    analyze: Analyzer  # direct pixel frames, packed
+    analyze_coef: Analyzer  # direct coefficient frames, packed
+    dispatcher: BatchDispatcher | None
 
 
 def _fields(packed: egress.PackedResult, h: int, w: int,
@@ -154,6 +253,29 @@ def _device_scope(device: torch.device):
     return contextlib.nullcontext()
 
 
+#: (family, label values) -> its child, for the frame path's instruments
+_children: dict = {}
+
+
+def _child(family, *values: str):
+    """``family.labels(...)`` for ``values`` in the family's label order,
+    looked up once per family and values (a child is never dropped, so
+    every frame after the first skips the label check and the family's
+    lock)."""
+    key = (family, values)
+    child = _children.get(key)
+    if child is None:
+        child = _children[key] = family.labels(
+            **dict(zip(family.labelnames, values)))
+    return child
+
+
+def _observe_stage(stage: str, dt: float) -> None:
+    """A closed stage of a frame into the stage latency instruments."""
+    _child(obs.STAGE_LATENCY, stage).observe(dt)
+    _child(obs.STAGE_LATENCY_SUMMARY, stage).observe(dt)
+
+
 class VisionAnalysisService:
     """Servicer over a model forward, direct or batched (see the module
     docstring).
@@ -164,7 +286,8 @@ class VisionAnalysisService:
         intrinsics: [3, 3] camera matrix, or None for the focal-length
             default of each frame's size.
         depth_scale: depth-to-metres factor.
-        cfg: server settings (``model_img_size``, metrics CSV).
+        cfg: server settings (``model_img_size``, metrics CSV, reload,
+            drain, SLO).
         geom_cfg: geometry settings (default: ``stride =
             cfg.geometry_stride``).
         metrics: the metrics writer (default: one on ``cfg.metrics_csv``).
@@ -173,6 +296,8 @@ class VisionAnalysisService:
             bf16 or int8 tier (:func:`build_service` passes it): the
             warm-up's parity gate runs it as the f32 reference. A non-f32
             tier without it raises ``ValueError``.
+        version: the registry version ``forward`` serves (None for a
+            caller's own forward: such a servicer never reloads).
     """
 
     def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor],
@@ -182,9 +307,11 @@ class VisionAnalysisService:
                  geom_cfg: GeometryConfig | None = None,
                  metrics: MetricsWriter | None = None,
                  device: str | torch.device = "cuda",
-                 pristine: UNet | None = None):
+                 pristine: UNet | None = None,
+                 version: int | None = None):
         check_supported(cfg)
-        # resolved once (RDP_PRECISION overrides the field)
+        # resolved once (RDP_PRECISION overrides the field); every
+        # generation is transformed for it
         self.precision = quant.resolve_precision(cfg.precision)
         if self.precision != "f32" and pristine is None:
             raise ValueError(
@@ -193,7 +320,9 @@ class VisionAnalysisService:
                 "forward serves 'f32' (build_service transforms the "
                 "registered model and keeps it)"
             )
-        self._pristine = pristine
+        for p in quant.PRECISIONS:
+            obs.SERVING_PRECISION.labels(precision=p).set(
+                1.0 if p == self.precision else 0.0)
         #: the warm-up parity gate's report (None at f32 and before warmup)
         self.parity: dict | None = None
         self.cfg = cfg
@@ -204,45 +333,117 @@ class VisionAnalysisService:
         self.depth_scale = (cfg.default_depth_scale if depth_scale is None
                             else float(depth_scale))
         self.onchip = ingest.resolve_onchip_decode(cfg.onchip_decode)
+        # per camera geometry: the float32 intrinsics and depth scale,
+        # staged on the device once rather than once per frame; shared by
+        # every generation
+        self._geometry: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}  # guarded_by: _geometry_lock
+        self._geometry_lock = threading.Lock()
+        self._registry_store = tracking.store_for(cfg.tracking_uri)
+        self._engine = self._make_engine(version, forward, pristine)
+        self._warm_shape: tuple[int, int] | None = None
+        self._reload_stop: threading.Event | None = None
+        self._reload_thread: threading.Thread | None = None
+        # at most one reload in flight, and the lock held only for a swap
+        self._reload_lock = threading.Lock()
+        self._reload_busy = False  # guarded_by: _reload_lock
+        self._closed = False
+        # pending grace-delayed (timer, old dispatcher) stops; close()
+        # cancels the timers and stops the dispatchers at once
+        self._grace_stops: list[tuple[threading.Timer, BatchDispatcher]] = []  # guarded_by: _reload_lock
+        self.registry_breaker = CircuitBreaker(
+            failure_threshold=cfg.registry_breaker_failures,
+            reset_timeout_s=cfg.registry_breaker_reset_s,
+            name=f"registry:{cfg.tracking_uri}",
+        )
+        # grpc.health.v1 state: NOT_SERVING until warm-up (or mark_ready),
+        # NOT_SERVING again once a drain begins
+        self.health = health_lib.HealthServicer()
+        self.health.set(VISION_SERVICE, health_lib.NOT_SERVING)
+        self._streams_cond = threading.Condition()
+        self._active_streams = 0  # guarded_by: _streams_cond
+        self._draining = False  # guarded_by: _streams_cond
+        self.metrics = metrics or MetricsWriter(cfg.metrics_csv,
+                                                cfg.metrics_flush_every)
+        # the /metrics endpoint: grpc_service.build_server starts one when
+        # cfg.metrics_port / RDP_METRICS_PORT asks for it; close() stops it
+        self.metrics_server = None
+        self.bound_port = 0  # set by grpc_service.build_server
+        self.slo: slo_lib.SloTracker | None = None
+        slo_ms = slo_lib.resolve_slo_ms(cfg.slo_ms)
+        if slo_ms is not None:
+            self.slo = slo_lib.SloTracker(
+                slo_ms / 1e3, budget=cfg.slo_budget, window=cfg.slo_window,
+                name="e2e",
+                violations=obs.SLO_VIOLATIONS.labels(objective="e2e"),
+                burn_gauge=obs.SLO_BURN.labels(objective="e2e", model=""),
+                objective_gauge=obs.SLO_OBJECTIVE.labels(objective="e2e"),
+            )
+            log.info("SLO tracking: %.1f ms objective, %.2f%% budget",
+                     slo_ms, 100 * cfg.slo_budget)
+
+    # -- the generation -------------------------------------------------------
+
+    def _make_engine(self, version: int | None, forward: Callable,
+                     pristine: UNet | None) -> Engine:
+        """One generation around ``forward``: the direct analyzers and,
+        with batching, a dispatcher whose threads start here."""
+        cfg, geom_cfg, device = self.cfg, self.geom_cfg, self.device
         # the direct path's analyzers end in the packed row and read it
         # back to the host before they release their graph
-        self.analyze = pipeline.make_frame_analyzer(
-            forward, img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
-            device=self.device, pack=True,
-        )
-        self.analyze_coef = pipeline.make_coef_frame_analyzer(
-            forward, img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
-            device=self.device, pack=True,
-        )
-        self.dispatcher = None
+        analyze = pipeline.make_frame_analyzer(
+            forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
+            device=device, pack=True)
+        analyze_coef = pipeline.make_coef_frame_analyzer(
+            forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
+            device=device, pack=True)
+        dispatcher = None
         if cfg.batch_window_ms > 0:
 
             def coef_factory(height: int, width: int, subsampling: str):
                 return pipeline.make_coef_batch_analyzer(
-                    forward, img_size=cfg.model_img_size,
-                    geom_cfg=self.geom_cfg, device=self.device,
-                    height=height, width=width, subsampling=subsampling,
-                    pack=True)
+                    forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
+                    device=device, height=height, width=width,
+                    subsampling=subsampling, pack=True)
 
-            self.dispatcher = BatchDispatcher(
+            dispatcher = BatchDispatcher(
                 pipeline.make_batch_analyzer(
-                    forward, img_size=cfg.model_img_size,
-                    geom_cfg=self.geom_cfg, device=self.device, pack=True),
+                    forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
+                    device=device, pack=True),
                 coef_analyzer_factory=coef_factory,
                 window_ms=cfg.batch_window_ms, max_batch=cfg.max_batch,
                 max_backlog=cfg.max_backlog,
                 submit_timeout_s=cfg.submit_deadline_s,
                 watchdog_interval_s=cfg.watchdog_interval_s,
                 max_inflight=cfg.max_inflight_dispatches,
-                admission=cfg.admission_policy, device=self.device,
+                admission=cfg.admission_policy, device=device,
             )
-        # per camera geometry: the float32 intrinsics and depth scale,
-        # staged on the device once rather than once per frame
-        self._geometry: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
-        self.metrics = metrics or MetricsWriter(cfg.metrics_csv,
-                                                cfg.metrics_flush_every)
-        self.bound_port = 0  # set by grpc_service.build_server
-        self.model_version: int | None = None  # set by build_service
+        return Engine(version, forward, pristine, analyze, analyze_coef,
+                      dispatcher)
+
+    @property
+    def current_version(self) -> int | None:
+        return self._engine.version
+
+    @property
+    def model_version(self) -> int | None:
+        """The registry version served (None for a caller's forward)."""
+        return self._engine.version
+
+    @property
+    def analyze(self) -> Analyzer:
+        return self._engine.analyze
+
+    @property
+    def analyze_coef(self) -> Analyzer:
+        return self._engine.analyze_coef
+
+    @property
+    def dispatcher(self) -> BatchDispatcher | None:
+        return self._engine.dispatcher
+
+    @property
+    def _pristine(self) -> UNet | None:
+        return self._engine.pristine
 
     def _camera(self, w: int, h: int) -> np.ndarray:
         """The float32 intrinsics of a w x h camera."""
@@ -252,68 +453,97 @@ class VisionAnalysisService:
 
     def _staged_geometry(self, w: int, h: int):
         key = (w, h)
-        staged = self._geometry.get(key)
-        if staged is None:
-            staged = self._geometry[key] = (
-                torch.as_tensor(self._camera(w, h), device=self.device),
-                torch.as_tensor(np.float32(self.depth_scale),
-                                device=self.device),
-            )
+        with self._geometry_lock:
+            staged = self._geometry.get(key)
+            if staged is None:
+                staged = self._geometry[key] = (
+                    torch.as_tensor(self._camera(w, h), device=self.device),
+                    torch.as_tensor(np.float32(self.depth_scale),
+                                    device=self.device),
+                )
         return staged
 
-    def analyze_frame(self, rgb, depth: np.ndarray,
-                      mask_format: int = 0) -> FrameResult:
+    # -- one frame --------------------------------------------------------------
+
+    def analyze_frame(self, rgb, depth: np.ndarray, mask_format: int = 0,
+                      timer: StageTimer | None = None) -> FrameResult:
         """One decoded frame -> its response fields. ``rgb`` is [H, W, 3]
         uint8 pixels or a :class:`~serving.entropy.CoefficientFrame` (the
         coefficient lane). Directly, the frame's graph replays under its
         lock and its packed row comes back in one device-to-host copy;
         batched, the row is the dispatch's. Both read the fields off the
-        row alike."""
-        coef = isinstance(rgb, entropy.CoefficientFrame)
+        row alike. ``timer`` takes the "device" stage (up to the row on
+        the host) and the "encode" stage."""
+        inject(fault_sites.SERVING_ANALYZE)
+        timer = timer or StageTimer()
         h, w = rgb.shape[:2]
         if depth.shape != (h, w):
             raise ValueError(
                 f"depth frame is {depth.shape[1]}x{depth.shape[0]}; color "
                 f"frame is {w}x{h}"
             )
-        packed = self._packed(rgb, depth)
+        # ONE read of the engine per frame: a concurrent reload cannot mix
+        # generations
+        eng = self._engine
+        with timer.stage("device"):
+            packed = self._packed(eng, rgb, depth)
         try:
-            return _fields(packed, h, w, mask_format)
+            with timer.stage("encode"):
+                return _fields(packed, h, w, mask_format)
         finally:
             packed.release()
 
-    def _packed(self, rgb, depth: np.ndarray) -> egress.PackedResult:
-        """One frame's packed row, from the path the servicer serves
-        (:meth:`analyze_frame`)."""
+    def _packed(self, eng: Engine, rgb, depth: np.ndarray
+                ) -> egress.PackedResult:
+        """One frame's packed row from ``eng``'s path (direct analyzer or
+        dispatcher)."""
         h, w = rgb.shape[:2]
         coef = isinstance(rgb, entropy.CoefficientFrame)
-        if self.dispatcher is not None:
-            submit = (self.dispatcher.submit_coef if coef
-                      else self.dispatcher.submit)
+        if eng.dispatcher is not None:
+            submit = (eng.dispatcher.submit_coef if coef
+                      else eng.dispatcher.submit)
             return submit(rgb, depth, self._camera(w, h), self.depth_scale)
         with _device_scope(self.device):
             k, scale = self._staged_geometry(w, h)
-            analyze = self.analyze_coef if coef else self.analyze
+            analyze = eng.analyze_coef if coef else eng.analyze
             return egress.PackedResult(analyze(rgb, depth, k, scale))
 
+    # -- streams ----------------------------------------------------------------
+
     def analyze_stream(self, requests: Iterable,
-                       active: Callable[[], bool] = lambda: True
+                       active: Callable[[], bool] = lambda: True,
+                       parent: trace.SpanContext | None = None,
                        ) -> Iterator[AnalysisResponse]:
-        """One response per request, in order. ``active`` returning False
-        (a cancelled stream) stops the loop before the next frame."""
+        """One response per request, in order, inside a ``serving.stream``
+        span (``parent``: the client's trace context, else a new trace).
+        ``active`` returning False (a cancelled stream) stops the loop
+        before the next frame. On a draining or closed service the first
+        ``next`` raises :class:`StreamRefusedError`."""
+        if not self._enter_stream():
+            raise StreamRefusedError(
+                "server is draining; retry against another replica")
         try:
-            for request in requests:
-                if not active():
-                    return
-                yield self._respond(request)
+            with trace.span("serving.stream", parent=parent):
+                log.info("analysis stream opened (%s trace)",
+                         "client" if parent is not None else "local")
+                timer = StageTimer(observer=_observe_stage)
+                for request in requests:
+                    if not active():
+                        return
+                    yield self._respond(request, timer)
+                if timer.totals:
+                    log.info("stream stage breakdown: %s", timer.summary())
         finally:
             self.metrics.flush()
+            self._exit_stream()
 
-    def _respond(self, request) -> AnalysisResponse:
+    def _respond(self, request, timer: StageTimer) -> AnalysisResponse:
         t0 = time.perf_counter()
         try:
-            rgb, depth = ingest.decode_request(request, onchip=self.onchip)
-            res = self.analyze_frame(rgb, depth, request.mask_format)
+            with timer.stage("decode"):
+                rgb, depth = ingest.decode_request(request,
+                                                   onchip=self.onchip)
+            res = self.analyze_frame(rgb, depth, request.mask_format, timer)
             response = AnalysisResponse(
                 mean_curvature=res.mean_k,
                 max_curvature=res.max_k,
@@ -325,43 +555,250 @@ class VisionAnalysisService:
                 packed_spline=res.spline_wire,
             )
             self.metrics.append(res.mean_k, res.max_k, res.coverage)
-        except OverloadedError:
-            raise  # load shedding ends the stream (RESOURCE_EXHAUSTED)
+            status_label = "ok" if res.valid else "degraded"
+        except OverloadedError as exc:
+            # load shedding ends the stream (RESOURCE_EXHAUSTED); a shed
+            # frame burned SLO budget too
+            _child(obs.FRAMES, "shed", MODEL_LABEL).inc()
+            if self.slo is not None:
+                self.slo.observe(float("inf"), ok=False)
+            raise OverloadedError(
+                f"{exc} [trace={trace.current_trace_id() or '-'}]") from exc
+        except DeadlineExceeded as exc:
+            log.warning("frame missed its deadline: %s", exc)
+            response = AnalysisResponse(
+                status=f"ERROR: DeadlineExceeded: {exc} "
+                       f"[trace={trace.current_trace_id() or '-'}]")
+            status_label = "deadline"
         except Exception as exc:  # a bad frame answers, the stream lives on
             log.exception("analysis error")
+            trace_id = trace.current_trace_id()
+            recorder_lib.RECORDER.record_event(
+                "serving.frame_error", trace_id=trace_id,
+                error=f"{type(exc).__name__}: {exc}")
             response = AnalysisResponse(
-                status=f"ERROR: {type(exc).__name__}: {exc}")
-        response.proc_time_ms = (time.perf_counter() - t0) * 1e3
+                status=f"ERROR: {type(exc).__name__}: {exc} "
+                       f"[trace={trace_id or '-'}]")
+            status_label = "error"
+        total_s = time.perf_counter() - t0
+        response.proc_time_ms = total_s * 1e3
+        _child(obs.FRAMES, status_label, MODEL_LABEL).inc()
+        _observe_stage("total", total_s)
+        obs.FRAME_LATENCY_SUMMARY.observe(total_s)
+        if self.slo is not None:
+            self.slo.observe(total_s, ok=status_label in ("ok", "degraded"))
         return response
 
-    def _buckets(self) -> list[int]:
-        """Every padded batch size a dispatch can take."""
-        return sorted({self.dispatcher.bucket_for(n)
+    def _enter_stream(self) -> bool:
+        with self._streams_cond:
+            if self._draining or self._closed:
+                return False
+            self._active_streams += 1
+        obs.INFLIGHT_STREAMS.inc()
+        return True
+
+    def _exit_stream(self) -> None:
+        obs.INFLIGHT_STREAMS.dec()
+        with self._streams_cond:
+            self._active_streams -= 1
+            self._streams_cond.notify_all()
+
+    @property
+    def active_streams(self) -> int:
+        with self._streams_cond:
+            return self._active_streams
+
+    @property
+    def is_draining(self) -> bool:
+        with self._streams_cond:
+            return self._draining
+
+    # -- hot reload -------------------------------------------------------------
+
+    def _resolve_version(self) -> int | None:
+        """Registry resolution under the per-service circuit breaker.
+
+        Closed: failures log a warning and count toward the threshold.
+        Open: the poll is skipped entirely (no registry touch, no log
+        line) and serving keeps its current engine; the breaker logs its
+        transitions once each."""
+        try:
+            return self.registry_breaker.call(
+                lambda: resolve_serving_version(self.cfg,
+                                                self._registry_store))
+        except CircuitOpenError:
+            return None
+        except Exception as exc:
+            log.warning(
+                "registry %s unreachable/empty (%s: %s); serving keeps "
+                "its current model (breaker: %d/%d failures)",
+                self.cfg.tracking_uri, type(exc).__name__, exc,
+                self.registry_breaker.failure_count,
+                self.registry_breaker.failure_threshold,
+            )
+            return None
+
+    def start_reloader(self) -> None:
+        """Poll the registry every ``cfg.reload_poll_s`` seconds on a
+        daemon thread (:meth:`maybe_reload`); on the card each poll then
+        returns the graph memory of generations gone since the last one
+        (``ops/graphs.release_dead_pools``). No poller when the interval
+        is <= 0 or the servicer serves a caller's forward."""
+        if (self.cfg.reload_poll_s <= 0 or self._reload_thread is not None
+                or self.current_version is None):
+            return
+        self._reload_stop = threading.Event()
+
+        def loop():
+            while not self._reload_stop.wait(self.cfg.reload_poll_s):
+                try:
+                    self.maybe_reload()
+                except Exception:
+                    log.exception("model hot-reload failed; keeping current")
+                if self.device.type == "cuda":
+                    # the graph memory of generations gone since the last
+                    # poll (a swapped-out one goes after its grace)
+                    graphs.release_dead_pools()
+
+        self._reload_thread = threading.Thread(
+            target=loop, name="model-reloader", daemon=True)
+        self._reload_thread.start()
+
+    def maybe_reload(self) -> bool:
+        """One reload check; returns True when a new version was swapped in.
+
+        The expensive phase (resolve, load, fold, warm-up and graph
+        captures) runs outside ``_reload_lock`` behind a busy flag, so at
+        most one reload is in flight and :meth:`close` and :meth:`warmup`
+        wait at most for a swap. The new generation is warmed for the
+        camera :meth:`warmup` recorded, re-checked under the lock before
+        the swap (a concurrent warmup of another camera warms it again);
+        a closed service refuses the swap, and a generation that never
+        went live has its dispatcher stopped."""
+        with self._reload_lock:
+            if self._closed or self._reload_busy:
+                return False
+            self._reload_busy = True
+            current_version = self._engine.version
+        engine = None
+        try:
+            if current_version is None:
+                return False  # a caller's forward: nothing to reload
+            version = self._resolve_version()
+            if version is None or version == current_version:
+                return False
+            # scoped store: this runs on the poller thread
+            _, net = tracking.load_model(
+                f"models:/{self.cfg.model_name}/{version}",
+                store=self._registry_store, device=self.device)
+            forward, pristine = tier_forward(net, self.precision,
+                                             self.device)
+            del net
+            engine = self._make_engine(version, forward, pristine)
+            if self._closed:
+                return False  # skip the warm; finally cleans up
+            old = None
+            warmed_shape = object()  # sentinel: warmed for nothing yet
+            while True:
+                shape = self._warm_shape
+                if shape is not None and shape != warmed_shape:
+                    self._warm_engine(engine, shape)
+                warmed_shape = shape
+                with self._reload_lock:
+                    if self._closed:
+                        return False  # never swap into a closed service
+                    if (self._warm_shape is not None
+                            and self._warm_shape != warmed_shape):
+                        continue  # warmup() raced us; warm the new shape
+                    old, self._engine = self._engine, engine
+                    engine = None  # went live; finally must not stop it
+                    if old.dispatcher is not None:
+                        self._schedule_grace_stop(old.dispatcher)
+                    break
+            log.info("hot-reloaded model: version %s -> %s", old.version,
+                     version)
+            return True
+        finally:
+            if engine is not None and engine.dispatcher is not None:
+                engine.dispatcher.stop()
+            with self._reload_lock:
+                self._reload_busy = False
+
+    def _schedule_grace_stop(self, dispatcher: BatchDispatcher) -> None:
+        """Stop a swapped-out dispatcher ``reload_grace_s`` from now (a
+        frame that read the old engine just before the swap may still be
+        about to submit; ``stop`` is drain-safe, so a straggler past the
+        window gets a per-frame error, not a hang). The fired timer drops
+        its own entry, so nothing holds the old generation afterwards.
+        Called under ``_reload_lock``."""
+        entry: list = []
+
+        def fire():
+            dispatcher.stop()
+            with self._reload_lock:
+                self._grace_stops = [e for e in self._grace_stops
+                                     if e is not entry[0]]
+            entry.clear()  # no cycle through the timer: freed at once
+
+        timer = threading.Timer(self.cfg.reload_grace_s, fire)
+        timer.daemon = True
+        entry.append((timer, dispatcher))
+        self._grace_stops.append(entry[0])
+        timer.start()
+
+    def _buckets(self, dispatcher: BatchDispatcher | None = None
+                 ) -> list[int]:
+        """Every padded batch size a dispatch can take (``dispatcher``:
+        the serving generation's by default)."""
+        dispatcher = dispatcher or self.dispatcher
+        return sorted({dispatcher.bucket_for(n)
                        for n in range(1, self.cfg.max_batch + 1)})
 
-    def warmup(self, width: int, height: int) -> None:
-        """Run blank frames of the camera's size through the analyzer the
-        served frames will take -- with batching, every bucket up to
-        ``max_batch`` -- so the first served frame pays no kernel build,
-        warm-up or graph capture: on the card this is where each graph of
-        the geometry is captured (``ops/graphs.py``; a capture is checked
-        for this thread's calls only, so handler and dispatcher threads
-        may already run). With on-chip decode on, the coefficient lane
-        too (:meth:`warmup_coef`). A bf16 or int8 tier then runs its
-        parity gate (:meth:`_parity_gate`), which raises ``RuntimeError``
-        when the tier fails it."""
+    def _warm_engine(self, engine: Engine, shape: tuple[int, int]) -> None:
+        """Capture the graphs live frames of camera ``shape`` = (w, h)
+        dispatch to on ``engine``: the batched per-bucket graphs when it
+        has a dispatcher, the single-frame analyzer otherwise (the JAX
+        package's ``_warm_engine``). On the card each capture runs on the
+        engine's own cache streams while live frames replay another
+        generation's."""
+        w, h = shape
         with _device_scope(self.device):
-            if self.dispatcher is None:
-                self.analyze_frame(np.zeros((height, width, 3), np.uint8),
-                                   np.zeros((height, width), np.uint16))
-            else:
-                k = self._camera(width, height)
-                for b in self._buckets():
-                    self.dispatcher.warm(
-                        np.zeros((b, height, width, 3), np.uint8),
-                        np.zeros((b, height, width), np.uint16),
-                        np.repeat(k[None], b, axis=0),
-                        np.full((b,), self.depth_scale, np.float32))
+            if engine.dispatcher is None:
+                k, scale = self._staged_geometry(w, h)
+                row = engine.analyze(np.zeros((h, w, 3), np.uint8),
+                                     np.zeros((h, w), np.uint16), k, scale)
+                # and the response's encode once, on the host: its first
+                # use is not a served frame's (the JAX warm-up runs a real
+                # frame through the whole path)
+                _fields(egress.PackedResult(row), h, w, 0)
+                return
+            k = self._camera(w, h)
+            for b in self._buckets(engine.dispatcher):
+                engine.dispatcher.warm(
+                    np.zeros((b, h, w, 3), np.uint8),
+                    np.zeros((b, h, w), np.uint16),
+                    np.repeat(k[None], b, axis=0),
+                    np.full((b,), self.depth_scale, np.float32))
+
+    # -- warm-up and readiness -------------------------------------------------
+
+    def warmup(self, width: int, height: int) -> None:
+        """Capture the graphs of a camera geometry before traffic, so the
+        first served frame pays no kernel build, warm-up or capture: the
+        direct analyzer, or with batching every bucket up to
+        ``max_batch`` (a capture is checked for this thread's calls only,
+        so handler and dispatcher threads may already run). With on-chip
+        decode on, the coefficient lane too (:meth:`warmup_coef`). A bf16
+        or int8 tier then runs its parity gate (:meth:`_parity_gate`),
+        which raises ``RuntimeError`` when the tier fails it. Readiness
+        flips to SERVING at the end (:meth:`mark_ready`); a reload warms
+        its generation for this camera."""
+        self._warm_shape = (width, height)
+        # under the reload lock: a poll that read _warm_shape as None could
+        # otherwise swap in a never-warmed engine while this warms the old
+        with self._reload_lock:
+            self._warm_engine(self._engine, self._warm_shape)
+        with _device_scope(self.device):
             if self.onchip:
                 self.warmup_coef(width, height)
             # after every capture of the warm-up: the gate replays the
@@ -369,6 +806,7 @@ class VisionAnalysisService:
             self._parity_gate(width, height)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        self.mark_ready()
         log.info("warmed up %dx%d analyzer on %s", width, height, self.device)
 
     def _parity_gate(self, width: int, height: int) -> None:
@@ -377,16 +815,17 @@ class VisionAnalysisService:
         a reference analyzer of the untransformed net, run eagerly (no
         graph capture, no capture budget, no graph memory), and through
         the path the servicer serves (the direct packed analyzer, or the
-        dispatcher), compared by ``ops/quant.parity_report``. Fails
-        closed: raises ``RuntimeError`` below ``quant_parity_min_iou`` or
-        above ``quant_parity_max_curv_err``; the report of a passing gate
-        is kept in ``self.parity``. Runs inside :meth:`warmup`'s device
+        dispatcher), compared by ``ops/quant.parity_report``. Publishes
+        the report's ``rdp_quant_parity_*`` gauges. Fails closed: raises
+        ``RuntimeError`` below ``quant_parity_min_iou`` or above
+        ``quant_parity_max_curv_err``; the report of a passing gate is
+        kept in ``self.parity``. Runs inside :meth:`warmup`'s device
         scope."""
         if self.precision == "f32":
             return
-        cfg = self.cfg
+        cfg, eng = self.cfg, self._engine
         ref = pipeline.make_frame_analyzer(
-            FoldedUNet(self._pristine, device=self.device),
+            FoldedUNet(eng.pristine, device=self.device),
             img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
             device=self.device)
         k = self._camera(width, height)
@@ -395,12 +834,18 @@ class VisionAnalysisService:
         for rgb, depth in quant.golden_frames(cfg.quant_parity_frames,
                                               height, width):
             refs.append(ref.eager(rgb, depth, k, scale))
-            packed = self._packed(rgb, depth)
+            packed = self._packed(eng, rgb, depth)
             try:
                 gots.append(packed.to_analysis())
             finally:
                 packed.release()
         report = quant.parity_report(refs, gots)
+        obs.QUANT_PARITY_IOU.labels(model=MODEL_LABEL).set(
+            report["mask_iou_mean"])
+        obs.QUANT_PARITY_CURV.labels(stat="mean", model=MODEL_LABEL).set(
+            report["curvature_err_mean"])
+        obs.QUANT_PARITY_CURV.labels(stat="max", model=MODEL_LABEL).set(
+            report["curvature_err_max"])
         if not quant.parity_gates_pass(report, cfg.quant_parity_min_iou,
                                        cfg.quant_parity_max_curv_err):
             raise RuntimeError(
@@ -431,24 +876,81 @@ class VisionAnalysisService:
         calls it before load arrives."""
         frame = ingest.blank_coefficient_frame(height, width, subsampling)
         depth = np.zeros((height, width), np.uint16)
+        eng = self._engine
         with _device_scope(self.device):
-            if self.dispatcher is None:
+            if eng.dispatcher is None:
                 self.analyze_frame(frame, depth)
             else:
                 k = self._camera(width, height)
-                for b in self._buckets():
-                    self.dispatcher.warm_coef(
+                for b in self._buckets(eng.dispatcher):
+                    eng.dispatcher.warm_coef(
                         frame, np.zeros((b, height, width), np.uint16),
                         np.repeat(k[None], b, axis=0),
                         np.full((b,), self.depth_scale, np.float32))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
+    def mark_ready(self) -> None:
+        """Readiness up: every health entry SERVING, journaled."""
+        self.health.set_all(health_lib.SERVING)
+        journal_lib.JOURNAL.append(
+            events.SERVER_READY, version=str(self.current_version))
+
+    # -- shutdown ---------------------------------------------------------------
+
+    def drain(self, timeout_s: float | None = None) -> bool:
+        """Begin graceful shutdown: readiness to NOT_SERVING, new streams
+        refused (UNAVAILABLE, so clients fail over), then wait up to
+        ``timeout_s`` (default ``cfg.drain_grace_s``) for the streams in
+        flight to finish. Returns True when none is left. Idempotent;
+        :meth:`close` calls it first."""
+        timeout_s = self.cfg.drain_grace_s if timeout_s is None else timeout_s
+        with self._streams_cond:
+            already = self._draining
+            self._draining = True
+        if not already:
+            self.health.set_all(health_lib.NOT_SERVING)
+            journal_lib.JOURNAL.append(
+                events.SERVER_DRAIN, streams=str(self.active_streams))
+            log.info("draining: readiness down, waiting for %d in-flight "
+                     "stream(s)", self.active_streams)
+        deadline = time.monotonic() + timeout_s
+        with self._streams_cond:
+            while self._active_streams > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    log.warning(
+                        "drain grace (%.1fs) expired with %d stream(s) "
+                        "still in flight", timeout_s, self._active_streams)
+                    return False
+                self._streams_cond.wait(remaining)
+        return True
+
     def close(self) -> None:
-        """Stop the dispatcher (its pending frames drain or fail) and
-        flush the metrics."""
-        if self.dispatcher is not None:
-            self.dispatcher.stop()
+        """Drain, stop the reloader, stop every dispatcher (the live one
+        and those in their grace period; pending frames drain or fail),
+        stop the metrics endpoint and flush the metrics."""
+        self.drain()
+        # flag first: an in-flight reload re-checks it before swapping, so
+        # a generation built after this point never goes live
+        with self._streams_cond:
+            self._closed = True
+        if self._reload_stop is not None:
+            self._reload_stop.set()
+        if self._reload_thread is not None:
+            self._reload_thread.join(timeout=5)
+            self._reload_thread = None
+        with self._reload_lock:
+            pending, self._grace_stops = self._grace_stops, []
+            engine = self._engine
+        for timer, dispatcher in pending:
+            timer.cancel()
+            dispatcher.stop()
+        if engine.dispatcher is not None:
+            engine.dispatcher.stop()
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+            self.metrics_server = None
         self.metrics.close()
 
 
@@ -461,7 +963,7 @@ def build_service(cfg: ServerConfig, forward=None, *,
     ``forward`` defaults to the registered model (``cfg.tracking_uri``,
     ``cfg.model_name``, ``cfg.model_alias``; :func:`resolve_serving_model`)
     folded onto the kernels as a :class:`ops.unet_infer.FoldedUNet`; its
-    version is ``service.model_version``. The camera calibration comes
+    version is ``service.current_version``. The camera calibration comes
     from ``cfg.calibration_path`` (intrinsics and depth scale) when that
     file exists, else the focal-length default and
     ``cfg.default_depth_scale``. ``warmup_shape`` = (width, height) runs
@@ -470,18 +972,16 @@ def build_service(cfg: ServerConfig, forward=None, *,
 
     At a bf16 or int8 tier (``cfg.precision``, overridden by
     ``RDP_PRECISION``) the registered net is transformed
-    (``ops/quant.apply_precision``) and folded, and the untransformed net
-    is kept for the gate. A caller's own ``forward`` serves only at f32
-    (there is no untransformed net to gate it against): another tier
-    raises ``ValueError``.
+    (:func:`tier_forward`) and folded, and the untransformed net is kept
+    for the gate. A caller's own ``forward`` serves only at f32 (there is
+    no untransformed net to gate it against): another tier raises
+    ``ValueError``.
     """
-    version = net = report = None
+    version = pristine = None
+    device = resolve_device(device)
     if forward is None:
         _, net, version = resolve_serving_model(cfg, device=device)
-        served, report = quant.apply_precision(net, cfg.precision)
-        if report is not None:
-            log.info("serving precision tier %s: %s", report["tier"], report)
-        forward = FoldedUNet(served, device=device)
+        forward, pristine = tier_forward(net, cfg.precision, device)
     intrinsics, depth_scale = None, cfg.default_depth_scale
     try:
         mtx, _, scale = load_calibration(cfg.calibration_path)
@@ -490,12 +990,13 @@ def build_service(cfg: ServerConfig, forward=None, *,
             depth_scale = scale
         log.info("calibration loaded from %s", cfg.calibration_path)
     except (FileNotFoundError, KeyError) as exc:
+        # the message, not the exception: a kept log record would hold its
+        # traceback's frames, and with them this generation's forward
         log.warning("no calibration at %s (%s); using focal-length defaults",
-                    cfg.calibration_path, exc)
+                    cfg.calibration_path, str(exc))
     service = VisionAnalysisService(forward, intrinsics, depth_scale, cfg,
                                     geom_cfg, device=device,
-                                    pristine=None if report is None else net)
-    service.model_version = version
+                                    pristine=pristine, version=version)
     if warmup_shape is not None:
         try:
             service.warmup(*warmup_shape)
@@ -503,3 +1004,9 @@ def build_service(cfg: ServerConfig, forward=None, *,
             service.close()
             raise
     return service
+
+
+if __name__ == "__main__":
+    from robotic_discovery_platform_tpu_torch.serving.grpc_service import main
+
+    main()

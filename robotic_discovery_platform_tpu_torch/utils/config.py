@@ -180,6 +180,36 @@ class ServerConfig:
     # coefficient lane; the RDP_ONCHIP_DECODE environment variable
     # overrides it (serving/ingest.resolve_onchip_decode)
     onchip_decode: bool = False
+    # Prometheus exposition (observability/exposition.py): port of the
+    # stdlib `GET /metrics` and `/debug/*` endpoint, started and stopped
+    # with the gRPC server. 0 = off; negative = an ephemeral port (read it
+    # back from servicer.metrics_server.port). RDP_METRICS_PORT overrides.
+    metrics_port: int = 0
+    # hot reload: how often a running server polls the registry; when the
+    # alias (or the latest version) moves, the new model is built, warmed
+    # and its CUDA graphs captured off the serving path, then swapped in
+    # without dropping streams. <= 0 disables polling.
+    reload_poll_s: float = 10.0
+    # after a swap, how long the old generation's batch dispatcher stays
+    # up for its in-flight frames before its drain-safe stop
+    reload_grace_s: float = 10.0
+    # registry circuit breaker (resilience/breaker.py): after this many
+    # consecutive resolve failures the reload poll fast-fails (serving
+    # keeps its current model) until one half-open probe succeeds
+    registry_breaker_failures: int = 3
+    # how long the open breaker fast-fails before admitting a probe
+    registry_breaker_reset_s: float = 60.0
+    # graceful shutdown: how long drain() waits for in-flight streams
+    # after readiness flips to NOT_SERVING
+    drain_grace_s: float = 5.0
+    # end-to-end latency objective in ms (observability/slo.py): slower,
+    # shed or errored frames count as violations and burn the error
+    # budget. 0 = off. RDP_SLO_MS overrides.
+    slo_ms: float = 0.0
+    # the fraction of frames allowed to miss the objective
+    slo_budget: float = 0.01
+    # sliding window (frames) of the burn-rate estimate
+    slo_window: int = 512
 
 
 @dataclass(frozen=True)

@@ -215,6 +215,9 @@ def test_shed_frames_end_the_stream_as_resource_exhausted(setup, tmp_path):
         def is_active(self):
             return True
 
+        def invocation_metadata(self):
+            return ()  # no client trace
+
         def abort(self, code, details):
             raise RuntimeError((code, details))
 

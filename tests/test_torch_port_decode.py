@@ -588,8 +588,9 @@ def test_onchip_decode_sends_jpegs_down_the_coefficient_lane(
     assert service.onchip
     lanes = []
     coef = service.analyze_coef
-    monkeypatch.setattr(service, "analyze_coef",
-                        lambda *a: lanes.append("coef") or coef(*a))
+    # the analyzers are fields of the servicer's generation (Engine)
+    monkeypatch.setattr(service, "_engine", service._engine._replace(
+        analyze_coef=lambda *a: lanes.append("coef") or coef(*a)))
     depth = messages.Image(np.ascontiguousarray(scene["depth"], "<u2")
                            .tobytes(), FW, FH, ingest.FORMAT_RAW)
     got, = service.analyze_stream(iter([messages.AnalysisRequest(

@@ -60,6 +60,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.training.trainer\n"
         "import robotic_discovery_platform_tpu_torch.training.__main__\n"
         "import robotic_discovery_platform_tpu_torch.tracking\n"
+        "import robotic_discovery_platform_tpu_torch.resilience\n"
+        "import robotic_discovery_platform_tpu_torch.observability.instruments\n"
+        "import robotic_discovery_platform_tpu_torch.observability.exposition\n"
+        "import robotic_discovery_platform_tpu_torch.observability.sketch\n"
+        "import robotic_discovery_platform_tpu_torch.serving.health\n"
+        "import robotic_discovery_platform_tpu_torch.serving.proto.health_pb2\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -70,17 +76,29 @@ def test_port_and_chip_smoke_import_no_jax():
     for module in ("serving.server", "serving.batching", "ops.pack",
                    "ops.geometry_kernels", "training.trainer",
                    "training.checkpoint", "tracking.store", "models.losses",
-                   "ops.decode", "serving.entropy"):
+                   "ops.decode", "serving.entropy", "serving.health",
+                   "serving.proto.health_pb2", "resilience.breaker",
+                   "resilience.faults", "resilience.policy",
+                   "resilience.sites", "observability.registry",
+                   "observability.exposition", "observability.instruments",
+                   "observability.journal", "observability.recorder",
+                   "observability.slo", "observability.sketch",
+                   "observability.trace", "observability.events",
+                   "observability.families", "utils.logging",
+                   "utils.lockcheck", "utils.profiling"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
-    imported = set()
-    for node in ast.walk(ast.parse((REPO / "chip_smoke.py").read_text())):
-        if isinstance(node, ast.Import):
-            imported.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            imported.add(node.module)
-    assert imported and not [m for m in imported if _forbidden(m)]
+    # chip_smoke and the port's serving cost harness
+    for script in ("chip_smoke.py", "tools/torch_serving_cost.py"):
+        imported = set()
+        for node in ast.walk(ast.parse((REPO / script).read_text())):
+            if isinstance(node, ast.Import):
+                imported.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                imported.add(node.module)
+        assert imported and not [m for m in imported if _forbidden(m)], (
+            script)
     for path in (REPO / "robotic_discovery_platform_tpu_torch").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]

@@ -413,7 +413,8 @@ def test_direct_path_enters_its_own_card(entry, tmp_path, monkeypatch):
             calls.append((_name, bool(inside)))
             return _inner(*args)
 
-        setattr(service, name, recorded)
+        # the analyzers are fields of the servicer's generation (Engine)
+        service._engine = service._engine._replace(**{name: recorded})
     if entry == "analyze_frame":
         rgb, _, depth = render_scene(np.random.default_rng(0), 48, 64)
         service.analyze_frame(rgb, depth)
