@@ -118,7 +118,26 @@ mismatch raises and the script exits non-zero:
    ``/metrics``, ``/debug/events``, ``/debug/profile`` during traffic,
    drain with a stream in flight and the shutdown order; with the
    seconds from an alias move to the swap, ``proc_time_ms`` in reload
-   windows and steady, frames/s and memory.
+   windows and steady, frames/s and memory;
+10. the drift loop (``drift_phase``): ``run_retraining_pipeline`` at
+   phase 6's training setting registers version 1, moves ``staging`` and
+   writes its drift profile (16 scenes at 120x160), exact launches and
+   memory back around the cycle, every frame's signals against a CPU
+   capture of the same weights (the DRIFT_* bars, PSI at or below the
+   noise floor); that 16-frame profile behind a server on 256
+   in-distribution scenes, printed (the reference's PSI of unequal
+   samples, ROADMAP queue 3); version 1's profile captured again over
+   256 scenes; servers from ``@staging`` (``build_server``, the
+   default ``drift_enabled``) over gRPC, directly and batched: 256
+   in-distribution scenes fire no recommendation, depth-shifted scenes
+   exactly one naming depth_valid_fraction, ``/metrics``, the journal
+   and ``/debug/drift``; on the direct leg a second cycle under a live
+   stream, after whose swap ``/debug/drift`` holds version 2's reference
+   beside engine version 2, every response one version's answer and
+   memory within deploy_phase's slacks; ``run_supervised`` killed after
+   epoch 1 and restarted, against an unbroken run (the SUPERVISED_*
+   bars), and which ops of a train step are not deterministic; the monitor's host cost (frames/s on and off in
+   turns, its microseconds per frame).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
@@ -129,8 +148,8 @@ runs one phase alone (any of ``PHASES``: ``kernel_phase``,
 ``conv1x1_kernel_phase``, ``convt_kernel_phase``, ``decode_kernel_phase``,
 ``geometry_kernel_phase``, ``train_kernel_phase``, ``graph_phase``,
 ``bitpack_phase``, ``bitpack_timing_phase``, ``precision_phase``,
-``deploy_phase`` or ``trained_tier_phase``, which ``main`` does not
-run): its
+``deploy_phase``, ``drift_phase`` or ``trained_tier_phase``, which
+``main`` does not run): its
 log lines, then its results as one JSON line. To compare a change with
 its parent on one card, unpack the parent (``git archive``) into a
 git-ignored directory and run the phase in each root in turns: parent,
@@ -4081,11 +4100,714 @@ def deploy_phase(torch, port) -> dict:
     return launches
 
 
+# -- phase 10: the drift loop -------------------------------------------------
+
+#: the retraining workflow's eval scenes (``capture_drift_profile``'s
+#: defaults: 16 frames at 120x160) and the served frames of the phase
+DRIFT_H, DRIFT_W = 120, 160
+DRIFT_STREAM = 256  # in-distribution frames per serving leg, each a scene
+# of its own (seed SEED + 1): a window of repeated scenes holds fewer
+# samples than its count, and its PSI sits above the noise floor
+DRIFT_CHUNK = 64  # shifted frames per round, until a recommendation fires
+DRIFT_MAX_SHIFTED = 2048
+DRIFT_SUSTAIN_S = 0.5
+#: one frame's signals, card capture against the CPU capture of the same
+#: registered weights and frames (the card's bf16 kernels against the
+#: plain bf16 convs: logits a few bf16 ulps apart flip the mask pixels
+#: next to the threshold), set before the phase's first run: validity
+#: and the depth-valid fraction equal; coverage within 0.5 percentage
+#: points; the confidence margin within 2e-3; the mean curvature within
+#: 10% (or 0.1 1/m), the max within 25% (or 0.5 1/m); and per signal the
+#: PSI of the card profile against the CPU one at or below its noise
+#: floor
+DRIFT_COVERAGE_ATOL = 0.5
+DRIFT_MARGIN_ATOL = 2e-3
+DRIFT_MEAN_K = (0.10, 0.1)  # (rtol, atol in 1/m)
+DRIFT_MAX_K = (0.25, 0.5)
+#: the supervised run against an unbroken run in this process, set
+#: before the phase's first run. The killed attempt's epoch-1 checkpoint
+#: and the restarted attempt's final state against the unbroken run's:
+#: bit for bit where every op of the step is deterministic, else within
+#: SUPERVISED_SAME_ATOL in every parameter and Adam moment (a tenth of
+#: one step of lr 1e-4); the epoch-2 train loss within
+#: SUPERVISED_LOSS_RTOL; the same number of steps (the checkpoint
+#: carries the epoch order's state, so the restart takes the unbroken
+#: run's batches).
+SUPERVISED_SAME_ATOL = 1e-5
+SUPERVISED_LOSS_RTOL = 5e-2
+
+
+def drift_scenes(port, seed: int, n: int, shifted: bool = False) -> list:
+    """``n`` synthetic (rgb, depth) scenes at the drift size from
+    ``seed``; ``shifted`` zeroes the lower half of each depth frame."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        rgb, _, depth = port.render_scene(rng, DRIFT_H, DRIFT_W)
+        if shifted:
+            depth = depth.copy()
+            depth[DRIFT_H // 2:] = 0
+        out.append((rgb, depth))
+    return out
+
+
+def signals_of(torch, port, net, frames, device: str) -> list:
+    """Each frame's five drift signals through the frame analyzer of
+    ``net`` on ``device`` (``monitoring/profile.frame_signals``)."""
+    from robotic_discovery_platform_tpu_torch.monitoring import profile
+
+    analyze = port.make_frame_analyzer(
+        port.FoldedUNet(net, device=device), img_size=256, device=device)
+    out = []
+    for rgb, depth in frames:
+        k = port.default_intrinsics(DRIFT_W, DRIFT_H).astype(np.float32)
+        out.append(profile.frame_signals(
+            analyze.eager(rgb, depth, k, np.float32(0.001)), depth))
+    return out
+
+
+def signals_agree(got: dict, want: dict) -> bool:
+    def close(a, b, rtol, atol):
+        return abs(a - b) <= max(rtol * abs(b), atol)
+
+    if np.isnan(got["mean_curvature"]) != np.isnan(want["mean_curvature"]):
+        return False
+    curv = np.isnan(want["mean_curvature"]) or (
+        close(got["mean_curvature"], want["mean_curvature"], *DRIFT_MEAN_K)
+        and close(got["max_curvature"], want["max_curvature"], *DRIFT_MAX_K))
+    return (curv and got["depth_valid_fraction"] == want["depth_valid_fraction"]
+            and abs(got["mask_coverage"] - want["mask_coverage"])
+            <= DRIFT_COVERAGE_ATOL
+            and abs(got["confidence_margin"] - want["confidence_margin"])
+            <= DRIFT_MARGIN_ATOL)
+
+
+def capture_leg(torch, port, cfg, res) -> None:
+    """The profile the retraining cycle wrote, against a CPU capture of the
+    same registered weights and frames: per frame (printed side by side)
+    within the DRIFT_* bars, per signal PSI at or below its noise floor."""
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.monitoring import profile
+
+    saved = profile.FeatureProfile.load(res.drift_profile_path)
+    check((saved.generation, saved.source, saved.n_frames)
+          == (res.version, "capture", 16),
+          f"profile of version {res.version}: generation {saved.generation}"
+          f", source {saved.source}, {saved.n_frames} frames")
+    frames = drift_scenes(port, 0, 16)  # capture_drift_profile's scenes
+    store = tracking.store_for(cfg.tracking_uri)
+    uri = f"models:/{cfg.registered_model_name}/{res.version}"
+    _, card_net = tracking.load_model(uri, store=store, device="cuda")
+    _, cpu_net = tracking.load_model(uri, store=store, device="cpu")
+    t0 = time.perf_counter()
+    card = signals_of(torch, port, card_net, frames, "cuda")
+    cpu = signals_of(torch, port, cpu_net, frames, "cpu")
+    cpu_s = time.perf_counter() - t0
+    del card_net, cpu_net
+    rebuilt = profile.FeatureProfile()
+    cpu_prof = profile.FeatureProfile()
+    bad = []
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        rebuilt.observe(g)
+        cpu_prof.observe(w)
+        log(f"capture frame {i}: card {json.dumps(g)} cpu {json.dumps(w)}")
+        if not signals_agree(g, w):
+            bad.append(i)
+    check(not bad, f"card and CPU signals beyond the DRIFT_* bars on "
+          f"frames {bad}")
+    scores = {}
+    for name, sketch in saved.sketches.items():
+        check(sketch.counts() == rebuilt.sketches[name].counts(),
+              f"the saved profile's {name} is not the card analyzer's")
+        s = profile.score_sketches(sketch, cpu_prof.sketches[name])
+        scores[name] = (round(s.psi, 4), round(s.noise_floor, 4))
+        check(s.psi <= s.noise_floor, f"{name}: card vs CPU profile psi "
+              f"{s.psi:.4f} above its noise floor {s.noise_floor:.4f}")
+    log(f"capture: card profile against the CPU capture, (psi, noise "
+        f"floor) per signal {scores}; both captures {cpu_s:.1f} s")
+
+
+def bias_leg(torch, port, uri: str, tmp: Path, inside: list) -> None:
+    """The retraining cycle's own profile (16 frames, the JAX default)
+    behind a direct server with the default 256-frame window, on the
+    in-distribution scenes: printed, not gated. The scoring (the JAX
+    package's) smooths each cell with a pseudo-count of 0.5 before the
+    PSI, so two samples of different sizes held in one and the same cell
+    score above zero: at 16 reference and 256 live frames about 1.2,
+    above 0.25 plus that pair's 0.066 noise floor, and a signal constant
+    on these scenes fires (ROADMAP queue 3)."""
+    from robotic_discovery_platform_tpu_torch.serving import server
+
+    cfg = port.ServerConfig(
+        tracking_uri=uri, metrics_csv=str(tmp / "bias.csv"),
+        calibration_path=str(tmp / "none.npz"), reload_poll_s=0.0,
+        drift_sustain_s=DRIFT_SUSTAIN_S, drift_cooldown_s=1e9)
+    service = server.build_service(cfg, warmup_shape=(DRIFT_W, DRIFT_H),
+                                   device="cuda")
+    fired_at = None
+    try:
+        check(service.drift.reference.n_frames == 16,
+              f"the cycle's profile holds {service.drift.reference.n_frames}"
+              " frames, not 16")
+        # each scene twice: past the window's 64th frame and the sustain
+        stream = service.analyze_stream(iter(
+            [port.raw_request(rgb, depth, mask_format=1)
+             for rgb, depth in inside * 2]))
+        for i, _ in enumerate(stream):
+            if fired_at is None and service.drift.recommendations_total:
+                fired_at = i + 1
+        scores = {k: (round(v.psi, 3), round(v.noise_floor, 3))
+                  for k, v in service.drift.scores.items()}
+        ref = service.drift.reference
+        cells = {k: sum(1 for c in sk.counts() if c)
+                 for k, sk in ref.sketches.items()}
+        rec = service.drift.recommendations[-1:]
+    finally:
+        service.close()
+    log(f"bias leg (not gated): the 16-frame profile against "
+        f"{len(inside)} in-distribution scenes, each twice: recommendation "
+        f"{'after ' + str(fired_at) + ' frames on ' + str(rec[0].signals) if fired_at else 'none'}"
+        f"; (psi, noise floor) {scores}; occupied cells of the reference "
+        f"{cells}")
+
+
+def live_graphs() -> str:
+    """The graph caches, step graphs and scan epochs still alive, and what
+    refers to each step graph (for a memory check's message)."""
+    import gc
+
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+    from robotic_discovery_platform_tpu_torch.training import trainer
+
+    import torch
+
+    kinds = (graphs.GraphCache, graphs.StepGraph, trainer.ScanEpochs,
+             graphs.Capture, torch.cuda.CUDAGraph)
+    live = [o for o in gc.get_objects() if isinstance(o, kinds)]
+    out = collections.Counter(type(o).__name__ for o in live)
+    refs = [f"{type(o).__name__} <- {type(r).__name__}: {str(r)[:80]}"
+            for o in live if isinstance(o, (graphs.StepGraph, graphs.Capture))
+            for r in gc.get_referrers(o) if r is not live]
+    pools = sorted({tuple(s.get("segment_pool_id", (0, 0)))
+                    for s in torch.cuda.memory_snapshot()} - {(0, 0)})
+    caches = [tuple(o._pool) for o in live
+              if isinstance(o, graphs.GraphCache) and o._pool is not None]
+    return (f"alive {dict(out)}; held by {refs[:8]}; pools with segments "
+            f"{pools}, live caches' pools {caches}")
+
+
+def drift_leg(torch, port, uri: str, tmp: Path, batched: bool,
+              inside: list, shifted: list, reload=None) -> dict:
+    """A server from ``@staging`` (``build_server``, default
+    ``drift_enabled``, sustain DRIFT_SUSTAIN_S, a cooldown past the
+    phase; version 1's reference captured over DRIFT_STREAM scenes) with
+    a metrics endpoint: DRIFT_STREAM in-distribution frames
+    over gRPC (one stream, or STREAMS batched), no recommendation; then
+    shifted frames until exactly one fires, naming depth_valid_fraction;
+    /metrics, the journal and /debug/drift. ``reload`` (the direct leg)
+    then runs a second retraining cycle under a live stream and checks
+    the reference the reload adopts."""
+    import threading
+
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch.observability import journal
+    from robotic_discovery_platform_tpu_torch.serving import grpc_service
+    from robotic_discovery_platform_tpu_torch.serving.proto import (
+        vision_grpc,
+        vision_pb2,
+    )
+
+    leg = "batched" if batched else "direct"
+    mport = free_port()
+    cfg = port.ServerConfig(
+        address="localhost:0", tracking_uri=uri,
+        metrics_csv=str(tmp / f"{leg}.csv"),
+        calibration_path=str(tmp / "none.npz"), reload_poll_s=0.2,
+        reload_grace_s=DEPLOY_GRACE_S, metrics_port=mport,
+        batch_window_ms=2.0 if batched else 0.0, max_batch=MAX_BATCH,
+        drift_sustain_s=DRIFT_SUSTAIN_S, drift_cooldown_s=1e9)
+    check(cfg.drift_enabled, "ServerConfig().drift_enabled is not the default")
+    cursor = journal.JOURNAL.snapshot()["next_cursor"]
+    server, servicer = grpc_service.build_server(
+        cfg, warmup_shape=(DRIFT_W, DRIFT_H), device="cuda")
+    server.start()
+    channel = grpc.insecure_channel(f"localhost:{servicer.bound_port}")
+    stub = vision_grpc.VisionAnalysisServiceStub(channel)
+    dbg = json.loads(http_get(mport, "/debug/drift"))
+    ref = dbg["reference"] or {}
+    check((dbg["state"], ref.get("source"), ref.get("generation"),
+           ref.get("n_frames"), dbg["model_version"])
+          == ("scoring", "capture", 1, DRIFT_STREAM, 1),
+          f"{leg}: /debug/drift reference {ref} state {dbg['state']}")
+    page0 = http_get(mport, "/metrics").decode()
+
+    def proto(rgb, depth):
+        return vision_pb2.AnalysisRequest(
+            color_image=vision_pb2.Image(data=rgb.tobytes(), width=DRIFT_W,
+                                         height=DRIFT_H, format=1),
+            depth_image=vision_pb2.Image(
+                data=depth.astype("<u2").tobytes(), width=DRIFT_W,
+                height=DRIFT_H, format=1),
+            mask_format=1)
+
+    def serve(frames, n: int) -> float:
+        """``n`` of ``frames`` (cycled) over gRPC: one stream directly,
+        STREAMS streams batched; returns the wall seconds."""
+        reqs = [proto(*frames[i % len(frames)]) for i in range(n)]
+        parts = ([reqs] if not batched else
+                 [reqs[s::STREAMS] for s in range(STREAMS)])
+        out: list = []
+        errors: list = []
+
+        def run(part):
+            try:
+                out.extend(stub.AnalyzeActuatorPerformance(iter(part),
+                                                           timeout=300))
+            except BaseException as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=run, args=(p,)) for p in parts]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not errors, f"{leg}: a stream failed: {errors[:1]}")
+        check(len(out) == n and not [r for r in out
+                                     if r.status.startswith("ERROR")],
+              f"{leg}: {len(out)} of {n} frames answered, statuses "
+              f"{collections.Counter(r.status for r in out)}")
+        return wall
+
+    wall = serve(inside, DRIFT_STREAM)
+    served = DRIFT_STREAM
+    check(servicer.drift.recommendations_total == 0,
+          f"{leg}: in-distribution traffic fired "
+          f"{servicer.drift.recommendations[-1:]}")
+    quiet = {k: round(v.psi, 4) for k, v in servicer.drift.scores.items()}
+    n_shifted = 0
+    while servicer.drift.recommendations_total == 0:
+        check(n_shifted < DRIFT_MAX_SHIFTED, f"{leg}: no recommendation "
+              f"after {n_shifted} shifted frames: scores "
+              f"{servicer.drift.scores}")
+        serve(shifted, DRIFT_CHUNK)
+        n_shifted += DRIFT_CHUNK
+    serve(shifted, DRIFT_CHUNK)  # past the excursion: no second one
+    n_shifted += DRIFT_CHUNK
+    served += n_shifted
+    rec = servicer.drift.recommendations[-1]
+    check(servicer.drift.recommendations_total == 1
+          and "depth_valid_fraction" in rec.signals,
+          f"{leg}: {servicer.drift.recommendations_total} recommendations, "
+          f"the last on {rec.signals}")
+    page = http_get(mport, "/metrics").decode()
+
+    def delta(name):
+        return metric_value(page, name) - metric_value(page0, name)
+
+    recs = delta("rdp_drift_recommendations_total")
+    margins = delta("rdp_model_confidence_margin_count")
+    check(recs == 1 and margins == served,
+          f"{leg}: /metrics moved rdp_drift_recommendations_total by {recs}"
+          f" and rdp_model_confidence_margin_count by {margins} over "
+          f"{served} frames")
+    events = json.loads(http_get(mport, f"/debug/events?since={cursor}"))
+    kinds = [e["kind"] for e in events["events"]]
+    check("drift.recommendation" in kinds,
+          f"{leg}: the journal lacks drift.recommendation: {kinds}")
+    dbg = json.loads(http_get(mport, "/debug/drift"))
+    shown = {k: v["psi"] for k, v in dbg["signals"].items()}
+    check(dbg["signals"]["depth_valid_fraction"]["above_threshold"]
+          and dbg["recommendations"]["count"] == 1,
+          f"{leg}: /debug/drift scores {shown}")
+    log(f"drift {leg} leg: reference capture v1; {DRIFT_STREAM} "
+        f"in-distribution frames in {wall:.2f} s "
+        f"({DRIFT_STREAM / wall:.1f} frames/s over gRPC), no "
+        f"recommendation, psi {quiet}; one recommendation after "
+        f"{n_shifted - DRIFT_CHUNK} shifted frames on {rec.signals} "
+        f"(psi {json.dumps({k: round(v, 3) for k, v in rec.scores.items()})})"
+        f", none in the next {DRIFT_CHUNK}; /metrics recommendations +1, "
+        f"confidence margins +{margins:.0f}; /debug/drift psi "
+        f"{ {k: None if v is None else round(v, 3) for k, v in shown.items()} }")
+    if reload is not None:
+        reload(servicer, mport, stub, proto)
+    channel.close()
+    grpc_service.shutdown(server, servicer)
+    return {"frames": served}
+
+
+def reload_leg(torch, port, cfg, arrays, frames, tmp: Path):
+    """The direct leg's reload: the second retraining cycle (another seed)
+    registers version 2, moves ``staging`` and writes its profile while a
+    stream runs; after the reloader's swap /debug/drift's reference is
+    version 2's capture and the engine serves version 2; every response of
+    the stream is one version's answer; memory is back within
+    deploy_phase's slacks."""
+    import gc
+    import threading
+
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+    from robotic_discovery_platform_tpu_torch.workflows import retraining
+
+    def run(servicer, mport, stub, proto):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()  # what earlier legs left cached
+        mem0 = torch.cuda.memory_allocated()
+        res0 = torch.cuda.memory_reserved()
+        stop = threading.Event()
+        got: list = []
+
+        def feed():
+            n = 0
+            while not stop.is_set():
+                yield proto(*frames[n % len(frames)])
+                n += 1
+
+        def stream():
+            for i, r in enumerate(stub.AnalyzeActuatorPerformance(
+                    feed(), timeout=600)):
+                got.append((i % len(frames), r))
+
+        thread = threading.Thread(target=stream, daemon=True)
+        thread.start()
+        t0 = time.perf_counter()
+        res = retraining.run_retraining_pipeline(
+            cfg, port.ModelConfig(), arrays=arrays, device="cuda")
+        cycle_s = time.perf_counter() - t0
+        check(res.succeeded and res.version == 2 and res.drift_profile_path,
+              f"second retraining cycle: {res}")
+        deadline = time.perf_counter() + 120
+        while servicer.current_version != 2:
+            check(time.perf_counter() < deadline, "no swap to version 2")
+            time.sleep(0.01)
+        swap_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        stop.set()
+        thread.join(timeout=120)
+        check(not thread.is_alive(), "the reload leg's stream hung")
+        # the pipeline moves the alias before it captures the profile
+        # (the JAX package's order), so a reload that lands first adopts
+        # a self-baseline stamped 2 (ROADMAP queue 3)
+        dbg = json.loads(http_get(mport, "/debug/drift"))
+        ref = dbg["reference"] or {}
+        source = ref.get("source", "self-baseline (forming)")
+        check(dbg["model_version"] == dbg["generation"] == 2
+              and ref.get("generation", 2) == 2,
+              f"after the swap /debug/drift reference {ref} generation "
+              f"{dbg['generation']}, engine {dbg['model_version']}")
+        check(servicer.version_and_reference() == (2, 2),
+              f"version and reference {servicer.version_and_reference()}")
+        # memory before this leg's own eager runs below (each keeps a
+        # cuBLAS workspace of its thread and stream): after the old
+        # generation's grace, a collection and the reloader's polls, no
+        # graph pool but a live cache's holds memory (the cycle's train
+        # steps and capture and the old generation are gone), allocated
+        # memory is back, and reserved memory too once the allocator's
+        # ordinary cache (the training's blocks: this process also
+        # trained) is emptied
+        time.sleep(DEPLOY_GRACE_S + 0.5)
+        gc.collect()
+        time.sleep(4 * 0.2)
+        graphs.release_dead_pools()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        cached = torch.cuda.memory_reserved()
+        pools = {tuple(seg.get("segment_pool_id", (0, 0)))
+                 for seg in torch.cuda.memory_snapshot()} - {(0, 0)}
+        live = {tuple(c._pool) for c in gc.get_objects()
+                if isinstance(c, graphs.GraphCache) and c._pool is not None}
+        torch.cuda.empty_cache()
+        res1 = torch.cuda.memory_reserved()
+        check(pools <= live, f"reload leg: graph pools {pools - live} of "
+              f"dead caches or steps hold memory; {live_graphs()}")
+        check(abs(mem1 - mem0) <= DEPLOY_SLACK
+              and res1 <= res0 + DEPLOY_RESERVED_SLACK,
+              f"reload leg: memory_allocated {mem0} -> {mem1}, "
+              f"memory_reserved {res0} -> {res1} beyond deploy_phase's "
+              f"slacks; {graph_pool_report(torch)}")
+        # each response is version 1's or version 2's answer
+        from robotic_discovery_platform_tpu_torch import tracking
+
+        store = tracking.store_for(cfg.tracking_uri)
+        k = port.default_intrinsics(DRIFT_W, DRIFT_H)
+        answers = {}
+        for v in (1, 2):
+            _, net = tracking.load_model(
+                f"models:/{cfg.registered_model_name}/{v}", store=store,
+                device="cuda")
+            analyze = port.make_frame_analyzer(
+                port.FoldedUNet(net, device="cuda"), img_size=256,
+                device="cuda")
+            answers[v] = [analyze.eager(rgb, depth, k, 0.001).mask.cpu()
+                          .numpy() for rgb, depth in frames]
+            del analyze, net
+        by = collections.Counter()
+        for i, r in got:
+            mask = port.decode_mask_wire(r.mask)
+            versions = tuple(v for v in (1, 2)
+                             if np.array_equal(mask, answers[v][i]))
+            check(versions, f"reload leg frame {i}: a mask of neither "
+                  "version")
+            by[versions] += 1
+        differ = sum(not np.array_equal(a, b)
+                     for a, b in zip(answers[1], answers[2]))
+        # where the two versions' masks differ on a frame, version 2 must
+        # have answered some; else the swap shows in the engine version
+        check(not differ or by[(2,)] > 0,
+              f"no response of version 2 alone: {dict(by)}")
+        log(f"reload leg: second retraining cycle {cycle_s:.1f} s (train, "
+            f"register v2, staging, profile); swap {swap_s:.1f} s after "
+            f"the cycle began; /debug/drift reference generation 2 "
+            f"({source}) with engine version 2; {len(got)} responses during "
+            f"the cycle by version {dict(by)} (the versions' masks differ "
+            f"on {differ} of {len(frames)} frames); memory_allocated "
+            f"{mem0 / 2**20:.1f} -> {mem1 / 2**20:.1f} MiB, reserved "
+            f"{res0 / 2**20:.1f} -> {res1 / 2**20:.1f} MiB ("
+            f"{cached / 2**20:.1f} before emptying the ordinary cache; "
+            f"graph pools {sorted(pools)})")
+
+    return run
+
+
+def supervised_leg(torch, port, cfg, arrays, tmp: Path) -> None:
+    """``run_supervised`` with ``fault_epoch=1`` over two epochs on the
+    card against an unbroken run (the SUPERVISED_* bars), and which ops of
+    a train step are not deterministic on the card."""
+    import warnings
+
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.training import (
+        checkpoint,
+        supervisor,
+        trainer,
+    )
+
+    def cfg_in(name, **kw):
+        return dataclasses.replace(
+            cfg, tracking_uri=f"file:{tmp}/{name}/mlruns",
+            checkpoint_dir=str(tmp / name / "ckpt"), **kw)
+
+    sup = cfg_in("supervised")
+    t0 = time.perf_counter()
+    res = supervisor.run_supervised(sup, port.ModelConfig(), fault_epoch=1,
+                                    max_restarts=1, device="cuda",
+                                    attempt_timeout_s=600, arrays=arrays)
+    sup_s = time.perf_counter() - t0
+    check(res.restarts == 1 and res.epochs_run == 1
+          and res.registry_version == 1,
+          f"supervised run: {res.restarts} restarts, {res.epochs_run} "
+          f"epochs after the restart, version {res.registry_version}")
+    unbroken = cfg_in("unbroken")
+    t0 = time.perf_counter()
+    ures = trainer.train_model(unbroken, port.ModelConfig(), arrays=arrays,
+                               register=False, device="cuda")
+    unbroken_s = time.perf_counter() - t0
+
+    def state(c, step):
+        return checkpoint.CheckpointManager(c.checkpoint_dir).restore(step)
+
+    def apart(a, b) -> float:
+        diffs = [float((a["model"][k].double() - b["model"][k].double())
+                       .abs().max()) for k in a["model"]]
+        for pid, st in a["optimizer"]["state"].items():
+            for k, v in st.items():
+                diffs.append(float((v.double() - b["optimizer"]["state"][pid][
+                    k].double()).abs().max()))
+        return max(diffs)
+
+    s2, u2 = state(sup, 2), state(unbroken, 2)
+    first, final = apart(state(sup, 1), state(unbroken, 1)), apart(s2, u2)
+    steps = [{float(s["step"]) for s in x["optimizer"]["state"].values()}
+             for x in (s2, u2)]
+
+    def losses_of(c, run_id):
+        store = tracking.store_for(c.tracking_uri)
+        return {key: [h["value"] for h in store.get_metric_history(run_id, key)]
+                for key in ("train_loss", "val_loss")}
+
+    got, want = losses_of(sup, res.run_id), losses_of(unbroken, ures.run_id)
+    loss_ok = (abs(got["train_loss"][-1] - want["train_loss"][-1])
+               <= SUPERVISED_LOSS_RTOL * abs(want["train_loss"][-1]))
+    check(first <= SUPERVISED_SAME_ATOL and final <= SUPERVISED_SAME_ATOL
+          and loss_ok and steps[0] == steps[1] == {8.0},
+          f"supervised against unbroken: epoch 1 {first}, final {final} "
+          f"apart (bar {SUPERVISED_SAME_ATOL}), epoch-2 losses {got} vs "
+          f"{want}, Adam steps {steps}")
+    # which ops of one eager train step are not deterministic here
+    xs, ys = trainer.normalize_arrays(*arrays)
+    x = torch.from_numpy(xs[:TRAIN_BATCH]).cuda()
+    y = torch.from_numpy(ys[:TRAIN_BATCH]).cuda()
+    grads = []
+    for _ in range(2):
+        net = trainer.init_model(port.ModelConfig(), SEED, torch.device("cuda"))
+        opt = trainer.make_optimizer(net, 1e-4)
+        trainer.train_step(net, opt, losses.make_loss_fn("bce"), x, y)
+        grads.append({n: p.grad.clone() for n, p in net.named_parameters()})
+    differ = sorted(n for n in grads[0]
+                    if not torch.equal(grads[0][n], grads[1][n]))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.train_step(net, opt, losses.make_loss_fn("bce"), x, y)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+    log(f"supervised leg: run_supervised(fault_epoch=1) restarted "
+        f"{res.restarts} time(s) in {sup_s:.1f} s (two child interpreters;"
+        f" the unbroken run {unbroken_s:.1f} s in process); against the "
+        f"unbroken run, epoch-1 state {first:.3g} and final state "
+        f"{final:.3g} apart "
+        f"({'bit for bit' if first == final == 0 else 'not bit for bit'}), "
+        f"epoch-2 losses {got} vs {want}, Adam steps {steps[0]}; two eager steps "
+        f"from one state: {len(differ)} of {len(grads[0])} gradients "
+        f"differ ({differ[:4]}); ops without a deterministic CUDA "
+        f"implementation in the step: {flagged or 'none flagged'}")
+
+
+def drift_cost_leg(torch, port) -> None:
+    """The monitor's host cost, printed and not gated: frames/s over one
+    stream, 8 direct and 8 batched streams with the monitor on (the
+    default) and off, in turns (on, off, off, on), and its microseconds
+    per frame (``tools/torch_serving_cost.py``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serving_cost",
+        Path(__file__).resolve().parent / "tools" / "torch_serving_cost.py")
+    cost = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cost)
+    smoke = sys.modules[__name__]
+    rng = np.random.default_rng(SEED)
+    frames = [port.render_scene(rng, FRAME_H, FRAME_W) for _ in range(8)]
+    requests = [port.raw_request(rgb, depth, mask_format=i % 3)
+                for i, (rgb, _, depth) in enumerate(frames)]
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    folded = port.FoldedUNet(seeded_model(torch, port, x0), device="cuda")
+    rows = []
+    for name in ("base", "drift", "drift", "base"):
+        with cost.switched_off(torch, cost.OFF[name]):
+            got = cost.measure(port, smoke, folded, requests, 2)["median"]
+        rows.append((name, {k: round(v, 1) for k, v in got.items()
+                            if k.endswith("fps")}))
+    log(f"drift host cost (monitor on = base, off = drift; medians of 2, "
+        f"in turns): {rows}; one frame's drift work on the host "
+        f"{ {k: round(v, 2) for k, v in cost.drift_us().items()} } us "
+        f"[{nvidia_smi_line()}]")
+
+
+def drift_phase(torch, port) -> dict:
+    """The drift loop on the card at ``ModelConfig()``: a retraining cycle
+    (phase 6's training setting) registers version 1, promotes it and
+    writes its drift profile, held against a CPU capture
+    (``capture_leg``); servers from ``@staging`` monitor in-distribution
+    and shifted traffic directly and batched (``drift_leg``); a second
+    cycle's reload adopts version 2's reference (``reload_leg``); the
+    supervised trainer restarts once (``supervised_leg``); the monitor's
+    host cost (``drift_cost_leg``). Returns the launches of the phase."""
+    import gc
+
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.observability import (
+        instruments as obs,
+    )
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+    from robotic_discovery_platform_tpu_torch.training import synthetic
+    from robotic_discovery_platform_tpu_torch.workflows import retraining
+
+    log(f"drift_phase: {torch.cuda.get_device_name(0)} [{nvidia_smi_line()}]")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_drift_"))
+    cfg = port.TrainConfig(epochs=2, batch_size=TRAIN_BATCH, img_size=256,
+                           learning_rate=1e-4, loss="bce", seed=SEED,
+                           tracking_uri=f"file:{tmp}/mlruns",
+                           checkpoint_dir=str(tmp / "ckpt"))
+    arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
+    failures = obs.DRIFT_PROFILE_FAILURES.value
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = retraining.run_retraining_pipeline(cfg, port.ModelConfig(),
+                                             arrays=arrays, device="cuda")
+    cycle_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(res.succeeded and (res.version, res.promoted_alias)
+          == (1, "staging") and res.drift_profile_path is not None
+          and obs.DRIFT_PROFILE_FAILURES.value == failures,
+          f"retraining cycle on the card: {res}")
+    steps = cfg.epochs * 4
+    capture = frame_launches(16)
+    want = {k: capture[k] for k in capture}
+    want["conv3x3_bn_relu"] += 35 * steps
+    want["conv3x3_grad_weights"] += 18 * steps
+    check(launches == want, f"retraining cycle launches {launches}, want "
+          f"{want} ({steps} steps, 16 captured frames)")
+    gc.collect()
+    graphs.release_dead_pools()
+    torch.cuda.synchronize()
+    mem1, res1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    check(abs(mem1 - mem0) <= DEPLOY_SLACK
+          and res1 <= res0 + DEPLOY_RESERVED_SLACK,
+          f"after the cycle memory_allocated {mem0} -> {mem1}, reserved "
+          f"{res0} -> {res1}: the capture's graphs outlived it")
+    log(f"retraining cycle: {cycle_s:.1f} s (train {TRAIN_SAMPLES} samples "
+        f"x {cfg.epochs} epochs, register, staging, capture 16 frames); "
+        f"launches {launches}; memory_allocated {mem0 / 2**20:.1f} -> "
+        f"{mem1 / 2**20:.1f} MiB, reserved {res0 / 2**20:.1f} -> "
+        f"{res1 / 2**20:.1f} MiB around it")
+    capture_leg(torch, port, cfg, res)
+    inside = drift_scenes(port, SEED + 1, DRIFT_STREAM)
+    shifted = drift_scenes(port, SEED + 1, DRIFT_STREAM, shifted=True)
+    bias_leg(torch, port, cfg.tracking_uri, tmp, inside)
+    # the served legs' reference: version 1's profile captured again over
+    # as many scenes as the live window holds, so the PSI of two equal
+    # distributions sits at its noise floor (bias_leg)
+    t0 = time.perf_counter()
+    path = retraining.capture_drift_profile(
+        1, model_name=cfg.registered_model_name,
+        tracking_uri=cfg.tracking_uri, n_frames=DRIFT_STREAM,
+        img_size=cfg.img_size, device="cuda")
+    recapture_s = time.perf_counter() - t0
+    check(path == res.drift_profile_path, f"profile written to {path}")
+    log(f"version 1's profile captured again over {DRIFT_STREAM} scenes "
+        f"in {recapture_s:.1f} s")
+
+    cfg2 = dataclasses.replace(cfg, seed=SEED + 1,
+                               checkpoint_dir=str(tmp / "ckpt2"))
+    arrays2 = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256,
+                                        seed=SEED + 1)
+    serving = ("conv3x3_bn_relu", "conv1x1", "deproject_edge_stats",
+               "bspline_design", "bspline_curvature", "bitpack_mask")
+    for batched in (False, True):
+        # each leg from version 1 (the direct leg's reload moves staging)
+        tracking.store_for(cfg.tracking_uri).set_alias(
+            cfg.registered_model_name, "staging", 1)
+        reset_launches()
+        drift_leg(torch, port, cfg.tracking_uri, tmp, batched, inside,
+                  shifted, reload=None if batched else reload_leg(
+                      torch, port, cfg2, arrays2, inside[:8], tmp))
+        leg = read_launches()
+        check(all(leg[k] > 0 for k in serving),
+              f"drift {'batched' if batched else 'direct'} leg launches "
+              f"{leg}: a serving kernel never ran")
+        launches = {k: launches[k] + leg[k] for k in launches}
+    supervised_leg(torch, port, cfg, arrays, tmp)
+    drift_cost_leg(torch, port)
+    return launches
+
+
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
           "train_kernel_phase", "graph_phase", "bitpack_phase",
           "bitpack_timing_phase", "precision_phase", "trained_tier_phase",
-          "deploy_phase")
+          "deploy_phase", "drift_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -4166,6 +4888,7 @@ def main(argv: list | None = None) -> int:
     legs.append(train_serve_phase(torch, port, frames,
                                   port.ModelConfig(bilinear=False), epochs=1))
     legs.append(deploy_phase(torch, port))
+    legs.append(drift_phase(torch, port))
     launches = {k: launches[k] + sum(leg[k] for leg in legs)
                 for k in launches}
     from robotic_discovery_platform_tpu_torch.analysis import recompile

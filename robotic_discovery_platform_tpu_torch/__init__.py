@@ -37,8 +37,13 @@ Package map:
   ``torch.profiler`` capture behind ``/debug/profile``;
 - ``training/``: ``train_model`` (and ``python -m
   robotic_discovery_platform_tpu_torch.training``), the data pipeline,
-  synthetic data and checkpoints; ``tracking/``: the file-backed
-  experiment store and model registry shared with the JAX package.
+  synthetic data, checkpoints and the restarting supervisor;
+  ``tracking/``: the file-backed experiment store and model registry
+  shared with the JAX package;
+- ``monitoring/``, ``workflows/``: the drift loop -- reference profiles
+  and the servicer's drift monitor, the offline detector over the
+  metrics CSV, and the retraining workflow that registers, promotes and
+  profiles a new version.
 """
 
 from robotic_discovery_platform_tpu_torch.io.frames import (

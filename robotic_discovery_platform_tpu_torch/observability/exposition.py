@@ -45,10 +45,11 @@ down with it. It serves:
   Chrome trace of the card's kernels can be pulled from a live server
   without restarting it.
 
-The port's copy of the JAX package's module. The federation, trace,
-drift, rollout and zoo providers are never set by the port's server
-(those subsystems are not ported), so those endpoints answer as the JAX
-ones do with no provider attached.
+The port's copy of the JAX package's module. The port's server sets the
+drift provider (``serving/grpc_service.build_server``); the federation,
+trace, rollout and zoo providers are never set (those subsystems are not
+ported), so those endpoints answer as the JAX ones do with no provider
+attached.
 
 Lifecycle: ``serving.server.build_server`` starts one when
 ``ServerConfig.metrics_port`` / ``RDP_METRICS_PORT`` asks for it and

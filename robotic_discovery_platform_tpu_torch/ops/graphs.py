@@ -239,9 +239,9 @@ def no_capture():
         yield
 
 
-#: one entry per GraphCache on the card that has died, its graphs
-#: destroyed (appended by the cache's finalizer: list.append is safe
-#: wherever the collector runs it)
+#: one entry per GraphCache or captured StepGraph on the card that has
+#: died, its graphs destroyed (appended by the finalizer: list.append is
+#: safe wherever the collector runs it)
 _dead_caches: list = []
 _release_lock = threading.Lock()
 _released = 0  # guarded_by: _release_lock
@@ -255,8 +255,9 @@ def _cache_died(graphs: dict) -> None:
 
 
 def release_dead_pools() -> bool:
-    """Return the cached memory of the graph pools of caches that died
-    since the last call to the card (``torch.cuda.empty_cache``, which
+    """Return the cached memory of the graph pools of caches (and step
+    graphs) that died since the last call to the card
+    (``torch.cuda.empty_cache``, which
     frees a private pool only once its graphs are gone, and otherwise
     waits for the next capture). A hot reload's poller calls it, so a
     swapped-out generation's graphs do not keep their memory reserved
@@ -495,15 +496,24 @@ class StepGraph:
     builds the lazy state, the optimizer's moments included), the second
     captures it on that stream and replays it, every later call replays.
     On a CPU device every call runs ``fn`` eagerly. The capture counts one
-    on ``guard`` (on the CPU, the first call)."""
+    on ``guard`` (on the CPU, the first call). Once the step graph is
+    collected its graph goes, and :func:`release_dead_pools` returns its
+    pool's memory (a process that trains and then serves keeps no train
+    step reserved)."""
 
     def __init__(self, fn: Callable[[], Any], guard: recompile.CaptureGuard,
                  device: torch.device):
         self.fn = fn
         self.guard = guard
         self.device = device
-        self.capture: Capture | None = None
+        # the Capture, held here only: the finalizer clears this dict, so
+        # the graph is gone before its death is counted
+        self._captured: dict = {}
         self._stream = None
+
+    @property
+    def capture(self) -> Capture | None:
+        return self._captured.get("step")
 
     def __call__(self) -> None:
         if self.device.type != "cuda":
@@ -512,8 +522,9 @@ class StepGraph:
                 self._stream = "eager"
             self.fn()
             return
-        if self.capture is not None:
-            self.capture.replay()
+        capture = self.capture
+        if capture is not None:
+            capture.replay()
             return
         caller = torch.cuda.current_stream(self.device)
         first = self._stream is None
@@ -525,7 +536,10 @@ class StepGraph:
                 self.fn()
         else:
             self.guard.count("()")
-            self.capture = Capture(self.fn, self._stream)
+            self._captured["step"] = Capture(self.fn, self._stream)
+            # collected, the step's graph goes at once, and
+            # release_dead_pools returns its pool as a dead cache's
+            weakref.finalize(self, _cache_died, self._captured)
         caller.wait_stream(self._stream)
         if not first:
             self.capture.replay()

@@ -116,7 +116,8 @@ def build_server(cfg: ServerConfig, forward=None, *,
     As the JAX package's ``build_server``: the process's tracing identity
     becomes "replica"; the ``/metrics`` endpoint starts when
     ``cfg.metrics_port`` (or ``RDP_METRICS_PORT``) asks for one (a failed
-    start raises); readiness flips after the warm-up, or at once with
+    start raises), with the servicer's ``drift_debug`` behind
+    ``/debug/drift``; readiness flips after the warm-up, or at once with
     none; the registry reloader starts; the grpc.health.v1 service is
     registered beside the analysis service."""
     from concurrent import futures
@@ -130,6 +131,9 @@ def build_server(cfg: ServerConfig, forward=None, *,
     try:
         servicer.metrics_server = exposition.maybe_start_metrics_server(
             cfg.metrics_port)
+        if servicer.metrics_server is not None:
+            # /debug/drift serves the drift monitor's live state
+            servicer.metrics_server.set_drift_provider(servicer.drift_debug)
         if warmup_shape is not None:
             servicer.warmup(*warmup_shape)  # flips readiness at its end
         else:

@@ -81,11 +81,29 @@ a frame. Not ported: the JAX package's per-zoo-model gates and labels
 (ROADMAP queue 1 item 12), the brownout controller and the rollout's
 ``set_draining`` (items 22 and 12), and the dispatcher's own instruments
 (item 23).
+
+**Drift** (``monitoring/profile.py``; ``ServerConfig.drift_*``, on by
+default as in the JAX package): every answered frame's five signals --
+mask coverage, mean and max curvature, the depth-valid fraction of the
+host depth frame and the confidence margin, all read off the packed row
+the frame already brought back -- feed a :class:`DriftMonitor` after the
+response is built, on the direct and the batched path alike, and the
+margin feeds ``rdp_model_confidence_margin``. The reference is the
+configured profile (``drift_profile_path`` or ``RDP_DRIFT_PROFILE``),
+else the served registry version's ``drift_profile.json``, else a
+self-baseline over the first frames; a hot reload adopts the new
+version's reference in the same critical section as the engine swap.
+Sustained drift fires one recommendation per excursion: counted
+(``rdp_drift_recommendations_total``), journaled, pinned in the flight
+recorder and logged; ``GET /debug/drift`` serves ``drift_debug``. The
+monitor adds no device work, synchronisation or copy to a frame. Not ported: the zoo's per-model monitors and handing a
+recommendation to a rollout manager (both ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 import time
 from typing import Callable, Iterable, Iterator, NamedTuple
@@ -96,6 +114,9 @@ import torch
 from robotic_discovery_platform_tpu_torch import tracking
 from robotic_discovery_platform_tpu_torch.io.frames import load_calibration
 from robotic_discovery_platform_tpu_torch.models.unet import UNet
+from robotic_discovery_platform_tpu_torch.monitoring import (
+    profile as profile_lib,
+)
 from robotic_discovery_platform_tpu_torch.observability import (
     events,
     instruments as obs,
@@ -200,7 +221,8 @@ def tier_forward(net: UNet, precision: str, device: torch.device
 
 
 class FrameResult(NamedTuple):
-    """One analyzed frame's response fields."""
+    """One analyzed frame's response fields, and the drift signals the
+    frame already computed."""
 
     mean_k: float
     max_k: float
@@ -209,6 +231,9 @@ class FrameResult(NamedTuple):
     coverage: float
     valid: bool
     spline_wire: bytes = b""  # packed_spline for mask_format 1/2
+    confidence_margin: float = 0.0
+    #: nonzero pixels of the host depth frame over all of them
+    depth_valid_fraction: float = 0.0
 
 
 class Engine(NamedTuple):
@@ -229,7 +254,7 @@ class Engine(NamedTuple):
 def _fields(packed: egress.PackedResult, h: int, w: int,
             mask_format: int) -> FrameResult:
     """A frame's response fields off its packed row."""
-    coverage, mean_k, max_k, valid, _ = packed.scalars()
+    coverage, mean_k, max_k, valid, margin = packed.scalars()
     if mask_format == egress.MASK_FORMAT_BITS:
         # the wire payload is the packed rows behind a header
         mask_bytes = egress.encode_bits_wire(packed.mask_bits, h, w)
@@ -239,7 +264,7 @@ def _fields(packed: egress.PackedResult, h: int, w: int,
     spline = (np.zeros((0, 3), np.float32) if mask_format
               else packed.spline())
     return FrameResult(mean_k, max_k, spline, mask_bytes, coverage, valid,
-                       spline_wire)
+                       spline_wire, margin)
 
 
 def _device_scope(device: torch.device):
@@ -380,6 +405,26 @@ class VisionAnalysisService:
             )
             log.info("SLO tracking: %.1f ms objective, %.2f%% budget",
                      slo_ms, 100 * cfg.slo_budget)
+        # the online drift monitor: host-side bookkeeping after each
+        # response is built (see the module docstring)
+        self.drift: profile_lib.DriftMonitor | None = None
+        if cfg.drift_enabled:
+            reference = self._load_drift_profile(version)
+            self.drift = profile_lib.DriftMonitor(
+                reference=reference,
+                window=cfg.drift_window,
+                baseline_frames=cfg.drift_baseline_frames,
+                score_every=cfg.drift_score_every,
+                psi_threshold=cfg.drift_psi_threshold,
+                sustain_s=cfg.drift_sustain_s,
+                cooldown_s=cfg.drift_cooldown_s,
+                generation=version,
+                on_score=self._on_drift_score,
+                on_recommendation=self._on_drift_recommendation,
+            )
+            obs.DRIFT_REFERENCE_AGE.set(
+                -1.0 if reference is None else reference.age_s
+            )
 
     # -- the generation -------------------------------------------------------
 
@@ -489,9 +534,13 @@ class VisionAnalysisService:
             packed = self._packed(eng, rgb, depth)
         try:
             with timer.stage("encode"):
-                return _fields(packed, h, w, mask_format)
+                res = _fields(packed, h, w, mask_format)
         finally:
             packed.release()
+        # the drift signal the frame already paid for: one host-side
+        # count over the raw depth frame
+        return res._replace(depth_valid_fraction=(
+            float(np.count_nonzero(depth)) / max(depth.size, 1)))
 
     def _packed(self, eng: Engine, rgb, depth: np.ndarray
                 ) -> egress.PackedResult:
@@ -555,6 +604,7 @@ class VisionAnalysisService:
                 packed_spline=res.spline_wire,
             )
             self.metrics.append(res.mean_k, res.max_k, res.coverage)
+            self._observe_drift(res)
             status_label = "ok" if res.valid else "degraded"
         except OverloadedError as exc:
             # load shedding ends the stream (RESOURCE_EXHAUSTED); a shed
@@ -588,6 +638,127 @@ class VisionAnalysisService:
         if self.slo is not None:
             self.slo.observe(total_s, ok=status_label in ("ok", "degraded"))
         return response
+
+    def _observe_drift(self, res: FrameResult) -> None:
+        """Feed one answered frame's signals to the drift monitor and the
+        confidence-margin histogram: host-side Python, after the response
+        is built."""
+        obs.MODEL_CONFIDENCE_MARGIN.observe(res.confidence_margin)
+        if self.drift is None:
+            return
+        self.drift.observe_frame({
+            "mask_coverage": res.coverage,
+            "mean_curvature": res.mean_k if res.valid else math.nan,
+            "max_curvature": res.max_k if res.valid else math.nan,
+            "depth_valid_fraction": res.depth_valid_fraction,
+            "confidence_margin": res.confidence_margin,
+        })
+
+    # -- drift observability ----------------------------------------------------
+
+    def _load_drift_profile(self, version: int | None
+                            ) -> profile_lib.FeatureProfile | None:
+        """The reference profile: an explicit path (``drift_profile_path``
+        or ``RDP_DRIFT_PROFILE``) wins, else the ``drift_profile.json``
+        artifact next to the served registry version's weights; None
+        means self-baseline. An unusable profile is logged and falls
+        back."""
+        path = profile_lib.resolve_drift_profile_path(
+            self.cfg.drift_profile_path)
+        if path is not None:
+            try:
+                return profile_lib.FeatureProfile.load(path)
+            except Exception as exc:
+                log.warning(
+                    "drift profile %s unusable (%s: %s); falling back "
+                    "to registry artifact / self-baseline",
+                    path, type(exc).__name__, exc,
+                )
+        if version is None:
+            return None
+        try:
+            artifact = (self._registry_store.version_path(
+                self.cfg.model_name, version) / profile_lib.DRIFT_PROFILE_FILE)
+            if artifact.exists():
+                return profile_lib.FeatureProfile.load(artifact)
+        except Exception as exc:
+            log.warning(
+                "no drift profile artifact for %s v%s (%s: %s); "
+                "self-baselining", self.cfg.model_name, version,
+                type(exc).__name__, exc,
+            )
+        return None
+
+    def _on_drift_score(self, signal: str,
+                        score: profile_lib.DriftScore) -> None:
+        _child(obs.DRIFT_SCORE, signal, MODEL_LABEL).set(score.psi)
+        if self.drift is not None:
+            age = self.drift.reference_age_s
+            obs.DRIFT_REFERENCE_AGE.set(-1.0 if age is None else age)
+
+    def _on_drift_recommendation(
+            self, rec: profile_lib.RetrainRecommendation) -> None:
+        """At most one per sustained excursion: counted, pinned in the
+        flight recorder, journaled and logged."""
+        obs.DRIFT_RECOMMENDATIONS.inc()
+        recorder_lib.RECORDER.pin(recorder_lib.RECORDER.record_event(
+            "serving.drift_recommendation",
+            signals=",".join(rec.signals),
+            generation=str(rec.generation),
+            reference=rec.reference_source,
+            reason=rec.reason,
+        ))
+        journal_lib.JOURNAL.append(
+            events.DRIFT_RECOMMENDATION, rec.reason,
+            signals=",".join(rec.signals), generation=str(rec.generation),
+        )
+        log.warning(
+            "DRIFT: %s -- recommend retraining (workflows.retraining)",
+            rec.reason,
+        )
+
+    def _apply_drift_reference(
+            self, version: int | None,
+            reference: profile_lib.FeatureProfile | None) -> None:
+        """Adopt the swapped-in generation's drift reference: its profile
+        when it shipped one, else a fresh self-baseline stamped with
+        ``version``. Called under ``_reload_lock``, in the critical
+        section of the engine swap, so no reader pairs new weights with
+        the old reference."""
+        if self.drift is None:
+            return
+        if reference is not None:
+            self.drift.set_reference(reference)
+            obs.DRIFT_REFERENCE_AGE.set(reference.age_s)
+        else:
+            self.drift.rebaseline(generation=version)
+            obs.DRIFT_REFERENCE_AGE.set(-1.0)
+
+    def version_and_reference(self) -> tuple[int | None, object]:
+        """The (engine generation, drift reference generation) pair, read
+        under the reload lock: both move together in a swap, so this never
+        returns a mixed pair."""
+        with self._reload_lock:
+            version = self._engine.version
+            if self.drift is None:
+                return version, None
+            ref = self.drift.reference
+            gen = (ref.generation if ref is not None
+                   and ref.generation is not None
+                   else self.drift.generation)
+            return version, gen
+
+    def drift_debug(self) -> dict:
+        """The ``GET /debug/drift`` payload: the monitor's snapshot and
+        the engine version, read under the reload lock."""
+        if self.drift is None:
+            return {"enabled": False,
+                    "reason": "drift monitoring disabled "
+                              "(ServerConfig.drift_enabled)"}
+        with self._reload_lock:
+            snap = self.drift.snapshot()
+            snap["model_version"] = self._engine.version
+        return snap
 
     def _enter_stream(self) -> bool:
         with self._streams_cond:
@@ -695,6 +866,10 @@ class VisionAnalysisService:
                                              self.device)
             del net
             engine = self._make_engine(version, forward, pristine)
+            # the new generation's drift reference is read here, off the
+            # lock, and adopted in the swap's critical section below
+            drift_reference = (self._load_drift_profile(version)
+                               if self.drift is not None else None)
             if self._closed:
                 return False  # skip the warm; finally cleans up
             old = None
@@ -712,6 +887,9 @@ class VisionAnalysisService:
                         continue  # warmup() raced us; warm the new shape
                     old, self._engine = self._engine, engine
                     engine = None  # went live; finally must not stop it
+                    # the new generation's reference goes live with its
+                    # weights, never after them
+                    self._apply_drift_reference(version, drift_reference)
                     if old.dispatcher is not None:
                         self._schedule_grace_stop(old.dispatcher)
                     break

@@ -11,8 +11,8 @@ same in both packages.
   static shapes; the port keeps the same batches).
 - :class:`Batches` / :class:`StreamingBatches`: epoch iterators over
   in-memory arrays and over files, each decoding ahead on a background
-  thread. Each re-seeds its order from ``seed`` when it is made, so a
-  resumed run starts the order over, as in the JAX package.
+  thread. Each seeds its order from ``seed`` when it is made (``rng``);
+  the trainer puts a checkpoint's order state back into it on resume.
 """
 
 from __future__ import annotations

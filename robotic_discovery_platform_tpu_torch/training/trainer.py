@@ -36,6 +36,13 @@ Two epoch forms, chosen by the JAX package's rule
   prefetching iterator, for a dataset directory or arrays past
   ``scan_max_bytes``.
 
+A checkpoint carries the epoch order's generator state (``order_rng``),
+and a resumed run puts it back, so it takes the batches an unbroken run
+would: a deliberate divergence from the JAX package, whose resumed run
+draws the order from the seed afresh and so repeats the first epoch's
+batches (ROADMAP queue 3). A checkpoint without that state (one the JAX
+package's was converted from) resumes as the JAX package does.
+
 The mesh is refused (ROADMAP queue 1 item 14).
 """
 
@@ -233,6 +240,11 @@ class StreamEpochs:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    @property
+    def order_rng(self) -> np.random.Generator:
+        """The generator each epoch's training order is drawn from."""
+        return self.train_batches.rng
+
     def train(self) -> float:
         losses = [train_step(self.net, self.optimizer, self.loss_fn,
                              self._to_device(bx), self._to_device(by))
@@ -256,8 +268,9 @@ class ScanEpochs:
     batch, one host fetch per epoch for the losses and one for the
     validation metrics (see the module docstring).
 
-    ``rng`` is the epoch order's generator, ``np.random.default_rng(
-    seed)`` as in the JAX package: each :meth:`train` draws one shuffled
+    ``rng`` is the epoch order's generator (``order_rng``),
+    ``np.random.default_rng(seed)`` as in the JAX package: each
+    :meth:`train` draws one shuffled
     ``[n_batches, batch]`` order (``data.epoch_order``); the validation
     order is drawn once, unshuffled. The steps read the module's own
     parameters and BatchNorm buffers and the optimizer's state, and update
@@ -269,7 +282,7 @@ class ScanEpochs:
                  batch_size: int, rng: np.random.Generator,
                  device: torch.device):
         self.net, self.optimizer, self.loss_fn = net, optimizer, loss_fn
-        self.batch_size, self.rng = batch_size, rng
+        self.batch_size, self.order_rng = batch_size, rng
         self.device = device
 
         def resident(a: np.ndarray) -> torch.Tensor:
@@ -315,12 +328,22 @@ class ScanEpochs:
 
     def train(self) -> float:
         order = data_lib.epoch_order(self.n_train, self.batch_size, True,
-                                     self.rng)
+                                     self.order_rng)
         self.order.copy_(torch.from_numpy(order))
         self.slot.zero_()
         for _ in range(order.shape[0]):
             self._train_graph()
         return float(np.mean(self.losses.cpu().numpy()))
+
+    def close(self) -> None:
+        """Drop the captured steps, and the gradients that the captured
+        backward left in the train graph's pool, now rather than when the
+        collector breaks this object's cycle with its steps: the graphs'
+        memory can then go back to the card at once
+        (``graphs.release_dead_pools``), as a process that trains and
+        serves needs."""
+        self.optimizer.zero_grad(set_to_none=True)
+        self._train_graph = self._eval_graph = None
 
     def validate(self) -> dict:
         self.val_slot.zero_()
@@ -379,6 +402,7 @@ def train_model(cfg: TrainConfig = TrainConfig(),
     optimizer = make_optimizer(net, cfg.learning_rate)
     loss_fn = losses_lib.make_loss_fn(cfg.loss, cfg.dice_weight)
     epoch, best_val_loss, best_state = 0, float("inf"), None
+    restored = None
 
     ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
     if resume and ckpt.latest_step() is not None:
@@ -417,6 +441,10 @@ def train_model(cfg: TrainConfig = TrainConfig(),
             data_lib.Batches(xs[val_idx], ys[val_idx], batch_size,
                              shuffle=False),
             device)
+    if restored is not None and "order_rng" in restored:
+        # the batches an unbroken run takes from here (see the module
+        # docstring)
+        epochs.order_rng.bit_generator.state = restored["order_rng"]
 
     tracking.set_tracking_uri(cfg.tracking_uri)
     tracking.set_experiment(cfg.experiment_name)
@@ -472,6 +500,7 @@ def train_model(cfg: TrainConfig = TrainConfig(),
                     "best_val_loss": best_val_loss,
                     "best": (best_state if best_state is not None
                              else net.state_dict()),
+                    "order_rng": epochs.order_rng.bit_generator.state,
                 }
                 if cfg.async_checkpointing:
                     ckpt.save_async(epoch + 1, payload)
@@ -491,6 +520,9 @@ def train_model(cfg: TrainConfig = TrainConfig(),
     except BaseException:
         ckpt.close(raise_errors=False)
         raise
+    finally:
+        if mode == "scan":
+            epochs.close()
     ckpt.close()
     return TrainResult(
         run_id=run_id,

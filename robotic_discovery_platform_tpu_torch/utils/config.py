@@ -1,8 +1,8 @@
 """Configuration of the port: the fields of the JAX package's
 ``ModelConfig``, ``TrainConfig``, ``GeometryConfig``, ``ServerConfig`` and
 ``MeshConfig`` that the serving and training paths read, with the same
-names and defaults, plus ``from_dict`` and ``--section.field`` flag
-parsing for them.
+names and defaults, and the offline drift detector's ``DriftConfig``,
+plus ``from_dict`` and ``--section.field`` flag parsing for them.
 
 Settings the port does not implement yet raise ``NotImplementedError`` in
 :func:`check_supported`, naming the ROADMAP item that brings them:
@@ -210,6 +210,47 @@ class ServerConfig:
     slo_budget: float = 0.01
     # sliding window (frames) of the burn-rate estimate
     slo_window: int = 512
+    # online drift monitoring (monitoring/profile.py): every served frame's
+    # signals (mask coverage, curvatures, depth-validity fraction,
+    # confidence margin) feed per-signal sliding windows scored (PSI /
+    # Jensen-Shannon) against a reference profile; host-side bookkeeping
+    # after the response is built
+    drift_enabled: bool = True
+    # reference profile JSON (monitoring/profile.FeatureProfile). Empty =
+    # drift_profile.json next to the served registry version's weights,
+    # else a self-baseline over the first drift_baseline_frames frames.
+    # The RDP_DRIFT_PROFILE environment variable overrides it
+    # (monitoring/profile.resolve_drift_profile_path).
+    drift_profile_path: str = ""
+    # sliding live window (frames) each signal is scored over
+    drift_window: int = 256
+    # self-baseline size when no reference profile is available
+    drift_baseline_frames: int = 64
+    # rescore every N observed frames
+    drift_score_every: int = 16
+    # PSI above this (plus its noise floor) counts a signal as drifted
+    drift_psi_threshold: float = 0.25
+    # hysteresis: a signal must hold above threshold this long before a
+    # retrain recommendation fires; after one fires the monitor re-arms
+    # only once every signal has recovered and this cooldown has passed
+    drift_sustain_s: float = 5.0
+    drift_cooldown_s: float = 300.0
+
+
+@dataclass(frozen=True)
+class DriftConfig:
+    """The offline drift detector's settings (``monitoring/drift.py``)."""
+
+    metrics_csv: str = "logs/vision_service_metrics.csv"
+    baseline_fraction: float = 0.5
+    threshold: float = 0.25
+    min_rows: int = 50
+    report_path: str = "reports/drift_report.png"
+    rolling_window: int = 20
+    report_dpi: int = 150
+    # baseline-vs-recent PSI above this (plus its noise floor) also flags
+    # drift, so a variance blowup with a stable mean is caught
+    psi_threshold: float = 0.25
 
 
 @dataclass(frozen=True)
@@ -231,6 +272,7 @@ class PlatformConfig:
     geometry: GeometryConfig = field(default_factory=GeometryConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    drift: DriftConfig = field(default_factory=DriftConfig)
 
 
 def resolve_kernel_impl(configured: str) -> str:

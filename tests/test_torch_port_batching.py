@@ -35,6 +35,18 @@ _K = np.eye(3, dtype=np.float32)
 N_PTS = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _frame(v: int, size: int = 8) -> np.ndarray:
     return np.full((size, size, 3), v, np.uint8)
 

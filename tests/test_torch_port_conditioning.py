@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from robotic_discovery_platform_tpu.models import losses as jlosses
@@ -25,6 +26,18 @@ from robotic_discovery_platform_tpu_torch.models.weights import (
     from_flax_variables,
 )
 from robotic_discovery_platform_tpu_torch.utils import config
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _flat(tree, prefix=""):

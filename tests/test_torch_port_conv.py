@@ -24,6 +24,18 @@ from robotic_discovery_platform_tpu.ops.pallas import conv as jconv
 from robotic_discovery_platform_tpu_torch.ops import conv as tconv
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _operands(rng, b, h, w, cin, cout, taps):
     x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
     shape = (3, 3, cin, cout) if taps == 9 else (cin, cout)

@@ -78,6 +78,18 @@ _SF = {
 H, W = 56, 72  # not a multiple of 16: the MCU padding and chroma crop
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scene(h, w, seed=0):
     """A structured RGB frame (gradients, a disc, a little noise)."""
     rng = np.random.default_rng(seed)

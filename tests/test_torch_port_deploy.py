@@ -77,6 +77,18 @@ H, W, SIZE = 120, 160, 64
 JCFG = jconfig.ModelConfig(base_features=8, compute_dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _variables(seed: int) -> dict:
     """The serving test's recipe (tests/test_torch_port_serving.py):
     BatchNorm statistics from a numpy seed and the head bias at frame 0's
@@ -675,8 +687,12 @@ def test_server_config_gains_the_jax_fields():
     made = config.from_dict(config.ServerConfig, {f: getattr(jax_, f)
                                                   for f in fields})
     assert made == port
+    # the drift fields came with the drift monitor (test_torch_port_drift.
+    # py); a field of a module still to port is refused
+    assert config.from_dict(config.ServerConfig, {"drift_enabled": True}) == (
+        port)
     with pytest.raises(ValueError, match="unknown config keys"):
-        config.from_dict(config.ServerConfig, {"drift_enabled": True})
+        config.from_dict(config.ServerConfig, {"fleet_replicas": ""})
 
 
 def test_frames_feed_the_instruments(tmp_path, monkeypatch):

@@ -44,6 +44,18 @@ TRAIN_MODEL = config.ModelConfig(base_features=8, compute_dtype="float32")
 KEYS = ("train_loss", "val_loss", "val_miou", "val_dice")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(root, **kw):
     fields = dict(epochs=2, batch_size=4, img_size=32, learning_rate=1e-4,
                   validation_split=0.25, async_checkpointing=False,
@@ -254,14 +266,10 @@ def test_resumed_scan_run_equals_an_unbroken_one(tmp_path, arrays,
                                                  monkeypatch):
     """One epoch, then resume to three, against three epochs unbroken:
     equal per-epoch losses and final state, bit for bit, with the
-    optimizer's foreach-form Adam state (step, moments) round-tripped
-    through the checkpoint.
-
-    A resumed run draws its batch order from the seed afresh, as the JAX
-    package's does (tests/test_torch_port_training.py holds that against
-    the JAX package); here every epoch takes one fixed order, so the two
-    runs differ only by the checkpoint round trip."""
-    _fix_epoch_order(monkeypatch)
+    optimizer's foreach-form Adam state (step, moments) and the epoch
+    order's generator round-tripped through the checkpoint (the resumed
+    run takes the unbroken run's batches; the JAX package's would start
+    the order over, ROADMAP queue 3)."""
     unbroken_cfg, _ = _cfgs(tmp_path / "unbroken", epochs=3)
     unbroken = trainer.train_model(unbroken_cfg, TRAIN_MODEL, arrays=arrays,
                                    register=False, device="cpu")

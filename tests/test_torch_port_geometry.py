@@ -32,6 +32,18 @@ H, W = 120, 160
 SCALE = 0.001
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scene(case: str):
     """(mask u8, depth u16) for one case: rendered scenes, plus the
     graceful-zero frames the reference rejects."""

@@ -51,6 +51,18 @@ H, W = 96, 128
 PARAMS = np.asarray([100.0, 110.0, 64.0, 48.0, 0.001], np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mask_and_depth(kind: str, seed: int):
     rng = np.random.default_rng(seed)
     if kind == "scene":

@@ -56,6 +56,18 @@ SIZE = 16
 SHAPES = [(24, 32), (24, 32), (32, 24), (24, 32), (16, 40)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def model():
     jmodel = build_unet(JaxModelConfig(base_features=4,

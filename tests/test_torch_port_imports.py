@@ -16,6 +16,9 @@ import pytest
 import torch
 
 from robotic_discovery_platform_tpu_torch.models import unet as tunet
+from robotic_discovery_platform_tpu_torch.monitoring.profile import (
+    capture_feature_profile,
+)
 from robotic_discovery_platform_tpu_torch.models import weights
 from robotic_discovery_platform_tpu_torch.ops import build, pipeline
 from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
@@ -38,6 +41,18 @@ from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "robotic_discovery_platform_tpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _forbidden(name: str) -> bool:
@@ -66,6 +81,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.observability.sketch\n"
         "import robotic_discovery_platform_tpu_torch.serving.health\n"
         "import robotic_discovery_platform_tpu_torch.serving.proto.health_pb2\n"
+        "import robotic_discovery_platform_tpu_torch.monitoring.profile\n"
+        "import robotic_discovery_platform_tpu_torch.monitoring.drift\n"
+        "import robotic_discovery_platform_tpu_torch.workflows.retraining\n"
+        "import robotic_discovery_platform_tpu_torch.training.supervisor\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -85,7 +104,9 @@ def test_port_and_chip_smoke_import_no_jax():
                    "observability.slo", "observability.sketch",
                    "observability.trace", "observability.events",
                    "observability.families", "utils.logging",
-                   "utils.lockcheck", "utils.profiling"):
+                   "utils.lockcheck", "utils.profiling",
+                   "monitoring.profile", "monitoring.drift",
+                   "workflows.retraining", "training.supervisor"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -117,7 +138,8 @@ def _tiny_net():
                                    "make_frame_analyzer",
                                    "VisionAnalysisService", "load_model_dir",
                                    "make_batch_analyzer", "BatchDispatcher",
-                                   "train_model", "build_service"])
+                                   "train_model", "build_service",
+                                   "capture_feature_profile"])
 def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """With no CUDA device, the default device raises; ``device="cpu"``
     runs."""
@@ -163,6 +185,9 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
             config.ServerConfig(metrics_csv=str(tmp_path / "m.csv"),
                                 calibration_path=str(tmp_path / "none.npz")),
             folded, **kw),
+        "capture_feature_profile": lambda **kw: capture_feature_profile(
+            net, [(np.zeros((24, 32, 3), np.uint8),
+                   np.zeros((24, 32), np.uint16))], img_size=32, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -185,7 +210,7 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
                                   "serving_mesh", "egress_pack_off",
                                   "egress_workers", "env_override",
                                   "conv_impl", "train_defaults",
-                                  "mesh_section"])
+                                  "mesh_section", "drift_fields"])
 def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
     if case == "kernel_impl_default":
         assert config.GeometryConfig().kernel_impl == "auto"
@@ -257,6 +282,22 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         config.check_supported(scan)
         # and taken: in-memory data trains in the scan epoch
         assert resolve_epoch_mode(scan, data_bytes=1 << 20) == "scan"
+    elif case == "drift_fields":
+        # the eight drift_* fields and the drift section, the JAX
+        # package's names and defaults; the monitor is on by default
+        cfg = config.ServerConfig()
+        assert cfg.drift_enabled is True
+        assert (cfg.drift_profile_path, cfg.drift_window,
+                cfg.drift_baseline_frames, cfg.drift_score_every,
+                cfg.drift_psi_threshold, cfg.drift_sustain_s,
+                cfg.drift_cooldown_s) == ("", 256, 64, 16, 0.25, 5.0, 300.0)
+        assert config.from_dict(config.ServerConfig, {
+            "drift_enabled": False, "drift_window": 32}).drift_window == 32
+        parsed = config.parse_config(["--drift.min_rows", "10",
+                                      "--server.drift_sustain_s", "0.5"])
+        assert parsed.drift.min_rows == 10
+        assert parsed.server.drift_sustain_s == 0.5
+        assert len(dataclasses.fields(config.ServerConfig)) == 44
     elif case == "mesh_section":
         config.check_supported(config.MeshConfig())
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):

@@ -63,6 +63,18 @@ CFG = config.ModelConfig(base_features=BASE, compute_dtype="float32",
                          bilinear=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flat(tree: dict, prefix: str = "") -> dict:
     out = {}
     for k, v in tree.items():

@@ -23,6 +23,18 @@ from robotic_discovery_platform_tpu_torch.ops import pipeline as tpipe
 from robotic_discovery_platform_tpu_torch.serving import egress
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mask(shape, seed):
     """A mask of values drawn from {0, 1, 7, 255}."""
     values = np.array([0, 1, 7, 255], np.uint8)

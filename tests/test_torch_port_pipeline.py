@@ -41,6 +41,18 @@ from robotic_discovery_platform_tpu_torch.utils.config import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("n_in,n_out", [(480, 256), (640, 256), (120, 64),
                                         (100, 256), (64, 64)])
 def test_resize_matrix_and_preprocess_match_jax(n_in, n_out):

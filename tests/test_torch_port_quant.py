@@ -31,7 +31,11 @@ by its int8 tier.
 
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 import types
+from pathlib import Path
 
 import flax
 import jax
@@ -48,11 +52,11 @@ from robotic_discovery_platform_tpu.utils.config import (
     ModelConfig as JaxModelConfig,
 )
 from robotic_discovery_platform_tpu_torch import tracking
-from robotic_discovery_platform_tpu_torch.models import losses, weights
+from robotic_discovery_platform_tpu_torch.models import weights
+from robotic_discovery_platform_tpu_torch.models.unet import UNet
 from robotic_discovery_platform_tpu_torch.ops import pipeline, quant
 from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
 from robotic_discovery_platform_tpu_torch.serving import ingest, server
-from robotic_discovery_platform_tpu_torch.training import synthetic, trainer
 from robotic_discovery_platform_tpu_torch.utils.config import (
     ModelConfig,
     ServerConfig,
@@ -68,6 +72,70 @@ CFG = ModelConfig(base_features=BASE, compute_dtype="float32")
 NAME = "Actuator-Segmenter"
 #: the serving camera's (height, width)
 CAMERA = (480, 640)
+
+
+#: the trained fixture net's 60 Adam steps (lr 1e-3, batches of 8, bce)
+#: on 64 synthetic scenes at 64x64, its state dict saved to argv[1]: run
+#: by a child interpreter (``training_child``)
+_TRAIN_SCRIPT = """
+import sys
+import numpy as np
+import torch
+from robotic_discovery_platform_tpu_torch.models import losses
+from robotic_discovery_platform_tpu_torch.training import synthetic, trainer
+from robotic_discovery_platform_tpu_torch.utils.config import ModelConfig
+
+torch.manual_seed(0)
+net = trainer.init_model(ModelConfig(base_features=8, compute_dtype="float32"),
+                         0, torch.device("cpu"))
+xs, ys = trainer.normalize_arrays(*synthetic.generate_arrays(64, 64, 64,
+                                                             seed=0))
+xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
+optimizer = trainer.make_optimizer(net, 1e-3)
+loss_fn = losses.make_loss_fn("bce")
+order = np.random.default_rng(0)
+for _ in range(60):
+    idx = torch.from_numpy(order.choice(len(xs), 8, replace=False))
+    trainer.train_step(net, optimizer, loss_fn, xs[idx], ys[idx])
+np.savez(sys.argv[1], **{k: v.numpy() for k, v in net.state_dict().items()})
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def training_child(tmp_path_factory):
+    """The trained fixture net's training, started with the module so it
+    runs beside the tests before the camera tests, in a child interpreter
+    on this process's own intra-op thread count: training's float sums
+    split by thread count, and the camera tests' bars were set on the net
+    trained so. Its threads sleep rather than spin while they wait for
+    each other (``OMP_WAIT_POLICY``; the same sums, so the same net),
+    which under loaded neighbours took the 60 steps from about 600 s to
+    260. Yields the child and the file it writes."""
+    out = tmp_path_factory.mktemp("trained") / "state.npz"
+    child = subprocess.Popen(
+        [sys.executable, "-c", _TRAIN_SCRIPT, str(out)],
+        cwd=Path(__file__).resolve().parent.parent,
+        env={**os.environ, "OMP_NUM_THREADS": str(torch.get_num_threads()),
+             "OMP_WAIT_POLICY": "PASSIVE"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    yield child, out
+    if child.returncode is None:  # nobody waited for it
+        child.kill()
+        child.communicate()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread(training_child):
+    """Torch on one intra-op thread for this module. The suite runs in
+    several worker processes at once, each with torch's pool of one
+    thread per core: oversubscribed, the pools' threads wait on each
+    other at every small op (the camera fixtures' 60 training steps took
+    about 10 s each instead of 0.12, and their setup was billed 913 s in
+    a six-worker run, 17 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -95,22 +163,18 @@ def confident_vars(jax_model_and_vars):
 
 
 @pytest.fixture(scope="module")
-def trained_vars():
+def trained_vars(training_child):
     """The fixture's model trained for 60 Adam steps (lr 1e-3, batches of
-    8, bce) on 64 synthetic scenes at 64x64, as numpy Flax variables: its
-    masks follow the actuator, as a served model's do (train loss about
-    0.4 from 0.7)."""
-    torch.manual_seed(0)
-    net = trainer.init_model(CFG, 0, torch.device("cpu"))
-    xs, ys = trainer.normalize_arrays(
-        *synthetic.generate_arrays(64, IMG, IMG, seed=0))
-    xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
-    optimizer = trainer.make_optimizer(net, 1e-3)
-    loss_fn = losses.make_loss_fn("bce")
-    order = np.random.default_rng(0)
-    for _ in range(60):
-        idx = torch.from_numpy(order.choice(len(xs), 8, replace=False))
-        trainer.train_step(net, optimizer, loss_fn, xs[idx], ys[idx])
+    8, bce) on 64 synthetic scenes at 64x64 (``_TRAIN_SCRIPT``), as numpy
+    Flax variables: its masks follow the actuator, as a served model's do
+    (train loss about 0.4 from 0.7)."""
+    child, out = training_child
+    log, _ = child.communicate()
+    assert child.returncode == 0, log.decode(errors="replace")
+    with np.load(out) as state:
+        net = UNet(CFG)
+        net.load_state_dict({k: torch.from_numpy(state[k])
+                             for k in state.files})
     return weights.to_flax_variables(net.eval())
 
 

@@ -75,6 +75,18 @@ REPO = Path(__file__).resolve().parent.parent
 H, W, SIZE = 120, 160, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _model_and_variables():
     """base_features 8, float32, BatchNorm statistics from a numpy seed and
     the head bias at frame 0's median logit (structured masks)."""

@@ -36,6 +36,18 @@ SMALL = config.ModelConfig(base_features=4, compute_dtype="float32")
 NAME = "Actuator-Segmenter"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _net(seed: int, cfg=SMALL) -> tunet.UNet:
     net = tunet.UNet(cfg).init_weights(torch.Generator().manual_seed(seed))
     gen = np.random.default_rng(seed)

@@ -50,6 +50,18 @@ from robotic_discovery_platform_tpu_torch.training.__main__ import main
 from robotic_discovery_platform_tpu_torch.utils import config
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs in
+    several worker processes at once, and torch's pool of one thread per
+    core, oversubscribed, waits on itself at every small op
+    (tests/test_torch_port_quant.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel_l2(got, want) -> float:
     got = np.asarray(got, np.float64).ravel()
     want = np.asarray(want, np.float64).ravel()
@@ -447,9 +459,10 @@ def _port_checkpoint_from_jax(ref_cfg, directory, jmodel) -> None:
 
 def test_resume_from_the_same_state_matches_jax(tmp_path, arrays):
     """The JAX package trains one epoch; both packages resume from that
-    checkpoint (the port's copy of it) to three epochs. Both run two
-    epochs, re-seed the batch order from the seed as a fresh run does,
-    and their losses agree."""
+    checkpoint (the port's copy of it, which like the JAX package's
+    carries no epoch order state) to three epochs. Both run two epochs,
+    re-seed the batch order from the seed as a fresh run does, and their
+    losses agree."""
     jmodel = jconfig.ModelConfig(**dataclasses.asdict(TRAIN_MODEL))
     port_cfg, ref_cfg = _cfgs(tmp_path, epochs=1)
     jtrainer.train_model(ref_cfg, jmodel, arrays=arrays, register=False)
@@ -578,17 +591,27 @@ def test_training_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match="queue 1 item 18"):
             trainer.train_model(dataclasses.replace(cfg, tracking_uri=uri),
                                 TRAIN_MODEL, **kw)
-    elif case in ("supervisor", "retraining_workflow"):
+    elif case == "supervisor":
+        # ported (tests/test_torch_port_supervisor.py): a checkpoint that
+        # never landed (its temp directory) does not count as training
+        # started, so a deterministic startup error still fails fast
         from robotic_discovery_platform_tpu_torch.training import supervisor
+
+        ckpt = tmp_path / "sup"
+        (ckpt / ".1.tmp").mkdir(parents=True)
+        (ckpt / ".1.tmp" / checkpoint.STATE_FILE).write_bytes(b"")
+        (ckpt / "2").mkdir()  # renamed, but holds no state file
+        assert not supervisor._has_completed_step(ckpt)
+        (ckpt / "2" / checkpoint.STATE_FILE).write_bytes(b"")
+        assert supervisor._completed_steps(ckpt) == [2]
+    elif case == "retraining_workflow":
+        # ported (tests/test_torch_port_retraining.py); the mesh trainer
+        # it would take is not
         from robotic_discovery_platform_tpu_torch.workflows import retraining
 
-        calls = ([supervisor.run_supervised] if case == "supervisor" else
-                 [retraining.capture_drift_profile,
-                  retraining.run_retraining_pipeline,
-                  retraining.run_if_drifted])
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-                call(cfg)
+        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+            retraining.run_retraining_pipeline(cfg, TRAIN_MODEL,
+                                               mesh=object(), arrays=arrays)
     elif case == "checkpoint_every_zero":
         with pytest.raises(ValueError, match="checkpoint_every"):
             trainer.train_model(dataclasses.replace(cfg, checkpoint_every=0),

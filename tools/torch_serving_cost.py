@@ -22,16 +22,20 @@ A variant switches off, in this process only, any of
                    observer become no-ops),
   ``span``         the ``serving.stream`` span,
   ``stream``       the cache's own stream (``graphs.dedicated_stream``
-                   becomes PyTorch's pooled ``torch.cuda.Stream``).
+                   becomes PyTorch's pooled ``torch.cuda.Stream``),
+  ``drift``        the drift monitor (the servicers are built with
+                   ``ServerConfig.drift_enabled = False``; the confidence
+                   margin histogram and the depth count stay).
 The variants run in the order given and then in reverse. A package
 without those parts (an older checkout, ``--root``) runs "base" only.
 
 Run on the card from a checkout's root:
   python tools/torch_serving_cost.py [--root DIR] [--reps N]
-      [--variants base,log,instruments,span,stream,all]
+      [--variants base,log,instruments,span,stream,drift,all]
 Prints one JSON line per variant and turn, and the card's name and
 power limit. ``--instruments-only`` times one frame's instrument calls
-on the host (``instruments_us``) and prints that alone.
+on the host (``instruments_us``) and ``--drift-only`` one frame's drift
+monitoring (``drift_us``), and prints that alone (no card needed).
 """
 
 from __future__ import annotations
@@ -54,8 +58,12 @@ import numpy as np
 
 PKG = "robotic_discovery_platform_tpu_torch"
 OFF = {"base": (), "log": ("log",), "instruments": ("instruments",),
-       "span": ("span",), "stream": ("stream",),
-       "all": ("log", "instruments", "span", "stream")}
+       "span": ("span",), "stream": ("stream",), "drift": ("drift",),
+       "all": ("log", "instruments", "span", "stream", "drift")}
+
+#: ServerConfig fields every servicer of a measurement takes (a variant
+#: sets them)
+CFG_FIELDS: dict = {}
 
 
 class _Null:
@@ -108,6 +116,9 @@ def switched_off(torch, parts: tuple):
         if "stream" in parts:
             patch(graphs, "dedicated_stream",
                   lambda device, owner: torch.cuda.Stream(device))
+        if "drift" in parts:
+            stack.callback(CFG_FIELDS.pop, "drift_enabled", None)
+            CFG_FIELDS["drift_enabled"] = False
         yield
 
 
@@ -116,7 +127,8 @@ def supports(parts: tuple) -> bool:
     graphs = importlib.import_module(f"{PKG}.ops.graphs")
     need = {"log": True, "instruments": hasattr(server, "obs"),
             "span": hasattr(server, "trace"),
-            "stream": hasattr(graphs, "dedicated_stream")}
+            "stream": hasattr(graphs, "dedicated_stream"),
+            "drift": hasattr(server.VisionAnalysisService, "_observe_drift")}
     return all(need[p] for p in parts)
 
 
@@ -194,7 +206,8 @@ def _measure(port, smoke, folded, requests, reps: int, device: str,
     cfg = port.ServerConfig(address="localhost:0",
                             metrics_csv=str(tmp / "direct.csv"),
                             metrics_flush_every=1,
-                            calibration_path=str(tmp / "none.npz"))
+                            calibration_path=str(tmp / "none.npz"),
+                            **CFG_FIELDS)
     out: dict = {"one_stream_fps": [], "one_stream_outside_ms": [],
                  "direct8_fps": [], "batched8_fps": []}
     service = port.VisionAnalysisService(folded, cfg=cfg, device=device)
@@ -224,7 +237,8 @@ def _measure(port, smoke, folded, requests, reps: int, device: str,
                              metrics_csv=str(tmp / "batched.csv"),
                              metrics_flush_every=1,
                              calibration_path=str(tmp / "none.npz"),
-                             batch_window_ms=2.0, max_batch=smoke.MAX_BATCH)
+                             batch_window_ms=2.0, max_batch=smoke.MAX_BATCH,
+                             **CFG_FIELDS)
     batched = port.VisionAnalysisService(folded, cfg=bcfg, device=device)
     batched.warmup(smoke.FRAME_W, smoke.FRAME_H)
     for rep in range(reps + 1):
@@ -278,21 +292,77 @@ def instruments_us(frames: int = 5000, repeats: int = 5) -> float:
     return min(run() for _ in range(repeats))
 
 
+def drift_us(frames: int = 4096, repeats: int = 5) -> dict | None:
+    """Host microseconds of one frame's drift monitoring, as the
+    checkout's servicer makes it: the depth-valid count over a 480x640
+    depth frame (``depth_count``), and ``_observe_drift`` (the margin
+    histogram and ``DriftMonitor.observe_frame`` under the default
+    ``ServerConfig.drift_*`` settings, its rescoring every
+    ``drift_score_every`` frames included) on synthetic signals after the
+    self-baseline; the least of ``repeats`` rounds. None for a checkout
+    without the monitor."""
+    server = importlib.import_module(f"{PKG}.serving.server")
+    if not hasattr(server.VisionAnalysisService, "_observe_drift"):
+        return None
+    profile = importlib.import_module(f"{PKG}.monitoring.profile")
+    cfg = server.ServerConfig()
+    rng = np.random.default_rng(0)
+    depth = rng.integers(0, 2000, (480, 640)).astype(np.uint16)
+    results = [server.FrameResult(
+        float(rng.uniform(2, 8)), float(rng.uniform(8, 30)),
+        np.zeros((0, 3), np.float32), b"", float(rng.uniform(10, 40)),
+        bool(rng.random() < 0.9), b"", float(rng.uniform(0.2, 0.45)),
+        float(rng.uniform(0.6, 1.0))) for _ in range(frames)]
+
+    class Service:
+        drift = profile.DriftMonitor(
+            window=cfg.drift_window, baseline_frames=cfg.drift_baseline_frames,
+            score_every=cfg.drift_score_every,
+            psi_threshold=cfg.drift_psi_threshold,
+            sustain_s=cfg.drift_sustain_s, cooldown_s=cfg.drift_cooldown_s)
+
+    observe = server.VisionAnalysisService._observe_drift
+    for res in results[:cfg.drift_baseline_frames]:
+        observe(Service, res)  # the self-baseline
+
+    def run() -> float:
+        t0 = time.perf_counter()
+        for res in results:
+            observe(Service, res)
+        return (time.perf_counter() - t0) / frames * 1e6
+
+    def count() -> float:
+        t0 = time.perf_counter()
+        for _ in range(256):
+            float(np.count_nonzero(depth)) / max(depth.size, 1)
+        return (time.perf_counter() - t0) / 256 * 1e6
+
+    return {"observe_drift": min(run() for _ in range(repeats)),
+            "depth_count": min(count() for _ in range(repeats))}
+
+
 def main(argv: list | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose package and chip_smoke.py to use")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--variants", default="base,log,instruments,span,"
-                    "stream,all")
+                    "stream,drift,all")
     ap.add_argument("--instruments-only", action="store_true",
                     help="time a frame's instrument calls on the host "
                     "and stop (no card needed)")
+    ap.add_argument("--drift-only", action="store_true",
+                    help="time a frame's drift monitoring on the host and "
+                    "stop (no card needed)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     if args.instruments_only:
         print(json.dumps({"root": args.root,
                           "instruments_us_per_frame": instruments_us()}))
+        return 0
+    if args.drift_only:
+        print(json.dumps({"root": args.root,
+                          "drift_us_per_frame": drift_us()}))
         return 0
     import torch
 
