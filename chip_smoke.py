@@ -75,6 +75,15 @@ mismatch raises and the script exits non-zero:
    the report of the same comparison made apart (the servicer's report
    equal to it, its masks the tier net's), and refused with the IoU
    floor 1e-9 above it;
+   then the serving host path (``host_path_phase``): a bucket-8 scan
+   dispatch (``batch_impl="scan"``) whose rows equal the frame analyzer's
+   bit for bit, with 144 / 8 / 8 / 8 / 8 / 1 launches per replay, its
+   device time and peak memory beside the dense bucket's; servicers with
+   the decode pool, the encode pool (direct and batched), scan,
+   ``egress_pack=False`` and format-2 frames through the decode pool
+   under 8 streams in rounds, every response equal to the inline direct
+   servicer's; the port's client over gRPC (``fmt="raw"``), the first
+   started before its server; ``/metrics`` sums over the legs;
 5. geometry on a rendered scene's true mask, card against CPU;
 6. training at the reference configuration (``ModelConfig()``,
    ``TrainConfig`` batch 4 at 256x256, lr 1e-4, loss "bce"): the weight
@@ -148,7 +157,8 @@ runs one phase alone (any of ``PHASES``: ``kernel_phase``,
 ``conv1x1_kernel_phase``, ``convt_kernel_phase``, ``decode_kernel_phase``,
 ``geometry_kernel_phase``, ``train_kernel_phase``, ``graph_phase``,
 ``bitpack_phase``, ``bitpack_timing_phase``, ``precision_phase``,
-``deploy_phase``, ``drift_phase`` or ``trained_tier_phase``, which
+``deploy_phase``, ``drift_phase``, ``host_path_phase`` or
+``trained_tier_phase``, which
 ``main`` does not run): its
 log lines, then its results as one JSON line. To compare a change with
 its parent on one card, unpack the parent (``git archive``) into a
@@ -1937,6 +1947,409 @@ def servicer_phase(torch, port, folded, frames, want_masks) -> dict:
         f"{device_busy(torch, lambda: concurrent_streams(batched, streams))}")
     batched.close()
     return {k: launches[k] + blaunches[k] for k in launches}
+
+
+# -- phase 4c: the serving host path -------------------------------------------
+
+#: client leg: frames per mask format, and how long a client started before
+#: its server may retry through UNAVAILABLE
+CLIENT_FRAMES = 64
+CLIENT_SETUP_S = 120.0
+#: rounds of each servicer leg's 8 x 8 frames (frames/s: their median)
+HOST_ROUNDS = 5
+
+
+def phase_model(torch, port) -> tuple:
+    """The 8 rendered frames and the calibrated default model, folded, as
+    ``main`` makes them (for a phase run alone)."""
+    rng = np.random.default_rng(SEED)
+    frames = []
+    for _ in range(8):
+        rgb, _, depth = port.render_scene(rng, FRAME_H, FRAME_W)
+        frames.append((rgb, depth))
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    return port.FoldedUNet(seeded_model(torch, port, x0), device="cuda"), frames
+
+
+class FrameList:
+    """A :class:`FrameSource` over frames rendered once, replayed as a
+    camera delivers them (rendering a 480x640 scene takes longer than
+    serving it)."""
+
+    depth_scale = 0.001
+
+    def __init__(self, pairs: list):
+        self.pairs, self._i = pairs, 0
+
+    def start(self) -> None:
+        self._i = 0
+
+    def stop(self) -> None:
+        pass
+
+    def get_frames(self):
+        if self._i >= len(self.pairs):
+            return None, None
+        self._i += 1
+        return self.pairs[self._i - 1]
+
+
+def scrape(port_no: int) -> dict:
+    """The host path's counters on /metrics, by name."""
+    text = http_get(port_no, "/metrics").decode()
+    out = {
+        "batch_frames": metric_value(text, "rdp_batch_size_frames_sum"),
+        "batch_dispatches": metric_value(text, "rdp_batch_size_frames_count"),
+        "geometry": metric_value(text, "rdp_geometry_cache_hits_total")
+        + metric_value(text, "rdp_geometry_cache_misses_total"),
+        "decoded": sum(metric_value(text, "rdp_decode_seconds_count",
+                                    format=f)
+                       for f in ("raw", "coef", "encoded", "mixed")),
+        "encoded": sum(metric_value(text, "rdp_encode_seconds_count",
+                                    format=f) for f in ("png", "bits", "rle")),
+        "restarts": metric_value(text, "rdp_batch_watchdog_restarts_total"),
+    }
+    return out
+
+
+def host_path_phase(torch, port, folded=None, frames=None) -> dict:
+    """The serving host path at full width (``ModelConfig()``, 480x640):
+
+    (a) a bucket-8 scan dispatch (``make_scan_batch_analyzer(pack=True)``):
+    its rows equal the frame analyzer's bit for bit, its launches per replay
+    exactly 144 / 8 / 8 / 8 / 8 / 1 (3x3 conv, head, the three geometry
+    kernels, bitpack; the profiler's rows too), every deprojection ticket
+    counter at 0 after two replays; its device ms (CUDA events) beside the
+    frame analyzer's times 8 and the dense bucket's, and the peak memory of
+    each first call (warm-up and capture) and replay;
+    (b) servicers under STREAMS closed-loop streams, one leg per setting
+    (inline direct; ``decode_workers=2, ingest_prefetch=2``;
+    ``egress_workers=2`` direct and batched; ``batch_impl="scan"``;
+    ``egress_pack=False``; format-2 frames through the decode pool), every
+    response equal to the inline direct servicer's (bit for bit, or for
+    dense batches within phase 4's bars), exact launches, frames/s per leg;
+    (c) the port's ``run_client(fmt="raw")`` over gRPC for CLIENT_FRAMES
+    frames in each mask format, the first started before its server
+    listens, against the servicer's own answers;
+    (d) ``/metrics`` over (b)'s legs: batch sizes sum to the frames
+    batched, geometry lookups, decodes and encodes each equal the frames
+    served, no watchdog restart.
+
+    Returns the launches of the serving legs."""
+    import threading
+
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch.observability import (
+        exposition,
+    )
+    from robotic_discovery_platform_tpu_torch.ops import (
+        geometry_kernels as gk,
+        pipeline,
+    )
+    from robotic_discovery_platform_tpu_torch.resilience import (
+        RetryPolicy,
+        default_retryable,
+    )
+    from robotic_discovery_platform_tpu_torch.serving import (
+        client as client_lib,
+        entropy,
+        grpc_service,
+        ingest,
+    )
+    from robotic_discovery_platform_tpu_torch.utils.config import (
+        ClientConfig,
+    )
+
+    t_phase = time.perf_counter()
+    if folded is None:
+        folded, frames = phase_model(torch, port)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_host_"))
+    k = port.default_intrinsics(FRAME_W, FRAME_H).astype(np.float32)
+    b = MAX_BATCH
+
+    # (a) the scan dispatch
+    args = (np.stack([f[0] for f in frames[:b]]),
+            np.stack([f[1] for f in frames[:b]]),
+            np.repeat(k[None], b, axis=0), np.full((b,), 0.001, np.float32))
+    frame_an = pipeline.make_frame_analyzer(folded, img_size=256,
+                                            device="cuda", pack=True)
+    dense = pipeline.make_batch_analyzer(folded, img_size=256, device="cuda",
+                                         pack=True)
+    scan = pipeline.make_scan_batch_analyzer(folded, img_size=256,
+                                             device="cuda", pack=True)
+    peaks = {}
+    for name, analyzer, a in (
+            ("frame", frame_an, (frames[0][0], frames[0][1], k, 0.001)),
+            ("dense", dense, args), ("scan", scan, args)):
+        mib = []
+        for _ in range(2):  # the first call (warm-up and capture), a replay
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            analyzer(*a)
+            torch.cuda.synchronize()
+            mib.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+        peaks[name] = mib
+    rows = scan(*args).cpu().numpy()
+    for i in range(b):
+        want = frame_an(frames[i][0], frames[i][1], k, 0.001)
+        check(np.array_equal(rows[i], want), f"scan row {i} differs from the "
+              "frame analyzer's row bit for bit")
+    delta, = capture_deltas(scan)
+    want_delta = launches_of(conv3x3_bn_relu=18 * b, conv1x1=b,
+                             deproject_edge_stats=b, bspline_design=b,
+                             bspline_curvature=b, bitpack_mask=1)
+    check(delta == want_delta, f"scan capture delta {delta}, want "
+          f"{want_delta}")
+    reset_launches()
+    scan(*args)
+    scan(*args)
+    torch.cuda.synchronize()
+    check(read_launches() == scaled(delta, 2), f"two scan replays launched "
+          f"{read_launches()}, want 2 x {delta}")
+    tickets = {key: int(t.item()) for key, t in gk._tickets.items()}
+    check(tickets and all(v == 0 for v in tickets.values()),
+          f"ticket counters after the scan replays: {tickets}")
+    check_replay_kernels(torch, lambda: scan(*args), delta,
+                         "scan analyzer, bucket 8")
+    times = {"scan": time_ms(torch, lambda: scan(*args), iters=10),
+             "dense": time_ms(torch, lambda: dense(*args), iters=10),
+             "frame": time_ms(torch, lambda: frame_an(
+                 frames[0][0], frames[0][1], k, 0.001), iters=10)}
+    check(scan.graphs.guard.name == "pipeline.scan_batch_analyzer"
+          and scan.graphs.guard.stats.budget == 8,
+          "scan analyzer's capture guard")
+    log(f"host path, scan: bucket-8 rows equal the frame analyzer's bit for "
+        f"bit; launches per replay {delta}; {len(tickets)} ticket counters "
+        f"at 0; device ms (CUDA events, back to back) scan "
+        f"{times['scan']:.3f}, dense {times['dense']:.3f}, frame "
+        f"{times['frame']:.3f} (x 8 = {8 * times['frame']:.3f}); peak "
+        f"allocated MiB over the call's start, first call / replay: scan "
+        f"{peaks['scan'][0]:.1f} / {peaks['scan'][1]:.1f}, dense "
+        f"{peaks['dense'][0]:.1f} / {peaks['dense'][1]:.1f}, frame "
+        f"{peaks['frame'][0]:.1f} / {peaks['frame'][1]:.1f}")
+    del frame_an, dense, scan
+    t_scan = time.perf_counter()
+
+    # (b) the servicer legs
+    metrics = exposition.maybe_start_metrics_server(-1)
+    n = len(frames)
+    orders = [[(s * 2 + j) % n for j in range(n)] for s in range(STREAMS)]
+    raw = [port.raw_request(rgb, depth, mask_format=i % 3)
+           for i, (rgb, depth) in enumerate(frames)]
+    qy, qc = ingest.quant_tables(COEF_QUALITY)
+    coef = [ingest.coef_request(encode_coefficients(entropy, rgb, qy, qc),
+                                depth, mask_format=i % 3)
+            for i, (rgb, depth) in enumerate(frames)]
+    launches = dict.fromkeys(KERNELS, 0)
+    totals = dict.fromkeys(("frames", "batched", "batch_dispatches"), 0)
+    moved = collections.Counter()
+    fps = {}
+
+    def serve(name, requests, want=None, exact=True, coef_lane=False, **kw):
+        cfg = port.ServerConfig(address="localhost:0",
+                                metrics_csv=str(tmp / f"{name}.csv"),
+                                calibration_path=str(tmp / "none.npz"), **kw)
+        service = port.VisionAnalysisService(folded, cfg=cfg, device="cuda")
+        try:
+            service.warmup(FRAME_W, FRAME_H)
+            if coef_lane:
+                service.warmup_coef(FRAME_W, FRAME_H)
+            one = None
+            if want is None:  # the reference: one stream first
+                one = list(service.analyze_stream(iter(requests)))
+            before = scrape(metrics.port)
+            if service.dispatcher is not None:
+                service.dispatcher.dispatch_sizes.clear()
+            reset_launches()
+            rounds = [concurrent_streams(
+                service, [[requests[i] for i in o] for o in orders])
+                for _ in range(HOST_ROUNDS)]
+            counts = read_launches()
+            after = scrape(metrics.port)
+            sizes = (dict(service.dispatcher.dispatch_sizes)
+                     if service.dispatcher is not None else {})
+        finally:
+            service.close()
+        want = one if want is None else want
+        for out, _ in rounds:
+            for order, got in zip(orders, out):
+                same_responses(got, [want[i] for i in order], name,
+                               exact=exact)
+        served = STREAMS * n * HOST_ROUNDS
+        if sizes:
+            check(sum(s * c for s, c in sizes.items()) == served,
+                  f"{name}: dispatch sizes {sizes}")
+            buckets = collections.Counter()
+            for s, c in sizes.items():
+                buckets[service.dispatcher.bucket_for(s)] += c
+            dispatches = sum(sizes.values())
+            if kw.get("batch_impl") == "scan":
+                frames_run = sum(bk * c for bk, c in buckets.items())
+                expect = launches_of(
+                    conv3x3_bn_relu=18 * frames_run, conv1x1=frames_run,
+                    deproject_edge_stats=frames_run,
+                    bspline_design=frames_run, bspline_curvature=frames_run,
+                    bitpack_mask=dispatches)
+            else:
+                expect = frame_launches(0, dispatches=dispatches,
+                                        ones=sizes.get(1, 0), coef=coef_lane)
+                if not kw.get("egress_pack", True):
+                    expect["bitpack_mask"] = 0
+            totals["batched"] += served
+            totals["batch_dispatches"] += dispatches
+        else:
+            expect = frame_launches(served, coef=coef_lane, served=True)
+        check(counts == expect, f"{name}: launches {counts}, want {expect} "
+              f"(dispatch sizes {sizes})")
+        for key in launches:
+            launches[key] += counts[key]
+        for key in after:
+            moved[key] += after[key] - before[key]
+        totals["frames"] += served
+        per_round = sorted(STREAMS * n / wall for _, wall in rounds)
+        fps[name] = float(np.median(per_round))
+        log(f"host path leg {name}: {fps[name]:.1f} frames/s (median of "
+            f"{HOST_ROUNDS} rounds of {STREAMS} streams x {n} frames, "
+            f"{per_round[0]:.1f}-{per_round[-1]:.1f}; inline direct "
+            f"{fps.get('inline', fps[name]):.1f}); dispatch sizes {sizes}; "
+            f"responses equal to the inline direct servicer's"
+            f"{' bit for bit' if exact else ' within phase 4 bars'}")
+        return one
+
+    want_raw = serve("inline", raw)
+    serve("decode_workers=2", raw, want_raw, decode_workers=2,
+          ingest_prefetch=2)
+    serve("egress_workers=2 direct", raw, want_raw, egress_workers=2)
+    batched = dict(batch_window_ms=2.0, max_batch=MAX_BATCH)
+    serve("egress_workers=2 batched", raw, want_raw, exact=False,
+          egress_workers=2, **batched)
+    serve("batch_impl=scan", raw, want_raw, batch_impl="scan", **batched)
+    serve("egress_pack=False", raw, want_raw, exact=False, egress_pack=False,
+          **batched)
+    want_coef = serve("inline format 2", coef, coef_lane=True)
+    serve("format 2, decode_workers=2", coef, want_coef, coef_lane=True,
+          decode_workers=2, ingest_prefetch=2)
+
+    # (d) /metrics over the legs
+    check(moved["batch_frames"] == totals["batched"]
+          and moved["batch_dispatches"] == totals["batch_dispatches"],
+          f"rdp_batch_size_frames moved {moved['batch_frames']} frames in "
+          f"{moved['batch_dispatches']} dispatches; the legs batched "
+          f"{totals['batched']} in {totals['batch_dispatches']}")
+    for key in ("geometry", "decoded", "encoded"):
+        check(moved[key] == totals["frames"], f"/metrics: {key} moved "
+              f"{moved[key]} for {totals['frames']} frames served")
+    final = scrape(metrics.port)
+    check(moved["restarts"] == 0 and final["restarts"] == 0,
+          f"watchdog restarts: {final['restarts']}")
+    metrics.stop()
+    log(f"host path /metrics over the legs: {totals['frames']} frames served "
+        f"({totals['batched']} batched in {totals['batch_dispatches']} "
+        f"dispatches): batch size sum, geometry lookups, decodes and encodes "
+        f"each equal to them; watchdog restarts 0")
+
+    t_legs = time.perf_counter()
+
+    # (c) the client over gRPC, the first one started before the server
+    source = port.SyntheticSource(FRAME_W, FRAME_H, seed=SEED + 1,
+                                  n_frames=CLIENT_FRAMES)
+    source.start()
+    pairs = list(port.iter_frames(source))
+    port_no = free_port()
+    address = f"localhost:{port_no}"
+    ccfg = ClientConfig(server_address=address,
+                        calibration_path=str(tmp / "none.npz"))
+    setup_deadline = time.monotonic() + CLIENT_SETUP_S
+    refused: list = []
+
+    def retryable(exc):
+        refused.append(exc)
+        return time.monotonic() < setup_deadline and default_retryable(exc)
+
+    results: dict = {}
+    client_fps: dict = {}
+    errors: list = []
+
+    def run(mask_format):
+        try:
+            with grpc.insecure_channel(address, options=[
+                    ("grpc.initial_reconnect_backoff_ms", 100),
+                    ("grpc.max_reconnect_backoff_ms", 500)]) as channel:
+                t0 = time.perf_counter()
+                results[mask_format] = client_lib.run_client(
+                    ccfg, source=FrameList(pairs), channel=channel,
+                    mask_format=mask_format, fmt="raw",
+                    retry=RetryPolicy(max_attempts=None, base_delay_s=0.05,
+                                      max_delay_s=0.5, retryable=retryable))
+                client_fps[mask_format] = CLIENT_FRAMES / (
+                    time.perf_counter() - t0)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    early = threading.Thread(target=run, args=(0,))
+    early.start()
+    deadline = time.monotonic() + 30.0
+    while not refused and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(bool(refused), "the early client never reached the server's port")
+    scfg = port.ServerConfig(address=address,
+                             metrics_csv=str(tmp / "client.csv"),
+                             calibration_path=str(tmp / "none.npz"))
+    server, servicer = grpc_service.build_server(
+        scfg, folded, warmup_shape=(FRAME_W, FRAME_H), device="cuda")
+    server.start()
+    t_up = time.perf_counter()
+    try:
+        early.join(timeout=CLIENT_SETUP_S)
+        early_s = time.perf_counter() - t_up
+        check(not early.is_alive() and not errors, f"early client: {errors}")
+        codes = {e.code() for e in refused if hasattr(e, "code")}
+        check(codes == {grpc.StatusCode.UNAVAILABLE}, f"setup failures {codes}")
+        for mask_format in (1, 2):
+            run(mask_format)
+        check(not errors, f"client: {errors}")
+        for mask_format, got in results.items():
+            want = list(servicer.analyze_stream(iter(
+                port.raw_request(bgr[..., ::-1], depth,
+                                 mask_format=mask_format)
+                for bgr, depth in pairs)))
+            check(len(got) == len(want) == CLIENT_FRAMES,
+                  f"client, mask_format {mask_format}: {len(got)} results")
+            for i, (g, w) in enumerate(zip(got, want)):
+                spline = (port.decode_spline_wire(w.packed_spline)
+                          if mask_format else np.array(
+                              [[p.x, p.y, p.z] for p in w.spline_points]
+                          ).reshape(-1, 3))
+                check((g.status, g.mean_curvature, g.max_curvature,
+                       g.mask_coverage, g.mask_png) == (
+                           w.status, w.mean_curvature, w.max_curvature,
+                           w.mask_coverage, w.mask)
+                      and np.array_equal(g.spline_points, spline)
+                      and np.array_equal(g.frame_bgr, pairs[i][0]),
+                      f"client, mask_format {mask_format}, frame {i}: result "
+                      "differs from the servicer's answer")
+                mask = (port.decode_mask_wire(w.mask) if mask_format
+                        else None)
+                check((g.mask is None) == (mask_format == 0) and (
+                    mask is None or np.array_equal(g.mask, mask)),
+                      f"client frame {i}: decoded mask")
+    finally:
+        server.stop(grace=None).wait()
+        servicer.close()
+    log(f"host path client: run_client(fmt=\"raw\") over gRPC, "
+        f"{CLIENT_FRAMES} frames in each of mask formats 0, 1, 2, every "
+        f"result the servicer's answer; the first started before its server "
+        f"and retried through {len(refused)} UNAVAILABLE setup failure(s), "
+        f"done {early_s:.2f} s after the server started; frames/s over one "
+        f"stream, mask formats 1 and 2: {client_fps[1]:.1f}, "
+        f"{client_fps[2]:.1f}")
+    t_end = time.perf_counter()
+    log(f"host path phase: {t_end - t_phase:.1f} s (scan {t_scan - t_phase:.1f}, "
+        f"servicer legs {t_legs - t_scan:.1f}, client {t_end - t_legs:.1f}); "
+        "frames/s " + ", ".join(f"{k} {v:.1f}" for k, v in fps.items()))
+    return launches
 
 
 # -- phase 4b: the precision tiers -------------------------------------------
@@ -4807,7 +5220,7 @@ PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
           "train_kernel_phase", "graph_phase", "bitpack_phase",
           "bitpack_timing_phase", "precision_phase", "trained_tier_phase",
-          "deploy_phase", "drift_phase")
+          "deploy_phase", "drift_phase", "host_path_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -4878,7 +5291,8 @@ def main(argv: list | None = None) -> int:
     want_masks = [analyze(rgb, depth, k, 0.001).mask.cpu().numpy()
                   for rgb, depth in frames]
     launches = servicer_phase(torch, port, folded, frames, want_masks)
-    legs = [precision_phase(torch, port, frames),
+    legs = [host_path_phase(torch, port, folded, frames),
+            precision_phase(torch, port, frames),
             coef_phase(torch, port, folded, frames)]
     geometry_phase(torch, port)
     results.update(train_kernel_phase(torch, conv))

@@ -21,15 +21,19 @@ Package map:
 - ``ops/bspline.py``, ``ops/geometry.py``: the curvature profile;
   ``ops/geometry_kernels.py``: the geometry kernels of one frame;
 - ``ops/pack.py``: the mask bitpack kernel and the packed row layout;
-- ``ops/pipeline.py``: the single-frame and batched analyzers;
+- ``ops/pipeline.py``: the single-frame and batched (dense and scan)
+  analyzers;
   ``ops/quant.py``: the serving precision tiers (bf16 activations, int8
   weight grids) and their parity metrics;
-- ``io/frames.py``: synthetic scenes and calibration files;
-- ``serving/``: wire messages, ingest, egress, metrics CSV, the servicer
+- ``io/frames.py``: frame sources (synthetic scenes, replayed
+  collections, the RealSense camera) and calibration files;
+- ``serving/``: wire messages, ingest (the decode pool and geometry
+  cache), egress (the encode pool), metrics CSV, the servicer
   (built from the registry when given no forward; hot reload, readiness
   and drain) and its gRPC adapter and entry point (``python -m
   robotic_discovery_platform_tpu_torch.serving.server``), the
-  grpc.health.v1 service, the batch dispatcher and its admission queue;
+  grpc.health.v1 service, the batch dispatcher and its admission queue,
+  and the streaming client (``serving/client.py``);
 - ``resilience/``, ``observability/``: the circuit breaker, retry policy
   and fault sites; the metrics registry, ``/metrics`` and ``/debug/*``
   endpoint, spans, event journal and SLO tracker (copies of the JAX
@@ -48,6 +52,7 @@ Package map:
 
 from robotic_discovery_platform_tpu_torch.io.frames import (
     SyntheticSource,
+    iter_frames,
     load_calibration,
     render_scene,
 )
@@ -64,7 +69,10 @@ from robotic_discovery_platform_tpu_torch.ops.pipeline import (
     preprocess,
 )
 from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
-from robotic_discovery_platform_tpu_torch.serving.egress import decode_mask_wire
+from robotic_discovery_platform_tpu_torch.serving.egress import (
+    decode_mask_wire,
+    decode_spline_wire,
+)
 from robotic_discovery_platform_tpu_torch.serving.ingest import (
     default_intrinsics,
     raw_request,
@@ -85,7 +93,7 @@ __all__ = [
     "BatchNorm", "FoldedUNet", "GeometryConfig", "ModelConfig",
     "ServerConfig", "SyntheticSource", "TrainConfig", "UNet",
     "VisionAnalysisService", "build_service", "compute_curvature_profile",
-    "decode_mask_wire", "default_intrinsics", "from_flax_variables",
-    "load_calibration", "load_model_dir", "make_frame_analyzer",
+    "decode_mask_wire", "decode_spline_wire", "default_intrinsics",
+    "from_flax_variables", "iter_frames", "load_calibration", "load_model_dir", "make_frame_analyzer",
     "preprocess", "raw_request", "render_scene", "train_model",
 ]

@@ -181,17 +181,20 @@ def _bias_init(init: str, t: torch.Tensor, fan_in: int,
 
 class Conv3x3(nn.Module):
     """3x3 SAME conv without bias; ``kernel`` is HWIO [3, 3, Cin, Cout].
-    With ``train=True`` and a kernel ``impl`` it is the custom-VJP
-    :func:`ops.conv.conv3x3` on the kernel cast to x's dtype (the JAX
-    package's ``TrainConv3x3``); otherwise the plain conv."""
+    With ``train=True`` (or ``kernels_in_eval``, :func:`eval_on_kernels`)
+    and a kernel ``impl`` it is the custom-VJP :func:`ops.conv.conv3x3` on
+    the kernel cast to x's dtype (the JAX package's ``TrainConv3x3``);
+    otherwise the plain conv."""
 
     def __init__(self, cin: int, cout: int, impl: str = "auto"):
         super().__init__()
         self.impl = impl
+        self.kernels_in_eval = False
         self.kernel = nn.Parameter(torch.zeros(3, 3, cin, cout))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train and self.impl not in PLAIN_CONV_IMPLS:
+        if ((train or self.kernels_in_eval)
+                and self.impl not in PLAIN_CONV_IMPLS):
             return conv3x3(x, self.kernel.to(x.dtype), self.impl)
         return conv3x3_plain(x, self.kernel)
 
@@ -379,6 +382,17 @@ class UNet(nn.Module):
         for i in range(4):
             y = getattr(self, f"Up_{i}")(y, xs[3 - i], train, self._interp)
         return self.Conv_0(y).to(torch.float32)
+
+
+def eval_on_kernels(net: UNet) -> UNet:
+    """``net`` in eval mode with its 3x3 convs on the conv kernel
+    (:func:`ops.conv.conv3x3`, a unit epilogue; BatchNorm and ReLU apart):
+    the unfolded forward that ``ServerConfig.model_forward="flax"``
+    serves. Returns ``net`` itself."""
+    for module in net.modules():
+        if isinstance(module, Conv3x3):
+            module.kernels_in_eval = True
+    return net.eval()
 
 
 def with_compute_dtype(net: UNet, dtype: str,

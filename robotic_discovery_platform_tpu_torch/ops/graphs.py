@@ -53,6 +53,7 @@ import functools
 import gc
 import queue
 import threading
+import time
 import weakref
 from typing import Any, Callable
 
@@ -373,6 +374,19 @@ def _host_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+#: per thread: when its last cache call had its inputs in place
+_inputs_ready = threading.local()
+
+
+def inputs_ready_ns() -> int | None:
+    """``time.monotonic_ns()`` when this thread's last :class:`GraphCache`
+    call had enqueued the copies of its inputs into the graph's static
+    inputs (on the CPU: had its inputs as tensors), None before any call:
+    where a batch dispatch's host-to-device stage ends and its launch
+    begins, on the host's clock."""
+    return getattr(_inputs_ready, "ns", None)
+
+
 def _in_use_on(t: torch.Tensor, stream: torch.cuda.Stream) -> None:
     """Mark a device tensor in use on ``stream`` (the caller's), so the
     allocator keeps its memory until that stream is done with it."""
@@ -441,7 +455,9 @@ class GraphCache:
             if key not in self.graphs:
                 self.guard.count(signature(inputs))
                 self.graphs[key] = None
-            return finish(fn(*(_host_tensor(x) for x in inputs)))
+            tensors = [_host_tensor(x) for x in inputs]
+            _inputs_ready.ns = time.monotonic_ns()
+            return finish(fn(*tensors))
         with self._lock:
             if self._stream is None:
                 self._stream = dedicated_stream(self.device, owner=self)
@@ -460,6 +476,7 @@ class GraphCache:
                     static_in, cap = entry
                     for s, x in zip(static_in, inputs):
                         _to_static(s, x)
+                    _inputs_ready.ns = time.monotonic_ns()
                     out = cap.replay()
                 out = finish(out)
                 tree_map(functools.partial(_in_use_on, stream=caller), out)
@@ -478,6 +495,7 @@ class GraphCache:
             s = torch.empty(shape, dtype=dtype, device=self.device)
             _to_static(s, x)
             static.append(s)
+        _inputs_ready.ns = time.monotonic_ns()
         out = fn(*static)
         return out, (static, Capture(lambda: fn(*static), self._stream,
                                      self._pool))

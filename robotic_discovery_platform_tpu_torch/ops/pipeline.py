@@ -6,8 +6,9 @@ matmuls), the model forward, ``logits_to_native_masks`` (sigmoid,
 threshold, nearest resize back to the camera resolution), the confidence
 margin, the mask coverage and the curvature profile, for one frame
 (:func:`make_frame_analyzer`) or a batch (:func:`make_batch_analyzer`,
-which can end in :func:`pack_analysis`: one [B, P] uint8 payload per
-dispatch). The frames' host-to-device copy is the only transfer in; the
+one forward over the batch, or :func:`make_scan_batch_analyzer`, the
+frame path once per frame; either can end in :func:`pack_analysis`: one
+[B, P] uint8 payload per dispatch). The frames' host-to-device copy is the only transfer in; the
 result stays on the device until the caller reads it.
 
 Each analyzer is an :class:`Analyzer`: on the card one CUDA graph per
@@ -393,6 +394,62 @@ def make_batch_analyzer(
                                     depth_scales), ()
 
     return Analyzer(prepare, "pipeline.batch_analyzer", 8, device,
+                    graphs_lib.clone)
+
+
+def _stacked(outs: list[FrameAnalysis]) -> FrameAnalysis:
+    """Per-frame :class:`FrameAnalysis` results, each with a leading batch
+    of one, as one with a leading B."""
+    def cat(parts):
+        return torch.cat(list(parts))
+
+    return FrameAnalysis(
+        mask=cat(o.mask for o in outs),
+        mask_coverage=cat(o.mask_coverage for o in outs),
+        profile=geometry.CurvatureProfile(*(
+            cat(leaf) for leaf in zip(*(o.profile for o in outs)))),
+        confidence_margin=cat(o.confidence_margin for o in outs))
+
+
+def make_scan_batch_analyzer(
+    forward: Callable[[torch.Tensor], torch.Tensor],
+    img_size: int = 256,
+    geom_cfg: GeometryConfig = GeometryConfig(),
+    threshold: float = 0.5,
+    device: str | torch.device = "cuda",
+    *,
+    pack: bool = False,
+) -> Analyzer:
+    """Batched analyzer that runs the single-frame path once per frame
+    (the JAX package's ``lax.scan`` over the frames): the working set is
+    one frame's, and each frame takes ``geom_cfg.kernel_impl``'s geometry
+    path (the fused kernels by default), while the batch is still one
+    dispatch. Each frame's fields go into the stacked ``[B, ...]``
+    outputs; with ``pack=True`` one :func:`pack_analysis` over the stacked
+    masks follows (one bitpack launch per dispatch).
+
+    The call shape is :func:`make_batch_analyzer`'s, so the dispatcher
+    takes either (``ServerConfig.batch_impl``). On the card each (B, H, W)
+    is one CUDA graph that replays the B frame passes (capture guard
+    ``pipeline.scan_batch_analyzer``, budget 8); frame i's outputs equal
+    the frame analyzer's for that frame bit for bit.
+    """
+    core = _analyzer(forward, img_size, geom_cfg, threshold, device)
+    device = resolve_device(device)
+    pack_pts = geom_cfg.num_samples if pack else None
+
+    def run(frames_rgb, depths, intrinsics, depth_scales):
+        out = _stacked([
+            core(frames_rgb[i:i + 1], depths[i:i + 1], intrinsics[i:i + 1],
+                 depth_scales[i:i + 1])
+            for i in range(frames_rgb.shape[0])])
+        return out if pack_pts is None else pack_analysis(out, n_pts=pack_pts)
+
+    def prepare(frames_rgb, depths, intrinsics, depth_scales):
+        return run, _pixel_inputs(frames_rgb, depths, intrinsics,
+                                    depth_scales), ()
+
+    return Analyzer(prepare, "pipeline.scan_batch_analyzer", 8, device,
                     graphs_lib.clone)
 
 

@@ -43,18 +43,35 @@ stages its quantized planes and quant tables in pooled pinned buffers
 device ahead of the analyzer), with the same admission, deadlines and one
 packed device-to-host copy per dispatch.
 
+An analyzer without the pack stage (``ServerConfig.egress_pack=False``)
+returns a :class:`~ops.pipeline.FrameAnalysis` per dispatch: each leaf is
+copied back to the host on its own (no landing pool), and each frame gets
+its row of every leaf.
+
 On ``device="cpu"`` (the tests) there is no stream and no event: the
 analyzer runs in the collector thread, and the completer copies its
 result into the landing buffer.
 
-Not ported (each raises ``NotImplementedError``; ROADMAP queue 1 item 16):
-the multi-device ``DeviceRouter``, the zoo's ``bind_model`` and placer.
+Instruments, where the JAX package sets them: the queue depth, dispatch
+sizes, in-flight dispatches and their overlap, the stage split (stage,
+launch, complete) and the host split (admit, stage_host, h2d, launch,
+device, d2h), the staging and landing pools' free sets, sheds by point,
+watchdog restarts, and one flight-recorder timeline per dispatch (a
+``submit`` span per frame with its trace ID, ``collect``, ``stage``,
+``launch``, ``complete``; failed dispatches pinned). They read the host's
+clock only: the completer already waits on the dispatch's event, and
+nothing adds a device synchronisation or a read of a device tensor.
+
+Not ported (each raises ``NotImplementedError``): the multi-device
+``DeviceRouter`` (ROADMAP queue 1 item 14) and the zoo's ``bind_model``
+and placer (item 12).
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import queue
 import threading
 import time
@@ -65,6 +82,21 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from robotic_discovery_platform_tpu_torch.observability import (
+    events,
+    instruments as obs,
+    journal as journal_lib,
+    recorder as recorder_lib,
+    trace,
+)
+from robotic_discovery_platform_tpu_torch.ops import graphs
+from robotic_discovery_platform_tpu_torch.resilience import (
+    DeadlineExceeded,
+    inject,
+)
+from robotic_discovery_platform_tpu_torch.resilience import (
+    sites as fault_sites,
+)
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     DeadlineQueue,
     OverloadedError,
@@ -79,11 +111,18 @@ from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
 
-__all__ = ["BatchDispatcher", "DeadlineExceeded", "OverloadedError"]
+__all__ = ["BatchDispatcher", "DeadlineExceeded", "OverloadedError",
+           "resolve_max_inflight"]
+
+_INFLIGHT_ENV_VAR = "RDP_INFLIGHT"
 
 
-class DeadlineExceeded(TimeoutError):
-    """A frame's result was not back within its submit deadline."""
+def resolve_max_inflight(configured: int) -> int:
+    """The effective in-flight-dispatch cap: ``RDP_INFLIGHT`` when set,
+    else the configured value; never below 1 (1 = serial dispatch)."""
+    raw = os.environ.get(_INFLIGHT_ENV_VAR)
+    value = int(raw) if raw else int(configured)
+    return max(1, value)
 
 
 @dataclass(eq=False)
@@ -103,6 +142,11 @@ class _Pending:
     # set by a submitter whose wait timed out: nobody reads the result,
     # so the collector does not stage device work for the frame
     abandoned: bool = False
+    # the submitting stream's span context, carried to the collector
+    # thread so a dispatch's timeline names the traces it carried
+    trace_ctx: Any = None
+    # when the frame entered the queue (its timeline's "submit" span)
+    submit_ns: int = field(default_factory=time.monotonic_ns)
 
 
 class _BucketBuffers:
@@ -230,6 +274,18 @@ class _Dispatch:
     launch_t: float
     bucket: int
     staged_t: float  # when host staging began (seconds)
+    # the dispatch's flight-recorder timeline and its root span, closed
+    # and recorded by the completer
+    timeline: Any = None
+    root: Any = None
+
+
+def _read_leaf(t: torch.Tensor) -> torch.Tensor:
+    """One leaf of an unpacked result copied back to pinned host memory,
+    started on the current stream (the dispatch's event covers it)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def _intrinsics_f32(intrinsics) -> np.ndarray:
@@ -281,6 +337,10 @@ class BatchDispatcher:
         max_inflight: dispatches launched but not completed at once.
         admission: "deadline" or "fifo" (``serving/admission.py``).
         device: where the analyzer runs ("cuda" by default).
+        model_label: the ``model`` label of the dispatch timelines and
+            ``rdp_model_dispatches_total``.
+        flight_recorder: where dispatch timelines go (the process's
+            recorder by default).
         coef_analyzer_factory: ``(height, width, subsampling) ->
             analyze(y, cb, cr, qy, qc, depths, intrinsics, scales) -> [B,
             P] uint8`` for coefficient-lane frames
@@ -297,15 +357,20 @@ class BatchDispatcher:
                  admission: str = "deadline",
                  device: str | torch.device = "cuda",
                  router=None, placer=None,
-                 coef_analyzer_factory: Callable | None = None):
+                 coef_analyzer_factory: Callable | None = None,
+                 model_label: str = "default",
+                 flight_recorder: recorder_lib.FlightRecorder | None = None):
         if router is not None:
             raise NotImplementedError(
                 "DeviceRouter (multi-device dispatch) is ROADMAP queue 1 "
-                "item 16")
+                "item 14")
         if placer is not None:
             raise NotImplementedError(
-                "the zoo's placer is ROADMAP queue 1 item 16")
+                "the zoo's placer is ROADMAP queue 1 item 12")
         self.device = resolve_device(device)
+        self._model_label = model_label or "default"
+        self._recorder = (flight_recorder if flight_recorder is not None
+                          else recorder_lib.RECORDER)
         self._cuda = self.device.type == "cuda"
         # the dispatch stream: staging, the analyzer and the D2H copy of
         # every dispatch run on it, in launch order
@@ -359,6 +424,7 @@ class BatchDispatcher:
         self._pending_lock = threading.Lock()
         self.collector_restarts = 0
         self.completer_restarts = 0
+        obs.SERVING_CHIPS.set(1)
         self._completer = self._start(self._complete_loop, "batch-completer")
         self._thread = self._start(self._loop, "batch-dispatcher")
         self._watchdog = None
@@ -420,7 +486,8 @@ class BatchDispatcher:
             timeout = min(timeout, timeout_s)
         p = _Pending(frame_rgb, depth, _intrinsics_f32(intrinsics),
                      float(depth_scale),
-                     deadline_t=time.monotonic() + timeout)
+                     deadline_t=time.monotonic() + timeout,
+                     trace_ctx=trace.current())
         # enqueue under the lock stop() drains under: a submit lands before
         # the drain (and is failed by it) or sees stopped and raises
         with self._submit_lock:
@@ -434,6 +501,7 @@ class BatchDispatcher:
                 with self._pending_lock:
                     self._pending.discard(p)
                 raise
+            obs.BATCH_QUEUE_DEPTH.set(self._q.qsize())
         try:
             if not p.done.wait(timeout):
                 p.abandoned = True
@@ -449,7 +517,7 @@ class BatchDispatcher:
 
     def bind_model(self, *args, **kwargs):
         raise NotImplementedError(
-            "the zoo's bind_model is ROADMAP queue 1 item 16")
+            "the zoo's bind_model is ROADMAP queue 1 item 12")
 
     def _on_evicted(self, p: _Pending) -> None:
         """DeadlineQueue eviction callback (runs under the queue lock)."""
@@ -457,6 +525,7 @@ class BatchDispatcher:
             "frame evicted at the backlog cap: least remaining deadline "
             "headroom; shedding load")
         p.done.set()
+        obs.SHED_BY_DEADLINE.labels(point="evicted").inc()
         with self._pending_lock:
             self._pending.discard(p)
 
@@ -540,6 +609,15 @@ class BatchDispatcher:
                 dead = "collector" if collector_dead else "completer"
                 self.collector_restarts += collector_dead
                 self.completer_restarts += completer_dead
+                obs.WATCHDOG_RESTARTS.inc()
+                # pinned: the evidence outlives the traffic that follows
+                self._recorder.record_event(
+                    "watchdog_restart", stage=dead,
+                    error=f"batch {dead} thread died; "
+                          f"{len(self._pending)} pending frame(s) failed")
+                journal_lib.JOURNAL.append(
+                    events.WATCHDOG_RESTART, stage=dead,
+                    pending=len(self._pending))
                 log.error("batch %s thread died; failing %d pending "
                           "frame(s) and restarting", dead, len(self._pending))
                 while True:
@@ -563,6 +641,7 @@ class BatchDispatcher:
                 with self._inflight_lock:
                     self._inflight = 0
                     self._sheds_since_complete = 0
+                    obs.INFLIGHT_DISPATCHES.set(0)
                 self._fail_pending(RuntimeError(
                     f"batch {dead} died; frame dropped"))
                 if collector_dead:
@@ -578,6 +657,7 @@ class BatchDispatcher:
         are dropped, and frames whose deadline the best-case service time
         can no longer meet are failed now, before staging."""
         if p.abandoned:
+            obs.SHED_BY_DEADLINE.labels(point="abandoned").inc()
             with self._pending_lock:
                 self._pending.discard(p)
             return False
@@ -589,6 +669,7 @@ class BatchDispatcher:
                     if self._sheds_since_complete >= 8:
                         return True  # probe: refresh the estimate
                     self._sheds_since_complete += 1
+                obs.SHED_BY_DEADLINE.labels(point="stale").inc()
                 self._fail_group([p], DeadlineExceeded(
                     f"deadline unmeetable: ~{est * 1e3:.0f}ms estimated "
                     f"service vs {slack * 1e3:.0f}ms headroom; shed before "
@@ -624,11 +705,18 @@ class BatchDispatcher:
     def _loop(self) -> None:
         while not self._stopped.is_set():
             batch = self._collect()
+            obs.BATCH_QUEUE_DEPTH.set(self._q.qsize())
+            if not batch:
+                continue
+            # outside the launch guard on purpose: a fault here kills the
+            # collector itself (the watchdog's drill)
+            inject(fault_sites.SERVING_BATCH_COLLECT)
+            collected_ns = time.monotonic_ns()
             groups: dict[tuple, list[_Pending]] = {}
             for p in batch:
                 groups.setdefault(_group_key(p), []).append(p)
             for group in groups.values():
-                self._launch_group(group)
+                self._launch_group(group, collected_ns)
 
     def _pool_take(self, b: int, template: _Pending) -> _BucketBuffers:
         """A pooled staging set for ``b`` frames like ``template``."""
@@ -636,7 +724,10 @@ class BatchDispatcher:
         with self._pool_lock:
             free = self._pool.get(key)
             if free:
-                return free.pop()
+                bufs = free.pop()
+                obs.BATCH_POOL_SIZE.set(
+                    sum(len(v) for v in self._pool.values()))
+                return bufs
         cls = (_CoefBucketBuffers
                if isinstance(template.frame_rgb, CoefficientFrame)
                else _BucketBuffers)
@@ -649,13 +740,17 @@ class BatchDispatcher:
             free = self._pool.setdefault(bufs.key, [])
             if len(free) < self._pool_cap:
                 free.append(bufs)
+            obs.BATCH_POOL_SIZE.set(sum(len(v) for v in self._pool.values()))
 
     def _egress_take(self, shape: tuple) -> torch.Tensor:
         """A pooled landing buffer for one dispatch's [B, P] payload."""
         with self._pool_lock:
             free = self._egress_pool.get(shape)
             if free:
-                return free.pop()
+                buf = free.pop()
+                obs.EGRESS_POOL_SIZE.set(
+                    sum(len(v) for v in self._egress_pool.values()))
+                return buf
         return torch.empty(shape, dtype=torch.uint8, pin_memory=self._cuda)
 
     def _egress_put(self, buf: torch.Tensor) -> None:
@@ -665,6 +760,8 @@ class BatchDispatcher:
             free = self._egress_pool.setdefault(tuple(buf.shape), [])
             if len(free) < self._pool_cap:
                 free.append(buf)
+            obs.EGRESS_POOL_SIZE.set(
+                sum(len(v) for v in self._egress_pool.values()))
 
     def _stage_group(self, group: list[_Pending], b: int) -> _BucketBuffers:
         """The group's rows in a pooled staging set, padded to ``b`` rows
@@ -716,10 +813,13 @@ class BatchDispatcher:
             event.record(self._stream)
         return None, host, event
 
-    def _land(self, out: torch.Tensor) -> torch.Tensor:
+    def _land(self, out):
         """The analyzer's ``finish`` on the card: the D2H copy of a
         dispatch's ``[B, P]`` payload into a pooled pinned landing buffer,
-        started on the current stream."""
+        or of an unpacked result's every leaf into pinned host tensors of
+        its own, started on the current stream."""
+        if not isinstance(out, torch.Tensor):
+            return graphs.tree_map(_read_leaf, out)
         host = self._egress_take(tuple(out.shape))
         host.copy_(out, non_blocking=True)
         return host
@@ -746,8 +846,9 @@ class BatchDispatcher:
             out, host, event = self._enqueue(bufs, group[0])
             if event is not None:
                 event.synchronize()
-                self._egress_put(host)
-            else:
+                if isinstance(host, torch.Tensor):
+                    self._egress_put(host)
+            elif isinstance(out, torch.Tensor):
                 np.asarray(out)
         except BaseException:
             self._pool_put_after_failure(bufs)
@@ -767,33 +868,77 @@ class BatchDispatcher:
                 return
         self._pool_put(bufs)
 
-    def _launch_group(self, group: list[_Pending]) -> None:
+    def _launch_group(self, group: list[_Pending],
+                      collected_ns: int | None = None) -> None:
         """Stage + async launch of one geometry group, then hand the
         in-flight dispatch to the completer. Never waits on the result."""
+        if collected_ns is None:
+            collected_ns = time.monotonic_ns()
         slot = self._slots
         while not slot.acquire(timeout=0.05):
             if self._stopped.is_set():
                 self._fail_group(group, RuntimeError("dispatcher stopped"),
                                  log_it=False)
                 return
+        # the dispatch's timeline: the root opens at the earliest frame's
+        # submit; a "submit" span per frame (queue and window wait)
+        # carries its trace ID
+        first_submit_ns = min(p.submit_ns for p in group)
+        tl = recorder_lib.Timeline("dispatch", labels={
+            "chip": "0", "mode": "single", "model": self._model_label})
+        root = tl.span("dispatch", start_ns=first_submit_ns)
+        tl.span("collect", start_ns=first_submit_ns, end_ns=collected_ns,
+                parent=root, frames=len(group))
+        for p in group:
+            tl.span("submit", start_ns=p.submit_ns, end_ns=collected_ns,
+                    parent=root,
+                    trace_id=(p.trace_ctx.trace_id
+                              if p.trace_ctx is not None else None))
         bufs = None
         launched = False
         try:
+            inject(fault_sites.SERVING_BATCH_DISPATCH)
             n = len(group)
+            obs.BATCH_SIZE.observe(n)
             b = self.bucket_for(n)
-            t0 = time.monotonic()
+            tl.labels["bucket"] = str(b)
+            for p in group:
+                obs.HOST_STAGE_SPLIT.labels(stage="admit").observe(
+                    max(0, collected_ns - p.submit_ns) / 1e9)
+            t0 = time.monotonic_ns()
             bufs = self._stage_group(group, b)
+            t_fill = time.monotonic_ns()
             out, host, event = self._enqueue(bufs, group[0])
-            t1 = time.monotonic()
+            t2 = time.monotonic_ns()
+            # the analyzer call enqueues the batch's host-to-device copies
+            # and then the replay: the graph cache stamps the boundary
+            t1 = min(max(graphs.inputs_ready_ns() or t_fill, t_fill), t2)
+            tl.span("stage", start_ns=t0, end_ns=t1, parent=root)
+            tl.span("launch", start_ns=t1, end_ns=t2, parent=root)
+            obs.BATCH_STAGE_LATENCY.labels(stage="stage").observe(
+                (t1 - t0) / 1e9)
+            obs.BATCH_STAGE_LATENCY.labels(stage="launch").observe(
+                (t2 - t1) / 1e9)
+            obs.HOST_STAGE_SPLIT.labels(stage="stage_host").observe(
+                (t_fill - t0) / 1e9)
+            obs.HOST_STAGE_SPLIT.labels(stage="h2d").observe(
+                (t1 - t_fill) / 1e9)
+            obs.HOST_STAGE_SPLIT.labels(stage="launch").observe(
+                (t2 - t1) / 1e9)
             with self._inflight_lock:
                 self._inflight += 1
                 self.inflight_high_water = max(self.inflight_high_water,
                                                self._inflight)
                 self.dispatch_sizes[n] += 1
-            self._cq.put(_Dispatch(group, out, host, event, bufs, slot, t1, b,
-                                   t0))
+                obs.INFLIGHT_DISPATCHES.set(self._inflight)
+            obs.MODEL_DISPATCHES.labels(model=self._model_label).inc()
+            self._cq.put(_Dispatch(group, out, host, event, bufs, slot,
+                                   t2 / 1e9, b, t0 / 1e9, tl, root))
             launched = True
         except BaseException as exc:  # deliver, keep the collector alive
+            # the failed dispatch's timeline is evidence: record() pins it
+            root.end()
+            self._recorder.record(tl.fail(exc))
             self._fail_group(group, exc)
             self._pool_put_after_failure(bufs)
         finally:
@@ -807,38 +952,77 @@ class BatchDispatcher:
             d = self._cq.get()
             if d is None:
                 return
+            pop_ns = time.monotonic_ns()
+            t_ready = pop_ns / 1e9
             try:
+                inject(fault_sites.SERVING_BATCH_COMPLETE)
                 if d.event is not None:
                     d.event.synchronize()  # waits with the GIL released
+                    t_ready = time.monotonic()
                     host = d.host
+                elif isinstance(d.out, tuple):
+                    host = d.out  # an unpacked result, on the host already
                 else:
                     fetched = np.asarray(d.out)
+                    t_ready = time.monotonic()
                     host = self._egress_take(fetched.shape)
                     np.copyto(host.numpy(), fetched)
-                rows = host.numpy()
-                share = _EgressStaging(host, len(d.group), self._egress_put)
-                for i, p in enumerate(d.group):
-                    if p.done.is_set() or p.abandoned:
-                        share.release_one()  # nobody will read this row
-                        continue
-                    p.result = PackedResult(rows[i], release=share.release_one)
-                    p.done.set()
+                if isinstance(host, torch.Tensor):
+                    self._fan_out_rows(d.group, host)
+                else:
+                    # unpacked: each frame its row of every leaf
+                    for i, p in enumerate(d.group):
+                        p.result = graphs.tree_map(
+                            lambda a, _i=i: a[_i], host)
+                        p.done.set()
                 self.service_estimate.observe(time.monotonic() - d.staged_t,
                                               key=("", d.bucket))
                 with self._inflight_lock:
                     self._sheds_since_complete = 0
             except BaseException as exc:  # deliver, keep draining
+                if d.timeline is not None:
+                    d.timeline.fail(exc)
                 self._fail_group(d.group, exc)
             finally:
-                done_t = time.monotonic()
+                done_ns = time.monotonic_ns()
+                done_t = done_ns / 1e9
+                if d.timeline is not None:
+                    d.timeline.span("complete", start_ns=pop_ns,
+                                    end_ns=done_ns, parent=d.root)
+                    d.root.end(done_ns)
+                    # record() pins a timeline an error marked
+                    self._recorder.record(d.timeline)
                 # how long the previous dispatch was still completing after
                 # this one launched (0 in serial mode)
-                self.overlap_s_total += max(0.0, self._last_done_t - d.launch_t)
+                overlap = max(0.0, self._last_done_t - d.launch_t)
                 self._last_done_t = done_t
+                self.overlap_s_total += overlap
+                obs.DISPATCH_OVERLAP.observe(overlap)
+                obs.BATCH_STAGE_LATENCY.labels(stage="complete").observe(
+                    done_t - pop_ns / 1e9)
+                # launch -> result on the host is the device's ride; ready
+                # -> done the copy back and the fan-out
+                obs.HOST_STAGE_SPLIT.labels(stage="device").observe(
+                    max(0.0, t_ready - d.launch_t))
+                obs.HOST_STAGE_SPLIT.labels(stage="d2h").observe(
+                    max(0.0, done_t - t_ready))
                 self._pool_put(d.bufs)
                 with self._inflight_lock:
                     self._inflight = max(0, self._inflight - 1)
+                    obs.INFLIGHT_DISPATCHES.set(self._inflight)
                 d.slot.release()
+
+    def _fan_out_rows(self, group: list[_Pending], host: torch.Tensor) -> None:
+        """Each frame its :class:`PackedResult` row of the landing buffer;
+        the last release returns the buffer to the pool."""
+        rows = host.numpy()
+        share = _EgressStaging(host, len(group), self._egress_put)
+        for i, p in enumerate(group):
+            if p.done.is_set() or p.abandoned:
+                share.release_one()  # nobody will read this row
+                continue
+            p.result = PackedResult(rows[i], release=share.release_one)
+            p.done.set()
 
     def _fail_group(self, group: list[_Pending], exc: BaseException,
                     log_it: bool = True) -> None:

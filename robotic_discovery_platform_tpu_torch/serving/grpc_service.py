@@ -96,7 +96,8 @@ class GrpcVisionService:
         remote = trace.from_metadata(context.invocation_metadata())
         try:
             for resp in self.service.analyze_stream(
-                    requests, active=context.is_active, parent=remote):
+                    requests, active=context.is_active, parent=remote,
+                    time_remaining=context.time_remaining):
                 yield response_to_proto(resp)
         except StreamRefusedError as exc:  # draining: fail over
             context.abort(grpc.StatusCode.UNAVAILABLE, str(exc))

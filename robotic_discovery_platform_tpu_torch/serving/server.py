@@ -1,8 +1,12 @@
 """The vision analysis servicer.
 
 The port of the JAX package's ``serving/server.py`` ``_analyze_frame``
-and the per-stream loop of ``_stream_frames``: each request is decoded,
-analyzed on the device, its mask encoded in the requested wire format,
+and the per-stream loop of ``_stream_frames``: each request is decoded
+(``serving/ingest.DecodePool``: inline, or ``decode_workers`` threads
+reading ahead ``ingest_prefetch`` requests a stream), analyzed on the
+device with its camera geometry from the servicer's ``GeometryCache``,
+its mask encoded in the requested wire format (``serving/egress.
+EncodePool``: inline, or ``egress_workers`` threads, on either path),
 and answered with status ``"OK"``, ``"DEGRADED: insufficient geometry"``
 or ``"ERROR: <Type>: <message> [trace=<id>]"``; a failing frame never
 ends its stream. Every answered frame appends one row to the metrics CSV.
@@ -14,8 +18,11 @@ at 0 (the default) each frame runs the single-frame analyzer
 CUDA graph replays under the graph's lock and the frame's packed row comes
 back in one device-to-host copy before the lock is released; above 0,
 frames of concurrent streams meet in the batch dispatcher
-(``serving/batching.py``) and come back as packed rows. Both read the
-response fields off a :class:`serving.egress.PackedResult` alike.
+(``serving/batching.py``; ``batch_impl`` "dense" runs one forward over the
+batch, "scan" the frame path once per frame) and come back as packed rows,
+or with ``egress_pack=False`` as one unpacked
+:class:`~ops.pipeline.FrameAnalysis` row per frame. The response fields
+are read off either alike.
 Coefficient frames (``Image.format = 2``, or baseline JPEGs under
 ``ServerConfig.onchip_decode``) take the coefficient lane on either path:
 the single-frame coefficient analyzer
@@ -77,10 +84,11 @@ stamps the stream's log lines and error statuses, the serving precision
 and the tier gate's report. The "device" stage is the host's clock around
 the packed row's read-back, which waits for the device already: no
 instrument adds a device synchronisation or a read of a device tensor to
-a frame. Not ported: the JAX package's per-zoo-model gates and labels
-(ROADMAP queue 1 item 12), the brownout controller and the rollout's
-``set_draining`` (items 22 and 12), and the dispatcher's own instruments
-(item 23).
+a frame. The dispatcher, the decode and encode pools and the geometry
+cache set their own (``serving/batching.py``, ``serving/ingest.py``,
+``serving/egress.py``). Not ported: the JAX package's per-zoo-model gates
+and labels (ROADMAP queue 1 item 12), the reactive SLO controller (item
+26) and the rollout's ``set_draining`` (item 12).
 
 **Drift** (``monitoring/profile.py``; ``ServerConfig.drift_*``, on by
 default as in the JAX package): every answered frame's five signals --
@@ -113,7 +121,10 @@ import torch
 
 from robotic_discovery_platform_tpu_torch import tracking
 from robotic_discovery_platform_tpu_torch.io.frames import load_calibration
-from robotic_discovery_platform_tpu_torch.models.unet import UNet
+from robotic_discovery_platform_tpu_torch.models.unet import (
+    UNet,
+    eval_on_kernels,
+)
 from robotic_discovery_platform_tpu_torch.monitoring import (
     profile as profile_lib,
 )
@@ -131,6 +142,7 @@ from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
 from robotic_discovery_platform_tpu_torch.resilience import (
     CircuitBreaker,
     CircuitOpenError,
+    DeadlineExceeded,
     inject,
 )
 from robotic_discovery_platform_tpu_torch.resilience import (
@@ -147,7 +159,7 @@ from robotic_discovery_platform_tpu_torch.serving.admission import (
 )
 from robotic_discovery_platform_tpu_torch.serving.batching import (
     BatchDispatcher,
-    DeadlineExceeded,
+    resolve_max_inflight,
 )
 from robotic_discovery_platform_tpu_torch.serving.messages import (
     AnalysisResponse,
@@ -208,16 +220,27 @@ def resolve_serving_model(cfg: ServerConfig,
     return model_cfg, net, version
 
 
-def tier_forward(net: UNet, precision: str, device: torch.device
-                 ) -> tuple[FoldedUNet, UNet | None]:
+def tier_forward(net: UNet, precision: str, device: torch.device,
+                 model_forward: str = "auto"
+                 ) -> tuple[Callable[[torch.Tensor], torch.Tensor],
+                            UNet | None]:
     """``net`` transformed for a precision tier (``ops/quant.
-    apply_precision``) and folded onto the kernels: ``(forward,
-    untransformed net)``, the latter None at f32 (no gate)."""
+    apply_precision``) and made the served forward: ``(forward,
+    untransformed net)``, the latter None at f32 (no gate). The forward is
+    ``ServerConfig.model_forward``'s, read as the JAX package's
+    ``_build_forward``: "auto" and "pallas" fold it onto the kernels
+    (:class:`ops.unet_infer.FoldedUNet`), "flax" serves the unfolded
+    ``UNet`` in eval mode with its 3x3 convs on the conv kernel
+    (:func:`models.unet.eval_on_kernels`); any other value raises
+    ``ValueError``."""
+    if model_forward not in ("auto", "pallas", "flax"):
+        raise ValueError(f"unknown model_forward {model_forward!r}")
     served, report = quant.apply_precision(net, precision)
     if report is not None:
         log.info("serving precision tier %s: %s", report["tier"], report)
-    return FoldedUNet(served, device=device), (None if report is None
-                                               else net)
+    forward = (eval_on_kernels(served) if model_forward == "flax"
+               else FoldedUNet(served, device=device))
+    return forward, (None if report is None else net)
 
 
 class FrameResult(NamedTuple):
@@ -251,18 +274,43 @@ class Engine(NamedTuple):
     dispatcher: BatchDispatcher | None
 
 
-def _fields(packed: egress.PackedResult, h: int, w: int,
-            mask_format: int) -> FrameResult:
-    """A frame's response fields off its packed row."""
-    coverage, mean_k, max_k, valid, margin = packed.scalars()
+def _fields(out, mask_format: int, encode: Callable) -> FrameResult:
+    """A frame's response fields off its packed row (a
+    :class:`~serving.egress.PackedResult`) or its unpacked
+    :class:`~ops.pipeline.FrameAnalysis` row of host tensors;
+    ``encode(fmt, mask=, bits=, shape=)`` makes the mask payload (the
+    servicer's encode pool; for a frame nobody will read, b"")."""
+    if isinstance(out, egress.PackedResult):
+        coverage, mean_k, max_k, valid, margin = out.scalars()
+        shape, bits, mask = (out.h, out.w), out.mask_bits, None
+        spline_wire = out.spline_wire() if mask_format else b""
+        spline = (np.zeros((0, 3), np.float32) if mask_format
+                  else out.spline())
+    else:
+        prof = out.profile
+        mask = out.mask.numpy()
+        shape, bits = mask.shape, None
+        coverage, valid = float(out.mask_coverage), bool(prof.valid)
+        mean_k = float(prof.mean_curvature) if valid else 0.0
+        max_k = float(prof.max_curvature) if valid else 0.0
+        margin = float(out.confidence_margin)
+        spline = (prof.spline_points.numpy() if valid
+                  else np.zeros((0, 3), np.float32))
+        spline_wire = (np.ascontiguousarray(spline, "<f4").tobytes()
+                       if mask_format else b"")
+        if mask_format:
+            spline = np.zeros((0, 3), np.float32)
     if mask_format == egress.MASK_FORMAT_BITS:
         # the wire payload is the packed rows behind a header
-        mask_bytes = egress.encode_bits_wire(packed.mask_bits, h, w)
+        mask_bytes = encode("bits", bits=(bits if bits is not None
+                                          else np.packbits(mask, axis=-1)),
+                            shape=shape)
+    elif mask_format == egress.MASK_FORMAT_RLE:
+        mask_bytes = encode("rle", mask=mask, bits=bits, shape=shape)
     else:
-        mask_bytes = egress.encode_mask(packed.unpack_mask(), mask_format)
-    spline_wire = packed.spline_wire() if mask_format else b""
-    spline = (np.zeros((0, 3), np.float32) if mask_format
-              else packed.spline())
+        # PNG, and any other mask_format, as the JAX server answers
+        mask_bytes = encode("png", mask=(out.unpack_mask() if mask is None
+                                         else mask), shape=shape)
     return FrameResult(mean_k, max_k, spline, mask_bytes, coverage, valid,
                        spline_wire, margin)
 
@@ -357,12 +405,22 @@ class VisionAnalysisService:
         self.intrinsics = intrinsics
         self.depth_scale = (cfg.default_depth_scale if depth_scale is None
                             else float(depth_scale))
-        self.onchip = ingest.resolve_onchip_decode(cfg.onchip_decode)
-        # per camera geometry: the float32 intrinsics and depth scale,
-        # staged on the device once rather than once per frame; shared by
-        # every generation
-        self._geometry: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}  # guarded_by: _geometry_lock
-        self._geometry_lock = threading.Lock()
+        # the host path: the decode pool (0 workers: inline in the handler
+        # thread), the camera geometry cache (the float32 intrinsics, and
+        # the direct path's copies on the device, made once per camera;
+        # shared by every generation) and the encode pool
+        self.ingest = ingest.DecodePool(
+            ingest.resolve_decode_workers(cfg.decode_workers),
+            prefetch=cfg.ingest_prefetch,
+            onchip=ingest.resolve_onchip_decode(cfg.onchip_decode))
+        self.onchip = self.ingest.onchip
+        self._geom_cache = ingest.GeometryCache(device=self.device)
+        self.egress = egress.EncodePool(
+            egress.resolve_egress_workers(cfg.egress_workers))
+        if self.ingest.workers or self.egress.workers:
+            log.info("host pools: %d decode worker(s) (read-ahead %d), %d "
+                     "encode worker(s)", self.ingest.workers,
+                     self.ingest.prefetch, self.egress.workers)
         self._registry_store = tracking.store_for(cfg.tracking_uri)
         self._engine = self._make_engine(version, forward, pristine)
         self._warm_shape: tuple[int, int] | None = None
@@ -443,24 +501,32 @@ class VisionAnalysisService:
             device=device, pack=True)
         dispatcher = None
         if cfg.batch_window_ms > 0:
+            make_batched = (pipeline.make_scan_batch_analyzer
+                            if cfg.batch_impl == "scan"
+                            else pipeline.make_batch_analyzer)
 
             def coef_factory(height: int, width: int, subsampling: str):
                 return pipeline.make_coef_batch_analyzer(
                     forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
                     device=device, height=height, width=width,
-                    subsampling=subsampling, pack=True)
+                    subsampling=subsampling, pack=cfg.egress_pack)
 
+            # egress_pack: the batch graph ends in the pack stage, one
+            # [B, P] device-to-host copy per dispatch; without it each
+            # leaf comes back on its own
             dispatcher = BatchDispatcher(
-                pipeline.make_batch_analyzer(
-                    forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
-                    device=device, pack=True),
+                make_batched(forward, img_size=cfg.model_img_size,
+                             geom_cfg=geom_cfg, device=device,
+                             pack=cfg.egress_pack),
                 coef_analyzer_factory=coef_factory,
                 window_ms=cfg.batch_window_ms, max_batch=cfg.max_batch,
                 max_backlog=cfg.max_backlog,
                 submit_timeout_s=cfg.submit_deadline_s,
                 watchdog_interval_s=cfg.watchdog_interval_s,
-                max_inflight=cfg.max_inflight_dispatches,
+                max_inflight=resolve_max_inflight(
+                    cfg.max_inflight_dispatches),
                 admission=cfg.admission_policy, device=device,
+                model_label=MODEL_LABEL,
             )
         return Engine(version, forward, pristine, analyze, analyze_coef,
                       dispatcher)
@@ -490,70 +556,82 @@ class VisionAnalysisService:
     def _pristine(self) -> UNet | None:
         return self._engine.pristine
 
+    def _geometry(self, w: int, h: int) -> ingest.GeometryEntry:
+        """The geometry cache's entry of a w x h camera."""
+        return self._geom_cache.lookup(self.intrinsics, w, h,
+                                       self.depth_scale)
+
     def _camera(self, w: int, h: int) -> np.ndarray:
         """The float32 intrinsics of a w x h camera."""
-        k = (self.intrinsics if self.intrinsics is not None
-             else ingest.default_intrinsics(w, h))
-        return np.asarray(k, np.float32)
-
-    def _staged_geometry(self, w: int, h: int):
-        key = (w, h)
-        with self._geometry_lock:
-            staged = self._geometry.get(key)
-            if staged is None:
-                staged = self._geometry[key] = (
-                    torch.as_tensor(self._camera(w, h), device=self.device),
-                    torch.as_tensor(np.float32(self.depth_scale),
-                                    device=self.device),
-                )
-        return staged
+        return self._geometry(w, h).k_f32
 
     # -- one frame --------------------------------------------------------------
 
     def analyze_frame(self, rgb, depth: np.ndarray, mask_format: int = 0,
-                      timer: StageTimer | None = None) -> FrameResult:
+                      timer: StageTimer | None = None,
+                      timeout_s: float | None = None,
+                      active: Callable[[], bool] | None = None
+                      ) -> FrameResult:
         """One decoded frame -> its response fields. ``rgb`` is [H, W, 3]
         uint8 pixels or a :class:`~serving.entropy.CoefficientFrame` (the
         coefficient lane). Directly, the frame's graph replays under its
         lock and its packed row comes back in one device-to-host copy;
-        batched, the row is the dispatch's. Both read the fields off the
-        row alike. ``timer`` takes the "device" stage (up to the row on
-        the host) and the "encode" stage."""
+        batched, the row (or the unpacked result) is the dispatch's. The
+        mask is encoded through the encode pool on either path.
+        ``timer`` takes the "device" stage (up to the result on the host)
+        and the "encode" stage; ``timeout_s`` is the frame's deadline
+        budget (the dispatcher's submit and the encode wait), and a frame
+        whose stream is gone (``active`` False) or whose budget ran out on
+        the device pays no encode."""
         inject(fault_sites.SERVING_ANALYZE)
         timer = timer or StageTimer()
+        t_entry = time.monotonic()
         h, w = rgb.shape[:2]
         if depth.shape != (h, w):
             raise ValueError(
                 f"depth frame is {depth.shape[1]}x{depth.shape[0]}; color "
                 f"frame is {w}x{h}"
             )
+        geom = self._geometry(w, h)
         # ONE read of the engine per frame: a concurrent reload cannot mix
         # generations
         eng = self._engine
         with timer.stage("device"):
-            packed = self._packed(eng, rgb, depth)
+            out = self._packed(eng, rgb, depth, geom, timeout_s)
         try:
+            dead = ((active is not None and not active())
+                    or (timeout_s is not None
+                        and time.monotonic() - t_entry >= timeout_s))
+
+            def encode(fmt: str, **kw) -> bytes:
+                if dead:  # nobody will read it
+                    return b""
+                return self.egress.encode(fmt, timeout_s=timeout_s, **kw)
+
             with timer.stage("encode"):
-                res = _fields(packed, h, w, mask_format)
+                res = _fields(out, mask_format, encode)
         finally:
-            packed.release()
+            if isinstance(out, egress.PackedResult):
+                out.release()
         # the drift signal the frame already paid for: one host-side
         # count over the raw depth frame
         return res._replace(depth_valid_fraction=(
             float(np.count_nonzero(depth)) / max(depth.size, 1)))
 
-    def _packed(self, eng: Engine, rgb, depth: np.ndarray
-                ) -> egress.PackedResult:
-        """One frame's packed row from ``eng``'s path (direct analyzer or
-        dispatcher)."""
-        h, w = rgb.shape[:2]
+    def _packed(self, eng: Engine, rgb, depth: np.ndarray,
+                geom: ingest.GeometryEntry, timeout_s: float | None = None):
+        """One frame's result from ``eng``'s path: the direct analyzer's
+        packed row, or the dispatcher's row (a :class:`~serving.egress.
+        PackedResult`, or with ``egress_pack=False`` the frame's
+        :class:`~ops.pipeline.FrameAnalysis` row)."""
         coef = isinstance(rgb, entropy.CoefficientFrame)
         if eng.dispatcher is not None:
             submit = (eng.dispatcher.submit_coef if coef
                       else eng.dispatcher.submit)
-            return submit(rgb, depth, self._camera(w, h), self.depth_scale)
+            return submit(rgb, depth, geom.k_f32, self.depth_scale,
+                          timeout_s=timeout_s)
         with _device_scope(self.device):
-            k, scale = self._staged_geometry(w, h)
+            k, scale = geom.staged()
             analyze = eng.analyze_coef if coef else eng.analyze
             return egress.PackedResult(analyze(rgb, depth, k, scale))
 
@@ -562,12 +640,18 @@ class VisionAnalysisService:
     def analyze_stream(self, requests: Iterable,
                        active: Callable[[], bool] = lambda: True,
                        parent: trace.SpanContext | None = None,
+                       time_remaining: Callable[[], float | None] = (
+                           lambda: None),
                        ) -> Iterator[AnalysisResponse]:
         """One response per request, in order, inside a ``serving.stream``
         span (``parent``: the client's trace context, else a new trace).
-        ``active`` returning False (a cancelled stream) stops the loop
-        before the next frame. On a draining or closed service the first
-        ``next`` raises :class:`StreamRefusedError`."""
+        Requests are decoded by the decode pool
+        (:meth:`serving.ingest.DecodePool.iter_decoded`); ``active``
+        returning False (a cancelled stream) or ``time_remaining`` at or
+        below 0 (the stream's deadline, seconds) stops the loop before the
+        next frame, and each frame's remaining budget bounds its waits. On
+        a draining or closed service the first ``next`` raises
+        :class:`StreamRefusedError`."""
         if not self._enter_stream():
             raise StreamRefusedError(
                 "server is draining; retry against another replica")
@@ -576,23 +660,29 @@ class VisionAnalysisService:
                 log.info("analysis stream opened (%s trace)",
                          "client" if parent is not None else "local")
                 timer = StageTimer(observer=_observe_stage)
-                for request in requests:
-                    if not active():
-                        return
-                    yield self._respond(request, timer)
+                for frame in self.ingest.iter_decoded(
+                        requests, active=active,
+                        time_remaining=time_remaining):
+                    yield self._respond(frame, timer, active)
                 if timer.totals:
                     log.info("stream stage breakdown: %s", timer.summary())
         finally:
             self.metrics.flush()
             self._exit_stream()
 
-    def _respond(self, request, timer: StageTimer) -> AnalysisResponse:
+    def _respond(self, frame: ingest.IngestFrame, timer: StageTimer,
+                 active: Callable[[], bool]) -> AnalysisResponse:
         t0 = time.perf_counter()
         try:
-            with timer.stage("decode"):
-                rgb, depth = ingest.decode_request(request,
-                                                   onchip=self.onchip)
-            res = self.analyze_frame(rgb, depth, request.mask_format, timer)
+            # the handler's share of the decode (inline: the decode;
+            # pooled: the wait); the pool times the decode itself
+            timer.observe("decode", frame.wait_s)
+            if frame.error is not None:
+                raise frame.error
+            res = self.analyze_frame(frame.rgb, frame.depth,
+                                     frame.mask_format, timer,
+                                     timeout_s=frame.time_remaining,
+                                     active=active)
             response = AnalysisResponse(
                 mean_curvature=res.mean_k,
                 max_curvature=res.max_k,
@@ -630,7 +720,7 @@ class VisionAnalysisService:
                 status=f"ERROR: {type(exc).__name__}: {exc} "
                        f"[trace={trace_id or '-'}]")
             status_label = "error"
-        total_s = time.perf_counter() - t0
+        total_s = time.perf_counter() - t0 + frame.wait_s
         response.proc_time_ms = total_s * 1e3
         _child(obs.FRAMES, status_label, MODEL_LABEL).inc()
         _observe_stage("total", total_s)
@@ -863,7 +953,8 @@ class VisionAnalysisService:
                 f"models:/{self.cfg.model_name}/{version}",
                 store=self._registry_store, device=self.device)
             forward, pristine = tier_forward(net, self.precision,
-                                             self.device)
+                                             self.device,
+                                             self.cfg.model_forward)
             del net
             engine = self._make_engine(version, forward, pristine)
             # the new generation's drift reference is read here, off the
@@ -942,13 +1033,13 @@ class VisionAnalysisService:
         w, h = shape
         with _device_scope(self.device):
             if engine.dispatcher is None:
-                k, scale = self._staged_geometry(w, h)
+                k, scale = self._geometry(w, h).staged()
                 row = engine.analyze(np.zeros((h, w, 3), np.uint8),
                                      np.zeros((h, w), np.uint16), k, scale)
                 # and the response's encode once, on the host: its first
                 # use is not a served frame's (the JAX warm-up runs a real
                 # frame through the whole path)
-                _fields(egress.PackedResult(row), h, w, 0)
+                egress.encode_mask(egress.PackedResult(row).unpack_mask(), 0)
                 return
             k = self._camera(w, h)
             for b in self._buckets(engine.dispatcher):
@@ -1009,14 +1100,18 @@ class VisionAnalysisService:
         k = self._camera(width, height)
         scale = np.float32(self.depth_scale)
         refs, gots = [], []
+        geom = self._geometry(width, height)
         for rgb, depth in quant.golden_frames(cfg.quant_parity_frames,
                                               height, width):
             refs.append(ref.eager(rgb, depth, k, scale))
-            packed = self._packed(eng, rgb, depth)
-            try:
-                gots.append(packed.to_analysis())
-            finally:
-                packed.release()
+            out = self._packed(eng, rgb, depth, geom)
+            if isinstance(out, egress.PackedResult):
+                try:
+                    gots.append(out.to_analysis())
+                finally:
+                    out.release()
+            else:
+                gots.append(out)
         report = quant.parity_report(refs, gots)
         obs.QUANT_PARITY_IOU.labels(model=MODEL_LABEL).set(
             report["mask_iou_mean"])
@@ -1107,7 +1202,8 @@ class VisionAnalysisService:
     def close(self) -> None:
         """Drain, stop the reloader, stop every dispatcher (the live one
         and those in their grace period; pending frames drain or fail),
-        stop the metrics endpoint and flush the metrics."""
+        then the decode and encode pools (the JAX package's order), stop
+        the metrics endpoint and flush the metrics."""
         self.drain()
         # flag first: an in-flight reload re-checks it before swapping, so
         # a generation built after this point never goes live
@@ -1126,6 +1222,8 @@ class VisionAnalysisService:
             dispatcher.stop()
         if engine.dispatcher is not None:
             engine.dispatcher.stop()
+        self.ingest.stop()
+        self.egress.stop()
         if self.metrics_server is not None:
             self.metrics_server.stop()
             self.metrics_server = None
@@ -1140,8 +1238,10 @@ def build_service(cfg: ServerConfig, forward=None, *,
 
     ``forward`` defaults to the registered model (``cfg.tracking_uri``,
     ``cfg.model_name``, ``cfg.model_alias``; :func:`resolve_serving_model`)
-    folded onto the kernels as a :class:`ops.unet_infer.FoldedUNet`; its
-    version is ``service.current_version``. The camera calibration comes
+    made the served forward by :func:`tier_forward` (``cfg.model_forward``:
+    folded onto the kernels as a :class:`ops.unet_infer.FoldedUNet`, or
+    with "flax" the unfolded net); its version is
+    ``service.current_version``. The camera calibration comes
     from ``cfg.calibration_path`` (intrinsics and depth scale) when that
     file exists, else the focal-length default and
     ``cfg.default_depth_scale``. ``warmup_shape`` = (width, height) runs
@@ -1159,7 +1259,8 @@ def build_service(cfg: ServerConfig, forward=None, *,
     device = resolve_device(device)
     if forward is None:
         _, net, version = resolve_serving_model(cfg, device=device)
-        forward, pristine = tier_forward(net, cfg.precision, device)
+        forward, pristine = tier_forward(net, cfg.precision, device,
+                                         cfg.model_forward)
     intrinsics, depth_scale = None, cfg.default_depth_scale
     try:
         mtx, _, scale = load_calibration(cfg.calibration_path)

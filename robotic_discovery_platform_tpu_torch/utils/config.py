@@ -1,18 +1,18 @@
 """Configuration of the port: the fields of the JAX package's
-``ModelConfig``, ``TrainConfig``, ``GeometryConfig``, ``ServerConfig`` and
-``MeshConfig`` that the serving and training paths read, with the same
-names and defaults, and the offline drift detector's ``DriftConfig``,
-plus ``from_dict`` and ``--section.field`` flag parsing for them.
+``ModelConfig``, ``TrainConfig``, ``GeometryConfig``, ``ServerConfig``,
+``ClientConfig`` and ``MeshConfig`` that the serving, client and training
+paths read, with the same names and defaults, and the offline drift
+detector's ``DriftConfig``, plus ``from_dict`` and ``--section.field``
+flag parsing for them.
 
 Settings the port does not implement yet raise ``NotImplementedError`` in
 :func:`check_supported`, naming the ROADMAP item that brings them:
 
-- on the batched path (``batch_window_ms > 0``): ``batch_impl="scan"``,
-  ``serving_mesh > 1`` (the multi-device router), ``egress_pack=False``,
-  ``egress_workers > 0`` (the encode pool) and the JAX package's
-  ``RDP_*`` environment overrides of those settings;
+- on the batched path (``batch_window_ms > 0``): ``serving_mesh > 1``
+  and the ``RDP_SERVING_CHIPS`` and ``RDP_DISPATCH_MODE`` overrides (the
+  multi-device router, item 14);
 - ``ModelConfig.norm`` other than ``"batch"``;
-- any non-default ``MeshConfig`` (the mesh trainer).
+- any non-default ``MeshConfig`` (the mesh trainer, item 14).
 """
 
 from __future__ import annotations
@@ -42,9 +42,15 @@ EPOCH_MODES = ("auto", "scan", "stream")
 #: ``ops/quant.resolve_precision``)
 PRECISIONS = ("f32", "bf16", "int8")
 
-#: the JAX package's environment overrides of batched-serving settings
-_BATCH_ENV_OVERRIDES = ("RDP_INFLIGHT", "RDP_SERVING_CHIPS",
-                        "RDP_DISPATCH_MODE", "RDP_EGRESS_WORKERS")
+#: ``ServerConfig.batch_impl`` values, the JAX package's names
+BATCH_IMPLS = ("dense", "scan")
+
+#: ``ServerConfig.model_forward`` values, the JAX package's names
+MODEL_FORWARDS = ("auto", "pallas", "flax")
+
+#: the JAX package's environment overrides of the multi-device router's
+#: settings (ROADMAP queue 1 item 14)
+_ROUTER_ENV_OVERRIDES = ("RDP_SERVING_CHIPS", "RDP_DISPATCH_MODE")
 
 
 @dataclass(frozen=True)
@@ -125,6 +131,7 @@ class GeometryConfig:
     min_edge_points: int = 20
     max_per_bin: int = 128
     num_ctrl: int = 16
+    default_depth_scale: float = 0.001
 
 
 @dataclass(frozen=True)
@@ -149,13 +156,30 @@ class ServerConfig:
     # streams that arrive within this window share one dispatch
     batch_window_ms: float = 0.0
     max_batch: int = 8  # per-dispatch cap when micro-batching
-    batch_impl: str = "dense"  # one [B, ...] forward per dispatch
+    # "dense": one [B, ...] forward per dispatch; "scan": one dispatch
+    # that runs the single-frame path once per frame (the frame's working
+    # set, the geometry kernels on every frame)
+    batch_impl: str = "dense"
     # launched-but-not-completed dispatches: 1 = serial, 2 = batch N+1
     # stages and computes while batch N's result comes back
     max_inflight_dispatches: int = 2
     serving_mesh: int = 0  # devices the dispatcher routes over (0/1: one)
     egress_pack: bool = True  # one packed [B, P] D2H per dispatch
-    egress_workers: int = 0  # 0 = encode response masks inline
+    # response mask encode pool (serving/egress.EncodePool): 0 = inline in
+    # the handler thread, N > 0 = N worker threads, negative = one per
+    # CPU. The RDP_EGRESS_WORKERS environment variable overrides it.
+    egress_workers: int = 0
+    # request decode pool (serving/ingest.DecodePool): 0 = inline in the
+    # handler thread, N > 0 = N worker threads with per-stream read-ahead
+    # (frames whose deadline passes in the queue are shed before their
+    # decode), negative = one per CPU. RDP_DECODE_WORKERS overrides it.
+    decode_workers: int = 0
+    # requests each stream reads ahead into the decode pool
+    ingest_prefetch: int = 2
+    # the served forward of a registered model: "auto" and "pallas" fold
+    # it onto the hand-written kernels (ops/unet_infer.FoldedUNet);
+    # "flax" serves the unfolded models/unet.UNet in eval mode
+    model_forward: str = "auto"
     submit_deadline_s: float = 30.0  # per-frame wait on the dispatcher
     max_backlog: int = 64  # queued frames before submits are shed
     watchdog_interval_s: float = 1.0  # <= 0 disables the watchdog
@@ -238,6 +262,16 @@ class ServerConfig:
 
 
 @dataclass(frozen=True)
+class ClientConfig:
+    """The streaming client's settings (``serving/client.py``)."""
+
+    server_address: str = "localhost:50051"
+    calibration_path: str = "ml/configs/calibration_data.npz"
+    smoothing_window: int = 10
+    frame_queue_len: int = 20
+
+
+@dataclass(frozen=True)
 class DriftConfig:
     """The offline drift detector's settings (``monitoring/drift.py``)."""
 
@@ -272,6 +306,7 @@ class PlatformConfig:
     geometry: GeometryConfig = field(default_factory=GeometryConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    client: ClientConfig = field(default_factory=ClientConfig)
     drift: DriftConfig = field(default_factory=DriftConfig)
 
 
@@ -303,6 +338,8 @@ def check_supported(cfg: Any) -> None:
                 f"unknown precision {cfg.precision!r} (choose from "
                 f"{PRECISIONS})"
             )
+        if cfg.model_forward not in MODEL_FORWARDS:
+            raise ValueError(f"unknown model_forward {cfg.model_forward!r}")
         if cfg.batch_window_ms > 0:
             _check_batched(cfg)
     if isinstance(cfg, TrainConfig):
@@ -330,34 +367,18 @@ def check_supported(cfg: Any) -> None:
 
 
 def _check_batched(cfg: ServerConfig) -> None:
-    if cfg.batch_impl != "dense":
-        if cfg.batch_impl == "scan":
-            raise NotImplementedError(
-                "ServerConfig.batch_impl='scan' is ROADMAP queue 1 item 16; "
-                "use 'dense'"
-            )
+    if cfg.batch_impl not in BATCH_IMPLS:
         raise ValueError(f"unknown batch_impl {cfg.batch_impl!r}")
     if cfg.serving_mesh not in (0, 1):
         raise NotImplementedError(
             f"ServerConfig.serving_mesh={cfg.serving_mesh}: the multi-device "
-            "router (DeviceRouter) is ROADMAP queue 1 item 16; use 0"
+            "router (DeviceRouter) is ROADMAP queue 1 item 14; use 0"
         )
-    if not cfg.egress_pack:
-        raise NotImplementedError(
-            "ServerConfig.egress_pack=False (the unpacked per-leaf fetch) is "
-            "ROADMAP queue 1 item 16; the port's dispatcher packs"
-        )
-    if cfg.egress_workers > 0:
-        raise NotImplementedError(
-            f"ServerConfig.egress_workers={cfg.egress_workers}: the encode "
-            "pool is ROADMAP queue 1 item 16; use 0"
-        )
-    set_env = [k for k in _BATCH_ENV_OVERRIDES if os.environ.get(k)]
+    set_env = [k for k in _ROUTER_ENV_OVERRIDES if os.environ.get(k)]
     if set_env:
         raise NotImplementedError(
-            f"environment overrides {set_env} of the batched-serving "
-            "settings are ROADMAP queue 1 item 16; set the ServerConfig "
-            "fields instead"
+            f"environment overrides {set_env} of the multi-device router "
+            "are ROADMAP queue 1 item 14; unset them"
         )
 
 

@@ -227,6 +227,9 @@ def test_shed_frames_end_the_stream_as_resource_exhausted(setup, tmp_path):
         def is_active(self):
             return True
 
+        def time_remaining(self):
+            return None  # no client deadline
+
         def invocation_metadata(self):
             return ()  # no client trace
 

@@ -432,12 +432,12 @@ def test_left_out_parts_raise():
         # the coefficient lane is ported: a non-CoefficientFrame is refused
         with pytest.raises(TypeError, match="CoefficientFrame"):
             d.submit_coef(None, _DEPTH, _K, 0.001)
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(NotImplementedError, match="item 12"):
             d.bind_model("aux", None)
     finally:
         d.stop()
-    for kw in ("router", "placer"):
-        with pytest.raises(NotImplementedError, match="item 16"):
+    for kw, item in (("router", "item 14"), ("placer", "item 12")):
+        with pytest.raises(NotImplementedError, match=item):
             BatchDispatcher(_Analyzer(), device="cpu", **{kw: object()})
 
 

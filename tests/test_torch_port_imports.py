@@ -85,6 +85,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.monitoring.drift\n"
         "import robotic_discovery_platform_tpu_torch.workflows.retraining\n"
         "import robotic_discovery_platform_tpu_torch.training.supervisor\n"
+        "import robotic_discovery_platform_tpu_torch.serving.client\n"
+        "import robotic_discovery_platform_tpu_torch.serving.proto.vision_grpc\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -106,7 +108,9 @@ def test_port_and_chip_smoke_import_no_jax():
                    "observability.families", "utils.logging",
                    "utils.lockcheck", "utils.profiling",
                    "monitoring.profile", "monitoring.drift",
-                   "workflows.retraining", "training.supervisor"):
+                   "workflows.retraining", "training.supervisor",
+                   "serving.client", "serving.proto.vision_grpc",
+                   "serving.ingest", "serving.egress", "io.frames"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -248,20 +252,46 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         assert service.dispatcher is not None
         assert service.dispatcher.max_inflight == 2
         service.close()
-    elif case in ("batch_impl_scan", "serving_mesh", "egress_pack_off",
-                  "egress_workers", "env_override"):
+    elif case in ("batch_impl_scan", "egress_pack_off", "egress_workers",
+                  "env_override"):
+        # batched serving takes these (tests/test_torch_port_host_path.py
+        # serves with each); an unknown batch_impl is refused
         fields = {"batch_impl_scan": {"batch_impl": "scan"},
-                  "serving_mesh": {"serving_mesh": 2},
                   "egress_pack_off": {"egress_pack": False},
                   "egress_workers": {"egress_workers": 2},
                   "env_override": {}}[case]
         if case == "env_override":
-            monkeypatch.setenv("RDP_INFLIGHT", "4")
-        cfg = config.ServerConfig(batch_window_ms=2.0, **fields)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+            for var in ("RDP_INFLIGHT", "RDP_EGRESS_WORKERS",
+                        "RDP_DECODE_WORKERS"):
+                monkeypatch.setenv(var, "3")
+        cfg = config.ServerConfig(batch_window_ms=2.0, model_img_size=32,
+                                  metrics_csv=str(tmp_path / "m.csv"),
+                                  **fields)
+        service = VisionAnalysisService(lambda x: x, cfg=cfg, device="cpu")
+        try:
+            if case == "env_override":
+                assert (service.dispatcher.max_inflight,
+                        service.egress.workers, service.ingest.workers) == (
+                            3, 3, 3)
+            if case == "egress_workers":
+                assert service.egress.workers == 2
+        finally:
+            service.close()
+        with pytest.raises(ValueError, match="unknown batch_impl"):
+            config.check_supported(dataclasses.replace(cfg,
+                                                       batch_impl="loop"))
+    elif case == "serving_mesh":
+        # the multi-device router and its overrides wait for item 14
+        cfg = config.ServerConfig(batch_window_ms=2.0, serving_mesh=2)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
             VisionAnalysisService(lambda x: x, cfg=cfg, device="cpu")
-        # the direct path reads none of these settings
         config.check_supported(dataclasses.replace(cfg, batch_window_ms=0.0))
+        for var in ("RDP_SERVING_CHIPS", "RDP_DISPATCH_MODE"):
+            with monkeypatch.context() as m:
+                m.setenv(var, "2")
+                with pytest.raises(NotImplementedError, match="item 14"):
+                    config.check_supported(dataclasses.replace(
+                        cfg, serving_mesh=0))
     elif case == "conv_impl":
         for impl in config.CONV_IMPLS:
             config.check_supported(config.ModelConfig(conv_impl=impl))
@@ -297,7 +327,7 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
                                       "--server.drift_sustain_s", "0.5"])
         assert parsed.drift.min_rows == 10
         assert parsed.server.drift_sustain_s == 0.5
-        assert len(dataclasses.fields(config.ServerConfig)) == 44
+        assert len(dataclasses.fields(config.ServerConfig)) == 47
     elif case == "mesh_section":
         config.check_supported(config.MeshConfig())
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):

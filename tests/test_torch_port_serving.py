@@ -392,7 +392,7 @@ def _scope_service(tmp_path, device):
         forward, cfg=ServerConfig(model_img_size=32,
                                   metrics_csv=str(tmp_path / "m.csv")),
         device="cpu")
-    service._staged_geometry(64, 48)
+    service._geometry(64, 48).staged()
     service.device = torch.device(device)
     return service
 
