@@ -5216,11 +5216,1052 @@ def drift_phase(torch, port) -> dict:
     return launches
 
 
+# -- the model zoo, the SLO controller and the rollout ------------------------
+
+ZOO_MODELS = ("seg", "multi", "aux")
+#: the aux variant's 18 conv3x3_bn_relu launches (base 16: every width of
+#: MAIN_PATH_3X3 over 4 but the input's 3 channels), and the multi
+#: variant's 4-class head (H = W, Cin, Cout)
+AUX_3X3 = [(s, cin if cin == 3 else cin // 4, cout // 4)
+           for s, cin, cout in MAIN_PATH_3X3]
+HEAD4 = (256, 64, 4)
+#: the request ``model`` of each of the batched leg's 8 mixed streams
+ZOO_STREAM_MODELS = ("", "multi", "aux", "seg")
+ZOO_ROUNDS = 4  # each stream sends the 8 frames this many times
+
+
+def zoo_kernel_cases(torch, conv) -> dict:
+    """conv3x3_bn_relu at every shape of the aux variant at 256x256 and
+    conv1x1 at the multi variant's [1, 256, 256, 64] -> 4 head (and the
+    Cout = 1 head beside it), each against its plain version within
+    BF16_TOL, called twice (equal bit for bit), with the profiler's
+    device ms beside the plain version's and the bound. Returns the
+    per-frame sums."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    seen = {}
+    for s, cin, cout in sorted(set(AUX_3X3), key=AUX_3X3.index):
+        x = rand(1, s, s, cin).to(torch.bfloat16)
+        wt = rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(torch.bfloat16)
+        scale = torch.rand(cout, generator=gen, device="cuda") + 0.5
+        bias = rand(cout, scale=0.1)
+        got = conv.conv3x3_bn_relu(x, wt, scale, bias)
+        want = conv.conv3x3_bn_relu_plain(x, wt, scale, bias)
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), atol=BF16_TOL,
+                             rtol=BF16_TOL),
+              f"conv3x3_bn_relu aux {(s, cin, cout)}: max |err| {err} over "
+              f"tolerance {BF16_TOL}")
+        check(torch.equal(conv.conv3x3_bn_relu(x, wt, scale, bias), got),
+              f"conv3x3_bn_relu aux {(s, cin, cout)}: two calls differ")
+        ms = device_ms(torch, lambda: conv.conv3x3_bn_relu(x, wt, scale,
+                                                           bias))
+        plain = device_ms(torch, lambda: conv.conv3x3_bn_relu_plain(
+            x, wt, scale, bias))
+        flops = 2.0 * s * s * 9 * cin * cout
+        nbytes = (x.numel() + wt.numel() + s * s * cout) * 2 + 8 * cout
+        bound, by = bound_ms(flops, nbytes)
+        seen[(s, cin, cout)] = (ms, plain, bound, err)
+        log(f"conv3x3_bn_relu aux [1,{s},{s},{cin}]->{cout} bfloat16: "
+            f"max|err| {err:.3g} (tol {BF16_TOL}), deterministic; device "
+            f"ms {ms:.4f} plain {plain:.4f} bound {bound:.5f} ({by}); "
+            f"{conv.fwd_plan(1, s, s, cin, cout)[0]} K splits; Cout tile "
+            f"64, {min(cout, 64) / 64:.0%} of it used")
+    rows = [seen[s] for s in AUX_3X3]
+    out = {"aux_3x3_ms": sum(r[0] for r in rows),
+           "aux_3x3_plain_ms": sum(r[1] for r in rows),
+           "aux_3x3_bound_ms": sum(r[2] for r in rows),
+           "aux_3x3_max_abs_err": max(r[3] for r in rows)}
+    log("conv3x3_bn_relu, the aux variant's 18 launches of one frame: "
+        + ", ".join(f"{k[8:]} {v:.4f}" for k, v in out.items()))
+    s, cin, _ = HEAD4
+    x = rand(1, s, s, cin).to(torch.bfloat16)
+    for cout in (4, 1):
+        wt = rand(cin, cout, scale=cin ** -0.5).to(torch.bfloat16)
+        scale = torch.ones(cout, device="cuda")
+        bias = rand(cout, scale=0.1)
+
+        def kernel():
+            return conv.conv1x1(x, wt, scale, bias, relu=False,
+                                out_dtype=torch.float32)
+
+        def plain():
+            return conv.conv1x1_plain(x, wt, scale, bias, relu=False,
+                                      out_dtype=torch.float32)
+
+        got, want = kernel(), plain()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL),
+              f"conv1x1 [1,{s},{s},{cin}]->{cout}: max |err| {err} over "
+              f"tolerance {BF16_TOL}")
+        check(torch.equal(kernel(), got),
+              f"conv1x1 [1,{s},{s},{cin}]->{cout}: two calls differ")
+        path = conv.conv1x1_path(torch.bfloat16, cin, cout, x_aligned=True)
+        check(path == ("fma" if cout > 1 else "head"),
+              f"conv1x1 ->{cout} takes path {path}")
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.t().reshape(cout, cin, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def library():
+            return (torch.nn.functional.conv2d(xc, wc).float()
+                    * scale.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1))
+
+        ms, plain_ms = device_ms(torch, kernel), device_ms(torch, plain)
+        lib_ms = device_ms(torch, library)
+        # CUDA events over back-to-back calls beside the profiler's sum
+        # (an upper bound: the host's cost per call is in it)
+        call_ms = time_ms(torch, kernel)
+        lib_call_ms = time_ms(torch, library)
+        bound, by = bound_ms(2.0 * s * s * cin * cout,
+                             (x.numel() + wt.numel()) * 2
+                             + s * s * cout * 4 + 8 * cout)
+        out[f"head{cout}_ms"], out[f"head{cout}_bound_ms"] = ms, bound
+        out[f"head{cout}_plain_ms"], out[f"head{cout}_err"] = plain_ms, err
+        out[f"head{cout}_library_ms"] = lib_ms
+        out[f"head{cout}_call_ms"] = call_ms
+        log(f"conv1x1 [1,{s},{s},{cin}]->{cout} bfloat16->float32 ({path}"
+            f" path): max|err| {err:.3g} (tol {BF16_TOL}), deterministic; "
+            f"device ms {ms:.4f} plain {plain_ms:.4f} cudnn {lib_ms:.4f} "
+            f"bound {bound:.5f} ({by}); ms per call back to back "
+            f"{call_ms:.4f} cudnn {lib_call_ms:.4f}")
+    return out
+
+
+def register_named(port, nets: dict, uri: str) -> dict:
+    """Each (registered name -> UNet) as the next version of that name in
+    the registry at ``uri``, under ``staging``; returns the versions."""
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.models import weights
+
+    tracking.set_tracking_uri(uri)
+    tracking.set_experiment("Actuator Segmentation")
+    store = tracking.store_for(uri)
+    versions = {}
+    with tracking.start_run():
+        for name, net in nets.items():
+            versions[name] = tracking.log_model(
+                weights.to_flax_variables(net), net.cfg,
+                registered_model_name=name)
+            store.set_alias(name, "staging", versions[name])
+    return versions
+
+
+def answers(responses) -> list:
+    """The comparable fields of responses: status, mask, coverage,
+    curvatures and the packed spline."""
+    return [(r.status, r.mask, r.mask_coverage, r.mean_curvature,
+             r.max_curvature, r.packed_spline) for r in responses]
+
+
+def without_anomaly(rows) -> list:
+    return [(r[0].split(" anomaly=")[0],) + r[1:] for r in rows]
+
+
+def batched_bar(got: list, want: list, what: str) -> None:
+    """The batched path against the direct one (``servicer_phase``'s bar):
+    statuses, mask bytes and coverage equal; curvature within GEOM_RTOL
+    (a dispatch of B > 1 frames runs the reference geometry ops)."""
+    check(len(got) == len(want), f"{what}: {len(got)} answers, want "
+          f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g[:3] == w[:3] and (not g[0].startswith("OK") or np.allclose(
+            g[3:5], w[3:5], rtol=GEOM_RTOL, atol=0)),
+              f"{what} frame {i}: {g[0]!r} vs {w[0]!r}, curvature "
+              f"{g[3:5]} vs {w[3:5]}")
+
+
+def union_and_anomaly(torch, port, frames, multi, aux, multi_out,
+                      aux_out) -> None:
+    """The 4-class head on the card, as the JAX package defines it: the
+    served mask (through the packed row) is the union over classes of
+    sigmoid > 0.5 of the folded net's logits, resized nearest; and the
+    aux head's status carries 1 - 2 x its confidence margin (mean
+    |sigmoid - 0.5| of its logits)."""
+    F = torch.nn.functional
+    for (rgb, _), resp in zip(frames, multi_out):
+        x = port.preprocess(torch.from_numpy(rgb).cuda()[None], 256)
+        with torch.no_grad():
+            logits = port.FoldedUNet(multi, device="cuda")(x)
+        prob = torch.sigmoid(logits)
+        union = (prob.amax(-1) > 0.5).float()[:, None]
+        want = F.interpolate(union, size=rgb.shape[:2],
+                             mode="nearest-exact")[0, 0].to(torch.uint8)
+        got = port.decode_mask_wire(resp.mask)
+        per_class = [float((prob[..., c] > 0.5).float().mean())
+                     for c in range(prob.shape[-1])]
+        check(np.array_equal(got, want.cpu().numpy()),
+              f"multi: the served mask is not the union of the classes "
+              f"(class coverage {per_class})")
+        log(f"multi: served mask = union over 4 classes bit for bit; "
+            f"coverage per class {[round(c, 4) for c in per_class]}, "
+            f"union {float(union.mean()):.4f}")
+    for (rgb, _), resp in zip(frames, aux_out):
+        x = port.preprocess(torch.from_numpy(rgb).cuda()[None], 256)
+        with torch.no_grad():
+            logits = port.FoldedUNet(aux, device="cuda")(x)
+        margin = float(torch.mean(torch.abs(torch.sigmoid(logits) - 0.5)))
+        score = float(resp.status.rsplit("anomaly=", 1)[1])
+        check(abs(score - (1.0 - 2.0 * margin)) <= 1e-4,
+              f"aux: status score {score}, 1 - 2 x margin "
+              f"{1.0 - 2.0 * margin}")
+        log(f"aux: status {resp.status!r}, 1 - 2 x margin "
+            f"{1.0 - 2.0 * margin:.6f}")
+
+
+def resident_mib(torch, forward, analyzer) -> tuple:
+    """One zoo entry's memory on the card, MiB: its folded weights and the
+    reserved segments of its direct analyzer's graph pool."""
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                yield from tensors(y)
+        elif isinstance(x, dict):
+            for y in x.values():
+                yield from tensors(y)
+
+    weights = sum(t.untyped_storage().nbytes()
+                  for t in tensors(forward._layers))
+    pool = analyzer.graphs._pool
+    graph = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if pool is not None
+                and tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool))
+    return weights / 2**20, graph / 2**20
+
+
+def zoo_phase(torch, port, conv, frames=None) -> dict:
+    """The model zoo at ``ModelConfig()``: its kernels at the aux and
+    4-class shapes (``zoo_kernel_cases``); a registry of the three
+    variants, seeded and calibrated as ``seeded_model``; a direct zoo
+    server (``zoo_models="multi,aux"``) whose "", "seg", "multi" and
+    "aux" answers equal single-model servicers of each bit for bit, with
+    exact launches per frame per model, an unknown name answered per
+    frame, device ms and peak memory per model, ``/debug/zoo`` and the
+    ``model`` labels of ``/metrics``; a batched zoo server under 8 mixed
+    streams (every answer its model's, no dispatch mixing models) against
+    8 seg-only streams; ``zoo_eager_warm`` 1 against -1. Returns the
+    phase's launches."""
+    import gc
+
+    from robotic_discovery_platform_tpu_torch.models import variants
+    from robotic_discovery_platform_tpu_torch.serving import (
+        grpc_service,
+        server as server_lib,
+    )
+
+    log(f"zoo_phase: {torch.cuda.get_device_name(0)} [{nvidia_smi_line()}]")
+    figures = zoo_kernel_cases(torch, conv)
+    if frames is None:
+        rng = np.random.default_rng(SEED)
+        frames = [port.render_scene(rng, FRAME_H, FRAME_W)[::2]
+                  for _ in range(8)]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_zoo_"))
+    uri = f"file:{tmp}/mlruns"
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    base = port.ServerConfig().model_name
+    names = {m: variants.registered_name(variants.VARIANTS[m], base)
+             for m in ZOO_MODELS}
+    nets = {names[m]: seeded_model(
+        torch, port, x0, variants.VARIANTS[m].model_config(port.ModelConfig()))
+        for m in ZOO_MODELS}
+    register_named(port, nets, uri)
+    mport = free_port()
+
+    def cfg(**fields):
+        return port.ServerConfig(
+            address="localhost:0", tracking_uri=uri,
+            metrics_csv=str(tmp / "m.csv"),
+            calibration_path=str(tmp / "none.npz"), reload_poll_s=0.0,
+            **fields)
+
+    total = launches_of()
+
+    def tally():
+        got = read_launches()
+        for k in total:
+            total[k] += got[k]
+        reset_launches()
+        return got
+
+    reset_launches()
+    t0 = time.perf_counter()
+    server, zoo = grpc_service.build_server(
+        cfg(zoo_models="multi,aux", metrics_port=mport),
+        warmup_shape=(FRAME_W, FRAME_H), device="cuda")
+    warm_s = time.perf_counter() - t0
+    server.start()
+    singles = {m: server_lib.build_service(
+        cfg(model_name=names[m]), warmup_shape=(FRAME_W, FRAME_H),
+        device="cuda") for m in ZOO_MODELS}
+    tally()
+    check(zoo.zoo.names() == ZOO_MODELS, f"zoo roster {zoo.zoo.names()}")
+
+    def reqs(model):
+        return [port.raw_request(rgb, depth, mask_format=1, model=model)
+                for rgb, depth in frames]
+
+    want = {m: answers(singles[m].analyze_stream(iter(reqs(""))))
+            for m in ZOO_MODELS}
+    tally()
+    page0 = http_get(mport, "/metrics").decode()
+    per_model = {}
+    for model in ("", "seg", "multi", "aux"):
+        name = model or "seg"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        got = answers(zoo.analyze_stream(iter(reqs(model))))
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        counted = tally()
+        check(counted == frame_launches(len(frames), served=True),
+              f"zoo model {model!r}: launches {counted} for {len(frames)} "
+              f"frames, want 18/1/1/1/1/1 per frame")
+        if name == "aux":
+            check(all(" anomaly=" in g[0] and 0.0 <= float(
+                g[0].rsplit("anomaly=", 1)[1]) <= 1.0 for g in got),
+                f"aux statuses {[g[0] for g in got]}")
+            got = without_anomaly(got)
+        check(got == want[name], f"zoo model {model!r}: answers differ from "
+              f"its single-model servicer's")
+        entry = zoo.zoo.get(name)
+        analyze = zoo.analyze if name == "seg" else entry.analyze
+        resident = resident_mib(
+            torch, zoo._engine.forward if name == "seg" else entry.forward,
+            analyze)
+        rgb, depth = frames[0]
+        with torch.cuda.device(0):
+            k, scale = zoo._geometry(FRAME_W, FRAME_H).staged()
+            ms = device_ms(torch, lambda: analyze(rgb, depth, k, scale))
+        tally()
+        per_model[model] = (ms, peak, resident)
+        log(f"zoo model {model!r}: {len(frames)} frames bit for bit equal "
+            f"to its own servicer's, launches per frame "
+            f"{ {k: v // len(frames) for k, v in counted.items() if v} }; "
+            f"device ms per frame {ms:.4f}; peak allocated over the stream "
+            f"{peak / 2**20:.1f} MiB above {base_mem / 2**20:.1f} MiB; "
+            f"resident: folded weights {resident[0]:.1f} MiB, the direct "
+            f"graph's pool {resident[1]:.1f} MiB")
+    union_and_anomaly(torch, port, frames, nets[names["multi"]],
+                      nets[names["aux"]],
+                      zoo.analyze_stream(iter(reqs("multi")[:2])),
+                      zoo.analyze_stream(iter(reqs("aux")[:2])))
+    tally()
+    del nets
+    got = list(zoo.analyze_stream(iter([
+        port.raw_request(*frames[0], mask_format=1, model="nope"),
+        port.raw_request(*frames[0], mask_format=1)])))
+    check(got[0].status.startswith("ERROR: UnknownModel")
+          and answers(got[1:]) == want["seg"][:1],
+          f"an unknown model: statuses {[r.status for r in got]}")
+    tally()
+    dbg = json.loads(http_get(mport, "/debug/zoo"))
+    page = http_get(mport, "/metrics").decode()
+    served = {n: dbg["models"][n]["frames"] for n in ZOO_MODELS}
+    labelled = {n: sum(metric_value(page, "rdp_frames_total", status=s,
+                                    model=n)
+                       - metric_value(page0, "rdp_frames_total", status=s,
+                                      model=n)
+                       for s in ("ok", "degraded", "error"))
+                for n in ZOO_MODELS}
+    check(sorted(dbg["models"]) == sorted(ZOO_MODELS)
+          and labelled == served
+          and served == {"seg": 2 * len(frames) + 1,
+                         "multi": len(frames) + 2, "aux": len(frames) + 2},
+          f"/debug/zoo frames {served}, /metrics model labels {labelled}")
+    log(f"zoo direct leg: warm-up {warm_s:.2f} s; /debug/zoo models "
+        f"{sorted(dbg['models'])} frames {served}; /metrics "
+        f"rdp_frames_total by model {labelled}")
+    grpc_service.shutdown(server, zoo)
+    for s in singles.values():
+        s.close()
+    del zoo, singles, server
+    gc.collect()
+
+    # the batched path: 8 mixed streams, then 8 seg-only streams
+    def batched(eager: int):
+        t0 = time.perf_counter()
+        service = server_lib.build_service(
+            cfg(zoo_models="multi,aux", batch_window_ms=2.0,
+                max_batch=MAX_BATCH, zoo_eager_warm=eager),
+            warmup_shape=(FRAME_W, FRAME_H), device="cuda")
+        warm = time.perf_counter() - t0
+        d = service.dispatcher
+        caps = {"seg": len(d._analyze.graphs.graphs)}
+        for e in service.zoo.extras():
+            caps[e.name] = len(e.batch_analyze.graphs.graphs)
+        return service, warm, caps
+
+    full, full_warm, full_caps = batched(-1)
+    full.close()
+    del full
+    gc.collect()
+    service, capped_warm, capped_caps = batched(1)
+    check(capped_caps == {"seg": 4, "multi": 1, "aux": 1}
+          and full_caps == {"seg": 4, "multi": 4, "aux": 4},
+          f"captures per model at warm-up: zoo_eager_warm 1 {capped_caps},"
+          f" -1 {full_caps}")
+    log(f"zoo warm-up, batched: zoo_eager_warm 1 {capped_warm:.2f} s, "
+        f"captures {capped_caps}; -1 {full_warm:.2f} s, captures "
+        f"{full_caps}")
+    tally()
+    groups: list = []
+    launch = service.dispatcher._launch_group
+
+    def spy(group, *a, **kw):
+        groups.append({p.model for p in group})
+        return launch(group, *a, **kw)
+
+    service.dispatcher._launch_group = spy
+
+    def mixed(models):
+        streams = [reqs(models[i % len(models)]) * ZOO_ROUNDS
+                   for i in range(STREAMS)]
+        out, wall = concurrent_streams(service, streams)
+        for i, resp in enumerate(out):
+            name = models[i % len(models)] or "seg"
+            got = answers(resp)
+            if name == "aux":
+                got = without_anomaly(got)
+            batched_bar(got, want[name] * ZOO_ROUNDS,
+                        f"batched stream {i} ({name})")
+        return STREAMS * len(frames) * ZOO_ROUNDS / wall
+
+    fps_mixed = mixed(ZOO_STREAM_MODELS)
+    mixed_groups = list(groups)
+    fps_seg = mixed(("",))
+    check(all(len(g) == 1 for g in groups),
+          f"a dispatch mixed models: {[g for g in groups if len(g) > 1]}")
+    check({m for g in mixed_groups for m in g} == {"", "multi", "aux"},
+          f"dispatched models {mixed_groups[:8]}")
+    sizes = dict(service.dispatcher.dispatch_sizes)
+    log(f"zoo batched leg: 8 streams mixing {ZOO_STREAM_MODELS} "
+        f"{fps_mixed:.1f} frames/s, 8 seg-only streams {fps_seg:.1f} "
+        f"frames/s (same process, {len(frames) * ZOO_ROUNDS} frames a "
+        f"stream); every answer its model's direct one (statuses, masks "
+        f"and coverage equal, curvature within {GEOM_RTOL}); "
+        f"{len(groups)} dispatches, each of one model; dispatch sizes "
+        f"{sizes}")
+    service.close()
+    tally()
+    figures.update({
+        "fps_mixed": fps_mixed, "fps_seg": fps_seg,
+        "ms": {m or "default": v[0] for m, v in per_model.items()},
+        "peak_mib": {m or "default": v[1] / 2**20
+                     for m, v in per_model.items()},
+        "resident_mib": {m or "default": v[2] for m, v in per_model.items()},
+        "warm_s": {"capped": capped_warm, "full": full_warm}})
+    log(f"zoo_phase figures: {json.dumps(figures)}")
+    return total
+
+
+CONTROLLER_STREAMS = 16  # closed-loop streams of the overload leg
+CONTROLLER_FRAMES = 4  # frames per stream: the leg opens streams anew
+CONTROLLER_TIMEOUT_S = 60.0  # to reach rung 3, and to come back to 0
+
+
+def controller_phase(torch, port, folded=None, frames=None) -> dict:
+    """The reactive SLO controller on the card, batched (``batch_window_ms
+    =2``, ``max_batch=8``). The idle leg: enabled with ``slo_ms`` far
+    above any latency, 8 streams' responses equal the controller-off
+    servicer's bit for bit. The overload leg: the one-stream and
+    16-stream p50 of ``proc_time_ms`` measured first; a gRPC server whose
+    ``slo_ms`` is their geometric mean, its controller ticking every 0.1 s
+    (sustain 0.2 s, cooldown 0.3 s), under 16 closed-loop gRPC streams of
+    CONTROLLER_FRAMES frames opened anew: the ladder reaches level 3 and
+    refuses every other new stream (UNAVAILABLE); then one stream: the
+    ladder comes back to 0. Prints the time to each rung and back and the
+    controller's /metrics. Returns the phase's launches."""
+    import threading
+
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch.serving import grpc_service
+    from robotic_discovery_platform_tpu_torch.serving.proto import (
+        vision_grpc,
+        vision_pb2,
+    )
+
+    log(f"controller_phase: {torch.cuda.get_device_name(0)} "
+        f"[{nvidia_smi_line()}]")
+    if folded is None:
+        folded, frames = phase_model(torch, port)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_controller_"))
+    reset_launches()
+    reqs = [port.raw_request(rgb, depth, mask_format=1)
+            for rgb, depth in frames]
+
+    def cfg(**fields):
+        return port.ServerConfig(
+            address="localhost:0", metrics_csv=str(tmp / "m.csv"),
+            calibration_path=str(tmp / "none.npz"), batch_window_ms=2.0,
+            max_batch=MAX_BATCH, **fields)
+
+    def servicer(**fields):
+        service = port.VisionAnalysisService(folded, cfg=cfg(**fields),
+                                             device="cuda")
+        service.warmup(FRAME_W, FRAME_H)
+        return service
+
+    # the idle leg: one stream (a frame a dispatch, so the answers are
+    # bit for bit comparable), then 8 under the batched bar
+    streams = [[reqs[(i + j) % len(reqs)] for j in range(len(reqs))] * 2
+               for i in range(STREAMS)]
+    serial = [reqs * 4]
+    off = servicer()
+    want1, _ = concurrent_streams(off, serial)
+    want8, _ = concurrent_streams(off, streams)
+    off.close()
+    on = servicer(slo_ms=1e6, controller_enabled=True,
+                  controller_interval_s=0.1, controller_sustain_s=0.2,
+                  controller_cooldown_s=0.3)
+    check(on.controller is not None, "the controller was not built")
+    got1, _ = concurrent_streams(on, serial)
+    actions1 = on.controller.actions_total
+    got8, _ = concurrent_streams(on, streams)
+    actions = on.controller.actions_total
+    on.close()
+    check(answers(got1[0]) == answers(want1[0]) and actions1 == 0,
+          f"idle controller, one stream: a response differs from the "
+          f"controller-off servicer's ({actions1} actions)")
+    for i, (g, w) in enumerate(zip(got8, want8)):
+        batched_bar(answers(g), answers(w), f"idle controller stream {i}")
+    log(f"controller idle leg: slo_ms 1e6; one stream of {len(serial[0])} "
+        f"frames bit for bit equal to the controller-off servicer's, no "
+        f"action; {STREAMS} streams x {len(streams[0])} frames within the "
+        f"batched bar, {actions - actions1} actions (level-0 tuning)")
+
+    # the overload leg: the objective between the two p50s
+    plain = servicer()
+    one, _ = concurrent_streams(plain, [reqs * 4])
+    many, _ = concurrent_streams(plain, [reqs[i % len(reqs):] + reqs[
+        :i % len(reqs)] for i in range(CONTROLLER_STREAMS)])
+    plain.close()
+    p50_1 = float(np.median([r.proc_time_ms for r in one[0]]))
+    p50_16 = float(np.median([r.proc_time_ms for s in many for r in s]))
+    check(p50_16 > p50_1, f"16 streams' p50 {p50_16:.2f} ms is not above "
+          f"one stream's {p50_1:.2f} ms")
+    slo_ms = float(np.sqrt(p50_1 * p50_16))
+    mport = free_port()
+    server, service = grpc_service.build_server(
+        cfg(slo_ms=slo_ms, controller_enabled=True,
+            controller_interval_s=0.1, controller_sustain_s=0.2,
+            controller_cooldown_s=0.3, metrics_port=mport),
+        folded, warmup_shape=(FRAME_W, FRAME_H), device="cuda")
+    server.start()
+    protos = [vision_pb2.AnalysisRequest(
+        color_image=vision_pb2.Image(data=rgb.tobytes(), width=FRAME_W,
+                                     height=FRAME_H, format=1),
+        depth_image=vision_pb2.Image(data=depth.astype("<u2").tobytes(),
+                                     width=FRAME_W, height=FRAME_H,
+                                     format=1),
+        mask_format=1) for rgb, depth in frames]
+    channel = grpc.insecure_channel(f"localhost:{service.bound_port}")
+    stub = vision_grpc.VisionAnalysisServiceStub(channel)
+    levels = [(time.perf_counter(), 0)]
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            lv = service.controller.level
+            if lv != levels[-1][1]:
+                levels.append((time.perf_counter(), lv))
+            time.sleep(0.002)
+
+    counts = collections.Counter()
+    errors: list = []
+    lock = threading.Lock()
+
+    def worker(i: int, stop: threading.Event):
+        n = 0
+        while not stop.is_set():
+            part = [protos[(i + n + j) % len(protos)]
+                    for j in range(CONTROLLER_FRAMES)]
+            n += 1
+            try:
+                out = list(stub.AnalyzeActuatorPerformance(iter(part),
+                                                           timeout=60))
+                with lock:
+                    counts["streams"] += 1
+                    counts["frames"] += len(out)
+                    counts["errors"] += sum(
+                        r.status.startswith("ERROR") for r in out)
+            except grpc.RpcError as exc:
+                if exc.code() != grpc.StatusCode.UNAVAILABLE:
+                    errors.append(exc)
+                    return
+                with lock:
+                    counts["refused"] += 1
+                time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    page0 = http_get(mport, "/metrics").decode()
+    stop_many = threading.Event()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i, stop_many),
+                                daemon=True)
+               for i in range(CONTROLLER_STREAMS)]
+    for t in threads:
+        t.start()
+    while service.controller.level < 3:
+        check(time.perf_counter() - t0 < CONTROLLER_TIMEOUT_S and not errors,
+              f"the ladder reached level {service.controller.level} in "
+              f"{CONTROLLER_TIMEOUT_S} s under {CONTROLLER_STREAMS} streams"
+              f" (errors {errors[:1]})")
+        time.sleep(0.01)
+    t3 = time.perf_counter()
+    time.sleep(1.0)  # level 3 held: new streams refused every other one
+    page3 = http_get(mport, "/metrics").decode()
+    stop_many.set()
+    for t in threads:
+        t.join(timeout=120)
+    with service._streams_cond:
+        ticks = service._brownout_tick
+    refused = counts["refused"]
+    check(not errors and refused > 0 and refused == (ticks + 1) // 2,
+          f"rung 3 refused {refused} new streams of {ticks} opened while "
+          f"refusing (every other one: {(ticks + 1) // 2}); errors "
+          f"{errors[:1]}")
+    stop_one = threading.Event()
+    t_one = time.perf_counter()
+    single = threading.Thread(target=worker, args=(0, stop_one), daemon=True)
+    single.start()
+    while service.controller.level > 0:
+        check(time.perf_counter() - t_one < CONTROLLER_TIMEOUT_S,
+              f"the ladder is at level {service.controller.level} "
+              f"{CONTROLLER_TIMEOUT_S} s into one stream")
+        time.sleep(0.01)
+    t_back = time.perf_counter()
+    stop_one.set()
+    single.join(timeout=120)
+    done.set()
+    watcher.join(timeout=5)
+    page = http_get(mport, "/metrics").decode()
+    channel.close()
+    grpc_service.shutdown(server, service)
+    check(counts["errors"] == 0, f"{counts['errors']} frames answered "
+          "with an error")
+    rungs = [(round(t - t0, 3), lv) for t, lv in levels[1:]]
+    acts = {a: metric_value(page, "rdp_controller_actions_total", action=a)
+            - metric_value(page0, "rdp_controller_actions_total", action=a)
+            for a in ("window_down", "admission_tighten", "refuse_streams",
+                      "accept_streams", "admission_relax", "window_up",
+                      "inflight_up", "floor_up", "floor_down")}
+    log(f"controller overload leg: one-stream p50 {p50_1:.2f} ms, "
+        f"{CONTROLLER_STREAMS}-stream p50 {p50_16:.2f} ms, slo_ms "
+        f"{slo_ms:.2f}; level 3 after {t3 - t0:.3f} s, back to 0 "
+        f"{t_back - t_one:.3f} s after the load dropped to one stream; "
+        f"rungs (s from the load's start, level) {rungs}; "
+        f"{counts['streams']} streams served, {refused} refused "
+        f"(UNAVAILABLE) of {ticks} opened at rung 3, {counts['frames']} "
+        f"frames; /metrics at level 3: level "
+        f"{metric_value(page3, 'rdp_controller_brownout_level')}, "
+        f"max_inflight {metric_value(page3, 'rdp_controller_max_inflight')}"
+        f", window_ms {metric_value(page3, 'rdp_controller_window_ms')}; "
+        f"at the end: level "
+        f"{metric_value(page, 'rdp_controller_brownout_level')}, "
+        f"max_inflight {metric_value(page, 'rdp_controller_max_inflight')}"
+        f", window_ms {metric_value(page, 'rdp_controller_window_ms')}; "
+        f"actions {acts}")
+    check([lv for _, lv in levels[1:4]] == [1, 2, 3]
+          and levels[-1][1] == 0,
+          f"the ladder's moves {rungs}")
+    return read_launches()
+
+
+ROLLOUT_TAIL = 8  # frames the drained replica's stream sends once drained
+
+
+def rollout_phase(torch, port) -> dict:
+    """The drift-triggered rollout on the card at ``ModelConfig()``.
+
+    Version 1 is trained by ``run_retraining_pipeline`` at the drift
+    phase's setting (TRAIN_SAMPLES samples, batch 4, 2 epochs); such a
+    net masks nothing (PERF.md), so the served version is it with its
+    head's bias set so that half of a fixed scene's logits are positive
+    (``seeded_model``'s recipe): its masks are not empty, and the gates
+    cannot pass on empty masks. Its profile is captured over DRIFT_STREAM
+    scenes. Two servers from that registry
+    (``build_server``, direct), joined by ``attach_rollout`` to one
+    started ``RolloutManager``; two streams into the first replica,
+    in-distribution then depth-shifted scenes, until its monitor fires a
+    real recommendation, and one stream into the second, in flight when
+    it is drained. Leg A: the train function trains again at the same
+    setting on the card (the same bits: the card's training is
+    deterministic) and gives the candidate the same head; the cycle
+    walks IDLE -> DRAINING -> RETRAINING -> SHADOW -> CANARY -> PROMOTING
+    -> REJOINING -> IDLE and both replicas serve the new version. Leg B:
+    the same recommendation again, and a zero-weight candidate: refused
+    at CANARY, rolled back, the served version unchanged. Throughout,
+    every response is one version's answer, the drained replica's stream
+    finishes, and ``memory_allocated`` and ``memory_reserved`` come back
+    within DEPLOY_SLACK and DEPLOY_RESERVED_SLACK. Returns the phase's
+    launches."""
+    import gc
+    import threading
+
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.models import weights
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+    from robotic_discovery_platform_tpu_torch.serving import (
+        grpc_service,
+        rollout,
+    )
+    from robotic_discovery_platform_tpu_torch.serving.proto import (
+        vision_grpc,
+        vision_pb2,
+    )
+    from robotic_discovery_platform_tpu_torch.training import synthetic
+    from robotic_discovery_platform_tpu_torch.utils.config import (
+        RolloutConfig,
+    )
+    from robotic_discovery_platform_tpu_torch.workflows import retraining
+
+    log(f"rollout_phase: {torch.cuda.get_device_name(0)} "
+        f"[{nvidia_smi_line()}]")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_rollout_"))
+    uri = f"file:{tmp}/mlruns"
+    cfg = port.TrainConfig(epochs=2, batch_size=TRAIN_BATCH, img_size=256,
+                           learning_rate=1e-4, loss="bce", seed=SEED,
+                           tracking_uri=uri,
+                           checkpoint_dir=str(tmp / "ckpt"))
+    arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
+    name = cfg.registered_model_name
+    store = tracking.store_for(uri)
+    reset_launches()
+
+    def register(net, alias: str) -> int:
+        tracking.set_tracking_uri(uri)
+        with tracking.start_run():
+            version = tracking.log_model(weights.to_flax_variables(net),
+                                         net.cfg, registered_model_name=name)
+        store.set_alias(name, alias, version)
+        return int(version)
+
+    rgb0, _, _ = port.render_scene(np.random.default_rng(SEED), DRIFT_H,
+                                   DRIFT_W)
+    x0 = port.preprocess(torch.from_numpy(rgb0).cuda()[None], 256)
+
+    def sensitive(version: int, alias: str) -> int:
+        """``version`` with its head's bias moved by the median logit of
+        one fixed scene (through the kernels, the same bits every run),
+        registered under ``alias``."""
+        _, net = tracking.load_model(f"models:/{name}/{version}",
+                                     store=store, device="cuda")
+        with torch.no_grad():
+            median = float(port.FoldedUNet(net, device="cuda")(x0).median())
+            net.Conv_0.bias -= median
+        return register(net.cpu(), alias)
+
+    t0 = time.perf_counter()
+    res = retraining.run_retraining_pipeline(cfg, port.ModelConfig(),
+                                             arrays=arrays, device="cuda")
+    check(res.succeeded and res.version == 1, f"the first cycle: {res}")
+    v_live = sensitive(res.version, "staging")
+    retraining.capture_drift_profile(
+        v_live, model_name=name, tracking_uri=uri, n_frames=DRIFT_STREAM,
+        img_size=cfg.img_size, device="cuda")
+    inside = drift_scenes(port, SEED + 1, DRIFT_STREAM)
+    shifted = drift_scenes(port, SEED + 1, DRIFT_STREAM, shifted=True)
+    scenes = inside + shifted
+    k = port.default_intrinsics(DRIFT_W, DRIFT_H).astype(np.float32)
+
+    def expected(version: int) -> list:
+        """Each scene's (mask, mean, max, valid) under ``version``."""
+        _, net = tracking.load_model(f"models:/{name}/{version}",
+                                     store=store, device="cuda")
+        analyze = port.make_frame_analyzer(
+            port.FoldedUNet(net, device="cuda"), img_size=256,
+            device="cuda")
+        out = []
+        for rgb, depth in scenes:
+            a = analyze.eager(rgb, depth, k, np.float32(0.001))
+            valid = bool(a.profile.valid)
+            out.append((a.mask.cpu().numpy(), float(a.profile.mean_curvature),
+                        float(a.profile.max_curvature), valid))
+        return out
+
+    expect = {v_live: expected(v_live)}
+    coverage = np.mean([m.mean() for m, *_ in expect[v_live]])
+    check(coverage > 0.01, f"the served net masks {coverage:.2%} of a frame"
+          ": the gates would pass on empty masks")
+    setup_s = time.perf_counter() - t0
+    gc.collect()
+    mport = free_port()
+    servers = []
+    for i in range(2):
+        scfg = port.ServerConfig(
+            address="localhost:0", tracking_uri=uri,
+            metrics_csv=str(tmp / f"r{i}.csv"),
+            calibration_path=str(tmp / "none.npz"), reload_poll_s=0.0,
+            reload_grace_s=DEPLOY_GRACE_S, drift_sustain_s=DRIFT_SUSTAIN_S,
+            drift_cooldown_s=1e9, metrics_port=mport if i == 0 else 0)
+        server, sv = grpc_service.build_server(
+            scfg, warmup_shape=(DRIFT_W, DRIFT_H), device="cuda")
+        server.start()
+        servers.append((server, sv, scfg))
+    (_, sv1, scfg1), (_, sv2, _) = servers
+    check(sv1.drift.reference is not None
+          and sv1.drift.reference.n_frames == DRIFT_STREAM,
+          f"replica 1's reference: {sv1.drift.reference}")
+    torch.cuda.synchronize()
+    gc.collect()
+    graphs.release_dead_pools()
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    legs = {"leg": "A"}
+
+    def train_fn(target, cancel):
+        if legs["leg"] == "B":
+            # the bad candidate: zero weights, logits 0, empty masks
+            _, net = tracking.load_model(
+                f"models:/{name}/{target.current_version}", store=store,
+                device="cpu")
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.zero_()
+            return retraining.PipelineResult(
+                True, register(net, "shadow"), "shadow", "zero weights")
+        trained = retraining.run_retraining_pipeline(
+            dataclasses.replace(cfg, checkpoint_dir=str(tmp / "ckpt_a")),
+            port.ModelConfig(), arrays=arrays, alias="shadow",
+            cancel=cancel, device="cuda")
+        if not trained.succeeded:
+            return trained
+        return retraining.PipelineResult(
+            True, sensitive(trained.version, "shadow"), "shadow",
+            trained.message)
+
+    manager = rollout.RolloutManager(
+        [], RolloutConfig(), scfg1, train_fn=train_fn, train_cfg=cfg,
+        model_cfg=port.ModelConfig(), device="cuda")
+    rollout.attach_rollout(manager, [sv1, sv2], names=["replica-1",
+                                                       "replica-2"])
+    taken: list = []  # the recommendations the replicas handed over
+    hand = manager.on_recommendation
+
+    def on_recommendation(rec):
+        taken.append(rec)
+        return hand(rec)
+
+    manager.on_recommendation = on_recommendation
+    manager.start()
+
+    def proto(i):
+        rgb, depth = scenes[i]
+        return vision_pb2.AnalysisRequest(
+            color_image=vision_pb2.Image(data=rgb.tobytes(), width=DRIFT_W,
+                                         height=DRIFT_H, format=1),
+            depth_image=vision_pb2.Image(
+                data=depth.astype("<u2").tobytes(), width=DRIFT_W,
+                height=DRIFT_H, format=1), mask_format=1)
+
+    got: list = []  # (stream, scene index, response)
+    errors: list = []
+    lock = threading.Lock()
+
+    def stream(sv, tag, order, stop):
+        """A gRPC stream of ``order``'s scenes (cycled from its last
+        entry) into ``sv`` until ``stop`` returns True."""
+        channel = grpc.insecure_channel(f"localhost:{sv.bound_port}")
+        sent: list = []
+
+        def feed():
+            n = 0
+            while not stop(n):
+                i = order[min(n, len(order) - 1)] if n < len(order) else \
+                    order[len(order) // 2 + n % (len(order) // 2)]
+                sent.append(i)
+                n += 1
+                yield proto(i)
+
+        try:
+            stub = vision_grpc.VisionAnalysisServiceStub(channel)
+            for j, resp in enumerate(stub.AnalyzeActuatorPerformance(
+                    feed(), timeout=600)):
+                with lock:
+                    got.append((tag, sent[j], resp))
+        except BaseException as exc:  # noqa: BLE001 - checked below
+            errors.append((tag, exc))
+        finally:
+            channel.close()
+
+    quit_live = threading.Event()
+    live_order = list(range(DRIFT_STREAM)) + [DRIFT_STREAM + i for i in
+                                              range(DRIFT_STREAM)]
+    live = [threading.Thread(target=stream, args=(
+        sv1, f"live{j}", live_order, lambda n: quit_live.is_set()),
+        daemon=True) for j in range(2)]
+
+    def drained_stream():
+        """One stream into replica 2 that ends ROLLOUT_TAIL frames after
+        the replica is drained (its in-flight stream at the drain)."""
+        seen = {"at": None}
+
+        def stop(n):
+            if seen["at"] is None and sv2.is_draining:
+                seen["at"] = n
+            return seen["at"] is not None and n >= seen["at"] + ROLLOUT_TAIL
+
+        t = threading.Thread(target=stream, args=(
+            sv2, "drained", list(range(DRIFT_STREAM)), stop), daemon=True)
+        t.start()
+        return t, seen
+
+    def wait_cycles(n, what):
+        deadline = time.perf_counter() + 600
+        while len(manager.history) < n:
+            check(time.perf_counter() < deadline and not errors,
+                  f"{what}: no cycle ended in 600 s (state "
+                  f"{manager.state}, errors {errors[:1]})")
+            time.sleep(0.05)
+        return manager.history[n - 1]
+
+    page0 = http_get(mport, "/metrics").decode()
+    drained_a, seen_a = drained_stream()
+    time.sleep(0.5)  # replica 2's stream in flight before the live load
+    t_live = time.perf_counter()
+    for t in live:
+        t.start()
+    cycle_a = wait_cycles(1, "leg A")
+    drained_a.join(timeout=120)
+    v_good = cycle_a.get("candidate_version")
+    check(cycle_a["outcome"] == "promoted"
+          and [s["stage"] for s in cycle_a["stages"]] == [
+              rollout.DRAINING, rollout.RETRAINING, rollout.SHADOW,
+              rollout.CANARY, rollout.PROMOTING, rollout.REJOINING]
+          and sv1.current_version == sv2.current_version == v_good
+          and not sv2.is_draining and manager.state == rollout.IDLE,
+          f"leg A: {cycle_a.get('outcome')} at "
+          f"{cycle_a.get('rolled_back_at')}: {cycle_a.get('error')}; "
+          f"versions {sv1.current_version}/{sv2.current_version}")
+    check(seen_a["at"] is not None and not drained_a.is_alive(),
+          "leg A: the drained replica's stream did not finish")
+    expect[v_good] = expected(v_good)
+    retrained = [tracking.load_model(f"models:/{name}/{v}", store=store,
+                                     device="cpu")[1].state_dict()
+                 for v in (1, v_good - 1)]
+    same_bits = all(torch.equal(retrained[0][key], retrained[1][key])
+                    for key in retrained[0])
+    log(f"rollout leg A: the retrained version {v_good - 1} equal to "
+        f"version 1 bit for bit: {same_bits}")
+    check(len(taken) == 1 and taken[0].signals,
+          f"recommendations handed to the manager: "
+          f"{[r.signals for r in taken]}")
+    rec = taken[0]
+    # leg B: the same recommendation, a zero-weight candidate
+    legs["leg"] = "B"
+    drained_b, seen_b = drained_stream()
+    time.sleep(0.5)
+    check(hand(rec), "leg B: the recommendation was not taken")
+    cycle_b = wait_cycles(2, "leg B")
+    drained_b.join(timeout=120)
+    check(cycle_b["outcome"] == "rolled_back"
+          and cycle_b["rolled_back_at"] == rollout.CANARY
+          and not cycle_b["gates"]["shadow_iou"]["pass"]
+          and sv1.current_version == sv2.current_version == v_good
+          and store.get_alias(name, "staging") == v_good
+          and not sv2.is_draining and manager.state == rollout.IDLE,
+          f"leg B: {cycle_b.get('outcome')} at "
+          f"{cycle_b.get('rolled_back_at')}: {cycle_b.get('error')}; "
+          f"versions {sv1.current_version}/{sv2.current_version}")
+    check(seen_b["at"] is not None and not drained_b.is_alive(),
+          "leg B: the drained replica's stream did not finish")
+    quit_live.set()
+    for t in live:
+        t.join(timeout=120)
+    live_s = time.perf_counter() - t_live
+    check(not errors, f"a stream failed: {errors[:1]}")
+    # every response one version's answer
+    by = collections.Counter()
+    for tag, i, resp in got:
+        mask = port.decode_mask_wire(resp.mask)
+        versions = [v for v, want in expect.items()
+                    if np.array_equal(mask, want[i][0])
+                    and resp.status == ("OK" if want[i][3] else
+                                        "DEGRADED: insufficient geometry")
+                    and (not want[i][3] or np.allclose(
+                        [resp.mean_curvature, resp.max_curvature],
+                        want[i][1:3], rtol=GEOM_RTOL, atol=0))]
+        check(versions, f"{tag} scene {i}: {resp.status!r}, the answer of "
+              f"no version of {sorted(expect)}")
+        by[tag] += 1
+    page = http_get(mport, "/metrics").decode()
+    debug = json.loads(http_get(mport, "/debug/rollout"))
+    manager.stop()
+    # the swapped-out generation and the cycles' analyzers gone, with the
+    # same two servers up as at the start
+    time.sleep(DEPLOY_GRACE_S + 0.5)
+    torch.cuda.synchronize()
+    gc.collect()
+    graphs.release_dead_pools()
+    mem1, res1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    graphs.release_workspaces()
+    log(f"rollout: memory_allocated {mem1 / 2**20:.1f} MiB, "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB after cuBLAS's "
+        f"per-stream workspaces are dropped")
+    for server, sv, _ in servers:
+        grpc_service.shutdown(server, sv)
+    del servers, sv1, sv2, manager
+    if not (abs(mem1 - mem0) <= DEPLOY_SLACK
+            and res1 <= res0 + DEPLOY_RESERVED_SLACK):
+        check(False, f"memory_allocated {mem0} -> {mem1}, reserved {res0} "
+              f"-> {res1} around the two cycles: {live_graphs()}")
+
+    def stages(cycle):
+        marks = [(s["stage"], s["at_s"]) for s in cycle["stages"]]
+        ends = [t for _, t in marks[1:]] + [
+            cycle["started_s"] + cycle["duration_s"]]
+        return {st: round(e - t, 3) for (st, t), e in zip(marks, ends)}
+
+    def gates(cycle):
+        return {g: (round(v["value"], 4), v["threshold"], v["pass"])
+                for g, v in (cycle["gates"] or {}).items()}
+
+    moved = {s: metric_value(page, "rdp_rollout_transitions_total", to=s)
+             - metric_value(page0, "rdp_rollout_transitions_total", to=s)
+             for s in rollout.STATES}
+    rolled = {s: metric_value(page, "rdp_rollout_rollbacks_total", stage=s)
+              - metric_value(page0, "rdp_rollout_rollbacks_total", stage=s)
+              for s in rollout.STATES}
+    log(f"rollout setup {setup_s:.1f} s (train v1, its head, a "
+        f"{DRIFT_STREAM}-scene profile; masks cover {coverage:.2%}); "
+        f"recommendation on {rec.signals} ({rec.reason})")
+    for leg, cycle in (("A", cycle_a), ("B", cycle_b)):
+        shadow = cycle["shadow"] or {}
+        log(f"rollout leg {leg}: {cycle['outcome']} "
+            f"(candidate v{cycle['candidate_version']}, drained "
+            f"{cycle['replica']}) in {cycle['duration_s']} s; seconds per "
+            f"stage {stages(cycle)}; shadow frames diffed "
+            f"{shadow.get('frames')} (mirrored {shadow.get('mirrored')}, "
+            f"dropped {shadow.get('dropped')}); gates (value, threshold, "
+            f"pass) {gates(cycle)}; fixture {cycle['fixture']}")
+    log(f"rollout: {len(got)} responses over {live_s:.1f} s ({dict(by)}), "
+        f"each one version's answer; /metrics transitions {moved}, "
+        f"rollbacks {rolled}; memory_allocated {mem0 / 2**20:.1f} -> "
+        f"{mem1 / 2**20:.1f} MiB, reserved {res0 / 2**20:.1f} -> "
+        f"{res1 / 2**20:.1f} MiB; /debug/rollout "
+        f"{json.dumps({k: debug[k] for k in ('state', 'cycles_total')})} "
+        f"history {[c['outcome'] for c in debug['history']]}")
+    check(debug["cycles_total"] == 2 and moved[rollout.REJOINING] == 2
+          and rolled[rollout.CANARY] == 1,
+          f"/debug/rollout {debug['cycles_total']} cycles, transitions "
+          f"{moved}, rollbacks {rolled}")
+    return read_launches()
+
+
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
           "train_kernel_phase", "graph_phase", "bitpack_phase",
           "bitpack_timing_phase", "precision_phase", "trained_tier_phase",
-          "deploy_phase", "drift_phase", "host_path_phase")
+          "deploy_phase", "drift_phase", "host_path_phase", "zoo_phase",
+          "controller_phase", "rollout_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -5303,6 +6344,9 @@ def main(argv: list | None = None) -> int:
                                   port.ModelConfig(bilinear=False), epochs=1))
     legs.append(deploy_phase(torch, port))
     legs.append(drift_phase(torch, port))
+    legs.append(zoo_phase(torch, port, conv, frames))
+    legs.append(controller_phase(torch, port, folded, frames))
+    legs.append(rollout_phase(torch, port))
     launches = {k: launches[k] + sum(leg[k] for leg in legs)
                 for k in launches}
     from robotic_discovery_platform_tpu_torch.analysis import recompile

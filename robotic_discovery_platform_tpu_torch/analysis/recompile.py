@@ -94,7 +94,8 @@ class CaptureGuard:
             stats.traces += 1
             stats.shapes.append(signature)
             n = stats.traces
-            seen = "; ".join(stats.shapes[-min(n, 4):])
+            recent = stats.shapes[-min(n, 4):]
+        seen = "; ".join(recent)
         limit = stats.effective_budget
         if n > limit:
             msg = (

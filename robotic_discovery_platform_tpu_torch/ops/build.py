@@ -110,7 +110,7 @@ def build(names=None) -> float:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         compiler = nvcc()
-        jobs = []
+        jobs, failed = [], []
         try:
             for name in missing:
                 final = library_path(name)
@@ -122,7 +122,6 @@ def build(names=None) -> float:
                     text=True,
                 )
                 jobs.append((name, proc, tmp, final))
-            failed = []
             for name, proc, tmp, final in jobs:
                 out, _ = proc.communicate()
                 if proc.returncode != 0:
@@ -140,8 +139,8 @@ def build(names=None) -> float:
                     proc.kill()
                     proc.wait()
                     tmp.unlink(missing_ok=True)
-        if failed:
-            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0
 
 

@@ -215,6 +215,17 @@ def _clear_cublas_workspaces() -> None:
         clear()
 
 
+def release_workspaces() -> None:
+    """Drop cuBLAS's cached per-(handle, stream) workspaces while no
+    capture is in progress: an eager run on a stream of its own (a
+    candidate's warm-up, a reference analyzer) or on a thread that has
+    ended (a training run) keeps one for the life of the process
+    otherwise. The next cuBLAS call on a stream allocates its workspace
+    again."""
+    with _capture_lock:
+        _clear_cublas_workspaces()
+
+
 @contextlib.contextmanager
 def _no_collection():
     """No garbage collection while the block runs: a collection during a

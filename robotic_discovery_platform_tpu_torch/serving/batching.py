@@ -62,9 +62,30 @@ watchdog restarts, and one flight-recorder timeline per dispatch (a
 clock only: the completer already waits on the dispatch's event, and
 nothing adds a device synchronisation or a read of a device tensor.
 
-Not ported (each raises ``NotImplementedError``): the multi-device
-``DeviceRouter`` (ROADMAP queue 1 item 14) and the zoo's ``bind_model``
-and placer (item 12).
+The model zoo (``serving/zoo.py``): :meth:`BatchDispatcher.bind_model`
+registers another model's batched analyzer, and ``submit(model=name)``
+routes a frame to it. Frames group by (model, geometry), so a dispatch
+holds one model's frames only and replays that model's bucket graphs on
+that model's graph cache stream (``ops/graphs.dedicated_stream``); a
+model whose bucket was not captured at warm-up captures it at its first
+dispatch, counted on the analyzer's ``capture_guard`` like every capture.
+The placer (``ZooPlacer``) gets each submit's arrival; the service-time
+estimate, the stale-shed valve and the per-model fault site
+(``serving.model.<name>.dispatch``) are per model. ``warmed`` holds the
+(model, chip, bucket) keys captured so far.
+
+The reactive SLO controller (``serving/controller.py``) retunes the
+dispatcher online: :meth:`~BatchDispatcher.set_max_inflight` (a new
+in-flight window; dispatches in flight release the slots of theirs),
+:meth:`~BatchDispatcher.set_window_ms` (read once per collect cycle),
+:meth:`~BatchDispatcher.set_bucket_floor` (:meth:`~BatchDispatcher.
+bucket_for` pads to at least the floor, clamped to ``max_batch`` and to
+the buckets captured for the frame's model) and
+:meth:`~BatchDispatcher.set_deadline_safety` (the stale shed compares the
+model's service estimate times this factor with the headroom).
+
+Not ported: the multi-device ``DeviceRouter`` (ROADMAP queue 1 item 14;
+``router=`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -147,6 +168,8 @@ class _Pending:
     trace_ctx: Any = None
     # when the frame entered the queue (its timeline's "submit" span)
     submit_ns: int = field(default_factory=time.monotonic_ns)
+    # the zoo model the frame is for ("" = the default model)
+    model: str = ""
 
 
 class _BucketBuffers:
@@ -278,6 +301,7 @@ class _Dispatch:
     # and recorded by the completer
     timeline: Any = None
     root: Any = None
+    model: str = ""  # the zoo model of the dispatch's frames
 
 
 def _read_leaf(t: torch.Tensor) -> torch.Tensor:
@@ -302,14 +326,20 @@ def _bucket(n: int, max_batch: int) -> int:
     return min(b, max_batch)
 
 
-def _group_key(p: _Pending) -> tuple:
-    """Frames batch only with co-arrivals of the same camera geometry, and
-    coefficient frames only with coefficient frames of the same
-    subsampling."""
+def _shape_key(p: _Pending) -> tuple:
+    """The staging layout of a frame: its camera geometry, and for a
+    coefficient frame its subsampling."""
     f = p.frame_rgb
     if isinstance(f, CoefficientFrame):
         return ("coef", f.subsampling, f.height, f.width)
     return tuple(f.shape[:2])
+
+
+def _group_key(p: _Pending) -> tuple:
+    """Frames batch only with co-arrivals of the same model and camera
+    geometry, and coefficient frames only with coefficient frames of the
+    same subsampling: a dispatch is one model's by construction."""
+    return (p.model, *_shape_key(p))
 
 
 class BatchDispatcher:
@@ -337,8 +367,11 @@ class BatchDispatcher:
         max_inflight: dispatches launched but not completed at once.
         admission: "deadline" or "fifo" (``serving/admission.py``).
         device: where the analyzer runs ("cuda" by default).
-        model_label: the ``model`` label of the dispatch timelines and
-            ``rdp_model_dispatches_total``.
+        model_label: the default model's name: the ``model`` label of its
+            dispatch timelines, ``rdp_model_dispatches_total`` and its
+            placer key.
+        placer: a :class:`~serving.zoo.ZooPlacer` that each submit's
+            arrival is recorded into (None: no zoo).
         flight_recorder: where dispatch timelines go (the process's
             recorder by default).
         coef_analyzer_factory: ``(height, width, subsampling) ->
@@ -364,11 +397,18 @@ class BatchDispatcher:
             raise NotImplementedError(
                 "DeviceRouter (multi-device dispatch) is ROADMAP queue 1 "
                 "item 14")
-        if placer is not None:
-            raise NotImplementedError(
-                "the zoo's placer is ROADMAP queue 1 item 12")
         self.device = resolve_device(device)
         self._model_label = model_label or "default"
+        self._placer = placer
+        # the zoo's other models: name -> batched analyzer (bind_model).
+        # Written before the model is served; the collector reads it
+        # without a lock
+        self._bindings: dict[str, Callable] = {}
+        #: (model, chip, bucket) keys whose graph was captured, at warm-up
+        #: or at the first dispatch (``("coef", b)`` for the coefficient
+        #: lane's buckets)
+        self.warmed: set[tuple] = set()  # guarded_by: _warm_lock
+        self._warm_lock = threading.Lock()
         self._recorder = (flight_recorder if flight_recorder is not None
                           else recorder_lib.RECORDER)
         self._cuda = self.device.type == "cuda"
@@ -389,7 +429,13 @@ class BatchDispatcher:
         self.service_estimate = ServiceTimeEstimator()
         # consecutive stale sheds with no completion between: after 8 the
         # next frame rides anyway, so the estimate can refresh
-        self._sheds_since_complete = 0  # guarded_by: _inflight_lock
+        # (per model, as the estimate it refreshes)
+        self._sheds_since_complete: dict[str, int] = {}  # guarded_by: _inflight_lock
+        #: multiplier on the service estimate when the collector decides a
+        #: deadline is unmeetable: the controller's level 2 raises it
+        self.deadline_safety = 1.0
+        #: controller-tuned floor of the padded bucket (1 = off)
+        self.bucket_floor = 1
         # the queue calls back through a weak reference: a bound method
         # would make dispatcher and queue a cycle, and a stopped dispatcher
         # (a hot reload's old one, with its graphs) would then wait for the
@@ -399,7 +445,7 @@ class BatchDispatcher:
             max_backlog, policy=admission,
             on_evict=lambda p: this() is not None and this()._on_evicted(p))
         self._cq: queue.Queue[_Dispatch | None] = queue.Queue()
-        self._slots = threading.Semaphore(self._max_inflight)
+        self._slots = threading.Semaphore(self._max_inflight)  # guarded_by: _inflight_lock
         self._inflight_lock = threading.Lock()
         self._inflight = 0  # guarded_by: _inflight_lock
         #: most dispatches in flight at once (never above max_inflight)
@@ -442,9 +488,12 @@ class BatchDispatcher:
     # -- caller side ----------------------------------------------------------
 
     def submit(self, frame_rgb, depth, intrinsics, depth_scale,
-               timeout_s: float | None = None) -> PackedResult:
+               timeout_s: float | None = None,
+               model: str = "") -> PackedResult:
         """Block until this frame's result is back; returns its
         :class:`PackedResult` row (call ``release`` when done with it).
+        ``model`` names a bound zoo model ("" = the default); a frame
+        batches only with its own model's co-arrivals.
 
         Raises :class:`OverloadedError` at the backlog cap (or when a
         newer frame with more deadline headroom evicted this one) and
@@ -457,20 +506,25 @@ class BatchDispatcher:
             raise ValueError(
                 f"frame {frame_rgb.shape} and depth {depth.shape} disagree")
         return self._submit_frame(frame_rgb, depth, intrinsics, depth_scale,
-                                  timeout_s)
+                                  timeout_s, model)
 
     def submit_coef(self, frame: CoefficientFrame, depth, intrinsics,
-                    depth_scale, timeout_s: float | None = None
-                    ) -> PackedResult:
+                    depth_scale, timeout_s: float | None = None,
+                    model: str = "") -> PackedResult:
         """:meth:`submit` for the coefficient lane: the color half is an
         entropy-decoded :class:`~serving.entropy.CoefficientFrame` whose
         pixels are decoded on the device ahead of the analyzer. Admission,
         deadlines and the result are :meth:`submit`'s; frames group by
-        geometry and subsampling and never mix with pixel frames."""
+        geometry and subsampling and never mix with pixel frames. The lane
+        serves the default model only, as in the JAX package."""
         if not isinstance(frame, CoefficientFrame):
             raise TypeError(
                 f"submit_coef wants a CoefficientFrame, got "
                 f"{type(frame).__name__}; pixel arrays ride submit()")
+        if model:
+            raise ValueError(
+                "the coefficient lane serves the default model only; "
+                f"model {model!r} frames must use pixel formats")
         depth = np.asarray(depth)
         if depth.shape != (frame.height, frame.width):
             raise ValueError(
@@ -480,14 +534,20 @@ class BatchDispatcher:
                                   timeout_s)
 
     def _submit_frame(self, frame_rgb, depth, intrinsics, depth_scale,
-                      timeout_s: float | None) -> PackedResult:
+                      timeout_s: float | None,
+                      model: str = "") -> PackedResult:
+        if model and model not in self._bindings:
+            raise ValueError(
+                f"unknown model {model!r}; bound: {self.bound_models()}")
+        if self._placer is not None:
+            self._placer.record_arrival(self._display_model(model))
         timeout = self._submit_timeout_s
         if timeout_s is not None:
             timeout = min(timeout, timeout_s)
         p = _Pending(frame_rgb, depth, _intrinsics_f32(intrinsics),
                      float(depth_scale),
                      deadline_t=time.monotonic() + timeout,
-                     trace_ctx=trace.current())
+                     trace_ctx=trace.current(), model=model)
         # enqueue under the lock stop() drains under: a submit lands before
         # the drain (and is failed by it) or sees stopped and raises
         with self._submit_lock:
@@ -496,7 +556,8 @@ class BatchDispatcher:
             with self._pending_lock:
                 self._pending.add(p)
             try:
-                self._q.put(p, margin_s=self.service_estimate.s_for(""))
+                self._q.put(p, margin_s=(self.service_estimate.s_for(model)
+                                         * self.deadline_safety))
             except OverloadedError:
                 with self._pending_lock:
                     self._pending.discard(p)
@@ -515,9 +576,24 @@ class BatchDispatcher:
             raise p.error
         return p.result
 
-    def bind_model(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the zoo's bind_model is ROADMAP queue 1 item 12")
+    def bind_model(self, name: str, analyze_batch: Callable) -> None:
+        """Register another zoo model's batched analyzer (called as
+        ``analyze_batch`` is) so that ``submit(model=name)`` routes to it.
+        Call before that model is served."""
+        if not name:
+            raise ValueError("the default model is bound at construction")
+        self._bindings[name] = analyze_batch
+
+    def bound_models(self) -> tuple[str, ...]:
+        """Every model key this dispatcher routes ("" = the default)."""
+        return ("", *self._bindings)
+
+    def _display_model(self, model: str) -> str:
+        """A model key's name in labels and placer keys."""
+        return model or self._model_label
+
+    def _analyze_for(self, model: str) -> Callable:
+        return self._bindings[model] if model else self._analyze
 
     def _on_evicted(self, p: _Pending) -> None:
         """DeadlineQueue eviction callback (runs under the queue lock)."""
@@ -579,19 +655,70 @@ class BatchDispatcher:
     def max_inflight(self) -> int:
         return self._max_inflight
 
+    def set_max_inflight(self, n: int) -> None:
+        """The controller's AIMD knob: a new in-flight window of ``n``
+        slots. Dispatches in flight hold and release the slot object of
+        the window they launched in, so a shrink holds from the next
+        launch and the old window drains on its own."""
+        n = max(1, int(n))
+        with self._inflight_lock:
+            if n == self._max_inflight:
+                return
+            old = self._max_inflight
+            self._max_inflight = n
+            self._pool_cap = n + 1
+            # a new epoch: a fresh semaphore, not a resized one
+            self._slots = threading.Semaphore(n)
+        log.info("max_inflight retuned: %d -> %d", old, n)
+
+    @property
+    def window_ms(self) -> float:
+        return self._window_s * 1e3
+
+    def set_window_ms(self, window_ms: float) -> None:
+        """The batch window, read once per collect cycle."""
+        self._window_s = max(0.0, float(window_ms)) / 1e3
+
+    def set_bucket_floor(self, floor: int) -> None:
+        """Pad dispatches up to at least this bucket (1 = off); clamped by
+        :meth:`bucket_for`."""
+        self.bucket_floor = max(1, int(floor))
+
+    def set_deadline_safety(self, factor: float) -> None:
+        """How early the collector sheds against the service estimate
+        (the brownout's level 2 raises it)."""
+        self.deadline_safety = max(1.0, float(factor))
+
     def backlog(self) -> int:
         """Frames queued for the collector."""
         return self._q.qsize()
 
     def analyzers(self) -> list:
-        """The analyzers dispatches go to: the pixel lane's, then each
-        coefficient geometry's built so far."""
+        """The analyzers dispatches go to: the default model's pixel lane,
+        each bound model's, then each coefficient geometry's built so
+        far."""
         with self._coef_lock:
-            return [self._analyze, *self._coef_analyzers.values()]
+            return [self._analyze, *self._bindings.values(),
+                    *self._coef_analyzers.values()]
 
-    def bucket_for(self, n: int) -> int:
-        """The padded bucket a group of ``n`` frames dispatches as."""
-        return _bucket(n, self._max_batch)
+    def bucket_for(self, n: int, model: str = "") -> int:
+        """The padded bucket a group of ``n`` frames of ``model``
+        dispatches as: the power of two at or above ``n``, capped at
+        ``max_batch``, and never below the controller's ``bucket_floor``
+        (clamped to ``max_batch``) where the floor's bucket has been
+        captured for ``model`` (a raised floor never makes a live frame
+        wait on a capture; below that, the largest captured bucket under
+        the floor)."""
+        b = _bucket(n, self._max_batch)
+        floor = _bucket(min(self.bucket_floor, self._max_batch),
+                        self._max_batch)
+        if floor <= b:
+            return b
+        with self._warm_lock:
+            captured = {k[2] for k in self.warmed
+                        if k[0] == model and isinstance(k[2], int)}
+        raised = [c for c in captured if b < c <= floor]
+        return max(raised) if raised else b
 
     # -- watchdog -------------------------------------------------------------
 
@@ -637,10 +764,10 @@ class BatchDispatcher:
                 # a fresh window: slots held by dispatches lost with the
                 # dead stage are never released (a dispatch on a live
                 # completer releases its own slot object, not this one)
-                self._slots = threading.Semaphore(self._max_inflight)
                 with self._inflight_lock:
+                    self._slots = threading.Semaphore(self._max_inflight)
                     self._inflight = 0
-                    self._sheds_since_complete = 0
+                    self._sheds_since_complete.clear()
                     obs.INFLIGHT_DISPATCHES.set(0)
                 self._fail_pending(RuntimeError(
                     f"batch {dead} died; frame dropped"))
@@ -662,13 +789,16 @@ class BatchDispatcher:
                 self._pending.discard(p)
             return False
         if p.deadline_t is not None and self._q.policy == "deadline":
-            est = self.service_estimate.s_for("")
+            # the frame's own model's estimate: one model's rides never
+            # set another's sheds
+            est = self.service_estimate.s_for(p.model) * self.deadline_safety
             slack = p.deadline_t - time.monotonic()
             if est > 0 and slack < est:
                 with self._inflight_lock:
-                    if self._sheds_since_complete >= 8:
+                    if self._sheds_since_complete.get(p.model, 0) >= 8:
                         return True  # probe: refresh the estimate
-                    self._sheds_since_complete += 1
+                    self._sheds_since_complete[p.model] = (
+                        self._sheds_since_complete.get(p.model, 0) + 1)
                 obs.SHED_BY_DEADLINE.labels(point="stale").inc()
                 self._fail_group([p], DeadlineExceeded(
                     f"deadline unmeetable: ~{est * 1e3:.0f}ms estimated "
@@ -720,7 +850,7 @@ class BatchDispatcher:
 
     def _pool_take(self, b: int, template: _Pending) -> _BucketBuffers:
         """A pooled staging set for ``b`` frames like ``template``."""
-        key = (b, *_group_key(template))
+        key = (b, *_shape_key(template))
         with self._pool_lock:
             free = self._pool.get(key)
             if free:
@@ -804,7 +934,8 @@ class BatchDispatcher:
         output on that one stream, and the dispatch's event covers the
         copies out of the staging buffers and into the landing buffer."""
         analyze = (self._coef_analyze_for(template.frame_rgb)
-                   if isinstance(bufs, _CoefBucketBuffers) else self._analyze)
+                   if isinstance(bufs, _CoefBucketBuffers)
+                   else self._analyze_for(template.model))
         if not self._cuda:
             return analyze(*bufs.tensors), None, None
         with torch.cuda.stream(self._stream):
@@ -824,13 +955,17 @@ class BatchDispatcher:
         host.copy_(out, non_blocking=True)
         return host
 
-    def warm(self, frames, depths, intrinsics, scales) -> None:
-        """Run the analyzer once at this batch shape and wait for it, so
-        the first live dispatch of the bucket pays no first-use costs: on
-        the card, the bucket's graph is captured here."""
-        self._warm([_Pending(f, d, _intrinsics_f32(k), float(s))
+    def warm(self, frames, depths, intrinsics, scales,
+             model: str = "") -> None:
+        """Run ``model``'s analyzer once at this batch shape and wait for
+        it, so the first live dispatch of the bucket pays no first-use
+        costs: on the card, the bucket's graph is captured here."""
+        self._warm([_Pending(f, d, _intrinsics_f32(k), float(s),
+                             model=model)
                     for f, d, k, s in zip(frames, depths, intrinsics,
                                           scales)])
+        with self._warm_lock:
+            self.warmed.add((model, 0, len(frames)))
 
     def warm_coef(self, frame: CoefficientFrame, depths, intrinsics,
                   scales) -> None:
@@ -839,6 +974,8 @@ class BatchDispatcher:
         coefficient dispatches of its geometry use."""
         self._warm([_Pending(frame, d, _intrinsics_f32(k), float(s))
                     for d, k, s in zip(depths, intrinsics, scales)])
+        with self._warm_lock:
+            self.warmed.add(("", 0, ("coef", len(depths))))
 
     def _warm(self, group: list[_Pending]) -> None:
         bufs = self._stage_group(group, len(group))
@@ -884,8 +1021,10 @@ class BatchDispatcher:
         # submit; a "submit" span per frame (queue and window wait)
         # carries its trace ID
         first_submit_ns = min(p.submit_ns for p in group)
+        model = group[0].model
+        label = self._display_model(model)
         tl = recorder_lib.Timeline("dispatch", labels={
-            "chip": "0", "mode": "single", "model": self._model_label})
+            "chip": "0", "mode": "single", "model": label})
         root = tl.span("dispatch", start_ns=first_submit_ns)
         tl.span("collect", start_ns=first_submit_ns, end_ns=collected_ns,
                 parent=root, frames=len(group))
@@ -898,9 +1037,13 @@ class BatchDispatcher:
         launched = False
         try:
             inject(fault_sites.SERVING_BATCH_DISPATCH)
+            # the per-model site: a dispatch holds one model's frames, so
+            # it fails that model's frames only
+            inject(fault_sites.model_dispatch(label))
             n = len(group)
             obs.BATCH_SIZE.observe(n)
-            b = self.bucket_for(n)
+            coef = isinstance(group[0].frame_rgb, CoefficientFrame)
+            b = self.bucket_for(n, model)
             tl.labels["bucket"] = str(b)
             for p in group:
                 obs.HOST_STAGE_SPLIT.labels(stage="admit").observe(
@@ -931,10 +1074,12 @@ class BatchDispatcher:
                                                self._inflight)
                 self.dispatch_sizes[n] += 1
                 obs.INFLIGHT_DISPATCHES.set(self._inflight)
-            obs.MODEL_DISPATCHES.labels(model=self._model_label).inc()
+            obs.MODEL_DISPATCHES.labels(model=label).inc()
             self._cq.put(_Dispatch(group, out, host, event, bufs, slot,
-                                   t2 / 1e9, b, t0 / 1e9, tl, root))
+                                   t2 / 1e9, b, t0 / 1e9, tl, root, model))
             launched = True
+            with self._warm_lock:
+                self.warmed.add((model, 0, ("coef", b) if coef else b))
         except BaseException as exc:  # deliver, keep the collector alive
             # the failed dispatch's timeline is evidence: record() pins it
             root.end()
@@ -976,9 +1121,9 @@ class BatchDispatcher:
                             lambda a, _i=i: a[_i], host)
                         p.done.set()
                 self.service_estimate.observe(time.monotonic() - d.staged_t,
-                                              key=("", d.bucket))
+                                              key=(d.model, d.bucket))
                 with self._inflight_lock:
-                    self._sheds_since_complete = 0
+                    self._sheds_since_complete[d.model] = 0
             except BaseException as exc:  # deliver, keep draining
                 if d.timeline is not None:
                     d.timeline.fail(exc)

@@ -99,10 +99,20 @@ class GrpcVisionService:
                     requests, active=context.is_active, parent=remote,
                     time_remaining=context.time_remaining):
                 yield response_to_proto(resp)
-        except StreamRefusedError as exc:  # draining: fail over
+        except StreamRefusedError as exc:  # draining or browned out
             context.abort(grpc.StatusCode.UNAVAILABLE, str(exc))
         except OverloadedError as exc:  # shed: retryable by the client
             context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
+
+
+def rollout_debug(servicer: VisionAnalysisService) -> dict:
+    """The ``GET /debug/rollout`` payload: the attached rollout manager's
+    snapshot, or why there is none."""
+    if servicer.rollout is not None:
+        return servicer.rollout.snapshot()
+    return {"enabled": False,
+            "reason": "no rollout manager attached (RolloutConfig.enabled "
+                      "/ RDP_ROLLOUT)"}
 
 
 def build_server(cfg: ServerConfig, forward=None, *,
@@ -118,7 +128,10 @@ def build_server(cfg: ServerConfig, forward=None, *,
     becomes "replica"; the ``/metrics`` endpoint starts when
     ``cfg.metrics_port`` (or ``RDP_METRICS_PORT``) asks for one (a failed
     start raises), with the servicer's ``drift_debug`` behind
-    ``/debug/drift``; readiness flips after the warm-up, or at once with
+    ``/debug/drift``, its ``zoo_debug`` behind ``/debug/zoo`` and its
+    rollout manager's snapshot behind ``/debug/rollout`` (resolved per
+    request, so a manager attached later is served at once); readiness
+    flips after the warm-up, or at once with
     none; the registry reloader starts; the grpc.health.v1 service is
     registered beside the analysis service."""
     from concurrent import futures
@@ -135,6 +148,9 @@ def build_server(cfg: ServerConfig, forward=None, *,
         if servicer.metrics_server is not None:
             # /debug/drift serves the drift monitor's live state
             servicer.metrics_server.set_drift_provider(servicer.drift_debug)
+            servicer.metrics_server.set_zoo_provider(servicer.zoo_debug)
+            servicer.metrics_server.set_rollout_provider(
+                lambda: rollout_debug(servicer))
         if warmup_shape is not None:
             servicer.warmup(*warmup_shape)  # flips readiness at its end
         else:

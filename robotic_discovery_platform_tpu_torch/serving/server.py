@@ -86,9 +86,7 @@ the packed row's read-back, which waits for the device already: no
 instrument adds a device synchronisation or a read of a device tensor to
 a frame. The dispatcher, the decode and encode pools and the geometry
 cache set their own (``serving/batching.py``, ``serving/ingest.py``,
-``serving/egress.py``). Not ported: the JAX package's per-zoo-model gates
-and labels (ROADMAP queue 1 item 12), the reactive SLO controller (item
-26) and the rollout's ``set_draining`` (item 12).
+``serving/egress.py``).
 
 **Drift** (``monitoring/profile.py``; ``ServerConfig.drift_*``, on by
 default as in the JAX package): every answered frame's five signals --
@@ -104,13 +102,48 @@ version's reference in the same critical section as the engine swap.
 Sustained drift fires one recommendation per excursion: counted
 (``rdp_drift_recommendations_total``), journaled, pinned in the flight
 recorder and logged; ``GET /debug/drift`` serves ``drift_debug``. The
-monitor adds no device work, synchronisation or copy to a frame. Not ported: the zoo's per-model monitors and handing a
-recommendation to a rollout manager (both ROADMAP queue 1 item 12).
+monitor adds no device work, synchronisation or copy to a frame. With a rollout
+manager attached (:attr:`VisionAnalysisService.rollout`, ``serving/
+rollout.attach_rollout``) the recommendation is handed to it.
+
+**The model zoo** (``serving/zoo.py``, ``models/variants.py``;
+``ServerConfig.zoo_*``): ``zoo_models`` names the variants served beside
+the default model, each loaded from its own registry entry, transformed
+for the tier by :func:`tier_forward` as the default model is (the JAX
+package runs its extras on the unfused forward because its fused net binds
+one model's weights; the port's :class:`~ops.unet_infer.FoldedUNet` is
+built per model, so that reason does not carry over), with its own
+analyzers and graph caches, its own parity gate, drift monitor and SLO
+tracker, and on the batched path bound onto the shared dispatcher
+(:meth:`~serving.batching.BatchDispatcher.bind_model`; a hot reload binds
+them again on the new generation's dispatcher). A request's ``model``
+field picks the entry per frame: "" and the default's name take the
+default path unchanged, an unknown name answers that frame with
+``ERROR: UnknownModel`` and the stream goes on, and an ``anomaly`` head
+adds `` anomaly=<score>`` to the status. Extras capture the one-frame
+bucket at warm-up (``zoo_eager_warm``; negative: every bucket).
+``GET /debug/zoo`` serves :meth:`VisionAnalysisService.zoo_debug`.
+
+**The reactive SLO controller** (``serving/controller.py``;
+``controller_enabled`` or ``RDP_CONTROLLER``, with ``slo_ms > 0`` and
+batching on): it reads the SLO tracker's burn and retunes the live
+generation's dispatcher, read through a callable so a hot reload's swap
+never leaves it on a stopped dispatcher; its rung 3 makes
+:meth:`VisionAnalysisService._enter_stream` refuse every other new stream
+(:class:`StreamRefusedError`, UNAVAILABLE over gRPC).
+
+**The rollout's surface** (``serving/rollout.py``):
+:meth:`VisionAnalysisService.set_draining` refuses new streams while
+health stays SERVING (apart from the shutdown :meth:`~VisionAnalysisService.
+drain`), and :meth:`~VisionAnalysisService.set_shadow` installs a tap that
+gets each default-model pixel frame's inputs and outputs after its
+response is built (a failing tap never fails the frame).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 import time
@@ -121,6 +154,9 @@ import torch
 
 from robotic_discovery_platform_tpu_torch import tracking
 from robotic_discovery_platform_tpu_torch.io.frames import load_calibration
+from robotic_discovery_platform_tpu_torch.models import (
+    variants as variants_lib,
+)
 from robotic_discovery_platform_tpu_torch.models.unet import (
     UNet,
     eval_on_kernels,
@@ -149,10 +185,13 @@ from robotic_discovery_platform_tpu_torch.resilience import (
     sites as fault_sites,
 )
 from robotic_discovery_platform_tpu_torch.serving import (
+    controller as controller_lib,
     egress,
     entropy,
     health as health_lib,
     ingest,
+    rollout as rollout_lib,
+    zoo as zoo_lib,
 )
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     OverloadedError,
@@ -181,14 +220,15 @@ STATUS_OK = "OK"
 STATUS_DEGRADED = "DEGRADED: insufficient geometry"
 #: the service name ``serving/proto/vision_grpc.py`` registers
 VISION_SERVICE = "evofab.vision.VisionAnalysisService"
-#: the ``model`` label of the frame counters: the JAX package's default
-#: zoo model (``models/variants.DEFAULT_MODEL``), the port's only model
-MODEL_LABEL = "seg"
+#: the default zoo model's name (``models/variants.DEFAULT_MODEL``): the
+#: ``model`` label of the default model's frames
+MODEL_LABEL = variants_lib.DEFAULT_MODEL
 
 
 class StreamRefusedError(RuntimeError):
-    """A new stream on a draining or closed service: the client retries
-    against another replica (the gRPC adapter answers UNAVAILABLE)."""
+    """A new stream on a draining, closed or browned-out service: the
+    client retries against another replica (the gRPC adapter answers
+    UNAVAILABLE)."""
 
 
 def resolve_serving_version(cfg: ServerConfig,
@@ -257,6 +297,8 @@ class FrameResult(NamedTuple):
     confidence_margin: float = 0.0
     #: nonzero pixels of the host depth frame over all of them
     depth_valid_fraction: float = 0.0
+    #: an ``anomaly`` head's score (None for "segment" heads)
+    anomaly: float | None = None
 
 
 class Engine(NamedTuple):
@@ -422,6 +464,26 @@ class VisionAnalysisService:
                      "encode worker(s)", self.ingest.workers,
                      self.ingest.prefetch, self.egress.workers)
         self._registry_store = tracking.store_for(cfg.tracking_uri)
+        # the zoo roster: the default model first. One name is the single
+        # model server, whose frames take exactly the path without a zoo
+        self._zoo_names = variants_lib.resolve_zoo_models(cfg.zoo_models)
+        self.model_label = self._zoo_names[0]
+        obs.ZOO_MODELS.set(len(self._zoo_names))
+        self._controller_enabled = controller_lib.resolve_controller_enabled(
+            cfg.controller_enabled)
+        # the placer, before the first dispatcher, which records each
+        # submit's arrival in it; one device: every model's chip is 0
+        self.placer: zoo_lib.ZooPlacer | None = None
+        if len(self._zoo_names) > 1:
+            self.placer = zoo_lib.ZooPlacer(
+                self._zoo_names, chips=1,
+                mode=zoo_lib.resolve_zoo_placement(cfg.zoo_placement),
+                interval_s=cfg.zoo_rate_interval_s,
+                window=cfg.zoo_rate_window,
+                rebalance_s=cfg.zoo_rebalance_s,
+                corr_cap=cfg.zoo_corr_cap)
+            log.info("model zoo: %s (%s placement over 1 device)",
+                     ",".join(self._zoo_names), self.placer.mode)
         self._engine = self._make_engine(version, forward, pristine)
         self._warm_shape: tuple[int, int] | None = None
         self._reload_stop: threading.Event | None = None
@@ -445,6 +507,16 @@ class VisionAnalysisService:
         self._streams_cond = threading.Condition()
         self._active_streams = 0  # guarded_by: _streams_cond
         self._draining = False  # guarded_by: _streams_cond
+        # brownout rung 3: the controller sets it and _enter_stream then
+        # refuses every other new stream
+        self._refusing_streams = False  # guarded_by: _streams_cond
+        self._brownout_tick = 0  # guarded_by: _streams_cond
+        # frames answered per model (every status; /debug/zoo)
+        self._model_frames: dict[str, int] = {}  # guarded_by: _streams_cond
+        # the rollout's shadow tap (set_shadow) and the rollout manager
+        # drift recommendations are handed to (rollout.attach_rollout)
+        self._shadow_hook = None
+        self.rollout: rollout_lib.RolloutManager | None = None
         self.metrics = metrics or MetricsWriter(cfg.metrics_csv,
                                                 cfg.metrics_flush_every)
         # the /metrics endpoint: grpc_service.build_server starts one when
@@ -483,6 +555,50 @@ class VisionAnalysisService:
             obs.DRIFT_REFERENCE_AGE.set(
                 -1.0 if reference is None else reference.age_s
             )
+        # the reactive SLO controller: it needs an objective to hold and a
+        # dispatcher to retune, and reads the live generation's dispatcher
+        # through a callable, so a hot reload's swap never strands it
+        self.controller: controller_lib.ReactiveController | None = None
+        if (self._controller_enabled and self.slo is not None
+                and cfg.batch_window_ms > 0):
+            self.controller = controller_lib.ReactiveController(
+                dispatcher=lambda: self._engine.dispatcher,
+                burn=lambda: self.slo.burn,
+                refuse_streams=self._set_refuse_streams,
+                interval_s=cfg.controller_interval_s,
+                burn_high=cfg.controller_burn_high,
+                burn_low=cfg.controller_burn_low,
+                sustain_s=cfg.controller_sustain_s,
+                cooldown_s=cfg.controller_cooldown_s,
+                inflight_cap=cfg.controller_inflight_cap,
+                samples=lambda: self.slo.observed_total,
+            )
+            self.controller.start()
+        elif self._controller_enabled:
+            log.warning(
+                "controller enabled but idle: it needs slo_ms > 0 (got %s) "
+                "and batch_window_ms > 0 (got %s)",
+                cfg.slo_ms, cfg.batch_window_ms)
+        # the zoo: the default entry reads this servicer's own generation;
+        # the extras come from their own registry entries
+        self.zoo = zoo_lib.ModelZoo(default=self.model_label)
+        self.zoo.add(zoo_lib.ZooEntry(
+            name=self.model_label,
+            variant=variants_lib.VARIANTS[self.model_label],
+            analyze=None, forward=None, version=version,
+            precision=self.precision))
+        self._model_slo: dict[str, slo_lib.SloTracker] = {}
+        self._build_zoo_entries()
+
+    def _set_refuse_streams(self, refusing: bool) -> None:
+        """The controller's rung 3: refuse (or accept again) every other
+        new stream."""
+        with self._streams_cond:
+            changed = refusing != self._refusing_streams
+            self._refusing_streams = refusing
+        if changed:
+            log.warning("overload brownout: %s new analysis streams",
+                        "refusing" if refusing else "accepting")
 
     # -- the generation -------------------------------------------------------
 
@@ -526,8 +642,20 @@ class VisionAnalysisService:
                 max_inflight=resolve_max_inflight(
                     cfg.max_inflight_dispatches),
                 admission=cfg.admission_policy, device=device,
-                model_label=MODEL_LABEL,
+                model_label=self.model_label, placer=self.placer,
             )
+            # a hot reload's new dispatcher: the zoo's other models, whose
+            # generations did not move, are bound on it again
+            if hasattr(self, "zoo"):
+                old = self._engine.dispatcher
+                for entry in self.zoo.extras():
+                    dispatcher.bind_model(entry.name, entry.batch_analyze)
+                if old is not None:
+                    # their graphs are the same caches, captured already
+                    with old._warm_lock:
+                        carried = {k for k in old.warmed if k[0]}
+                    with dispatcher._warm_lock:
+                        dispatcher.warmed |= carried
         return Engine(version, forward, pristine, analyze, analyze_coef,
                       dispatcher)
 
@@ -565,13 +693,158 @@ class VisionAnalysisService:
         """The float32 intrinsics of a w x h camera."""
         return self._geometry(w, h).k_f32
 
+    # -- the model zoo ---------------------------------------------------------
+
+    def _build_zoo_entries(self) -> None:
+        """Load and bind every zoo model after the default: its registry
+        entry (the ``model_alias`` version first, else the latest), the
+        tier's forward, its own analyzers and graph caches, bound onto the
+        shared dispatcher, its drift monitor and SLO tracker. A model whose
+        registry entry is missing or fails to build is left out with a
+        warning: the zoo serves what exists."""
+        cfg = self.cfg
+        slo_ms = slo_lib.resolve_slo_ms(cfg.slo_ms)
+        if len(self._zoo_names) > 1 and slo_ms is not None:
+            # the default model's own burn beside the aggregate (model=""),
+            # which the controller reads
+            self._model_slo[self.model_label] = slo_lib.SloTracker(
+                slo_ms / 1e3, budget=cfg.slo_budget, window=cfg.slo_window,
+                name=f"e2e/{self.model_label}",
+                burn_gauge=obs.SLO_BURN.labels(objective="e2e",
+                                               model=self.model_label))
+        for name in self._zoo_names[1:]:
+            variant = variants_lib.VARIANTS[name]
+            reg_name = variants_lib.registered_name(variant, cfg.model_name)
+            try:
+                alias = self._registry_store.get_alias(reg_name,
+                                                       cfg.model_alias)
+                version = (int(alias) if alias is not None else int(
+                    self._registry_store.latest_version(reg_name)["version"]))
+                _, net = tracking.load_model(
+                    f"models:/{reg_name}/{version}",
+                    store=self._registry_store, device=self.device)
+            except Exception as exc:
+                log.warning("zoo model %r (%s) unavailable (%s: %s); serving "
+                            "without it", name, reg_name, type(exc).__name__,
+                            exc)
+                continue
+            try:
+                entry = self._make_zoo_entry(name, variant, reg_name, net,
+                                             version)
+            except Exception:
+                log.exception("zoo model %r failed to build; serving "
+                              "without it", name)
+                continue
+            self.zoo.add(entry)
+            log.info("zoo model %r: %s v%s (%s tier, %s head)", name,
+                     reg_name, version, entry.precision, variant.head)
+
+    def _make_zoo_entry(self, name: str, variant, reg_name: str, net: UNet,
+                        version: int | None) -> zoo_lib.ZooEntry:
+        """One extra zoo model, built as the default model's generation is:
+        :func:`tier_forward`, a direct packed analyzer and, with batching, a
+        batched analyzer bound on the dispatcher, each with its own graph
+        cache."""
+        cfg, geom_cfg, device = self.cfg, self.geom_cfg, self.device
+        forward, pristine = tier_forward(net, self.precision, device,
+                                         cfg.model_forward)
+        analyze = pipeline.make_frame_analyzer(
+            forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
+            device=device, pack=True)
+        batch_analyze = None
+        dispatcher = self._engine.dispatcher
+        if dispatcher is not None:
+            make_batched = (pipeline.make_scan_batch_analyzer
+                            if cfg.batch_impl == "scan"
+                            else pipeline.make_batch_analyzer)
+            batch_analyze = make_batched(
+                forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
+                device=device, pack=cfg.egress_pack)
+            dispatcher.bind_model(name, batch_analyze)
+        drift = None
+        if cfg.drift_enabled:
+            reference = self._load_drift_profile(
+                version, model_name=reg_name, allow_explicit=False)
+            drift = profile_lib.DriftMonitor(
+                reference=reference, window=cfg.drift_window,
+                baseline_frames=cfg.drift_baseline_frames,
+                score_every=cfg.drift_score_every,
+                psi_threshold=cfg.drift_psi_threshold,
+                sustain_s=cfg.drift_sustain_s,
+                cooldown_s=cfg.drift_cooldown_s, generation=version,
+                on_score=functools.partial(self._on_model_drift_score, name),
+                on_recommendation=functools.partial(
+                    self._on_model_drift_recommendation, name))
+        slo_ms = slo_lib.resolve_slo_ms(cfg.slo_ms)
+        tracker = None
+        if slo_ms is not None:
+            tracker = slo_lib.SloTracker(
+                slo_ms / 1e3, budget=cfg.slo_budget, window=cfg.slo_window,
+                name=f"e2e/{name}",
+                burn_gauge=obs.SLO_BURN.labels(objective="e2e", model=name))
+            self._model_slo[name] = tracker
+        return zoo_lib.ZooEntry(
+            name=name, variant=variant, analyze=analyze, forward=forward,
+            version=version, precision=self.precision, pristine=pristine,
+            drift=drift, slo=tracker, batch_analyze=batch_analyze)
+
+    def _resolve_model(self, name: str) -> tuple[str, zoo_lib.ZooEntry | None]:
+        """A request's ``model`` field -> (metric label, zoo entry). "" and
+        the default's name give (default label, None): the default path,
+        unchanged. An unknown name raises :class:`zoo.UnknownModelError`
+        (that frame's error)."""
+        if not name or name == self.model_label:
+            return self.model_label, None
+        entry = self.zoo.get(name)
+        if entry is None:
+            raise zoo_lib.UnknownModelError(
+                f"model {name!r} is not in this server's zoo "
+                f"({', '.join(self.zoo.names())})")
+        return name, entry
+
+    def zoo_debug(self) -> dict:
+        """The ``GET /debug/zoo`` payload: the roster, each model's
+        version, head, registry entry, tier, frames and parity report, the
+        placer's placement and rate correlations, and the (model, chip,
+        bucket) keys the dispatcher has captured."""
+        with self._streams_cond:
+            frames = dict(self._model_frames)
+        models = {}
+        for n in self.zoo.names():
+            e = self.zoo.get(n)
+            default = n == self.model_label
+            models[n] = {
+                "version": self._engine.version if default else e.version,
+                "head": e.variant.head,
+                "registered_name": variants_lib.registered_name(
+                    e.variant, self.cfg.model_name),
+                "precision": e.precision,
+                "frames": frames.get(n, 0),
+                "parity": self.parity if default else e.parity,
+            }
+        dispatcher = self._engine.dispatcher
+        if dispatcher is not None:
+            with dispatcher._warm_lock:
+                warmed = sorted([list(map(str, k))
+                                 for k in dispatcher.warmed])
+        else:
+            warmed = []
+        return {
+            "enabled": len(self._zoo_names) > 1,
+            "default": self.model_label,
+            "models": models,
+            "placement": (self.placer.snapshot()
+                          if self.placer is not None else None),
+            "warmed": warmed,
+        }
+
     # -- one frame --------------------------------------------------------------
 
     def analyze_frame(self, rgb, depth: np.ndarray, mask_format: int = 0,
                       timer: StageTimer | None = None,
                       timeout_s: float | None = None,
-                      active: Callable[[], bool] | None = None
-                      ) -> FrameResult:
+                      active: Callable[[], bool] | None = None,
+                      model: str = "") -> FrameResult:
         """One decoded frame -> its response fields. ``rgb`` is [H, W, 3]
         uint8 pixels or a :class:`~serving.entropy.CoefficientFrame` (the
         coefficient lane). Directly, the frame's graph replays under its
@@ -582,7 +855,9 @@ class VisionAnalysisService:
         and the "encode" stage; ``timeout_s`` is the frame's deadline
         budget (the dispatcher's submit and the encode wait), and a frame
         whose stream is gone (``active`` False) or whose budget ran out on
-        the device pays no encode."""
+        the device pays no encode. ``model`` picks the zoo entry ("" = the
+        default model; an unknown name raises
+        :class:`zoo.UnknownModelError` before any device work)."""
         inject(fault_sites.SERVING_ANALYZE)
         timer = timer or StageTimer()
         t_entry = time.monotonic()
@@ -593,11 +868,12 @@ class VisionAnalysisService:
                 f"frame is {w}x{h}"
             )
         geom = self._geometry(w, h)
+        _, entry = self._resolve_model(model)
         # ONE read of the engine per frame: a concurrent reload cannot mix
         # generations
         eng = self._engine
         with timer.stage("device"):
-            out = self._packed(eng, rgb, depth, geom, timeout_s)
+            out = self._packed(eng, rgb, depth, geom, timeout_s, entry)
         try:
             dead = ((active is not None and not active())
                     or (timeout_s is not None
@@ -610,29 +886,56 @@ class VisionAnalysisService:
 
             with timer.stage("encode"):
                 res = _fields(out, mask_format, encode)
+            # the drift signal the frame already paid for: one host-side
+            # count over the raw depth frame
+            res = res._replace(depth_valid_fraction=(
+                float(np.count_nonzero(depth)) / max(depth.size, 1)))
+            if entry is not None and entry.variant.head == "anomaly":
+                # the aux head's product: its score off the confidence
+                # margin the frame already computed
+                res = res._replace(anomaly=variants_lib.anomaly_score(
+                    res.confidence_margin))
+                obs.MODEL_ANOMALY_SCORE.observe(res.anomaly)
+            if (entry is None and self._shadow_hook is not None
+                    and not isinstance(rgb, entropy.CoefficientFrame)):
+                # only the default model's pixel frames mirror to a
+                # rollout's shadow (the rollout replaces the default
+                # generation), and the mask unpacks only when a tap is in
+                self._mirror_shadow(rgb, depth, geom.k_f32, out, res)
         finally:
             if isinstance(out, egress.PackedResult):
                 out.release()
-        # the drift signal the frame already paid for: one host-side
-        # count over the raw depth frame
-        return res._replace(depth_valid_fraction=(
-            float(np.count_nonzero(depth)) / max(depth.size, 1)))
+        return res
 
     def _packed(self, eng: Engine, rgb, depth: np.ndarray,
-                geom: ingest.GeometryEntry, timeout_s: float | None = None):
-        """One frame's result from ``eng``'s path: the direct analyzer's
-        packed row, or the dispatcher's row (a :class:`~serving.egress.
-        PackedResult`, or with ``egress_pack=False`` the frame's
-        :class:`~ops.pipeline.FrameAnalysis` row)."""
+                geom: ingest.GeometryEntry, timeout_s: float | None = None,
+                entry: zoo_lib.ZooEntry | None = None):
+        """One frame's result from ``eng``'s path (or zoo ``entry``'s): the
+        direct analyzer's packed row, or the dispatcher's row (a
+        :class:`~serving.egress.PackedResult`, or with
+        ``egress_pack=False`` the frame's :class:`~ops.pipeline.
+        FrameAnalysis` row). The coefficient lane serves the default model
+        only, as in the JAX package."""
         coef = isinstance(rgb, entropy.CoefficientFrame)
+        if coef and entry is not None:
+            raise ValueError(
+                "the coefficient lane serves the default model only; "
+                f"model {entry.name!r} frames must use pixel formats")
         if eng.dispatcher is not None:
-            submit = (eng.dispatcher.submit_coef if coef
-                      else eng.dispatcher.submit)
-            return submit(rgb, depth, geom.k_f32, self.depth_scale,
-                          timeout_s=timeout_s)
+            if coef:
+                return eng.dispatcher.submit_coef(
+                    rgb, depth, geom.k_f32, self.depth_scale,
+                    timeout_s=timeout_s)
+            return eng.dispatcher.submit(
+                rgb, depth, geom.k_f32, self.depth_scale,
+                timeout_s=timeout_s,
+                model=entry.name if entry is not None else "")
         with _device_scope(self.device):
             k, scale = geom.staged()
-            analyze = eng.analyze_coef if coef else eng.analyze
+            if entry is not None:
+                analyze = entry.analyze
+            else:
+                analyze = eng.analyze_coef if coef else eng.analyze
             return egress.PackedResult(analyze(rgb, depth, k, scale))
 
     # -- streams ----------------------------------------------------------------
@@ -654,7 +957,8 @@ class VisionAnalysisService:
         :class:`StreamRefusedError`."""
         if not self._enter_stream():
             raise StreamRefusedError(
-                "server is draining; retry against another replica")
+                "server is draining or in overload brownout; retry against "
+                "another replica")
         try:
             with trace.span("serving.stream", parent=parent):
                 log.info("analysis stream opened (%s trace)",
@@ -673,35 +977,53 @@ class VisionAnalysisService:
     def _respond(self, frame: ingest.IngestFrame, timer: StageTimer,
                  active: Callable[[], bool]) -> AnalysisResponse:
         t0 = time.perf_counter()
+        label, entry = self.model_label, None
         try:
             # the handler's share of the decode (inline: the decode;
             # pooled: the wait); the pool times the decode itself
             timer.observe("decode", frame.wait_s)
             if frame.error is not None:
                 raise frame.error
+            label, entry = self._resolve_model(frame.model)
             res = self.analyze_frame(frame.rgb, frame.depth,
                                      frame.mask_format, timer,
                                      timeout_s=frame.time_remaining,
-                                     active=active)
+                                     active=active, model=frame.model)
+            status = STATUS_OK if res.valid else STATUS_DEGRADED
+            if res.anomaly is not None:
+                # an anomaly head's verdict rides the status text, only on
+                # frames that asked for that model
+                status += f" anomaly={res.anomaly:.4f}"
             response = AnalysisResponse(
                 mean_curvature=res.mean_k,
                 max_curvature=res.max_k,
                 spline_points=[Point3D(float(p[0]), float(p[1]), float(p[2]))
                                for p in res.spline],
-                status=STATUS_OK if res.valid else STATUS_DEGRADED,
+                status=status,
                 mask=res.mask_bytes,
                 mask_coverage=res.coverage,
                 packed_spline=res.spline_wire,
             )
             self.metrics.append(res.mean_k, res.max_k, res.coverage)
-            self._observe_drift(res)
+            self._observe_drift(res, entry)
             status_label = "ok" if res.valid else "degraded"
+        except zoo_lib.UnknownModelError as exc:
+            # a mistyped model name is a bad frame: that frame's error,
+            # and requested names never become labels
+            label = "unknown"
+            response = AnalysisResponse(
+                status=f"ERROR: UnknownModel: {exc} "
+                       f"[trace={trace.current_trace_id() or '-'}]")
+            status_label = "error"
         except OverloadedError as exc:
             # load shedding ends the stream (RESOURCE_EXHAUSTED); a shed
             # frame burned SLO budget too
-            _child(obs.FRAMES, "shed", MODEL_LABEL).inc()
+            _child(obs.FRAMES, "shed", label).inc()
             if self.slo is not None:
                 self.slo.observe(float("inf"), ok=False)
+            mslo = self._model_slo.get(label)
+            if mslo is not None:
+                mslo.observe(float("inf"), ok=False)
             raise OverloadedError(
                 f"{exc} [trace={trace.current_trace_id() or '-'}]") from exc
         except DeadlineExceeded as exc:
@@ -722,21 +1044,30 @@ class VisionAnalysisService:
             status_label = "error"
         total_s = time.perf_counter() - t0 + frame.wait_s
         response.proc_time_ms = total_s * 1e3
-        _child(obs.FRAMES, status_label, MODEL_LABEL).inc()
+        with self._streams_cond:
+            self._model_frames[label] = self._model_frames.get(label, 0) + 1
+        _child(obs.FRAMES, status_label, label).inc()
         _observe_stage("total", total_s)
         obs.FRAME_LATENCY_SUMMARY.observe(total_s)
+        frame_ok = status_label in ("ok", "degraded")
         if self.slo is not None:
-            self.slo.observe(total_s, ok=status_label in ("ok", "degraded"))
+            self.slo.observe(total_s, ok=frame_ok)
+        mslo = self._model_slo.get(label)
+        if mslo is not None:
+            # each model's own burn beside the aggregate
+            mslo.observe(total_s, ok=frame_ok)
         return response
 
-    def _observe_drift(self, res: FrameResult) -> None:
-        """Feed one answered frame's signals to the drift monitor and the
-        confidence-margin histogram: host-side Python, after the response
-        is built."""
+    def _observe_drift(self, res: FrameResult,
+                       entry: zoo_lib.ZooEntry | None = None) -> None:
+        """Feed one answered frame's signals to its model's drift monitor
+        and the confidence-margin histogram: host-side Python, after the
+        response is built."""
         obs.MODEL_CONFIDENCE_MARGIN.observe(res.confidence_margin)
-        if self.drift is None:
+        monitor = self.drift if entry is None else entry.drift
+        if monitor is None:
             return
-        self.drift.observe_frame({
+        monitor.observe_frame({
             "mask_coverage": res.coverage,
             "mean_curvature": res.mean_k if res.valid else math.nan,
             "max_curvature": res.max_k if res.valid else math.nan,
@@ -746,15 +1077,20 @@ class VisionAnalysisService:
 
     # -- drift observability ----------------------------------------------------
 
-    def _load_drift_profile(self, version: int | None
+    def _load_drift_profile(self, version: int | None,
+                            model_name: str | None = None,
+                            allow_explicit: bool = True
                             ) -> profile_lib.FeatureProfile | None:
         """The reference profile: an explicit path (``drift_profile_path``
         or ``RDP_DRIFT_PROFILE``) wins, else the ``drift_profile.json``
         artifact next to the served registry version's weights; None
         means self-baseline. An unusable profile is logged and falls
-        back."""
-        path = profile_lib.resolve_drift_profile_path(
-            self.cfg.drift_profile_path)
+        back. ``model_name`` picks the registry entry (default: the
+        server's model); the explicit path applies to the default model
+        only (``allow_explicit``): one path cannot describe M models."""
+        model_name = model_name or self.cfg.model_name
+        path = (profile_lib.resolve_drift_profile_path(
+            self.cfg.drift_profile_path) if allow_explicit else None)
         if path is not None:
             try:
                 return profile_lib.FeatureProfile.load(path)
@@ -768,20 +1104,20 @@ class VisionAnalysisService:
             return None
         try:
             artifact = (self._registry_store.version_path(
-                self.cfg.model_name, version) / profile_lib.DRIFT_PROFILE_FILE)
+                model_name, version) / profile_lib.DRIFT_PROFILE_FILE)
             if artifact.exists():
                 return profile_lib.FeatureProfile.load(artifact)
         except Exception as exc:
             log.warning(
                 "no drift profile artifact for %s v%s (%s: %s); "
-                "self-baselining", self.cfg.model_name, version,
+                "self-baselining", model_name, version,
                 type(exc).__name__, exc,
             )
         return None
 
     def _on_drift_score(self, signal: str,
                         score: profile_lib.DriftScore) -> None:
-        _child(obs.DRIFT_SCORE, signal, MODEL_LABEL).set(score.psi)
+        _child(obs.DRIFT_SCORE, signal, self.model_label).set(score.psi)
         if self.drift is not None:
             age = self.drift.reference_age_s
             obs.DRIFT_REFERENCE_AGE.set(-1.0 if age is None else age)
@@ -806,6 +1142,34 @@ class VisionAnalysisService:
             "DRIFT: %s -- recommend retraining (workflows.retraining)",
             rec.reason,
         )
+        manager = self.rollout
+        if manager is not None:
+            try:
+                manager.on_recommendation(rec)
+            except Exception:
+                log.exception("rollout manager rejected the recommendation")
+
+    def _on_model_drift_score(self, model: str, signal: str,
+                              score: profile_lib.DriftScore) -> None:
+        """A zoo extra's drift score (the default model's goes through
+        :meth:`_on_drift_score`)."""
+        _child(obs.DRIFT_SCORE, signal, model).set(score.psi)
+
+    def _on_model_drift_recommendation(
+            self, model: str, rec: profile_lib.RetrainRecommendation) -> None:
+        """A zoo extra drifted: counted, pinned, journaled and logged, and
+        not handed to the rollout manager, whose cycle replaces the
+        default model's generation (as in the JAX package)."""
+        obs.DRIFT_RECOMMENDATIONS.inc()
+        recorder_lib.RECORDER.pin(recorder_lib.RECORDER.record_event(
+            "serving.drift_recommendation", model=model,
+            signals=",".join(rec.signals), generation=str(rec.generation),
+            reference=rec.reference_source, reason=rec.reason))
+        journal_lib.JOURNAL.append(
+            events.DRIFT_RECOMMENDATION, rec.reason, model=model,
+            signals=",".join(rec.signals), generation=str(rec.generation))
+        log.warning("DRIFT[%s]: %s -- recommend retraining", model,
+                    rec.reason)
 
     def _apply_drift_reference(
             self, version: int | None,
@@ -854,6 +1218,13 @@ class VisionAnalysisService:
         with self._streams_cond:
             if self._draining or self._closed:
                 return False
+            if self._refusing_streams:
+                # brownout rung 3 refuses every other new stream: refusing
+                # all would starve the SLO signal and hold the ladder at
+                # its top rung
+                self._brownout_tick += 1
+                if self._brownout_tick % 2:
+                    return False
             self._active_streams += 1
         obs.INFLIGHT_STREAMS.inc()
         return True
@@ -873,6 +1244,51 @@ class VisionAnalysisService:
     def is_draining(self) -> bool:
         with self._streams_cond:
             return self._draining
+
+    def set_draining(self, draining: bool) -> None:
+        """The rollout's drain: set or clear the draining flag only. Unlike
+        :meth:`drain` (the shutdown path), health stays SERVING; new
+        streams are refused (UNAVAILABLE) while the streams in flight
+        finish, and ``set_draining(False)`` accepts them again. A closed
+        service cannot be un-drained."""
+        draining = bool(draining)
+        with self._streams_cond:
+            if self._closed and not draining:
+                return
+            changed = self._draining != draining
+            self._draining = draining
+            self._streams_cond.notify_all()
+        if changed:
+            log.info("replica %s: %s new streams (health stays up)",
+                     "draining" if draining else "un-draining",
+                     "refusing" if draining else "accepting")
+
+    def set_shadow(self, hook) -> None:
+        """Install (or clear with None) the rollout's shadow tap: a callable
+        that gets one :class:`~serving.rollout.ShadowSample` per analyzed
+        default-model pixel frame, on the handler thread after the
+        response is built. It must not block (the rollout's
+        ``ShadowRunner.hook`` samples and puts without waiting)."""
+        self._shadow_hook = hook
+
+    def _mirror_shadow(self, rgb, depth, k, out, res: FrameResult) -> None:
+        """Hand one frame's inputs and this generation's outputs to the
+        shadow tap. A failing tap never fails the frame."""
+        hook = self._shadow_hook
+        if hook is None:
+            return
+        try:
+            mask = (out.unpack_mask() if isinstance(out, egress.PackedResult)
+                    else out.mask.numpy())
+            hook(rollout_lib.ShadowSample(
+                rgb=rgb, depth=depth, k=np.asarray(k),
+                depth_scale=self.depth_scale, mask=mask,
+                coverage=res.coverage, mean_curvature=res.mean_k,
+                max_curvature=res.max_k, valid=res.valid,
+                confidence_margin=res.confidence_margin,
+                depth_valid_fraction=res.depth_valid_fraction))
+        except Exception:
+            log.exception("shadow mirror hook failed; frame served normally")
 
     # -- hot reload -------------------------------------------------------------
 
@@ -993,7 +1409,7 @@ class VisionAnalysisService:
             with self._reload_lock:
                 self._reload_busy = False
 
-    def _schedule_grace_stop(self, dispatcher: BatchDispatcher) -> None:
+    def _schedule_grace_stop(self, dispatcher: BatchDispatcher) -> None:  # guarded_by: _reload_lock
         """Stop a swapped-out dispatcher ``reload_grace_s`` from now (a
         frame that read the old engine just before the swap may still be
         about to submit; ``stop`` is drain-safe, so a straggler past the
@@ -1070,6 +1486,7 @@ class VisionAnalysisService:
         with _device_scope(self.device):
             if self.onchip:
                 self.warmup_coef(width, height)
+            self._warm_zoo(width, height)
             # after every capture of the warm-up: the gate replays the
             # served graphs and runs its reference without one
             self._parity_gate(width, height)
@@ -1078,23 +1495,63 @@ class VisionAnalysisService:
         self.mark_ready()
         log.info("warmed up %dx%d analyzer on %s", width, height, self.device)
 
+    def _warm_zoo(self, width: int, height: int) -> None:
+        """Capture the zoo extras' graphs for a camera: the direct
+        analyzer, or on the batched path the one-frame bucket
+        (``zoo_eager_warm`` negative: every bucket); their other buckets
+        capture at their first dispatch. Runs inside :meth:`warmup`'s
+        device scope."""
+        extras = self.zoo.extras()
+        if not extras:
+            return
+        dispatcher = self._engine.dispatcher
+        k = self._camera(width, height)
+        for entry in extras:
+            if dispatcher is None:
+                k_dev, scale = self._geometry(width, height).staged()
+                entry.analyze(np.zeros((height, width, 3), np.uint8),
+                              np.zeros((height, width), np.uint16),
+                              k_dev, scale)
+                continue
+            sizes = (self._buckets(dispatcher) if self.cfg.zoo_eager_warm < 0
+                     else [dispatcher.bucket_for(1, entry.name)])
+            for b in sizes:
+                dispatcher.warm(
+                    np.zeros((b, height, width, 3), np.uint8),
+                    np.zeros((b, height, width), np.uint16),
+                    np.repeat(k[None], b, axis=0),
+                    np.full((b,), self.depth_scale, np.float32),
+                    model=entry.name)
+
     def _parity_gate(self, width: int, height: int) -> None:
-        """The warm-up parity gate of a bf16 or int8 tier (none at f32):
-        ``quant_parity_frames`` golden frames of the camera's size through
-        a reference analyzer of the untransformed net, run eagerly (no
-        graph capture, no capture budget, no graph memory), and through
-        the path the servicer serves (the direct packed analyzer, or the
-        dispatcher), compared by ``ops/quant.parity_report``. Publishes
-        the report's ``rdp_quant_parity_*`` gauges. Fails closed: raises
-        ``RuntimeError`` below ``quant_parity_min_iou`` or above
-        ``quant_parity_max_curv_err``; the report of a passing gate is
-        kept in ``self.parity``. Runs inside :meth:`warmup`'s device
-        scope."""
+        """The warm-up parity gate of a bf16 or int8 tier (none at f32),
+        for the default model and then each zoo extra against its own
+        untransformed net (:meth:`_parity_gate_for`). The default model's
+        report of a passing gate is kept in ``self.parity``, an extra's in
+        its entry. Runs inside :meth:`warmup`'s device scope."""
         if self.precision == "f32":
             return
+        self.parity = self._parity_gate_for(
+            self.model_label, self._engine.pristine, None, width, height)
+        for entry in self.zoo.extras():
+            entry.parity = self._parity_gate_for(
+                entry.name, entry.pristine, entry, width, height)
+
+    def _parity_gate_for(self, name: str, pristine: UNet,
+                         entry: zoo_lib.ZooEntry | None, width: int,
+                         height: int) -> dict:
+        """One model's gate: ``quant_parity_frames`` golden frames of the
+        camera's size through a reference analyzer of the untransformed
+        net, run eagerly (no graph capture, no capture budget, no graph
+        memory), and through the path the servicer serves (the direct
+        packed analyzer, or the dispatcher), compared by
+        ``ops/quant.parity_report``. Publishes the report's
+        ``rdp_quant_parity_*`` gauges. Fails closed: raises
+        ``RuntimeError`` below ``quant_parity_min_iou`` or above
+        ``quant_parity_max_curv_err``."""
         cfg, eng = self.cfg, self._engine
         ref = pipeline.make_frame_analyzer(
-            FoldedUNet(eng.pristine, device=self.device),
+            FoldedUNet(pristine, device=self.device),
             img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
             device=self.device)
         k = self._camera(width, height)
@@ -1104,7 +1561,7 @@ class VisionAnalysisService:
         for rgb, depth in quant.golden_frames(cfg.quant_parity_frames,
                                               height, width):
             refs.append(ref.eager(rgb, depth, k, scale))
-            out = self._packed(eng, rgb, depth, geom)
+            out = self._packed(eng, rgb, depth, geom, entry=entry)
             if isinstance(out, egress.PackedResult):
                 try:
                     gots.append(out.to_analysis())
@@ -1113,16 +1570,19 @@ class VisionAnalysisService:
             else:
                 gots.append(out)
         report = quant.parity_report(refs, gots)
-        obs.QUANT_PARITY_IOU.labels(model=MODEL_LABEL).set(
+        obs.QUANT_PARITY_IOU.labels(model=name).set(
             report["mask_iou_mean"])
-        obs.QUANT_PARITY_CURV.labels(stat="mean", model=MODEL_LABEL).set(
+        obs.QUANT_PARITY_CURV.labels(stat="mean", model=name).set(
             report["curvature_err_mean"])
-        obs.QUANT_PARITY_CURV.labels(stat="max", model=MODEL_LABEL).set(
+        obs.QUANT_PARITY_CURV.labels(stat="max", model=name).set(
             report["curvature_err_max"])
+        model_name = (cfg.model_name if entry is None
+                      else variants_lib.registered_name(entry.variant,
+                                                        cfg.model_name))
         if not quant.parity_gates_pass(report, cfg.quant_parity_min_iou,
                                        cfg.quant_parity_max_curv_err):
             raise RuntimeError(
-                f"{self.precision} serving of model {cfg.model_name!r} "
+                f"{self.precision} serving of model {model_name!r} "
                 f"failed its parity gate vs the f32 goldens: mean IoU "
                 f"{report['mask_iou_mean']:.4f} "
                 f"(floor {cfg.quant_parity_min_iou}), max |d curvature| "
@@ -1133,10 +1593,10 @@ class VisionAnalysisService:
         log.info(
             "%s parity gate passed for %s: mean IoU %.4f, curvature err "
             "mean %.4g / max %.4g over %d goldens", self.precision,
-            cfg.model_name, report["mask_iou_mean"],
+            model_name, report["mask_iou_mean"],
             report["curvature_err_mean"], report["curvature_err_max"],
             report["frames"])
-        self.parity = report
+        return report
 
     def warmup_coef(self, width: int, height: int,
                     subsampling: str = "420") -> None:
@@ -1200,11 +1660,14 @@ class VisionAnalysisService:
         return True
 
     def close(self) -> None:
-        """Drain, stop the reloader, stop every dispatcher (the live one
-        and those in their grace period; pending frames drain or fail),
-        then the decode and encode pools (the JAX package's order), stop
-        the metrics endpoint and flush the metrics."""
+        """Drain, stop the controller and the reloader, stop every
+        dispatcher (the live one and those in their grace period; pending
+        frames drain or fail), then the decode and encode pools (the JAX
+        package's order), stop the metrics endpoint and flush the
+        metrics."""
         self.drain()
+        if self.controller is not None:
+            self.controller.stop()
         # flag first: an in-flight reload re-checks it before swapping, so
         # a generation built after this point never goes live
         with self._streams_cond:

@@ -1,9 +1,9 @@
 """Configuration of the port: the fields of the JAX package's
 ``ModelConfig``, ``TrainConfig``, ``GeometryConfig``, ``ServerConfig``,
-``ClientConfig`` and ``MeshConfig`` that the serving, client and training
-paths read, with the same names and defaults, and the offline drift
-detector's ``DriftConfig``, plus ``from_dict`` and ``--section.field``
-flag parsing for them.
+``RolloutConfig``, ``ClientConfig`` and ``MeshConfig`` that the serving,
+rollout, client and training paths read, with the same names and
+defaults, and the offline drift detector's ``DriftConfig``, plus
+``from_dict`` and ``--section.field`` flag parsing for them.
 
 Settings the port does not implement yet raise ``NotImplementedError`` in
 :func:`check_supported`, naming the ROADMAP item that brings them:
@@ -11,7 +11,7 @@ Settings the port does not implement yet raise ``NotImplementedError`` in
 - on the batched path (``batch_window_ms > 0``): ``serving_mesh > 1``
   and the ``RDP_SERVING_CHIPS`` and ``RDP_DISPATCH_MODE`` overrides (the
   multi-device router, item 14);
-- ``ModelConfig.norm`` other than ``"batch"``;
+- ``ModelConfig.norm`` other than ``"batch"`` (group norm, item 30);
 - any non-default ``MeshConfig`` (the mesh trainer, item 14).
 """
 
@@ -186,6 +186,24 @@ class ServerConfig:
     # backlog overflow policy: "deadline" evicts the least-headroom frame,
     # "fifo" rejects the newcomer (serving/admission.py)
     admission_policy: str = "deadline"
+    # the reactive SLO controller (serving/controller.py): retunes
+    # max_inflight, the batch window, the bucket floor and the admission
+    # safety online from the error-budget burn, with a brownout ladder
+    # under sustained burn > 1. Needs slo_ms > 0 and batch_window_ms > 0.
+    # The RDP_CONTROLLER environment variable overrides it.
+    controller_enabled: bool = False
+    # tick period; every decision also passes the sustain and cooldown
+    controller_interval_s: float = 0.5
+    # how long burn must hold beyond a threshold before it counts
+    controller_sustain_s: float = 1.0
+    # minimum spacing between actions (one rung or AIMD step at a time)
+    controller_cooldown_s: float = 2.0
+    # hysteresis around burn = 1: escalate above high, de-escalate or
+    # tune below low, dead band between
+    controller_burn_high: float = 1.0
+    controller_burn_low: float = 0.5
+    # AIMD ceiling of the controller's additive max_inflight increases
+    controller_inflight_cap: int = 8
     geometry_stride: int = 1
     # serving precision tier (ops/quant.py): "f32" serves the model as
     # configured; "bf16" computes activations in bfloat16; "int8" also
@@ -259,6 +277,68 @@ class ServerConfig:
     # only once every signal has recovered and this cooldown has passed
     drift_sustain_s: float = 5.0
     drift_cooldown_s: float = 300.0
+    # the model zoo (serving/zoo.py, models/variants.py): a comma-separated
+    # roster from the variant catalog ("seg,multi,aux"), each model with
+    # its own registry entry, parity gate, drift reference and SLO
+    # tracker, sharing one dispatcher. "" = the single default model, the
+    # path bit for bit as without a zoo. A request's ``model`` field picks
+    # the entry per frame ("" = default). RDP_ZOO_MODELS overrides it.
+    zoo_models: str = ""
+    # "shared" (the placer co-locates models whose arrival-rate peaks
+    # anti-correlate) or "dedicated" (a static contiguous partition).
+    # RDP_ZOO_PLACEMENT overrides it. On one device every model has chip 0.
+    zoo_placement: str = "shared"
+    # the placer's rate windows: arrivals counted per zoo_rate_interval_s
+    # over a zoo_rate_window-interval sliding window
+    zoo_rate_interval_s: float = 1.0
+    zoo_rate_window: int = 60
+    # how often a recorded arrival may trigger a re-placement
+    zoo_rebalance_s: float = 5.0
+    # a model extends onto a chip only when every resident's rate
+    # correlation with it is below this
+    zoo_corr_cap: float = 0.25
+    # warm-up of each extra zoo model: how many placements capture the
+    # one-frame bucket (the default model captures every bucket); the
+    # other buckets capture at their first dispatch. Negative = every
+    # bucket of every extra model at warm-up.
+    zoo_eager_warm: int = 1
+
+
+@dataclass(frozen=True)
+class RolloutConfig:
+    """The drift-triggered rollout (``serving/rollout.py``): a drift
+    recommendation drains the least-loaded replica, retrains on it,
+    shadows the candidate behind the live generation and promotes it
+    through the hot-reload swap only when every gate passes; any failure
+    or stage timeout rolls back. The JAX package's names and defaults."""
+
+    # master switch; the RDP_ROLLOUT environment variable overrides it
+    enabled: bool = False
+    # registry alias the candidate is parked under while it is gated
+    # (never the serving alias)
+    candidate_alias: str = "shadow"
+    # fraction of live frames the serving replicas mirror to the candidate
+    shadow_fraction: float = 0.5
+    # mirrored frames the shadow diff must cover before the gate may pass
+    shadow_min_frames: int = 16
+    # cap on queued-but-undiffed shadow frames (overflow is dropped)
+    shadow_queue: int = 64
+    # promotion gates, all of which must pass: the parity fixtures
+    # (candidate against the live generation over ops/quant.golden_frames)
+    gate_fixture_frames: int = 4
+    gate_fixture_min_iou: float = 0.80
+    gate_fixture_max_curv_err: float = 1.0
+    # the live shadow diff over the same mirrored frames
+    gate_shadow_min_iou: float = 0.50
+    gate_shadow_max_curv_err: float = 1.0
+    # worst noise-floor-adjusted PSI between the candidate's and the live
+    # generation's signals over the mirrored frames
+    gate_shadow_max_psi: float = 1.0
+    # per-stage timeouts; a stage past its budget rolls the cycle back
+    drain_timeout_s: float = 30.0
+    retrain_timeout_s: float = 1800.0
+    shadow_timeout_s: float = 120.0
+    promote_timeout_s: float = 60.0
 
 
 @dataclass(frozen=True)
@@ -305,9 +385,15 @@ class PlatformConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     geometry: GeometryConfig = field(default_factory=GeometryConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
+    rollout: RolloutConfig = field(default_factory=RolloutConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     client: ClientConfig = field(default_factory=ClientConfig)
     drift: DriftConfig = field(default_factory=DriftConfig)
+
+
+def replace(cfg: Any, **updates: Any) -> Any:
+    """``dataclasses.replace`` (the configs are frozen)."""
+    return dataclasses.replace(cfg, **updates)
 
 
 def resolve_kernel_impl(configured: str) -> str:
@@ -362,7 +448,8 @@ def check_supported(cfg: Any) -> None:
         if cfg.norm != "batch":
             raise NotImplementedError(
                 f"ModelConfig.norm={cfg.norm!r}: the folded forward folds "
-                "BatchNorm; only 'batch' is ported"
+                "BatchNorm; only 'batch' is ported (group norm is ROADMAP "
+                "queue 1 item 30)"
             )
 
 

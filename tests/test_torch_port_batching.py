@@ -432,13 +432,16 @@ def test_left_out_parts_raise():
         # the coefficient lane is ported: a non-CoefficientFrame is refused
         with pytest.raises(TypeError, match="CoefficientFrame"):
             d.submit_coef(None, _DEPTH, _K, 0.001)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            d.bind_model("aux", None)
+        # the zoo's bind_model is ported: the default model is bound at
+        # construction, and an unbound model's frame is refused
+        with pytest.raises(ValueError, match="bound at construction"):
+            d.bind_model("", _Analyzer())
+        with pytest.raises(ValueError, match="unknown model 'aux'"):
+            d.submit(_frame(0), _DEPTH, _K, 0.001, model="aux")
     finally:
         d.stop()
-    for kw, item in (("router", "item 14"), ("placer", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            BatchDispatcher(_Analyzer(), device="cpu", **{kw: object()})
+    with pytest.raises(NotImplementedError, match="item 14"):
+        BatchDispatcher(_Analyzer(), device="cpu", router=object())
 
 
 class _Item:

@@ -86,6 +86,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.workflows.retraining\n"
         "import robotic_discovery_platform_tpu_torch.training.supervisor\n"
         "import robotic_discovery_platform_tpu_torch.serving.client\n"
+        "import robotic_discovery_platform_tpu_torch.serving.controller\n"
+        "import robotic_discovery_platform_tpu_torch.serving.zoo\n"
+        "import robotic_discovery_platform_tpu_torch.serving.rollout\n"
+        "import robotic_discovery_platform_tpu_torch.models.variants\n"
         "import robotic_discovery_platform_tpu_torch.serving.proto.vision_grpc\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
@@ -110,7 +114,9 @@ def test_port_and_chip_smoke_import_no_jax():
                    "monitoring.profile", "monitoring.drift",
                    "workflows.retraining", "training.supervisor",
                    "serving.client", "serving.proto.vision_grpc",
-                   "serving.ingest", "serving.egress", "io.frames"):
+                   "serving.ingest", "serving.egress", "io.frames",
+                   "serving.controller", "serving.zoo", "serving.rollout",
+                   "models.variants"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -214,7 +220,8 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
                                   "serving_mesh", "egress_pack_off",
                                   "egress_workers", "env_override",
                                   "conv_impl", "train_defaults",
-                                  "mesh_section", "drift_fields"])
+                                  "mesh_section", "drift_fields",
+                                  "zoo_controller_rollout_fields"])
 def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
     if case == "kernel_impl_default":
         assert config.GeometryConfig().kernel_impl == "auto"
@@ -327,7 +334,34 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
                                       "--server.drift_sustain_s", "0.5"])
         assert parsed.drift.min_rows == 10
         assert parsed.server.drift_sustain_s == 0.5
-        assert len(dataclasses.fields(config.ServerConfig)) == 47
+        # 61 of the JAX package's 85: the seven controller_* and seven
+        # zoo_* fields joined the 47
+        assert len(dataclasses.fields(config.ServerConfig)) == 61
+    elif case == "zoo_controller_rollout_fields":
+        # the seven controller_* and seven zoo_* fields and the rollout
+        # section: the JAX package's names and defaults, taken by from_dict
+        from robotic_discovery_platform_tpu.utils import config as jconfig
+
+        for prefix in ("controller_", "zoo_"):
+            names = [f.name for f in dataclasses.fields(jconfig.ServerConfig)
+                     if f.name.startswith(prefix)]
+            assert len(names) == 7
+            for name in names:
+                assert (getattr(config.ServerConfig(), name)
+                        == getattr(jconfig.ServerConfig(), name)), name
+        cfg = config.from_dict(config.ServerConfig, {
+            "zoo_models": "multi,aux", "zoo_eager_warm": -1,
+            "controller_enabled": True})
+        assert cfg.zoo_models == "multi,aux" and cfg.controller_enabled
+        assert (dataclasses.asdict(config.RolloutConfig())
+                == dataclasses.asdict(jconfig.RolloutConfig()))
+        platform = config.from_dict(config.PlatformConfig, {
+            "rollout": {"candidate_alias": "cand"}})
+        assert platform.rollout.candidate_alias == "cand"
+        # a roster with an unknown variant refuses to build a servicer
+        with pytest.raises(ValueError, match="unknown zoo model"):
+            VisionAnalysisService(lambda x: x, cfg=config.ServerConfig(
+                zoo_models="bogus"), device="cpu")
     elif case == "mesh_section":
         config.check_supported(config.MeshConfig())
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):

@@ -150,6 +150,58 @@ def test_weights_carry_across(source, tmp_path):
     assert not net.training
 
 
+@pytest.mark.parametrize("variant", ["multi", "aux"])
+def test_variant_params_carry_across(variant, tmp_path):
+    """A JAX zoo variant's param tree at the published widths (``multi``:
+    the [1, 1, 64, 4] head; ``aux``: base 16) lands on the port's variant
+    UNet leaf for leaf, through the variables and through an artifact
+    directory, and its logits match the JAX forward within the float32
+    bar."""
+    from robotic_discovery_platform_tpu.models import variants as jvariants
+    from robotic_discovery_platform_tpu_torch.models import variants
+
+    jcfg = jvariants.VARIANTS[variant].model_config(
+        JaxModelConfig(compute_dtype="float32"))
+    cfg = variants.VARIANTS[variant].model_config(
+        ModelConfig(compute_dtype="float32"))
+    assert (cfg.base_features, cfg.num_classes) == (
+        jcfg.base_features, jcfg.num_classes)
+    model = jvariants.build_variant_model(jvariants.VARIANTS[variant],
+                                          JaxModelConfig(
+                                              compute_dtype="float32"))
+    variables = jax.tree.map(np.asarray, jax.jit(
+        lambda key: init_unet(model, key, SIZE))(jax.random.key(7)))
+    rng = np.random.default_rng(7)
+    variables["batch_stats"] = jax.tree_util.tree_map_with_path(
+        lambda p, a: (rng.uniform(0.05, 0.2, a.shape) if p[-1].key == "var"
+                      else rng.normal(0.0, 0.1, a.shape)).astype(np.float32),
+        variables["batch_stats"])
+    head = variables["params"]["Conv_0"]["kernel"]
+    assert head.shape == ((1, 1, 64, 4) if variant == "multi"
+                          else (1, 1, 16, 1))
+    net = weights.unet_from_flax_variables(cfg, variables)
+    tracking.save_model(variables, jcfg, tmp_path / "model")
+    loaded_cfg, loaded = weights.load_model_dir(tmp_path / "model",
+                                                device="cpu")
+    assert loaded_cfg == cfg
+    own = variants.build_variant_model(variants.VARIANTS[variant],
+                                       ModelConfig(compute_dtype="float32"))
+    assert set(net.state_dict()) == set(own.state_dict())
+    for key, t in own.state_dict().items():
+        assert tuple(net.state_dict()[key].shape) == tuple(t.shape)
+        np.testing.assert_array_equal(net.state_dict()[key].numpy(),
+                                      loaded.state_dict()[key].numpy())
+    x = _input(8)
+    want = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
+    with torch.no_grad():
+        got = net.eval()(torch.from_numpy(x)).numpy()
+        folded = FoldedUNet(net, device="cpu")(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (1, SIZE, SIZE, cfg.num_classes)
+    assert np.std(want) > 0.01
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(folded, want, atol=2e-4, rtol=2e-4)
+
+
 @pytest.mark.parametrize("init", ["torch", "lecun"])
 def test_init_family(init):
     """``"torch"``: conv kernels U(+-sqrt(1/fan_in)), head bias
