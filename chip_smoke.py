@@ -147,6 +147,26 @@ mismatch raises and the script exits non-zero:
    epoch 1 and restarted, against an unbroken run (the SUPERVISED_*
    bars), and which ops of a train step are not deterministic; the monitor's host cost (frames/s on and off in
    turns, its microseconds per frame).
+11. the zoo, the controller and the rollout (``zoo_phase``,
+   ``controller_phase``, ``rollout_phase``);
+12. the lab's loop around the server (``lab_phase``): (a) the registry
+   over HTTP against ``tests/fake_mlflow_server.py`` in process --
+   ``train_model`` logging and registering over REST, a servicer loaded
+   over REST answering as one from a ``file:`` store bit for bit, an
+   alias moved over REST swapping it under a live stream, a retraining
+   cycle promoting over REST; (b) ``ModelConfig(norm="group")``: train
+   steps (35 / 18 launches), ``model_forward="auto"`` refused with the
+   JAX ``PallasUNet`` error, ``"flax"`` serving over gRPC (18 / 1 / 1 / 1
+   / 1 launches a frame) and through a reload, logits against the CPU
+   plain forward, device ms beside the batch-norm frame's; (c) a
+   reference ``.pth`` of the SURVEY's torch U-Net imported with
+   ``tools/import_torch_weights`` at float32 compute and served, logits
+   against the torch module's own (bf16 compute: the kernels against
+   their plain versions); (d) ``tools/geometry_parity.run_corpus`` over LAB_SCENES
+   scenes on card and CPU; (e) ``RDP_TRANSFER_GUARD=strict`` on the
+   direct, batched and scan servicers and a scan-epoch ``train_model``,
+   and an injected ``.item()``; (f) every bound from ``utils/flops``
+   against the figures printed before.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
@@ -157,7 +177,8 @@ runs one phase alone (any of ``PHASES``: ``kernel_phase``,
 ``conv1x1_kernel_phase``, ``convt_kernel_phase``, ``decode_kernel_phase``,
 ``geometry_kernel_phase``, ``train_kernel_phase``, ``graph_phase``,
 ``bitpack_phase``, ``bitpack_timing_phase``, ``precision_phase``,
-``deploy_phase``, ``drift_phase``, ``host_path_phase`` or
+``deploy_phase``, ``drift_phase``, ``host_path_phase``, ``zoo_phase``,
+``controller_phase``, ``rollout_phase``, ``lab_phase`` or
 ``trained_tier_phase``, which
 ``main`` does not run): its
 log lines, then its results as one JSON line. To compare a change with
@@ -181,10 +202,9 @@ from pathlib import Path
 
 import numpy as np
 
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
-H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM
-H100_F64_FLOPS = 67e12  # float64 peak (on the tensor cores), H100 SXM
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
+# every bound below comes from the port's utils/flops.py (its H100 SXM
+# peaks and each kernel's least operations and bytes), imported after the
+# card is found: see flops_lib
 FRAME_H, FRAME_W = 480, 640
 SEED = 0
 
@@ -247,14 +267,8 @@ COEF_QUALITY = 75
 # 30 dB, 29.78-30.74 dB for the 8 frames, as libjpeg's own encoder at the
 # same quality gives within 0.02 dB)
 COEF_PSNR_DB = 30.0
-# int32 operations per 8x8 block of the least work computing dequant_idct:
-# libjpeg's islow butterfly, about 12 multiplies, 32 adds and 18 shifts
-# or rounding adds per 8-point pass, 16 passes, plus the dequantizing
-# multiply, the level shift and the clamp per sample
-ISLOW_OPS_PER_BLOCK = 16 * 62 + 64 * 4
 # the kernel's separable passes: A on 8 columns, then on 8 rows
 SEPARABLE_IDCT_MACS_PER_BLOCK = 2 * 8 * 64
-INT32_OPS_PER_SM_CLOCK = 64  # Hopper's int32 multiply-add rate per SM
 CONVT_F32_REL = 1e-5  # float32 transposed conv, kernel vs plain
 
 BF16_TOL = 1.6e-2  # two bf16 ulps, kernel vs plain from the same operands
@@ -323,7 +337,7 @@ def int32_ops_per_s(torch) -> float:
     maximum SM clock nvidia-smi reports."""
     mhz = float(nvidia_smi_line("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_OPS_PER_SM_CLOCK * mhz * 1e6
+    return flops_lib().int32_ops_per_s(sms, mhz)
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -401,13 +415,22 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     return total if total > 0 else time_ms(torch, fn, iters)
 
 
+def flops_lib():
+    """The port's ``utils/flops`` (the peaks and each kernel's operations
+    and bytes): the one source of every bound this script prints."""
+    from robotic_discovery_platform_tpu_torch.utils import flops
+
+    return flops
+
+
 def bound_ms(flops: float, nbytes: float,
-             peak: float = H100_BF16_FLOPS) -> tuple[float, str]:
-    """The least time the card could take: the larger of the operations
-    at ``peak`` and the bytes at the HBM rate."""
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+             peak: float | None = None) -> tuple[float, str]:
+    """The least time the card could take (``utils/flops.bound_ms``): the
+    larger of the operations at ``peak`` (default the bf16 peak) and the
+    bytes at the HBM rate."""
+    lib = flops_lib()
+    return lib.bound_ms(flops, nbytes,
+                        lib.H100_BF16_FLOPS if peak is None else peak)
 
 
 def bitwise_equal(torch, a, b) -> bool:
@@ -481,9 +504,8 @@ def kernel_phase(torch, conv) -> dict:
             "library_ms": time_ms(torch, lambda: torch.clamp_min(
                 F.conv2d(xc, wc, padding=1).float() * sc + bc, 0).to(dtype)),
         }
-        nbytes = (x.numel() + wt.numel() + b * h * w * cout) * x.element_size() \
-            + 8 * cout
-        flops = 2.0 * b * h * w * 9 * cin * cout
+        flops, nbytes = flops_lib().conv3x3_bn_relu_cost(
+            b, h, w, cin, cout, x.element_size())
         t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
         t["max_abs_err"] = err
         device = ""
@@ -601,9 +623,9 @@ def conv1x1_kernel_phase(torch, conv) -> dict:
             "host_ms": host_ms(torch, kernel),
             "max_abs_err": err,
         }
-        nbytes = (x.numel() + wt.numel()) * x.element_size() + 8 * cout \
-            + b * h * w * cout * torch.empty((), dtype=odt).element_size()
-        flops = 2.0 * b * h * w * cin * cout
+        flops, nbytes = flops_lib().conv1x1_cost(
+            b, h, w, cin, cout, x.element_size(),
+            torch.empty((), dtype=odt).element_size())
         t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
         log(f"conv1x1 {shape}, path {path}: {bar}; ms {t['ms']:.4f} plain "
             f"{t['plain_ms']:.4f} cudnn {t['library_ms']:.4f} bound "
@@ -692,10 +714,9 @@ def geometry_kernel_phase(torch, port) -> dict:
             *args, stride=stride), lambda: gk.deproject_edge_stats_plain(
             *args, stride=stride))
         t["max_abs_err"] = 0.0
-        # mask u8 + depth f32 in, x/y/z f32 + valid u8 out, params and stats
-        nbytes = h * w * (1 + 4 + 3 * 4 + 1) + 5 * 4 + 5 * 4
-        t["bound_ms"], t["bound_by"] = bound_ms(10.0 * h * w, nbytes,
-                                                H100_F32_FLOPS)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            *flops_lib().deproject_edge_stats_cost(h, w),
+            flops_lib().H100_F32_FLOPS)
         log(f"deproject_edge_stats {h}x{w} stride {stride}: bitwise; "
             f"{timing_text(t)}; valid {int(got[4][4])}")
         results[("deproject_edge_stats", stride)] = t
@@ -730,12 +751,9 @@ def geometry_kernel_phase(torch, port) -> dict:
     t = timings(torch, lambda: gk.bspline_design(pts, wts, u, knots, deg),
                 lambda: gk.bspline_design_plain(pts, wts, u, knots, deg))
     t["max_abs_err"] = err
-    nbytes = 8 * (n * 5 + len(knots) + c * c + 3 * c)
-    # a basis row has deg + 1 nonzeros: (deg + 1)^2 Gram and (deg + 1) * 3
-    # right-hand-side products per point, a multiply and an add each
-    nz = deg + 1
-    t["bound_ms"], t["bound_by"] = bound_ms(2.0 * n * (nz * nz + 3 * nz),
-                                            nbytes, H100_F64_FLOPS)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        *flops_lib().bspline_design_cost(n, c, len(knots), deg),
+        flops_lib().H100_F64_FLOPS)
     log(f"bspline_design N={n} C={c}: max|err| {err:.3g} (within "
         f"{DESIGN_RTOL} of |BW|^T|.|), 0 outside the band, deterministic; "
         f"{timing_text(t)}; {int(s_w.sum())} weighted points")
@@ -774,16 +792,9 @@ def geometry_kernel_phase(torch, port) -> dict:
     t["host_ms"] = host_ms(
         torch, lambda: gk.bspline_curvature(ctrl, u_fine, knots, deg))
     t["max_abs_err"] = err
-    # in: ctrl, u, knots and the nonzero bands of m1 (2 per row, C + 1
-    # rows) and m2 (3 per row, C + 2 rows); out: kappa, valid, r
-    nbytes = (4 * (3 * c + ns + len(knots) + 2 * (c + 1) + 3 * (c + 2))
-              + ns * (4 + 1 + 12))
-    # the derivative control points m1 @ ctrl and m2 @ ctrl once; per
-    # sample r, r', r'' from deg + 1, deg and deg - 1 basis nonzeros, and
-    # about 40 operations of the curvature formula
-    flops = (2 * 3 * (2 * (c + 1) + 3 * (c + 2))
-             + ns * (2 * 3 * (3 * deg) + 40))
-    t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes, H100_F32_FLOPS)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        *flops_lib().bspline_curvature_cost(ns, c, len(knots), deg),
+        flops_lib().H100_F32_FLOPS)
     log(f"bspline_curvature N={ns} C={c}: validity equal, max|err| "
         f"{err:.3g} (kappa max {kmax:.4g}), deterministic; {timing_text(t)}; "
         f"host ms per call {t['host_ms']:.4f}")
@@ -892,9 +903,9 @@ def bitpack_timing_phase(torch) -> dict:
         t = timings(torch, lambda: pack.bitpack_mask(m),
                     lambda: pack.bitpack_mask_plain(m))
         t["max_abs_err"] = 0.0
-        wb = (w + 7) // 8
         t["bound_ms"], t["bound_by"] = bound_ms(
-            16.0 * b * h * wb, b * h * w + b * h * wb, H100_F32_FLOPS)
+            *flops_lib().bitpack_mask_cost(b, h, w),
+            flops_lib().H100_F32_FLOPS)
         log(f"bitpack_mask {list(shape)}: {timing_text(t)}")
         results[("bitpack_mask", *shape)] = t
     return results
@@ -1314,9 +1325,8 @@ def convt_kernel_phase(torch, conv) -> dict:
             "library_device_ms": device_ms(torch, library),
             "max_abs_err": err,
         }
-        nbytes = (x.numel() + wt.numel() + 4 * b * h * w * cout) \
-            * x.element_size() + 4 * cout
-        flops = 2.0 * b * h * w * cin * 4 * cout
+        flops, nbytes = flops_lib().conv_transpose2x2_cost(
+            b, h, w, cin, cout, x.element_size())
         t["bound_ms"], t["bound_by"] = bound_ms(flops, nbytes)
         log(f"conv_transpose2x2 [{b},{h},{w},{cin}]->{cout} "
             f"{str(dtype)[6:]}, path {path}: {bar}, "
@@ -1365,7 +1375,8 @@ def decode_kernel_phase(torch) -> dict:
     per coefficient frame the sum of its three planes' launches; no single
     PyTorch call computes the islow IDCT (and torch has no int32 matrix
     product on CUDA), so there is no library time. The bound counts
-    libjpeg's butterfly, the least work (ISLOW_OPS_PER_BLOCK), at the
+    libjpeg's butterfly, the least work (``utils/flops.
+    ISLOW_OPS_PER_BLOCK``), at the
     card's int32 rate; the kernel's separable form does
     SEPARABLE_IDCT_MACS_PER_BLOCK."""
     from robotic_discovery_platform_tpu_torch.ops import decode
@@ -1389,10 +1400,8 @@ def decode_kernel_phase(torch) -> dict:
                     lambda: decode.dequant_idct_plain(c, q))
         t["max_abs_err"] = 0.0
         blocks = b * n
-        # coefficients and tables in, samples out, and the 64 constants
-        nbytes = blocks * 64 * (2 + 4) + b * 64 * 4 + 64 * 4
         t["bound_ms"], t["bound_by"] = bound_ms(
-            float(blocks * ISLOW_OPS_PER_BLOCK), nbytes, rate)
+            *flops_lib().dequant_idct_cost(b, n), rate)
         t["separable_ops_ms"] = (blocks * SEPARABLE_IDCT_MACS_PER_BLOCK
                                  / rate * 1e3)
         log(f"dequant_idct [{b},{n},64]: bitwise; {timing_text(t)}; the "
@@ -2819,8 +2828,8 @@ def train_conv_shapes(torch, conv, shapes, gen) -> dict:
                                  rtol=BF16_TOL),
                   f"conv3x3 {(b, s, s, cin, cout)} {name}: max |err| "
                   f"{errs[name]} over tolerance {BF16_TOL}")
-        flops = 2.0 * b * s * s * 9 * cin * cout
-        act = b * s * s * 2  # bytes per channel of a bf16 activation
+        costs = flops_lib().train_conv_costs(b, s, cin, cout)
+        flops = costs["fwd"][0]
         xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         wc, wfc = (t.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last) for t in (w, w_flip))
@@ -2830,22 +2839,20 @@ def train_conv_shapes(torch, conv, shapes, gen) -> dict:
                 lambda: conv.conv3x3_grad_weights_plain(x, g),
                 lambda: torch.nn.grad.conv2d_weight(xc, (cout, cin, 3, 3), gc,
                                                     padding=1),
-                flops, act * (cin + cout) + 9 * cin * cout * 4,
-                float((dw - dw_plain).abs().max()), plain_iters=5),
+                *costs["dw"], float((dw - dw_plain).abs().max()),
+                plain_iters=5),
             "fwd": timed(
                 torch, lambda: conv.conv3x3_bn_relu(x, w, *unit_o,
                                                     relu=False),
                 lambda: conv.conv3x3_bn_relu_plain(x, w, *unit_o, relu=False),
-                lambda: F.conv2d(xc, wc, padding=1), flops,
-                act * (cin + cout) + 9 * cin * cout * 2 + 8 * cout,
+                lambda: F.conv2d(xc, wc, padding=1), *costs["fwd"],
                 errs["y"]),
             "dx": timed(
                 torch, lambda: conv.conv3x3_bn_relu(g, w_flip, *unit_i,
                                                     relu=False),
                 lambda: conv.conv3x3_bn_relu_plain(g, w_flip, *unit_i,
                                                    relu=False),
-                lambda: F.conv2d(gc, wfc, padding=1), flops,
-                act * (cin + cout) + 9 * cin * cout * 2 + 8 * cin,
+                lambda: F.conv2d(gc, wfc, padding=1), *costs["dx"],
                 errs["dx"]),
         }
         m["dw"]["rel_l2"] = err
@@ -3236,6 +3243,20 @@ def same_responses(got, want, leg: str, exact: bool = True) -> None:
                   f"{b.mean_curvature} beyond rtol {GEOM_RTOL}")
 
 
+def wire_requests(requests: list) -> list:
+    """The port's request messages as the protobuf the gRPC stub sends."""
+    from robotic_discovery_platform_tpu_torch.serving.proto import vision_pb2
+
+    def image(img):
+        return vision_pb2.Image(data=img.data, width=img.width,
+                                height=img.height, format=img.format)
+
+    return [vision_pb2.AnalysisRequest(color_image=image(r.color_image),
+                                       depth_image=image(r.depth_image),
+                                       mask_format=r.mask_format)
+            for r in requests]
+
+
 def grpc_responses(cfg, folded, requests) -> list | None:
     """``requests`` through a real gRPC server of the port (None where
     grpc is not installed)."""
@@ -3245,15 +3266,10 @@ def grpc_responses(cfg, folded, requests) -> list | None:
         from robotic_discovery_platform_tpu_torch.serving import grpc_service
         from robotic_discovery_platform_tpu_torch.serving.proto import (
             vision_grpc,
-            vision_pb2,
         )
     except ImportError as exc:
         log(f"gRPC leg did not run: {exc}")
         return None
-
-    def image(img):
-        return vision_pb2.Image(data=img.data, width=img.width,
-                                height=img.height, format=img.format)
 
     server, servicer = grpc_service.build_server(cfg, folded, device="cuda")
     server.start()
@@ -3261,11 +3277,8 @@ def grpc_responses(cfg, folded, requests) -> list | None:
         with grpc.insecure_channel(
                 f"localhost:{servicer.bound_port}") as channel:
             stub = vision_grpc.VisionAnalysisServiceStub(channel)
-            return list(stub.AnalyzeActuatorPerformance(iter([
-                vision_pb2.AnalysisRequest(
-                    color_image=image(r.color_image),
-                    depth_image=image(r.depth_image),
-                    mask_format=r.mask_format) for r in requests])))
+            return list(stub.AnalyzeActuatorPerformance(iter(
+                wire_requests(requests))))
     finally:
         server.stop(grace=None).wait()
         servicer.close()
@@ -5261,9 +5274,8 @@ def zoo_kernel_cases(torch, conv) -> dict:
                                                            bias))
         plain = device_ms(torch, lambda: conv.conv3x3_bn_relu_plain(
             x, wt, scale, bias))
-        flops = 2.0 * s * s * 9 * cin * cout
-        nbytes = (x.numel() + wt.numel() + s * s * cout) * 2 + 8 * cout
-        bound, by = bound_ms(flops, nbytes)
+        bound, by = bound_ms(*flops_lib().conv3x3_bn_relu_cost(
+            1, s, s, cin, cout))
         seen[(s, cin, cout)] = (ms, plain, bound, err)
         log(f"conv3x3_bn_relu aux [1,{s},{s},{cin}]->{cout} bfloat16: "
             f"max|err| {err:.3g} (tol {BF16_TOL}), deterministic; device "
@@ -5316,9 +5328,7 @@ def zoo_kernel_cases(torch, conv) -> dict:
         # (an upper bound: the host's cost per call is in it)
         call_ms = time_ms(torch, kernel)
         lib_call_ms = time_ms(torch, library)
-        bound, by = bound_ms(2.0 * s * s * cin * cout,
-                             (x.numel() + wt.numel()) * 2
-                             + s * s * cout * 4 + 8 * cout)
+        bound, by = bound_ms(*flops_lib().conv1x1_cost(1, s, s, cin, cout))
         out[f"head{cout}_ms"], out[f"head{cout}_bound_ms"] = ms, bound
         out[f"head{cout}_plain_ms"], out[f"head{cout}_err"] = plain_ms, err
         out[f"head{cout}_library_ms"] = lib_ms
@@ -6256,12 +6266,714 @@ def rollout_phase(torch, port) -> dict:
     return read_launches()
 
 
+# -- the lab's loop around the server -----------------------------------------
+
+LAB_SCENES = 24  # the geometry corpus's scenes, each scored on card and CPU
+LAB_GROUP_STEPS = 3  # train steps of the group-norm net on the card
+# the bound figures the kernel phases printed before their arithmetic
+# moved into utils/flops (PERF.md's kernel table): (ms as printed, word)
+PRINTED_BOUNDS = {
+    "conv3x3_bn_relu, 18 a frame": ("0.0842", "operations"),
+    "conv1x1 head [1,256,256,64]->1": ("0.00258", "bytes"),
+    "deproject_edge_stats 480x640": ("0.00165", "bytes"),
+    "deproject_edge_stats 240x320": ("0.00041", "bytes"),
+    "bspline_design N=6400 C=16": ("0.0000772", "bytes"),
+    "bspline_curvature N=100 C=16": ("0.00000081", "bytes"),
+    "bitpack_mask [8,480,640]": ("0.000825", "bytes"),
+    "bitpack_mask [1,480,640]": ("0.000103", "bytes"),
+    "dequant_idct, a 4:2:0 frame": ("0.00083", "bytes"),
+    "conv_transpose2x2, 4 at B = 1": ("0.0087", "bytes"),
+    "conv3x3_grad_weights, 18 at B = 4": ("0.334", "operations"),
+    "training forward, 18 at B = 4": ("0.334", "operations"),
+    "training dx, 17 at B = 4": ("0.323", "operations"),
+}
+
+
+def reference_torch_unet(torch, base: int = 64):
+    """The reference's torch U-Net from the SURVEY spec (bilinear, BatchNorm;
+    ``inc``, ``down1``-``down4``, ``up1``-``up4``, ``outc``), the layout of
+    the ``.pth`` files a user brings from the reference deployment."""
+    nn = torch.nn
+
+    class DoubleConv(nn.Module):
+        def __init__(self, cin, cout, mid=None):
+            super().__init__()
+            mid = mid or cout
+            self.block = nn.Sequential(
+                nn.Conv2d(cin, mid, 3, padding=1, bias=False),
+                nn.BatchNorm2d(mid), nn.ReLU(inplace=True),
+                nn.Conv2d(mid, cout, 3, padding=1, bias=False),
+                nn.BatchNorm2d(cout), nn.ReLU(inplace=True))
+
+        def forward(self, x):
+            return self.block(x)
+
+    class Down(nn.Module):
+        def __init__(self, cin, cout):
+            super().__init__()
+            self.block = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
+
+        def forward(self, x):
+            return self.block(x)
+
+    class Up(nn.Module):
+        def __init__(self, cin, cout):
+            super().__init__()
+            self.up = nn.Upsample(scale_factor=2, mode="bilinear",
+                                  align_corners=True)
+            self.conv = DoubleConv(cin, cout, mid=cin // 2)
+
+        def forward(self, x, skip):
+            return self.conv(torch.cat([skip, self.up(x)], dim=1))
+
+    class UNet(nn.Module):
+        def __init__(self, f):
+            super().__init__()
+            self.inc = DoubleConv(3, f)
+            self.down1 = Down(f, f * 2)
+            self.down2 = Down(f * 2, f * 4)
+            self.down3 = Down(f * 4, f * 8)
+            self.down4 = Down(f * 8, f * 16 // 2)
+            self.up1 = Up(f * 16, f * 8 // 2)
+            self.up2 = Up(f * 8, f * 4 // 2)
+            self.up3 = Up(f * 4, f * 2 // 2)
+            self.up4 = Up(f * 2, f)
+            self.outc = nn.Conv2d(f, 1, 1)
+
+        def forward(self, x):
+            x1 = self.inc(x)
+            x2 = self.down1(x1)
+            x3 = self.down2(x2)
+            x4 = self.down3(x3)
+            x5 = self.down4(x4)
+            y = self.up1(x5, x4)
+            y = self.up2(y, x3)
+            y = self.up3(y, x2)
+            return self.outc(self.up4(y, x1))
+
+    return UNet(base)
+
+
+def answer(r) -> tuple:
+    """A response's answer, every field but the timing."""
+    return (r.status, r.mask, r.mask_coverage, r.mean_curvature,
+            r.max_curvature, r.packed_spline,
+            tuple((p.x, p.y, p.z) for p in r.spline_points))
+
+
+def lab_server_cfg(port, tmp: Path, uri: str, **fields):
+    return port.ServerConfig(address="localhost:0", tracking_uri=uri,
+                             metrics_csv=str(tmp / f"m{time.time_ns()}.csv"),
+                             calibration_path=str(tmp / "none.npz"),
+                             reload_poll_s=0.0, **fields)
+
+
+def lab_registry_leg(torch, port, http: str, tmp: Path, frames: list,
+                     requests: list, arrays) -> dict:
+    """(a) The registry over HTTP: ``train_model`` logs and registers over
+    REST; a servicer loads that version over REST and answers as one
+    built from the same weights in a ``file:`` store, bit for bit; a
+    second version registered over REST and the alias moved there swap
+    the servicer under a live stream (every response one version's); a
+    retraining cycle promotes over REST."""
+    import threading
+
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.models import weights
+    from robotic_discovery_platform_tpu_torch.serving import server
+    from robotic_discovery_platform_tpu_torch.training import trainer
+    from robotic_discovery_platform_tpu_torch.tracking.rest_backend import (
+        RestMlflowStore,
+    )
+    from robotic_discovery_platform_tpu_torch.workflows import retraining
+
+    out = dict.fromkeys(KERNELS, 0)
+    name = port.ServerConfig().model_name
+    cfg = port.TrainConfig(epochs=1, batch_size=TRAIN_BATCH, img_size=256,
+                           learning_rate=1e-4, loss="bce", seed=SEED,
+                           tracking_uri=http,
+                           checkpoint_dir=str(tmp / "ckpt_http"))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.train_model(cfg, port.ModelConfig(), arrays=arrays,
+                              device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = read_launches()
+    want = launches_of(conv3x3_bn_relu=35 * 4, conv3x3_grad_weights=18 * 4)
+    check(got == want, f"train_model over HTTP: launches {got}, want {want}")
+    out = {k: out[k] + got[k] for k in out}
+    store = tracking.store_for(http)
+    check(isinstance(store, RestMlflowStore), f"{http}: {type(store)}")
+    hist = store.get_metric_history(res.run_id, "train_loss")
+    check(res.registry_version == 1 and len(hist) == 1
+          and store.get_run(res.run_id)["status"] == "FINISHED"
+          and np.isfinite(hist[0]["value"]),
+          f"train_model over HTTP: version {res.registry_version}, "
+          f"history {hist}")
+    store.set_alias(name, "staging", 1)
+
+    # the same weights in a file: store, and a servicer from each
+    _, net1 = tracking.load_model(f"models:/{name}@staging", store=store,
+                                  device="cpu")
+    file_uri = f"file:{tmp}/mlruns_file"
+    register_models(port, {"staging": net1}, file_uri)
+    t0 = time.perf_counter()
+    service = server.build_service(lab_server_cfg(port, tmp, http),
+                                   device="cuda")
+    build_s = time.perf_counter() - t0
+    reference = server.build_service(lab_server_cfg(port, tmp, file_uri),
+                                     device="cuda")
+    check(service.current_version == reference.current_version == 1,
+          f"versions {service.current_version}, {reference.current_version}")
+    reset_launches()
+    v1 = list(service.analyze_stream(iter(requests)))
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = frame_launches(len(requests), served=True)
+    check(got == want, f"REST-loaded servicer: launches {got}, want {want}")
+    out = {k: out[k] + got[k] for k in out}
+    same_responses(v1, list(reference.analyze_stream(iter(requests))),
+                   "servicer from http:// vs file:", exact=True)
+    reference.close()
+
+    # a second version over REST; the alias moves under a live stream
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    net2 = seeded_model(torch, port, x0, seed=SEED + 1)
+    tracking.set_tracking_uri(http)
+    tracking.set_experiment("Actuator Segmentation")
+    with tracking.start_run():
+        v = tracking.log_model(weights.to_flax_variables(net2), net2.cfg,
+                               registered_model_name=name)
+    check(v == 2, f"second version over REST: {v}")
+    live, done, errors = [], threading.Event(), []
+
+    def stream():
+        try:
+            while not done.is_set():
+                live.extend(service.analyze_stream(iter(requests)))
+            live.extend(service.analyze_stream(iter(requests)))
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    worker = threading.Thread(target=stream)
+    worker.start()
+    time.sleep(0.05)
+    store.set_alias(name, "staging", 2)
+    t0 = time.perf_counter()
+    swapped = service.maybe_reload()
+    reload_s = time.perf_counter() - t0
+    done.set()
+    worker.join(120)
+    check(not worker.is_alive() and not errors,
+          f"live stream across the reload: {errors}")
+    check(swapped and service.current_version == 2,
+          f"alias moved over REST: swapped {swapped}, version "
+          f"{service.current_version}")
+    v2 = list(service.analyze_stream(iter(requests)))
+    first, second = [answer(r) for r in v1], [answer(r) for r in v2]
+    check(first != second, "versions 1 and 2 answer alike")
+    n = len(requests)
+    owners = [(0 if answer(r) == first[i % n] else
+               1 if answer(r) == second[i % n] else None)
+              for i, r in enumerate(live)]
+    strays = [i for i, o in enumerate(owners) if o is None]
+    check(not strays, f"live responses {strays[:4]} of {len(live)} are "
+          "neither version's")
+    service.close()
+
+    # a retraining cycle promotes over REST
+    t0 = time.perf_counter()
+    cycle = retraining.run_retraining_pipeline(
+        dataclasses.replace(cfg, checkpoint_dir=str(tmp / "ckpt_retrain")),
+        port.ModelConfig(), arrays=arrays, device="cuda")
+    cycle_s = time.perf_counter() - t0
+    check(cycle.succeeded and cycle.version == 3
+          and cycle.promoted_alias == "staging"
+          and store.get_alias(name, "staging") == 3,
+          f"retraining over REST: {cycle}")
+    log(f"lab (a) registry over HTTP ({http}): train_model 1 epoch in "
+        f"{train_s:.2f} s, version 1; servicer from http:// built in "
+        f"{build_s:.2f} s, {n} answers equal to the file: store's bit for "
+        f"bit; alias to version 2 over REST: swap in {reload_s:.2f} s, "
+        f"{len(live)} live responses ({owners.count(0)} version 1, "
+        f"{owners.count(1)} version 2); retraining cycle promoted version "
+        f"{cycle.version} in {cycle_s:.2f} s")
+    return out
+
+
+def lab_group_leg(torch, port, tmp: Path, frames: list, requests: list,
+                  arrays, folded) -> dict:
+    """(b) Group norm at ``ModelConfig(norm="group")`` widths: train steps
+    on the card (18 forward and 17 dx conv3x3_bn_relu and 18
+    conv3x3_grad_weights launches a step); ``model_forward="auto"``
+    refused with the JAX ``PallasUNet`` error; ``"flax"`` serving over
+    gRPC (18 / 1 / 1 / 1 / 1 launches a frame: the 3x3 convs, the three
+    geometry kernels, the bitpack), its masks the direct analyzer's, its
+    logits within LOGITS_REL_L2 of the CPU plain forward, and unchanged
+    through a hot reload."""
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.models.unet import (
+        eval_on_kernels,
+    )
+    from robotic_discovery_platform_tpu_torch.ops.unet_infer import (
+        reference_forward,
+    )
+    from robotic_discovery_platform_tpu_torch.serving import (
+        grpc_service,
+        server,
+    )
+    from robotic_discovery_platform_tpu_torch.serving.proto import (
+        vision_grpc,
+    )
+    from robotic_discovery_platform_tpu_torch.training import trainer
+
+    out = dict.fromkeys(KERNELS, 0)
+    cfg = port.ModelConfig(norm="group")
+    net = trainer.init_model(cfg, SEED, torch.device("cuda"))
+    opt = trainer.make_optimizer(net, 1e-4)
+    xs, ys = trainer.normalize_arrays(*arrays)
+    loss_fn = losses.make_loss_fn("bce")
+    per_step, step_loss = [], []
+    for i in range(LAB_GROUP_STEPS):
+        rows = slice(TRAIN_BATCH * i, TRAIN_BATCH * (i + 1))
+        x = torch.from_numpy(xs[rows]).cuda()
+        y = torch.from_numpy(ys[rows]).cuda()
+        reset_launches()
+        step_loss.append(float(trainer.train_step(net, opt, loss_fn, x, y)))
+        per_step.append(read_launches())
+    want = launches_of(conv3x3_bn_relu=35, conv3x3_grad_weights=18)
+    check(all(p == want for p in per_step) and np.all(np.isfinite(step_loss)),
+          f"group-norm train steps: launches {per_step}, want {want}; "
+          f"losses {step_loss}")
+    for k in out:
+        out[k] += sum(p[k] for p in per_step)
+    net.eval()
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    with torch.no_grad():  # the head at the median logit: masks with edges
+        net.Conv_0.bias -= torch.median(net(x0))
+    cpu_net = port.UNet(cfg)
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    uri = f"file:{tmp}/mlruns_group"
+    register_models(port, {"staging": cpu_net.eval()}, uri)
+
+    try:
+        server.build_service(lab_server_cfg(port, tmp, uri), device="cuda")
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        refused = ""
+    check("PallasUNet folds BatchNorm; got norm='group' (use the Flax "
+          "module instead)" in refused, f"model_forward='auto' on a "
+          f"group-norm net: {refused!r}")
+
+    flax_cfg = lab_server_cfg(port, tmp, uri, model_forward="flax")
+    srv, service = grpc_service.build_server(flax_cfg, device="cuda")
+    srv.start()
+    try:
+        with grpc.insecure_channel(
+                f"localhost:{service.bound_port}") as channel:
+            stub = vision_grpc.VisionAnalysisServiceStub(channel)
+            wire = wire_requests(requests)
+            reset_launches()
+            before = list(stub.AnalyzeActuatorPerformance(iter(wire)))
+            torch.cuda.synchronize()
+            got = read_launches()
+            n = len(requests)
+            want = launches_of(conv3x3_bn_relu=18 * n, deproject_edge_stats=n,
+                               bspline_design=n, bspline_curvature=n,
+                               bitpack_mask=n)
+            check(got == want, f"group-norm net served with 'flax': "
+                  f"launches {got}, want {want}")
+            out = {k: out[k] + got[k] for k in out}
+            register_models(port, {"staging": cpu_net}, uri)
+            t0 = time.perf_counter()
+            swapped = service.maybe_reload()
+            reload_s = time.perf_counter() - t0
+            after = list(stub.AnalyzeActuatorPerformance(iter(wire)))
+    finally:
+        srv.stop(grace=None).wait()
+        service.close()
+    check(swapped and service.current_version == 2,
+          f"group-norm reload: swapped {swapped}, version "
+          f"{service.current_version}")
+    check([answer(r) for r in before] == [answer(r) for r in after],
+          "group-norm net: answers changed through a reload of the same "
+          "weights")
+
+    # the served forward against the direct analyzer and the CPU plain one
+    gforward = reference_forward(net, device="cuda")
+    analyze = port.make_frame_analyzer(gforward, img_size=256,
+                                       device="cuda")
+    bn_analyze = port.make_frame_analyzer(folded, img_size=256,
+                                          device="cuda")
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    for i, ((rgb, depth), resp) in enumerate(zip(frames, before)):
+        mask = analyze(rgb, depth, k, 0.001).mask.cpu().numpy()
+        check(np.array_equal(port.decode_mask_wire(resp.mask), mask),
+              f"group-norm frame {i}: served mask differs from the direct "
+              "analyzer's")
+    with torch.no_grad():
+        logits = eval_on_kernels(net)(x0)
+        plain = cpu_net(x0.cpu())
+    rel = rel_l2(torch, logits.cpu(), plain)
+    check(rel <= LOGITS_REL_L2, f"group-norm logits on the card vs the CPU "
+          f"plain forward: relative L2 {rel} > {LOGITS_REL_L2}")
+    rgb, depth = frames[0]
+    g_ms = device_ms(torch, lambda: analyze(rgb, depth, k, 0.001))
+    b_ms = device_ms(torch, lambda: bn_analyze(rgb, depth, k, 0.001))
+    log(f"lab (b) group norm (ModelConfig(norm='group')): {LAB_GROUP_STEPS} "
+        f"train steps, losses {[round(v, 5) for v in step_loss]}, launches "
+        f"a step {per_step[-1]}; 'auto' refused ({refused!r}); 'flax' over "
+        f"gRPC: {len(before)} frames, launches {got}, statuses "
+        f"{[r.status for r in before]}; reload of the same weights in "
+        f"{reload_s:.2f} s, answers unchanged; logits vs CPU plain rel L2 "
+        f"{rel:.3g}; device ms a frame (direct analyzer, profiler) "
+        f"group {g_ms:.4f} vs batch-norm folded {b_ms:.4f}")
+    return out
+
+
+def lab_checkpoint_leg(torch, port, tmp: Path, frames: list,
+                       requests: list) -> dict:
+    """(c) A reference checkpoint: the reference's torch U-Net at full
+    width, BatchNorm statistics calibrated on frame 0, saved as ``.pth``
+    and imported with ``import_checkpoint(register=True)`` at float32
+    compute, the reference's own (``ModelConfig(compute_dtype=
+    "float32")``, full widths); the served forward's logits within
+    LOGITS_REL_L2 of the torch module's own float32 output on the card,
+    and two frames served from the registry. The same weights in bf16
+    compute (``ModelConfig()``): the kernels within LOGITS_REL_L2 of
+    their plain versions, and the distance to the float32 output
+    printed."""
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.models.unet import (
+        with_compute_dtype,
+    )
+    from robotic_discovery_platform_tpu_torch.serving import server
+    from robotic_discovery_platform_tpu_torch.tools import (
+        import_torch_weights,
+    )
+
+    torch.manual_seed(SEED)
+    ref = reference_torch_unet(torch).cuda()
+    x0 = port.preprocess(torch.from_numpy(frames[0][0]).cuda()[None], 256)
+    xn = x0.permute(0, 3, 1, 2).contiguous()
+    for m in ref.modules():  # running statistics = frame 0's batch ones
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None
+    with torch.no_grad():
+        ref.train()(xn)
+        ref.eval()
+        ref.outc.bias -= torch.median(ref(xn))
+        want = ref(xn).permute(0, 2, 3, 1)
+    pth = tmp / "best_segmentation_model.pth"
+    torch.save({k: v.cpu() for k, v in ref.state_dict().items()}, pth)
+    uri = f"file:{tmp}/mlruns_import"
+    tracking.set_tracking_uri(uri)
+    tracking.set_experiment("Actuator Segmentation")
+    t0 = time.perf_counter()
+    _, version = import_torch_weights.import_checkpoint(
+        pth, port.ModelConfig(compute_dtype="float32"), register=True)
+    import_s = time.perf_counter() - t0
+    check(version == 1, f"imported checkpoint registered as {version}")
+    tracking.store_for(uri).set_alias(port.ServerConfig().model_name,
+                                      "staging", 1)
+    scfg = lab_server_cfg(port, tmp, uri)
+    _, registered, _ = server.resolve_serving_model(scfg, device="cuda")
+    with torch.no_grad():
+        got = port.FoldedUNet(registered, device="cuda")(x0)
+        bf16 = port.FoldedUNet(with_compute_dtype(registered, "bfloat16"),
+                               device="cuda")
+        got16, plain16 = bf16(x0), bf16.forward_plain(x0)
+    rel = rel_l2(torch, got, want)
+    check(rel <= LOGITS_REL_L2, f"imported checkpoint: served logits vs the "
+          f"torch module's float32 output, relative L2 {rel} > "
+          f"{LOGITS_REL_L2}")
+    rel16 = rel_l2(torch, got16, plain16)
+    check(rel16 <= LOGITS_REL_L2, f"imported checkpoint in bf16: kernels vs "
+          f"plain, relative L2 {rel16} > {LOGITS_REL_L2}")
+    service = server.build_service(scfg, device="cuda")
+    reset_launches()
+    responses = list(service.analyze_stream(iter(requests[:2])))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    service.close()
+    want_l = frame_launches(2, served=True)
+    check(launches == want_l and all(r.status.startswith(("OK", "DEGRADED"))
+                                     for r in responses),
+          f"imported checkpoint served: launches {launches}, want "
+          f"{want_l}; statuses {[r.status for r in responses]}")
+    log(f"lab (c) reference checkpoint: {pth.stat().st_size / 2**20:.1f} MiB"
+        f" .pth imported and registered in {import_s:.2f} s; served float32 "
+        f"logits vs the torch module's float32 output rel L2 {rel:.3g} (bar "
+        f"{LOGITS_REL_L2}); in bf16 compute the kernels vs plain {rel16:.3g}"
+        f", vs the float32 output {rel_l2(torch, got16, want):.3g} (logits "
+        f"std {float(want.std()):.4g}); 2 frames served, statuses "
+        f"{[r.status for r in responses]}")
+    return launches
+
+
+def lab_corpus_leg(torch, port) -> dict:
+    """(d) The geometry parity corpus (``tools/geometry_parity``) over
+    LAB_SCENES scenes at 480x640 on the card and on the CPU: every scene's
+    validity equal and its mean and max curvature within GEOM_RTOL, card
+    against CPU (``geometry_phase``'s bar), one launch of each geometry
+    kernel per scene and stride on the card."""
+    from robotic_discovery_platform_tpu_torch.tools import geometry_parity
+
+    reset_launches()
+    t0 = time.perf_counter()
+    card = geometry_parity.run_corpus(LAB_SCENES, seed=SEED, device="cuda")
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    n = 2 * LAB_SCENES
+    want = launches_of(deproject_edge_stats=n, bspline_design=n,
+                       bspline_curvature=n)
+    check(launches == want, f"corpus on the card: launches {launches}, "
+          f"want {want}")
+    t0 = time.perf_counter()
+    cpu = geometry_parity.run_corpus(LAB_SCENES, seed=SEED, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(card["scenes"], cpu["scenes"],
+                                   strict=True)):
+        check(a["params"] == b["params"], f"corpus scene {i}: draws differ")
+        for s in ("stride1", "stride2"):
+            check(a[s]["valid"] == b[s]["valid"] and np.allclose(
+                [a[s]["mean"], a[s]["max"]], [b[s]["mean"], b[s]["max"]],
+                rtol=GEOM_RTOL, atol=0.0),
+                f"corpus scene {i} {s}: card {a[s]} vs CPU {b[s]}")
+    summary = []
+    for s in ("stride1", "stride2"):
+        errs = np.asarray([sc[s]["rel_err_mean"] for sc in card["scenes"]])
+        truth = np.asarray([abs(sc[s]["mean"] - sc["true_curvature"])
+                            / sc["true_curvature"] for sc in card["scenes"]])
+        summary.append(
+            f"{s}: vs oracle median {np.median(errs):.4f} p95 "
+            f"{np.percentile(errs, 95):.4f}, vs truth median "
+            f"{np.median(truth):.4f} p95 {np.percentile(truth, 95):.4f}, "
+            f"valid {card['summary'][s]['valid_frac']:.2f}")
+    log(f"lab (d) geometry corpus, {LAB_SCENES} scenes at 480x640: card "
+        f"{card_s:.1f} s, CPU {cpu_s:.1f} s, card equal to CPU within "
+        f"rtol {GEOM_RTOL} scene by scene; mean curvature relative errors "
+        + "; ".join(summary))
+    return launches
+
+
+def lab_guard_leg(torch, port, folded, tmp: Path, frames: list,
+                  requests: list, arrays) -> None:
+    """(e) ``RDP_TRANSFER_GUARD=strict``: the direct, batched and scan
+    servicers and a scan-epoch ``train_model`` answer as with the guard
+    off, and inside a guarded call after warm-up an injected ``.item()``
+    raises."""
+    import os
+
+    from robotic_discovery_platform_tpu_torch.ops import graphs
+    from robotic_discovery_platform_tpu_torch.serving import server
+    from robotic_discovery_platform_tpu_torch.training import trainer
+
+    settings = {"direct": {}, "batched": dict(batch_window_ms=2.0,
+                                              max_batch=MAX_BATCH),
+                "scan": dict(batch_window_ms=2.0, max_batch=MAX_BATCH,
+                             batch_impl="scan")}
+    runs = {}
+    for guard in ("off", "strict"):
+        os.environ["RDP_TRANSFER_GUARD"] = guard
+        try:
+            for leg, fields in settings.items():
+                service = server.build_service(
+                    lab_server_cfg(port, tmp, f"file:{tmp}/unused",
+                                   **fields),
+                    folded, device="cuda")
+                try:
+                    guarded = getattr(service._engine.analyze,
+                                      "__transfer_guard__", "off")
+                    check(guarded == guard, f"{leg} servicer's analyzer "
+                          f"guard {guarded!r}, want {guard!r}")
+                    runs[guard, leg] = [answer(r) for r in
+                                        service.analyze_stream(iter(requests))
+                                        ] + [answer(r) for r in
+                                             service.analyze_stream(
+                                                 iter(requests))]
+                finally:
+                    service.close()
+            cfg = port.TrainConfig(
+                epochs=1, batch_size=TRAIN_BATCH, img_size=256,
+                learning_rate=1e-4, loss="bce", seed=SEED,
+                tracking_uri=f"file:{tmp}/mlruns_guard_{guard}",
+                checkpoint_dir=str(tmp / f"ckpt_guard_{guard}"))
+            res = trainer.train_model(cfg, port.ModelConfig(), arrays=arrays,
+                                      register=False, device="cuda")
+            runs[guard, "train"] = (res.best_val_loss,
+                                    sorted(res.final_metrics.items()))
+        finally:
+            os.environ.pop("RDP_TRANSFER_GUARD", None)
+    for leg in (*settings, "train"):
+        check(runs["strict", leg] == runs["off", leg],
+              f"{leg} under RDP_TRANSFER_GUARD=strict differs from the "
+              "guard off")
+
+    os.environ["RDP_TRANSFER_GUARD"] = "strict"
+    try:
+        analyze = port.make_frame_analyzer(folded, img_size=256,
+                                           device="cuda")
+    finally:
+        os.environ.pop("RDP_TRANSFER_GUARD", None)
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    rgb, depth = frames[0]
+    analyze(rgb, depth, k, 0.001)  # warm-up and capture: exempt
+    first = analyze(rgb, depth, k, 0.001, finish=graphs.clone)  # exempt
+    again = analyze(rgb, depth, k, 0.001, finish=graphs.clone)  # guarded
+
+    def item_finish(out):
+        out.mask.sum().item()  # a synchronising read-back
+        return graphs.clone(out)
+
+    try:
+        analyze(rgb, depth, k, 0.001, finish=item_finish)
+    except RuntimeError as exc:
+        raised = str(exc)
+    else:
+        raised = ""
+    check("synchronizing" in raised, f"an injected .item() inside a guarded "
+          f"call did not raise ({raised!r})")
+    check(torch.equal(first.mask, again.mask), "guarded replay differs")
+    log(f"lab (e) RDP_TRANSFER_GUARD=strict: direct, batched, scan servicers "
+        f"({2 * len(requests)} frames each) and a scan-epoch train_model "
+        f"(best val loss {runs['strict', 'train'][0]:.6f}) answer as with "
+        f"the guard off; an injected .item() raised: {raised!r}")
+
+
+def lab_bounds_leg(torch) -> None:
+    """(f) The bound figures the kernel phases print, now from
+    ``utils/flops``, against the figures they printed before (PERF.md's
+    kernel table), each to its printed digits."""
+    lib = flops_lib()
+
+    def b(cost, peak=None):
+        return bound_ms(*cost, peak)
+
+    f32, f64 = lib.H100_F32_FLOPS, lib.H100_F64_FLOPS
+
+    def total(costs, peak=None):
+        parts = [b(c, peak) for c in costs]
+        ops = sum(t for t, by in parts if by == "operations")
+        byt = sum(t for t, by in parts if by == "bytes")
+        return ops + byt, "operations" if ops >= byt else "bytes"
+
+    rate = int32_ops_per_s(torch)
+    got = {
+        "conv3x3_bn_relu, 18 a frame": total(
+            [lib.conv3x3_bn_relu_cost(1, h, h, ci, co)
+             for h, ci, co in MAIN_PATH_3X3]),
+        "conv1x1 head [1,256,256,64]->1": b(lib.conv1x1_cost(1, 256, 256, 64,
+                                                              1)),
+        "deproject_edge_stats 480x640": b(
+            lib.deproject_edge_stats_cost(480, 640), f32),
+        "deproject_edge_stats 240x320": b(
+            lib.deproject_edge_stats_cost(240, 320), f32),
+        "bspline_design N=6400 C=16": b(lib.bspline_design_cost(6400, 16, 20),
+                                        f64),
+        "bspline_curvature N=100 C=16": b(
+            lib.bspline_curvature_cost(100, 16, 20), f32),
+        "bitpack_mask [8,480,640]": b(lib.bitpack_mask_cost(8, 480, 640),
+                                      f32),
+        "bitpack_mask [1,480,640]": b(lib.bitpack_mask_cost(1, 480, 640),
+                                      f32),
+        "dequant_idct, a 4:2:0 frame": total(
+            [lib.dequant_idct_cost(1, n) for n in IDCT_PLANES], rate),
+        "conv_transpose2x2, 4 at B = 1": total(
+            [lib.conv_transpose2x2_cost(1, h, h, ci, co)
+             for h, ci, co in CONVT_SHAPES]),
+        "conv3x3_grad_weights, 18 at B = 4": total(
+            [lib.train_conv_costs(TRAIN_BATCH, h, ci, co)["dw"]
+             for h, ci, co in MAIN_PATH_3X3]),
+        "training forward, 18 at B = 4": total(
+            [lib.train_conv_costs(TRAIN_BATCH, h, ci, co)["fwd"]
+             for h, ci, co in MAIN_PATH_3X3]),
+        "training dx, 17 at B = 4": total(
+            [lib.train_conv_costs(TRAIN_BATCH, h, ci, co)["dx"]
+             for h, ci, co in MAIN_PATH_3X3[1:]]),
+    }
+    for name, (printed, word) in PRINTED_BOUNDS.items():
+        ms, by = got[name]
+        digits = len(printed.split(".")[1])
+        check(abs(ms - float(printed)) <= 0.5 * 10 ** -digits and by == word,
+              f"bound of {name}: {ms:.8g} ms ({by}), printed {printed} "
+              f"({word})")
+    log("lab (f) bounds from utils/flops equal the printed figures: " + "; "
+        .join(f"{n} {got[n][0]:.6g} ({got[n][1]})" for n in PRINTED_BOUNDS))
+
+
+def lab_phase(torch, port, folded=None, frames=None) -> dict:
+    """The lab's loop around the server and the trainer, at full width
+    (``ModelConfig()`` widths, 256x256 input, 480x640 frames): (a) the
+    registry over HTTP against ``tests/fake_mlflow_server.py`` in
+    process; (b) a group-norm net trained, refused by the folded forward
+    and served with ``model_forward="flax"``; (c) a reference ``.pth``
+    imported and served; (d) the geometry parity corpus on card and CPU;
+    (e) the transfer guard; (f) the bounds from ``utils/flops``. Returns
+    the launches of its main-path legs."""
+    import sys
+
+    from robotic_discovery_platform_tpu_torch import tracking
+    from robotic_discovery_platform_tpu_torch.training import synthetic
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from fake_mlflow_server import FakeMlflowServer
+
+    if folded is None:
+        folded, frames = phase_model(torch, port)
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lab_"))
+    requests = [port.raw_request(rgb, depth, mask_format=1)
+                for rgb, depth in frames]
+    arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
+    prev_uri = tracking.get_tracking_uri()
+    seconds, total = {}, dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    try:
+        t0 = time.perf_counter()
+        with FakeMlflowServer() as http:
+            add(lab_registry_leg(torch, port, http, tmp, frames, requests,
+                                 arrays))
+        seconds["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add(lab_group_leg(torch, port, tmp, frames, requests, arrays,
+                          folded))
+        seconds["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add(lab_checkpoint_leg(torch, port, tmp, frames, requests))
+        seconds["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add(lab_corpus_leg(torch, port))
+        seconds["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lab_guard_leg(torch, port, folded, tmp, frames, requests, arrays)
+        seconds["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lab_bounds_leg(torch)
+        seconds["f"] = time.perf_counter() - t0
+    finally:
+        tracking.set_tracking_uri(prev_uri)
+    log(f"lab_phase: {time.perf_counter() - t_phase:.1f} s (legs "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in seconds.items())
+        + f" s) [{nvidia_smi_line()}]")
+    return total
+
+
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
           "train_kernel_phase", "graph_phase", "bitpack_phase",
           "bitpack_timing_phase", "precision_phase", "trained_tier_phase",
           "deploy_phase", "drift_phase", "host_path_phase", "zoo_phase",
-          "controller_phase", "rollout_phase")
+          "controller_phase", "rollout_phase", "lab_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -6347,6 +7059,7 @@ def main(argv: list | None = None) -> int:
     legs.append(zoo_phase(torch, port, conv, frames))
     legs.append(controller_phase(torch, port, folded, frames))
     legs.append(rollout_phase(torch, port))
+    legs.append(lab_phase(torch, port, folded, frames))
     launches = {k: launches[k] + sum(leg[k] for leg in legs)
                 for k in launches}
     from robotic_discovery_platform_tpu_torch.analysis import recompile
@@ -6356,7 +7069,7 @@ def main(argv: list | None = None) -> int:
     log(f"captures since the graph phase, per guard instance: "
         f"{ {n: [e['traces'] for e in v] for n, v in recompile.snapshot().items()} }"
         ", all within budget")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
 
     log(json.dumps(kernel_record(results, launches)))
     log(card)

@@ -4,13 +4,15 @@ through the hand-written kernels.
 
 Same architecture and parameter tree as the JAX package's
 ``models/unet.py`` ``UNet``: DoubleConv blocks of (3x3 conv, no bias ->
-BatchNorm -> ReLU) x 2, a 4-level encoder with 2x2 max-pooling, a decoder
+norm -> ReLU) x 2 (``ModelConfig.norm``: BatchNorm, or GroupNorm over
+``gcd(32, C)`` groups), a 4-level encoder with 2x2 max-pooling, a decoder
 with the align-corners bilinear upsample (``bilinear=True``, the default)
 or a 2x2 stride-2 transposed conv with a bias and a nearest resize to the
 skip's size (``bilinear=False``, channel ladder ending at 16x the base
 width), the ``[skip, upsampled]`` concatenation, and a 1x1 head with a
 bias. Submodules carry the Flax
-names (``DoubleConv_0``, ``Down_2``, ``Conv_1``, ``BatchNorm_0`` ...) and
+names (``DoubleConv_0``, ``Down_2``, ``Conv_1``, ``BatchNorm_0``,
+``GroupNorm_0`` ...) and
 conv kernels stay HWIO, so a Flax ``{"params", "batch_stats"}`` tree maps
 onto :meth:`nn.Module.state_dict` keys one to one
 (:func:`models.weights.from_flax_variables`).
@@ -24,6 +26,8 @@ the operands in the compute dtype and float32 accumulation.
 each DoubleConv conv is the custom-VJP :func:`ops.conv.conv3x3` (the
 hand-written forward, dx and dw kernels), and BatchNorm normalizes with
 batch statistics in Flax's semantics and updates its running statistics.
+GroupNorm keeps no running statistics: it normalizes each sample alike in
+training and inference.
 The non-bilinear decoder's transposed conv trains as a plain autograd op
 (:func:`ops.conv.conv_transpose2x2_plain`), as the JAX package trains it
 with Flax's ``nn.ConvTranspose`` and no kernel.
@@ -235,29 +239,78 @@ class BatchNorm(nn.Module):
         return ((x.to(torch.float32) - mean) * mul + self.bias).to(x.dtype)
 
 
-class DoubleConv(nn.Module):
-    """(3x3 conv -> BatchNorm -> ReLU) x 2."""
+class GroupNorm(nn.Module):
+    """Flax's ``nn.GroupNorm(num_groups=groups)`` over the last (channel)
+    axis, with Flax's settings rather than ``torch.nn.GroupNorm``'s:
+    epsilon 1e-6, the statistics of each sample's (H, W, channels of the
+    group) in float32 as ``max(0, E[x^2] - E[x]^2)`` (Flax's fast
+    variance), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    float32 and one cast back to the input's dtype. No running
+    statistics: training and inference normalize alike."""
 
-    def __init__(self, cin: int, cout: int, mid: int | None = None,
-                 impl: str = "auto"):
+    eps = 1e-6
+
+    def __init__(self, c: int, groups: int):
         super().__init__()
-        mid = mid or cout
-        self.Conv_0 = Conv3x3(cin, mid, impl)
-        self.BatchNorm_0 = BatchNorm(mid)
-        self.Conv_1 = Conv3x3(mid, cout, impl)
-        self.BatchNorm_1 = BatchNorm(cout)
+        if c % groups:
+            raise ValueError(f"{groups} groups do not divide {c} channels")
+        self.groups = groups
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = torch.relu(self.BatchNorm_0(self.Conv_0(x, train), train))
-        return torch.relu(self.BatchNorm_1(self.Conv_1(x, train), train))
+        b, h, w, c = x.shape
+        g = self.groups
+        xf = x.to(torch.float32)
+        grouped = xf.reshape(b, h, w, g, c // g)
+        mean = grouped.mean(dim=(1, 2, 4))
+        var = torch.clamp_min((grouped * grouped).mean(dim=(1, 2, 4))
+                              - mean * mean, 0.0)
+        mean = mean.repeat_interleave(c // g, dim=1)[:, None, None, :]
+        var = var.repeat_interleave(c // g, dim=1)[:, None, None, :]
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+def _norm(norm: str, c: int) -> nn.Module:
+    """The JAX package's ``models/unet._norm``: BatchNorm, or GroupNorm
+    over ``gcd(32, c)`` groups."""
+    if norm == "batch":
+        return BatchNorm(c)
+    if norm == "group":
+        return GroupNorm(c, math.gcd(32, c))
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+class DoubleConv(nn.Module):
+    """(3x3 conv -> norm -> ReLU) x 2; the norms are ``BatchNorm_0`` and
+    ``BatchNorm_1``, or ``GroupNorm_0`` and ``GroupNorm_1``, as Flax names
+    them."""
+
+    def __init__(self, cin: int, cout: int, mid: int | None = None,
+                 impl: str = "auto", norm: str = "batch"):
+        super().__init__()
+        mid = mid or cout
+        kind = "BatchNorm" if norm == "batch" else "GroupNorm"
+        self.Conv_0 = Conv3x3(cin, mid, impl)
+        setattr(self, f"{kind}_0", _norm(norm, mid))
+        self.Conv_1 = Conv3x3(mid, cout, impl)
+        setattr(self, f"{kind}_1", _norm(norm, cout))
+        self._norms = (f"{kind}_0", f"{kind}_1")
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        n0, n1 = (getattr(self, n) for n in self._norms)
+        x = torch.relu(n0(self.Conv_0(x, train), train))
+        return torch.relu(n1(self.Conv_1(x, train), train))
 
 
 class Down(nn.Module):
     """2x2 max-pool, then DoubleConv."""
 
-    def __init__(self, cin: int, cout: int, impl: str = "auto"):
+    def __init__(self, cin: int, cout: int, impl: str = "auto",
+                 norm: str = "batch"):
         super().__init__()
-        self.DoubleConv_0 = DoubleConv(cin, cout, impl=impl)
+        self.DoubleConv_0 = DoubleConv(cin, cout, impl=impl, norm=norm)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.DoubleConv_0(max_pool2x2(x), train)
@@ -286,17 +339,18 @@ class Up(nn.Module):
     the sizes already match), and no halved mid width."""
 
     def __init__(self, cin_up: int, cin_skip: int, cout: int,
-                 impl: str = "auto", bilinear: bool = True):
+                 impl: str = "auto", bilinear: bool = True,
+                 norm: str = "batch"):
         super().__init__()
         self.bilinear = bilinear
         if bilinear:
             self.DoubleConv_0 = DoubleConv(cin_up + cin_skip, cout,
                                            mid=(cin_up + cin_skip) // 2,
-                                           impl=impl)
+                                           impl=impl, norm=norm)
         else:
             self.ConvTranspose_0 = ConvTranspose2x2(cin_up, cin_up // 2)
             self.DoubleConv_0 = DoubleConv(cin_up // 2 + cin_skip, cout,
-                                           impl=impl)
+                                           impl=impl, norm=norm)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 train: bool = False, cache: dict | None = None
@@ -326,7 +380,7 @@ class Head(nn.Module):
 
 class UNet(nn.Module):
     """Encoder/decoder U-Net (bilinear or transposed-conv decoder,
-    BatchNorm). Call with NHWC input; returns NHWC float32 logits.
+    BatchNorm or GroupNorm). Call with NHWC input; returns NHWC float32 logits.
     ``dtype`` is the compute dtype of the activations; parameters stay
     float32. ``forward(x, train=True)`` is the training forward (module
     docstring)."""
@@ -337,24 +391,27 @@ class UNet(nn.Module):
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.compute_dtype)
         self._interp: dict = {}  # upsample matrices, per shape and device
-        f, impl = cfg.base_features, cfg.conv_impl
+        f, impl, norm = cfg.base_features, cfg.conv_impl, cfg.norm
         factor = 2 if cfg.bilinear else 1
         widths = [f, 2 * f, 4 * f, 8 * f, 16 * f // factor]
-        self.DoubleConv_0 = DoubleConv(cfg.in_channels, f, impl=impl)
+        self.DoubleConv_0 = DoubleConv(cfg.in_channels, f, impl=impl,
+                                       norm=norm)
         for i in range(4):
-            setattr(self, f"Down_{i}", Down(widths[i], widths[i + 1], impl))
+            setattr(self, f"Down_{i}", Down(widths[i], widths[i + 1], impl,
+                                            norm))
         # Up_i fuses widths[4 - i] (upsampled) with widths[3 - i] (skip)
         up_in = widths[4]
         for i, cout in enumerate([8 * f // factor, 4 * f // factor,
                                   2 * f // factor, f]):
             setattr(self, f"Up_{i}", Up(up_in, widths[3 - i], cout, impl,
-                                        cfg.bilinear))
+                                        cfg.bilinear, norm))
             up_in = cout
         self.Conv_0 = Head(f, cfg.num_classes)
 
     def init_weights(self, gen: torch.Generator) -> UNet:
         """Draw every conv kernel and bias from ``cfg.init`` on ``gen``, in
-        parameter order; BatchNorm keeps scale 1, bias 0, mean 0, var 1.
+        parameter order; BatchNorm keeps scale 1, bias 0, mean 0, var 1,
+        GroupNorm scale 1, bias 0.
         A transposed conv's "torch" init takes torch ``ConvTranspose2d``'s
         fan, ``Cout * 4``, for kernel and bias (the JAX package's
         ``models/unet.py`` ``Up``); "lecun" takes Flax's ``Cin * 4`` and a
@@ -386,9 +443,10 @@ class UNet(nn.Module):
 
 def eval_on_kernels(net: UNet) -> UNet:
     """``net`` in eval mode with its 3x3 convs on the conv kernel
-    (:func:`ops.conv.conv3x3`, a unit epilogue; BatchNorm and ReLU apart):
+    (:func:`ops.conv.conv3x3`, a unit epilogue; the norm and ReLU apart):
     the unfolded forward that ``ServerConfig.model_forward="flax"``
-    serves. Returns ``net`` itself."""
+    serves, and the only served forward of a group-norm net. Returns
+    ``net`` itself."""
     for module in net.modules():
         if isinstance(module, Conv3x3):
             module.kernels_in_eval = True

@@ -1,7 +1,8 @@
 """Weights shared with the JAX package.
 
 - :func:`from_flax_variables` maps a Flax ``{"params", "batch_stats"}``
-  variable tree (numpy leaves) onto the state of :class:`models.unet.UNet`:
+  variable tree (numpy leaves; a group-norm net's has ``params`` alone)
+  onto the state of :class:`models.unet.UNet`:
   the module tree carries the Flax names, so each leaf's path joined by
   ``.`` is its state-dict key. :func:`to_flax_variables` is its inverse.
 - :func:`save_model` and :func:`load_model_dir` write and read a model
@@ -73,7 +74,8 @@ def to_flax_variables(net: UNet) -> dict:
     """:class:`UNet` -> the Flax ``{"params", "batch_stats"}`` tree with
     float32 numpy leaves: BatchNorm's ``mean``/``var`` under
     ``batch_stats``, everything else under ``params``; keys sorted at
-    every level, as a JAX tree operation leaves them."""
+    every level, as a JAX tree operation leaves them. A group-norm net
+    has no ``batch_stats`` collection, as Flax's init gives none."""
     tree: dict = {"batch_stats": {}, "params": {}}
     for key, value in sorted(net.state_dict().items()):
         *path, leaf = key.split(".")
@@ -87,6 +89,8 @@ def to_flax_variables(net: UNet) -> dict:
         return ({k: ordered(node[k]) for k in sorted(node)}
                 if isinstance(node, dict) else node)
 
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
     return ordered(tree)
 
 

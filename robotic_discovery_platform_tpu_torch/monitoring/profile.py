@@ -311,7 +311,7 @@ def capture_feature_profile(
     (workflows/retraining.py calls this over eval-set scenes after
     registering a new version). ``model`` is a forward
     (``ops/unet_infer.FoldedUNet``) or a ``models/unet.UNet``, which is
-    folded onto the kernels here.
+    put on the kernels here (``ops/unet_infer.reference_forward``).
 
     On the card the analyzer captures one CUDA graph per frame shape, as
     the JAX analyzer traces once per shape; the analyzer, its graphs and
@@ -322,7 +322,7 @@ def capture_feature_profile(
     from robotic_discovery_platform_tpu_torch.models.unet import UNet
     from robotic_discovery_platform_tpu_torch.ops import graphs, pipeline
     from robotic_discovery_platform_tpu_torch.ops.unet_infer import (
-        FoldedUNet,
+        reference_forward,
     )
     from robotic_discovery_platform_tpu_torch.utils.config import (
         GeometryConfig,
@@ -333,8 +333,8 @@ def capture_feature_profile(
 
     device = resolve_device(device)
     geom_cfg = geom_cfg if geom_cfg is not None else GeometryConfig()
-    forward = (FoldedUNet(model, device=device) if isinstance(model, UNet)
-               else model)
+    forward = (reference_forward(model, device=device)
+               if isinstance(model, UNet) else model)
     analyze = pipeline.make_frame_analyzer(
         forward, img_size=img_size, geom_cfg=geom_cfg, device=device
     )

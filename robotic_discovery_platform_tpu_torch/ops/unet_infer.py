@@ -19,11 +19,15 @@ against on the card.
 
 from __future__ import annotations
 
+import copy
+from typing import Callable
+
 import torch
 
 from robotic_discovery_platform_tpu_torch.models.unet import (
     UNet,
     compute_dtype,
+    eval_on_kernels,
     max_pool2x2,
     resize_nearest,
     upsample_align_corners,
@@ -51,6 +55,12 @@ class FoldedUNet:
 
     def __init__(self, net: UNet, device: str | torch.device = "cuda"):
         check_supported(net.cfg)
+        if net.cfg.norm != "batch":
+            # the JAX package's PallasUNet refusal, word for word
+            raise ValueError(
+                "PallasUNet folds BatchNorm; got norm="
+                f"{net.cfg.norm!r} (use the Flax module instead)"
+            )
         self.cfg = net.cfg
         self.device = resolve_device(device)
         self.dtype = compute_dtype(net.cfg.compute_dtype)
@@ -126,3 +136,16 @@ class FoldedUNet:
         w, scale, bias = layers["head"]
         return conv1x1_head(y, w, scale, bias, relu=False,
                             out_dtype=torch.float32)
+
+
+def reference_forward(net: UNet, device: str | torch.device = "cuda"
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The forward a reference analyzer (a gate's, a profile capture's, a
+    rollout candidate's) runs over ``net`` on ``device``: folded onto the
+    kernels (:class:`FoldedUNet`) where its norm folds, else a copy of the
+    unfolded module on the conv kernel (:func:`models.unet.
+    eval_on_kernels`), as the JAX package's reference analyzers run the
+    Flax module whatever the norm."""
+    if net.cfg.norm == "batch":
+        return FoldedUNet(net, device=device)
+    return eval_on_kernels(copy.deepcopy(net).to(resolve_device(device)))

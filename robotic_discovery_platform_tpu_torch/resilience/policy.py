@@ -73,8 +73,8 @@ class Deadline:
 def default_retryable(exc: BaseException) -> bool:
     """Transient-error classification shared by every retry site.
 
-    Retryable: connection-level failures (builtin ``ConnectionError``,
-    ``TimeoutError``, requests' connect/timeout exceptions), HTTP 429 and
+    Retryable: connection-level failures (builtin ``ConnectionError`` and
+    ``TimeoutError``, which ``http.client`` raises), HTTP 429 and
     5xx carried as an integer ``status`` attribute (tracking's
     ``MlflowRestError`` and the fault injector's ``InjectedHTTPError``
     both match without an import cycle), and gRPC UNAVAILABLE.
@@ -86,14 +86,6 @@ def default_retryable(exc: BaseException) -> bool:
         return False
     if isinstance(exc, (ConnectionError, TimeoutError)):
         return True
-    try:
-        import requests
-
-        if isinstance(exc, (requests.exceptions.ConnectionError,
-                            requests.exceptions.Timeout)):
-            return True
-    except ImportError:
-        pass
     status = getattr(exc, "status", None)
     if isinstance(status, int):
         return status == 429 or status >= 500

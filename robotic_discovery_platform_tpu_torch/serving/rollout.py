@@ -344,7 +344,7 @@ class RolloutTarget:
         from robotic_discovery_platform_tpu_torch import tracking
         from robotic_discovery_platform_tpu_torch.ops import pipeline
         from robotic_discovery_platform_tpu_torch.ops.unet_infer import (
-            FoldedUNet,
+            reference_forward,
         )
 
         sv = self.servicer
@@ -359,7 +359,7 @@ class RolloutTarget:
                 f"models:/{sv.cfg.model_name}/{version}",
                 store=sv._registry_store, device=sv.device)
         analyze = pipeline.make_frame_analyzer(
-            FoldedUNet(net, device=sv.device),
+            reference_forward(net, device=sv.device),
             img_size=sv.cfg.model_img_size, geom_cfg=sv.geom_cfg,
             device=sv.device)
         return analyze.eager
@@ -675,7 +675,7 @@ class RolloutManager:
         from robotic_discovery_platform_tpu_torch import tracking
         from robotic_discovery_platform_tpu_torch.ops import pipeline
         from robotic_discovery_platform_tpu_torch.ops.unet_infer import (
-            FoldedUNet,
+            reference_forward,
         )
 
         store = tracking.store_for(self.server_cfg.tracking_uri)
@@ -683,7 +683,7 @@ class RolloutManager:
             f"models:/{self.server_cfg.model_name}/{version}", store=store,
             device=self._device)
         return pipeline.make_frame_analyzer(
-            FoldedUNet(net, device=self._device),
+            reference_forward(net, device=self._device),
             img_size=self.server_cfg.model_img_size,
             geom_cfg=GeometryConfig(stride=self.server_cfg.geometry_stride),
             device=self._device)

@@ -174,7 +174,10 @@ from robotic_discovery_platform_tpu_torch.observability import (
 )
 from robotic_discovery_platform_tpu_torch.ops import graphs, pipeline, quant
 from robotic_discovery_platform_tpu_torch.ops.pipeline import Analyzer
-from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
+from robotic_discovery_platform_tpu_torch.ops.unet_infer import (
+    FoldedUNet,
+    reference_forward,
+)
 from robotic_discovery_platform_tpu_torch.resilience import (
     CircuitBreaker,
     CircuitOpenError,
@@ -272,7 +275,8 @@ def tier_forward(net: UNet, precision: str, device: torch.device,
     (:class:`ops.unet_infer.FoldedUNet`), "flax" serves the unfolded
     ``UNet`` in eval mode with its 3x3 convs on the conv kernel
     (:func:`models.unet.eval_on_kernels`); any other value raises
-    ``ValueError``."""
+    ``ValueError``. A group-norm net serves only with "flax": the folded
+    forward refuses it with the JAX ``PallasUNet``'s ``ValueError``."""
     if model_forward not in ("auto", "pallas", "flax"):
         raise ValueError(f"unknown model_forward {model_forward!r}")
     served, report = quant.apply_precision(net, precision)
@@ -1551,7 +1555,7 @@ class VisionAnalysisService:
         ``quant_parity_max_curv_err``."""
         cfg, eng = self.cfg, self._engine
         ref = pipeline.make_frame_analyzer(
-            FoldedUNet(pristine, device=self.device),
+            reference_forward(pristine, device=self.device),
             img_size=cfg.model_img_size, geom_cfg=self.geom_cfg,
             device=self.device)
         k = self._camera(width, height)

@@ -68,6 +68,7 @@ from robotic_discovery_platform_tpu_torch.training import data as data_lib
 from robotic_discovery_platform_tpu_torch.training.checkpoint import (
     CheckpointManager,
 )
+from robotic_discovery_platform_tpu_torch.utils import transferguard
 from robotic_discovery_platform_tpu_torch.utils.config import (
     ModelConfig,
     TrainConfig,
@@ -233,6 +234,10 @@ class StreamEpochs:
         self.net, self.optimizer, self.loss_fn = net, optimizer, loss_fn
         self.train_batches, self.val_batches = train_batches, val_batches
         self.device = device
+        # the hot entries, behind RDP_TRANSFER_GUARD (the JAX package's
+        # make_train_step / make_eval_step)
+        self._train_step = transferguard.apply(train_step)
+        self._eval_step = transferguard.apply(eval_step)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
@@ -246,17 +251,17 @@ class StreamEpochs:
         return self.train_batches.rng
 
     def train(self) -> float:
-        losses = [train_step(self.net, self.optimizer, self.loss_fn,
-                             self._to_device(bx), self._to_device(by))
+        losses = [self._train_step(self.net, self.optimizer, self.loss_fn,
+                                   self._to_device(bx), self._to_device(by))
                   for bx, by in self.train_batches]
         return float(np.mean(torch.stack(losses).cpu().numpy()))
 
     def validate(self) -> dict:
         agg: dict[str, list] = {}
         for bx, by in self.val_batches:
-            for k, v in eval_step(self.net, self.loss_fn,
-                                  self._to_device(bx),
-                                  self._to_device(by)).items():
+            for k, v in self._eval_step(self.net, self.loss_fn,
+                                        self._to_device(bx),
+                                        self._to_device(by)).items():
                 agg.setdefault(k, []).append(v)
         return {k: float(np.mean(torch.stack(v).cpu().numpy()))
                 for k, v in agg.items()}
@@ -303,12 +308,18 @@ class ScanEpochs:
         self.val_slot = torch.zeros((1,), dtype=torch.int64, device=device)
         self.metrics = torch.zeros((self.val_order.shape[0], len(METRICS)),
                                    dtype=torch.float32, device=device)
-        self._train_graph = graphs.StepGraph(
+        # behind RDP_TRANSFER_GUARD, as the JAX package's epoch runners:
+        # the warm-up step and the capture are exempt, every replay guarded
+        self._train_graph = self._guarded(graphs.StepGraph(
             self._train_body, recompile.capture_guard("trainer.train_epoch",
-                                                      2), device)
-        self._eval_graph = graphs.StepGraph(
+                                                      2), device))
+        self._eval_graph = self._guarded(graphs.StepGraph(
             self._eval_body, recompile.capture_guard("trainer.eval_epoch", 2),
-            device)
+            device))
+
+    @staticmethod
+    def _guarded(step: graphs.StepGraph):
+        return transferguard.apply(step, key=lambda args, kwargs: step.stage)
 
     def _train_body(self) -> None:
         idx = self.order.index_select(0, self.slot).view(-1)

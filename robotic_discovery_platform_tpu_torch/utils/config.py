@@ -2,8 +2,9 @@
 ``ModelConfig``, ``TrainConfig``, ``GeometryConfig``, ``ServerConfig``,
 ``RolloutConfig``, ``ClientConfig`` and ``MeshConfig`` that the serving,
 rollout, client and training paths read, with the same names and
-defaults, and the offline drift detector's ``DriftConfig``, plus
-``from_dict`` and ``--section.field`` flag parsing for them.
+defaults, the offline drift detector's ``DriftConfig``, and the operator
+tools' ``CameraConfig``, ``CalibrationConfig`` and ``CollectConfig``,
+plus ``from_dict`` and ``--section.field`` flag parsing for them.
 
 Settings the port does not implement yet raise ``NotImplementedError`` in
 :func:`check_supported`, naming the ROADMAP item that brings them:
@@ -11,7 +12,6 @@ Settings the port does not implement yet raise ``NotImplementedError`` in
 - on the batched path (``batch_window_ms > 0``): ``serving_mesh > 1``
   and the ``RDP_SERVING_CHIPS`` and ``RDP_DISPATCH_MODE`` overrides (the
   multi-device router, item 14);
-- ``ModelConfig.norm`` other than ``"batch"`` (group norm, item 30);
 - any non-default ``MeshConfig`` (the mesh trainer, item 14).
 """
 
@@ -48,9 +48,22 @@ BATCH_IMPLS = ("dense", "scan")
 #: ``ServerConfig.model_forward`` values, the JAX package's names
 MODEL_FORWARDS = ("auto", "pallas", "flax")
 
+#: ``ModelConfig.norm`` values, the JAX package's names: BatchNorm (the
+#: reference's, folded by the served forward) and GroupNorm (unfolded)
+NORMS = ("batch", "group")
+
 #: the JAX package's environment overrides of the multi-device router's
 #: settings (ROADMAP queue 1 item 14)
 _ROUTER_ENV_OVERRIDES = ("RDP_SERVING_CHIPS", "RDP_DISPATCH_MODE")
+
+
+@dataclass(frozen=True)
+class CameraConfig:
+    """The camera stream: 640x480 at 30 FPS, depth z16 and color bgr8."""
+
+    width: int = 640
+    height: int = 480
+    fps: int = 30
 
 
 @dataclass(frozen=True)
@@ -368,6 +381,27 @@ class DriftConfig:
 
 
 @dataclass(frozen=True)
+class CalibrationConfig:
+    """The camera calibration tool (``tools/calibrate_camera.py``): a 9x7
+    checkerboard of 27 mm squares, at least 5 views, the intrinsics saved
+    where the server reads them."""
+
+    checkerboard_cols: int = 9
+    checkerboard_rows: int = 7
+    square_size_mm: float = 27.0
+    min_captures: int = 5
+    output_path: str = "ml/configs/calibration_data.npz"
+
+
+@dataclass(frozen=True)
+class CollectConfig:
+    """The raw data collector (``tools/collect_data.py``)."""
+
+    output_root: str = "ml/raw_data"
+    capture_interval_s: float = 0.5
+
+
+@dataclass(frozen=True)
 class MeshConfig:
     """The JAX package's device-mesh sizes (data, model, spatial). The
     port trains on one device: any value but the defaults raises."""
@@ -381,6 +415,7 @@ class MeshConfig:
 class PlatformConfig:
     """Root of the sections the port reads."""
 
+    camera: CameraConfig = field(default_factory=CameraConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     geometry: GeometryConfig = field(default_factory=GeometryConfig)
@@ -389,6 +424,8 @@ class PlatformConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     client: ClientConfig = field(default_factory=ClientConfig)
     drift: DriftConfig = field(default_factory=DriftConfig)
+    calibration: CalibrationConfig = field(default_factory=CalibrationConfig)
+    collect: CollectConfig = field(default_factory=CollectConfig)
 
 
 def replace(cfg: Any, **updates: Any) -> Any:
@@ -445,12 +482,8 @@ def check_supported(cfg: Any) -> None:
                 f"unknown conv_impl {cfg.conv_impl!r} (choose from "
                 f"{CONV_IMPLS})"
             )
-        if cfg.norm != "batch":
-            raise NotImplementedError(
-                f"ModelConfig.norm={cfg.norm!r}: the folded forward folds "
-                "BatchNorm; only 'batch' is ported (group norm is ROADMAP "
-                "queue 1 item 30)"
-            )
+        if cfg.norm not in NORMS:
+            raise ValueError(f"unknown norm {cfg.norm!r}")
 
 
 def _check_batched(cfg: ServerConfig) -> None:

@@ -91,6 +91,14 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.serving.rollout\n"
         "import robotic_discovery_platform_tpu_torch.models.variants\n"
         "import robotic_discovery_platform_tpu_torch.serving.proto.vision_grpc\n"
+        "import robotic_discovery_platform_tpu_torch.tracking.rest_backend\n"
+        "import robotic_discovery_platform_tpu_torch.tools.import_torch_weights\n"
+        "import robotic_discovery_platform_tpu_torch.tools.geometry_parity\n"
+        "import robotic_discovery_platform_tpu_torch.tools.make_dataset\n"
+        "import robotic_discovery_platform_tpu_torch.tools.collect_data\n"
+        "import robotic_discovery_platform_tpu_torch.tools.calibrate_camera\n"
+        "import robotic_discovery_platform_tpu_torch.utils.flops\n"
+        "import robotic_discovery_platform_tpu_torch.utils.transferguard\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -116,9 +124,16 @@ def test_port_and_chip_smoke_import_no_jax():
                    "serving.client", "serving.proto.vision_grpc",
                    "serving.ingest", "serving.egress", "io.frames",
                    "serving.controller", "serving.zoo", "serving.rollout",
-                   "models.variants"):
+                   "models.variants", "tracking.rest_backend",
+                   "tools.import_torch_weights", "tools.geometry_parity",
+                   "tools.make_dataset", "tools.collect_data",
+                   "tools.calibrate_camera", "utils.flops",
+                   "utils.transferguard"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+    # the REST store speaks HTTP through the standard library: the card's
+    # machine has no requests
+    assert "requests" not in loaded
 
     # chip_smoke and the port's serving cost harness
     for script in ("chip_smoke.py", "tools/torch_serving_cost.py"):
@@ -136,7 +151,8 @@ def test_port_and_chip_smoke_import_no_jax():
                      if isinstance(node, ast.Import)
                      else [node.module] if isinstance(node, ast.ImportFrom)
                      and node.module else [])
-            assert not [m for m in names if _forbidden(m)], path
+            assert not [m for m in names if _forbidden(m)
+                        or m == "requests"], path
 
 
 def _tiny_net():
@@ -375,8 +391,18 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         assert tuple(net.Down_3.DoubleConv_0.Conv_1.kernel.shape) == (
             3, 3, 64, 64)
     elif case == "norm_group":
-        with pytest.raises(NotImplementedError):
-            tunet.UNet(config.ModelConfig(norm="group"))
+        # group norm is ported: the net builds with Flax's GroupNorm_0 and
+        # GroupNorm_1 in each DoubleConv, gcd(32, C) groups, no statistics
+        config.check_supported(config.ModelConfig(norm="group"))
+        net = tunet.UNet(config.ModelConfig(norm="group", base_features=4))
+        gn = net.Down_3.DoubleConv_0.GroupNorm_0
+        assert isinstance(gn, tunet.GroupNorm) and gn.groups == 32
+        assert net.DoubleConv_0.GroupNorm_1.groups == 4
+        assert not any(k.endswith((".mean", ".var"))
+                       for k in net.state_dict())
+        assert not hasattr(net.DoubleConv_0, "BatchNorm_0")
+        with pytest.raises(ValueError, match="unknown norm"):
+            config.check_supported(config.ModelConfig(norm="layer"))
     else:
         (tmp_path / "c.json").write_text(json.dumps(
             {"model": {"base_features": 16}}))

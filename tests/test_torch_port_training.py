@@ -583,14 +583,40 @@ def test_training_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
     elif case == "mesh_flag":
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):
             main(["--device", "cpu", "--mesh.data", "2"])
-    elif case.startswith("tracking_"):
-        uri = ("http://localhost:5000" if case == "tracking_http"
-               else "mlflow+file:/tmp/x")
-        with pytest.raises(NotImplementedError, match="queue 1 item 18"):
+    elif case == "tracking_http":
+        # ported: an http:// URI reaches the REST store, and a run trains
+        # against an MLflow server (tests/fake_mlflow_server.py)
+        from fake_mlflow_server import FakeMlflowServer
+
+        from robotic_discovery_platform_tpu_torch.tracking import api
+        from robotic_discovery_platform_tpu_torch.tracking.rest_backend import (
+            RestMlflowStore,
+        )
+
+        prev = tracking.get_tracking_uri()
+        try:
+            with FakeMlflowServer() as uri:
+                assert isinstance(tracking.store_for(uri), RestMlflowStore)
+                result = trainer.train_model(
+                    dataclasses.replace(cfg, tracking_uri=uri), TRAIN_MODEL,
+                    **kw)
+                assert isinstance(api._store(), RestMlflowStore)
+                history = tracking.get_metric_history(result.run_id,
+                                                      "train_loss")
+                assert [h["step"] for h in history] == [0]
+        finally:
+            tracking.set_tracking_uri(prev)
+    elif case == "tracking_mlflow":
+        # the mlflow client is not used: the JAX package's ImportError for
+        # a missing client, from the URI and from train_model
+        uri = "mlflow+file:/tmp/x"
+        with pytest.raises(ImportError, match="needs the 'mlflow' extra"):
             tracking.set_tracking_uri(uri)
-        with pytest.raises(NotImplementedError, match="queue 1 item 18"):
+        with pytest.raises(ImportError, match="needs the 'mlflow' extra"):
             trainer.train_model(dataclasses.replace(cfg, tracking_uri=uri),
                                 TRAIN_MODEL, **kw)
+        with pytest.raises(ImportError, match="needs the 'mlflow' extra"):
+            tracking.store_for("databricks://profile")
     elif case == "supervisor":
         # ported (tests/test_torch_port_supervisor.py): a checkpoint that
         # never landed (its temp directory) does not count as training
