@@ -17,7 +17,9 @@ Package map:
   ``models/losses.py``: the losses and metrics;
 - ``ops/conv.py``: the conv kernels' wrappers and plain versions, and the
   training conv (custom VJP); ``ops/unet_infer.py``: the folded forward
-  on those kernels;
+  on those kernels; ``ops/tuning.py``: the per-shape tuning table
+  (``CUDA_TUNE.json``) of the 3x3 conv's K splits and the geometry
+  stages' paths;
 - ``ops/bspline.py``, ``ops/geometry.py``: the curvature profile;
   ``ops/geometry_kernels.py``: the geometry kernels of one frame;
 - ``ops/pack.py``: the mask bitpack kernel and the packed row layout;
@@ -33,11 +35,16 @@ Package map:
   and drain) and its gRPC adapter and entry point (``python -m
   robotic_discovery_platform_tpu_torch.serving.server``), the
   grpc.health.v1 service, the batch dispatcher and its admission queue,
-  and the streaming client (``serving/client.py``);
+  the streaming client (``serving/client.py``), and the serving fleet:
+  the front-end (``serving/frontend.py``, ``python -m
+  robotic_discovery_platform_tpu_torch.serving.frontend``), its router,
+  leases and gossip (``serving/fleet.py``), the capacity planner and
+  autoscaler (``serving/planner.py``) and the replica bootstrap
+  (``serving/replica.py``);
 - ``resilience/``, ``observability/``: the circuit breaker, retry policy
   and fault sites; the metrics registry, ``/metrics`` and ``/debug/*``
-  endpoint, spans, event journal and SLO tracker (copies of the JAX
-  package's); ``utils/profiling.py``: stage timers and the
+  endpoint, spans, event journal, SLO tracker and the fleet's
+  ``/federate`` (copies of the JAX package's); ``utils/profiling.py``: stage timers and the
   ``torch.profiler`` capture behind ``/debug/profile``;
 - ``training/``: ``train_model`` (and ``python -m
   robotic_discovery_platform_tpu_torch.training``), the data pipeline,
@@ -50,44 +57,47 @@ Package map:
   profiles a new version.
 """
 
-from robotic_discovery_platform_tpu_torch.io.frames import (
-    SyntheticSource,
-    iter_frames,
-    load_calibration,
-    render_scene,
-)
-from robotic_discovery_platform_tpu_torch.models.unet import BatchNorm, UNet
-from robotic_discovery_platform_tpu_torch.models.weights import (
-    from_flax_variables,
-    load_model_dir,
-)
-from robotic_discovery_platform_tpu_torch.ops.geometry import (
-    compute_curvature_profile,
-)
-from robotic_discovery_platform_tpu_torch.ops.pipeline import (
-    make_frame_analyzer,
-    preprocess,
-)
-from robotic_discovery_platform_tpu_torch.ops.unet_infer import FoldedUNet
-from robotic_discovery_platform_tpu_torch.serving.egress import (
-    decode_mask_wire,
-    decode_spline_wire,
-)
-from robotic_discovery_platform_tpu_torch.serving.ingest import (
-    default_intrinsics,
-    raw_request,
-)
-from robotic_discovery_platform_tpu_torch.serving.server import (
-    VisionAnalysisService,
-    build_service,
-)
-from robotic_discovery_platform_tpu_torch.training.trainer import train_model
-from robotic_discovery_platform_tpu_torch.utils.config import (
-    GeometryConfig,
-    ModelConfig,
-    ServerConfig,
-    TrainConfig,
-)
+#: public name -> the module that defines it, imported at first use: the
+#: fleet front-end (``serving/frontend.py``) imports this package and must
+#: load nothing of ``ops/`` or ``models/``
+_LAZY = {
+    "BatchNorm": "robotic_discovery_platform_tpu_torch.models.unet",
+    "FoldedUNet": "robotic_discovery_platform_tpu_torch.ops.unet_infer",
+    "GeometryConfig": "robotic_discovery_platform_tpu_torch.utils.config",
+    "ModelConfig": "robotic_discovery_platform_tpu_torch.utils.config",
+    "ServerConfig": "robotic_discovery_platform_tpu_torch.utils.config",
+    "SyntheticSource": "robotic_discovery_platform_tpu_torch.io.frames",
+    "TrainConfig": "robotic_discovery_platform_tpu_torch.utils.config",
+    "UNet": "robotic_discovery_platform_tpu_torch.models.unet",
+    "VisionAnalysisService": "robotic_discovery_platform_tpu_torch.serving.server",
+    "build_service": "robotic_discovery_platform_tpu_torch.serving.server",
+    "compute_curvature_profile": "robotic_discovery_platform_tpu_torch.ops.geometry",
+    "decode_mask_wire": "robotic_discovery_platform_tpu_torch.serving.egress",
+    "decode_spline_wire": "robotic_discovery_platform_tpu_torch.serving.egress",
+    "default_intrinsics": "robotic_discovery_platform_tpu_torch.serving.ingest",
+    "from_flax_variables": "robotic_discovery_platform_tpu_torch.models.weights",
+    "iter_frames": "robotic_discovery_platform_tpu_torch.io.frames",
+    "load_calibration": "robotic_discovery_platform_tpu_torch.io.frames",
+    "load_model_dir": "robotic_discovery_platform_tpu_torch.models.weights",
+    "make_frame_analyzer": "robotic_discovery_platform_tpu_torch.ops.pipeline",
+    "preprocess": "robotic_discovery_platform_tpu_torch.ops.pipeline",
+    "raw_request": "robotic_discovery_platform_tpu_torch.serving.ingest",
+    "render_scene": "robotic_discovery_platform_tpu_torch.io.frames",
+    "train_model": "robotic_discovery_platform_tpu_torch.training.trainer",
+}
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
 
 __all__ = [
     "BatchNorm", "FoldedUNet", "GeometryConfig", "ModelConfig",

@@ -32,9 +32,8 @@ analysis -> resilience -> observability triad:
   breaker transitions) with a monotonic cursor, trace-ID stamping, and
   ``GET /debug/events?since=``.
 - :mod:`sketch` -- mergeable streaming histograms and quantiles.
-
-The JAX package's fleet federation (``federation.py``) is not ported
-(ROADMAP queue 1 items 22 and 23).
+- :mod:`federation` -- the fleet front-end's ``/federate``: every
+  replica's families under a ``replica`` label, with a last-good cache.
 """
 
 from robotic_discovery_platform_tpu_torch.observability.registry import (

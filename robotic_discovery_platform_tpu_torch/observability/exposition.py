@@ -46,10 +46,9 @@ down with it. It serves:
   without restarting it.
 
 The port's copy of the JAX package's module. The port's server sets the
-drift provider (``serving/grpc_service.build_server``); the federation,
-trace, rollout and zoo providers are never set (those subsystems are not
-ported), so those endpoints answer as the JAX ones do with no provider
-attached.
+drift, zoo and rollout providers (``serving/grpc_service.build_server``);
+the fleet front-end (``serving/frontend.build_frontend``) sets the
+federation, trace and events providers.
 
 Lifecycle: ``serving.server.build_server`` starts one when
 ``ServerConfig.metrics_port`` / ``RDP_METRICS_PORT`` asks for it and

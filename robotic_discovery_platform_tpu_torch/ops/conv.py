@@ -187,7 +187,8 @@ def fwd_plan(b: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int]:
     return splits, (splits * b * h * w * cout if splits > 1 else 0)
 
 
-def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
+def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None,
+                    splits: int | None = None):
     """Fused NHWC 3x3 SAME conv + per-channel scale/bias (+ ReLU).
 
     Args:
@@ -197,6 +198,9 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
         relu: apply max(y, 0) in the epilogue.
         out_dtype: output dtype (default x's; float32 also taken for a
             bfloat16 x).
+        splits: the bf16 launch's K-split count (``ops/tuning.lookup``);
+            None takes :func:`fwd_plan`'s. The float32 path and the plain
+            version ignore it: neither splits K.
     """
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type == "cpu":
@@ -218,8 +222,12 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
     w = w.to(x.dtype)
     code = _check_cuda("conv3x3_bn_relu", x, w, out_dtype, scale=scale,
                        bias=bias)
-    splits, ws_numel = (1, 0) if code == 0 else fwd_plan(b, h, width, cin,
-                                                          cout)
+    if code == 0:
+        splits, ws_numel = 1, 0
+    else:
+        planned, _ = fwd_plan(b, h, width, cin, cout)
+        splits = planned if splits is None else int(splits)
+        ws_numel = splits * b * h * width * cout if splits > 1 else 0
     if code and cin % 8 == 0 and x.data_ptr() % 16:
         raise ValueError("conv3x3_bn_relu: a bfloat16 x with Cin a multiple "
                          "of 8 must start on a 16-byte address")
@@ -234,10 +242,13 @@ def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None):
     )
     build.check("conv3x3_bn_relu", err)
     graphs.count_launch(conv3x3_bn_relu)
+    conv3x3_bn_relu.splits_taken[(h, width, cin, cout)] = splits
     return out
 
 
 conv3x3_bn_relu.launches = 0
+#: (H, W, Cin, Cout) -> the split count of that shape's latest launch
+conv3x3_bn_relu.splits_taken = {}
 
 
 # -- 1x1 conv + scale/bias (+ReLU) -------------------------------------------

@@ -12,6 +12,11 @@ forward). Max-pooling, the align-corners upsample, the nearest resize and
 the skip concatenation stay plain torch, as they stayed XLA in the JAX
 package.
 
+Each 3x3 launch takes its K-split count from the tuning table
+(:func:`ops.tuning.lookup`, the JAX package's ``_dispatch_3x3``), or
+:func:`ops.conv.fwd_plan`'s where the table has no valid entry. A CUDA
+graph keeps the split in force when it was captured.
+
 :meth:`FoldedUNet.forward_plain` runs the same sequence through the
 kernels' plain PyTorch versions: the reference the kernel forward is held
 against on the card.
@@ -32,6 +37,7 @@ from robotic_discovery_platform_tpu_torch.models.unet import (
     resize_nearest,
     upsample_align_corners,
 )
+from robotic_discovery_platform_tpu_torch.ops import tuning
 from robotic_discovery_platform_tpu_torch.ops.conv import (
     conv1x1,
     conv1x1_plain,
@@ -43,6 +49,15 @@ from robotic_discovery_platform_tpu_torch.ops.conv import (
 )
 from robotic_discovery_platform_tpu_torch.utils.config import check_supported
 from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
+
+
+def _tuned_conv3x3(x, w, scale, bias, *, relu: bool):
+    """One :func:`conv3x3_bn_relu` launch with the tuning table's split
+    for its shape (None: ``fwd_plan``'s)."""
+    b, h, width, cin = x.shape
+    splits = tuning.lookup(h, width, cin, w.shape[-1], batch=b,
+                           dtype=str(x.dtype).removeprefix("torch."))
+    return conv3x3_bn_relu(x, w, scale, bias, relu=relu, splits=splits)
 
 
 class FoldedUNet:
@@ -103,7 +118,7 @@ class FoldedUNet:
         return layers
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self._forward(x, conv3x3_bn_relu, conv1x1, conv_transpose2x2)
+        return self._forward(x, _tuned_conv3x3, conv1x1, conv_transpose2x2)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The same forward through the kernels' plain PyTorch versions."""

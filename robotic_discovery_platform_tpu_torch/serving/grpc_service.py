@@ -132,12 +132,19 @@ def build_server(cfg: ServerConfig, forward=None, *,
     rollout manager's snapshot behind ``/debug/rollout`` (resolved per
     request, so a manager attached later is served at once); readiness
     flips after the warm-up, or at once with
-    none; the registry reloader starts; the grpc.health.v1 service is
-    registered beside the analysis service."""
+    none; the registry reloader starts; the grpc.health.v1 service and
+    the fleet's ``rdp.fleet.ReplicaStats`` service (``Get`` answering
+    :meth:`~serving.server.VisionAnalysisService.replica_stats`, ``Drain``
+    calling ``set_draining``) are registered beside the analysis service;
+    and with registrars configured (``cfg.fleet_registrars`` /
+    ``RDP_FLEET_REGISTRARS``) a :class:`~serving.fleet.LeaseClient`
+    advertises this server (``localhost:<bound port>`` unless
+    ``fleet_advertise`` says otherwise) and renews its lease."""
     from concurrent import futures
 
     import grpc
 
+    from robotic_discovery_platform_tpu_torch.serving import fleet as fleet_lib
     from robotic_discovery_platform_tpu_torch.serving.proto import vision_grpc
 
     trace.set_identity(role="replica")
@@ -161,11 +168,38 @@ def build_server(cfg: ServerConfig, forward=None, *,
         vision_grpc.add_VisionAnalysisServiceServicer_to_server(
             GrpcVisionService(servicer), server)
         health_lib.add_HealthServicer_to_server(servicer.health, server)
+        # the fleet front-end scrapes in-flight streams and burn here to
+        # place streams, and retires this member through Drain
+        fleet_lib.add_replica_stats_to_server(
+            server, servicer.replica_stats, drain=servicer.set_draining)
         servicer.bound_port = server.add_insecure_port(cfg.address)
+        _start_lease(cfg, servicer)
     except BaseException:
         servicer.close()
         raise
     return server, servicer
+
+
+def _start_lease(cfg: ServerConfig, servicer: VisionAnalysisService) -> None:
+    """Elastic membership: register and renew a lease with every
+    configured registrar (front-end), as the JAX package's build_server
+    does; a replica respawned on a new port rejoins with no config edit,
+    since it advertises the port just bound."""
+    from robotic_discovery_platform_tpu_torch.serving import fleet as fleet_lib
+
+    registrars = fleet_lib.resolve_fleet_registrars(cfg.fleet_registrars)
+    if not registrars:
+        return
+    advertise = fleet_lib.resolve_fleet_advertise(
+        cfg.fleet_advertise, default=f"localhost:{servicer.bound_port}")
+    servicer.lease_client = fleet_lib.LeaseClient(
+        registrars, endpoint=advertise,
+        metrics_port=(servicer.metrics_server.port
+                      if servicer.metrics_server is not None else 0),
+        version=str(servicer.current_version), ttl_s=cfg.fleet_lease_ttl_s)
+    servicer.lease_client.start()
+    log.info("fleet lease: advertising %s to %s (ttl %.1fs)", advertise,
+             ",".join(registrars), cfg.fleet_lease_ttl_s)
 
 
 def shutdown(server, servicer: VisionAnalysisService) -> None:

@@ -145,6 +145,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import os
 import threading
 import time
 from typing import Callable, Iterable, Iterator, NamedTuple
@@ -515,8 +516,20 @@ class VisionAnalysisService:
         # refuses every other new stream
         self._refusing_streams = False  # guarded_by: _streams_cond
         self._brownout_tick = 0  # guarded_by: _streams_cond
-        # frames answered per model (every status; /debug/zoo)
+        # frames answered per model (every status; /debug/zoo) and in all
+        # (the fleet's stats RPC, replica_stats)
         self._model_frames: dict[str, int] = {}  # guarded_by: _streams_cond
+        self._frames_total = 0  # guarded_by: _streams_cond
+        # a single-model server's arrival rate (a zoo's rates are its
+        # placer's): the fleet planner's demand input, which the JAX
+        # package's single-model replica reports as 0
+        arrivals = zoo_lib.RateWindow(cfg.zoo_rate_interval_s,
+                                      cfg.zoo_rate_window)
+        self._arrivals = arrivals  # guarded_by: _streams_cond
+        # the fleet membership lease (serving/fleet.LeaseClient), started by
+        # grpc_service.build_server when registrars are configured; drain()
+        # leaves it, close() stops it
+        self.lease_client = None
         # the rollout's shadow tap (set_shadow) and the rollout manager
         # drift recommendations are handed to (rollout.attach_rollout)
         self._shadow_hook = None
@@ -1049,7 +1062,9 @@ class VisionAnalysisService:
         total_s = time.perf_counter() - t0 + frame.wait_s
         response.proc_time_ms = total_s * 1e3
         with self._streams_cond:
+            self._frames_total += 1
             self._model_frames[label] = self._model_frames.get(label, 0) + 1
+            self._arrivals.record()
         _child(obs.FRAMES, status_label, label).inc()
         _observe_stage("total", total_s)
         obs.FRAME_LATENCY_SUMMARY.observe(total_s)
@@ -1205,6 +1220,55 @@ class VisionAnalysisService:
                    and ref.generation is not None
                    else self.drift.generation)
             return version, gen
+
+    def replica_stats(self) -> dict:
+        """The per-replica payload of the fleet's stats RPC
+        (``serving/fleet.add_replica_stats_to_server``), every key of the
+        JAX package's: in-flight streams and error-budget burn feed the
+        front-end's least-loaded placement and its weighted ring; the rest
+        is diagnostics. The port serves on one device with no
+        ``DeviceRouter`` (ROADMAP queue 1 item 14): ``chips`` is 1 and
+        ``quarantined_chips`` 0. A single-model server reports its
+        model's arrival rate (the JAX package's reports 0.0: only a zoo's
+        placer measured one), over ``zoo_rate_window`` intervals of
+        ``zoo_rate_interval_s``."""
+        # version and drift reference generation as one consistent pair
+        version, drift_generation = self.version_and_reference()
+        host, role = trace.identity()
+        with self._streams_cond:
+            model_frames = dict(self._model_frames)
+            frames_total = self._frames_total
+            refusing = self._refusing_streams
+            rates = {self.model_label: self._arrivals.mean_rate()}
+        if self.placer is not None:
+            rates = self.placer.rates()
+        models = {
+            name: {
+                "frames": model_frames.get(name, 0),
+                "rate": round(rates.get(name, 0.0), 3),
+            }
+            for name in self.zoo.names()
+        }
+        return {
+            "inflight_streams": self.active_streams,
+            "frames_total": frames_total,
+            "models": models,
+            "burn": self.slo.burn if self.slo is not None else 0.0,
+            "slo_ms": self.cfg.slo_ms,
+            "chips": 1,
+            "quarantined_chips": 0,
+            "version": version,
+            "drift_generation": drift_generation,
+            "draining": self.is_draining,
+            "refusing_streams": refusing,
+            "pid": os.getpid(),
+            # the front-end's federation and trace stitching scrape this
+            # replica's /metrics and /debug/spans at this port (0: none)
+            "metrics_port": (self.metrics_server.port
+                             if self.metrics_server is not None else 0),
+            "host": host,
+            "role": role,
+        }
 
     def drift_debug(self) -> dict:
         """The ``GET /debug/drift`` payload: the monitor's snapshot and
@@ -1649,6 +1713,10 @@ class VisionAnalysisService:
             self.health.set_all(health_lib.NOT_SERVING)
             journal_lib.JOURNAL.append(
                 events.SERVER_DRAIN, streams=str(self.active_streams))
+            # graceful departure beats lease expiry: every registrar marks
+            # this member draining (left) now instead of a TTL later
+            if self.lease_client is not None:
+                self.lease_client.leave()
             log.info("draining: readiness down, waiting for %d in-flight "
                      "stream(s)", self.active_streams)
         deadline = time.monotonic() + timeout_s
@@ -1670,6 +1738,9 @@ class VisionAnalysisService:
         package's order), stop the metrics endpoint and flush the
         metrics."""
         self.drain()
+        if self.lease_client is not None:
+            self.lease_client.stop()
+            self.lease_client = None
         if self.controller is not None:
             self.controller.stop()
         # flag first: an in-flight reload re-checks it before swapping, so

@@ -55,6 +55,10 @@ NORMS = ("batch", "group")
 #: the JAX package's environment overrides of the multi-device router's
 #: settings (ROADMAP queue 1 item 14)
 _ROUTER_ENV_OVERRIDES = ("RDP_SERVING_CHIPS", "RDP_DISPATCH_MODE")
+#: the JAX package's ServerConfig keys of the multi-device router, which
+#: the port refuses by name (ROADMAP queue 1 item 14)
+_ROUTER_KEYS = ("dispatch_mode", "chip_breaker_failures",
+                "chip_breaker_reset_s")
 
 
 @dataclass(frozen=True)
@@ -290,6 +294,89 @@ class ServerConfig:
     # only once every signal has recovered and this cooldown has passed
     drift_sustain_s: float = 5.0
     drift_cooldown_s: float = 300.0
+    # -- cross-host serving fleet (serving/fleet.py, serving/frontend.py) ---
+    # Comma-separated replica endpoints ("host:port,host:port") the fleet
+    # front-end fans AnalyzeActuatorPerformance streams out to. Each
+    # endpoint is a full per-host replica server (its own chip mesh,
+    # reached over localhost/DCN gRPC). Empty = this process is a plain
+    # single-host server, exactly today's behavior. The
+    # RDP_FLEET_REPLICAS env var overrides this value.
+    fleet_replicas: str = ""
+    # Membership poll period: every tick each replica's grpc.health.v1
+    # status is checked and its stats RPC scraped; a replica reporting
+    # NOT_SERVING (or unreachable) drops out of the placement ring
+    # exactly like a chip drops out of the chip ring.
+    fleet_poll_s: float = 1.0
+    # Per-probe deadline for the health check / stats scrape RPCs.
+    fleet_probe_timeout_s: float = 1.0
+    # Per-replica circuit breaker (resilience/breaker.py): after this
+    # many consecutive failed probes or stream-level failures the
+    # replica is quarantined out of the ring until a half-open health
+    # probe succeeds after fleet_breaker_reset_s.
+    fleet_breaker_failures: int = 2
+    fleet_breaker_reset_s: float = 5.0
+    # How many times one client stream may fail over to another replica
+    # (in-flight frames are re-sent to the new replica) before its
+    # remaining in-flight frames error-complete instead.
+    fleet_max_failovers: int = 3
+    # Fleet-level SLO controller: consumes each replica's error-budget
+    # burn (scraped via the stats RPC) and de-weights replicas whose
+    # burn approaches 1 so new streams shift away BEFORE the replica
+    # browns out (the reactive SLO control loop lifted one level).
+    fleet_controller_enabled: bool = True
+    # De-weighting starts when a replica's burn exceeds this (kept below
+    # the replica's own brownout trigger at burn = 1).
+    fleet_burn_high: float = 0.8
+    # Weight floor: a burning replica keeps at least this share of its
+    # idle placement weight (0 would starve its burn signal, the same
+    # reason brownout rung 3 duty-cycles instead of refusing all).
+    fleet_weight_floor: float = 0.1
+    # -- elastic membership (lease registration, serving/fleet.py) ----------
+    # Elastic membership master switch for the FRONT-END: when on, the
+    # front-end runs a LeaseRegistry, accepts Register/Renew/Leave RPCs
+    # from self-announcing replicas, and tolerates an empty static
+    # replica list (members arrive by lease). Off = static membership,
+    # exactly today's behavior. The RDP_FLEET_ELASTIC env var overrides.
+    fleet_elastic: bool = False
+    # Comma-separated front-end endpoints this REPLICA registers its
+    # membership lease with on boot and renews on a TTL ("" = static
+    # membership only, exactly today's behavior). The
+    # RDP_FLEET_REGISTRARS env var overrides this value.
+    fleet_registrars: str = ""
+    # Endpoint this replica advertises in its lease ("" = derive
+    # localhost:<bound port> at boot). The RDP_FLEET_ADVERTISE env var
+    # overrides this value.
+    fleet_advertise: str = ""
+    # Lease TTL: a member that misses renewals for this long is expired
+    # through the health drop-out path (renew cadence is ttl/3). Also
+    # the TTL the FRONT-END's LeaseRegistry grants.
+    fleet_lease_ttl_s: float = 10.0
+    # Comma-separated sibling front-end endpoints this FRONT-END gossips
+    # placement + lease state with over the stats RPC ("" = standalone
+    # front-end, no gossip). The RDP_FLEET_PEERS env var overrides this.
+    fleet_peers: str = ""
+    # -- autoscaler (serving/planner.py) ------------------------------------
+    # Master switch: when on, the front-end runs the capacity planner
+    # against the live /federate roll-ups and acts on its scale-up/down
+    # recommendations (spawn a self-registering replica / drain the
+    # least-loaded member). Off = static fleet, exactly today's
+    # behavior. The RDP_AUTOSCALER env var overrides this value.
+    autoscaler_enabled: bool = False
+    # Replica-count bounds the autoscaler may move between.
+    autoscaler_min_replicas: int = 1
+    autoscaler_max_replicas: int = 4
+    # Hysteresis: a scale signal must hold for sustain_s before an
+    # action fires, and after any action the scaler sleeps cooldown_s
+    # (one action at a time, never a flap).
+    autoscaler_sustain_s: float = 5.0
+    autoscaler_cooldown_s: float = 30.0
+    # Planner headroom: plan capacity so the fleet runs at no more than
+    # this fraction of its measured per-replica goodput.
+    planner_headroom: float = 0.7
+    # Optional LOADBENCH.json path the planner fits per-replica capacity
+    # from ("" = the conservative default; the port never reads
+    # ./LOADBENCH.json).
+    planner_capacity_path: str = ""
     # the model zoo (serving/zoo.py, models/variants.py): a comma-separated
     # roster from the variant catalog ("seg,multi,aux"), each model with
     # its own registry entry, parity gate, drift reference and SLO
@@ -440,8 +527,8 @@ def resolve_kernel_impl(configured: str) -> str:
     their plain versions on the CPU) for ``"auto"`` and ``"pallas"``, and
     for ``"interpret"``, the JAX package's off-chip run of its kernels,
     whose counterpart here is the plain versions on the CPU; ``"xla"``
-    (the reference ops) for ``"xla"``. The JAX package's per-shape
-    PALLAS_TUNE table is not ported (ROADMAP queue 1 item 17)."""
+    (the reference ops) for ``"xla"``. It is the one switch: the port's
+    tuning table (``ops/tuning``, ``CUDA_TUNE.json``) moves no stage."""
     if configured not in KERNEL_IMPLS:
         raise ValueError(
             f"unknown kernel_impl {configured!r} (choose from {KERNEL_IMPLS})"
@@ -524,9 +611,17 @@ def _resolve(f: dataclasses.Field) -> type:
 
 def from_dict(cls: type, data: dict) -> Any:
     """Rebuild a (possibly nested) config dataclass from a plain dict.
-    Unknown keys raise ``ValueError``."""
+    Unknown keys raise ``ValueError``; the JAX package's multi-device
+    router keys (:data:`_ROUTER_KEYS`) raise ``NotImplementedError``
+    naming ROADMAP item 14."""
     known = {f.name for f in dataclasses.fields(cls)}
     unknown = set(data) - known
+    router = sorted(unknown.intersection(_ROUTER_KEYS))
+    if router:
+        raise NotImplementedError(
+            f"{cls.__name__} keys {router}: the multi-device router "
+            "(DeviceRouter) is ROADMAP queue 1 item 14; remove them"
+        )
     if unknown:
         raise ValueError(
             f"unknown config keys for {cls.__name__}: {sorted(unknown)}"

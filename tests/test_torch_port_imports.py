@@ -99,6 +99,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.tools.calibrate_camera\n"
         "import robotic_discovery_platform_tpu_torch.utils.flops\n"
         "import robotic_discovery_platform_tpu_torch.utils.transferguard\n"
+        "import robotic_discovery_platform_tpu_torch.ops.tuning\n"
+        "import robotic_discovery_platform_tpu_torch.serving.fleet\n"
+        "import robotic_discovery_platform_tpu_torch.serving.frontend\n"
+        "import robotic_discovery_platform_tpu_torch.serving.planner\n"
+        "import robotic_discovery_platform_tpu_torch.serving.replica\n"
+        "import robotic_discovery_platform_tpu_torch.observability.federation\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -128,15 +134,18 @@ def test_port_and_chip_smoke_import_no_jax():
                    "tools.import_torch_weights", "tools.geometry_parity",
                    "tools.make_dataset", "tools.collect_data",
                    "tools.calibrate_camera", "utils.flops",
-                   "utils.transferguard"):
+                   "utils.transferguard", "ops.tuning", "serving.fleet",
+                   "serving.frontend", "serving.planner", "serving.replica",
+                   "observability.federation"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # the REST store speaks HTTP through the standard library: the card's
     # machine has no requests
     assert "requests" not in loaded
 
-    # chip_smoke and the port's serving cost harness
-    for script in ("chip_smoke.py", "tools/torch_serving_cost.py"):
+    # chip_smoke, the port's serving cost harness and its tuning tool
+    for script in ("chip_smoke.py", "tools/torch_serving_cost.py",
+                   "tools/tune_kernels.py"):
         imported = set()
         for node in ast.walk(ast.parse((REPO / script).read_text())):
             if isinstance(node, ast.Import):
@@ -350,9 +359,10 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
                                       "--server.drift_sustain_s", "0.5"])
         assert parsed.drift.min_rows == 10
         assert parsed.server.drift_sustain_s == 0.5
-        # 61 of the JAX package's 85: the seven controller_* and seven
-        # zoo_* fields joined the 47
-        assert len(dataclasses.fields(config.ServerConfig)) == 61
+        # 82 of the JAX package's 85: the seven controller_* and seven
+        # zoo_* fields joined the 47, then the 21 fleet_*, autoscaler_*
+        # and planner_* fields; the three left are item 14's
+        assert len(dataclasses.fields(config.ServerConfig)) == 82
     elif case == "zoo_controller_rollout_fields":
         # the seven controller_* and seven zoo_* fields and the rollout
         # section: the JAX package's names and defaults, taken by from_dict
