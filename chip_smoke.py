@@ -211,7 +211,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -7738,13 +7740,571 @@ def pid_alive(pid: int) -> bool:
     return True
 
 
+SIM_MODELS = ("seg", "aux")
+SIM_SEED = 0
+SIM_SLO_MS = 250.0  # the server's objective and the legs' (JAX defaults)
+SIM_RATE_SHARE = 0.3  # each model's mean rate: this share of the closed
+# loop's frames/s in the legs' own shape (one request a stream)
+SIM_PERIOD_S = 4.0
+SIM_DURATION_S = 8.0
+SIM_CLOSED_FRAMES = 200  # frames of each closed-loop measurement
+SIM_CLIENT_GAP_S = 1.0  # least time between two arrivals of one client
+# process: four times the SLO, and above the longest latency an H100 host
+# has shown in the legs (569 ms)
+SIM_LEG_TRIES = 10  # a leg not open loop is fired again, this often in
+# all (an H100 host has missed the bar in four attempts of a leg in a row
+# under the whole script; a round of the three legs takes ~28 s)
+SIM_START_S = 0.5  # from every client's being warm to the first leg
+SIM_GAP_S = 1.0  # from a leg's last offset to the next leg's start
+SIM_MAX_LAG_MS = 2.0  # an arrival later than this was not open loop
+SIM_SPIN_S = 0.015  # the end of a client's wait, spun rather than slept
+SIM_ABS_TOL_MS = 1.0  # calibrate's absolute floor (its default: 20 ms)
+SIM_LEGS = (("baseline-seg", ("seg",)), ("baseline-aux", ("aux",)),
+            ("multiplexed", ("seg", "aux")))
+SIM_LEGS_FILE = (Path(__file__).resolve().parent / "chiprun_out"
+                 / "sim_card_legs.json")
+
+
+def open_loop_client(job_path: str, index: int) -> None:
+    """One of ``sim_clients`` load-generator processes of the sim phase (no
+    torch, no card), with one thread. Once warm it prints ``ready``, then
+    reads rounds from its standard input until the input ends, one file
+    a line: the file's ``legs`` give each leg's schedule and its
+    ``starts`` each leg's start (``time.perf_counter``, the system's
+    monotonic clock, which every process shares). It sends every
+    ``clients``-th arrival of a leg's schedule (from ``index``) at its
+    offset, as one gRPC call of one pre-serialised request
+    (``unary_stream`` on the wire of the streaming method: the request
+    goes out in the call's first batch, from this thread), and reads its
+    answer before it takes the next. There are enough processes that
+    the previous answer is in long before (a process's arrivals lie
+    SIM_CLIENT_GAP_S or more apart), and an arrival that finds its
+    process still reading is recorded as having waited. The thread sleeps until
+    SIM_SPIN_S before an offset and spins the rest, with no system call:
+    an H100 host has woken a sleeping thread 9 ms late when idle and 13
+    ms late under the legs, and has delayed a thread handed the
+    interpreter lock, or one spinning through an event loop's polls, by
+    as much, so a process of one thread hands nothing to another at the
+    offset. The garbage collector is off during a round. Writes per
+    arrival (model, offset, start lag, latency from the offset, ok, how
+    late the sleep woke, whether it waited for the previous answer) and
+    each leg's last completion to the round's ``out`` file with
+    ``index`` appended, then prints ``done``."""
+    import gc
+
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch.serving.proto import (
+        vision_grpc,
+        vision_pb2,
+    )
+
+    job = json.loads(Path(job_path).read_text())
+    payload = {m: Path(f).read_bytes() for m, f in job["requests"].items()}
+    with grpc.insecure_channel(job["address"]) as channel:
+        call = channel.unary_stream(vision_grpc._ANALYZE_PATH,
+                                    request_serializer=None,
+                                    response_deserializer=None)
+
+        def one(model: str) -> bool:
+            status = None
+            try:
+                for raw in call(payload[model], timeout=60):
+                    status = vision_pb2.AnalysisResponse.FromString(
+                        raw).status
+            except grpc.RpcError:
+                return False
+            return status is not None and not status.startswith("ERROR")
+
+        for model in payload:  # the channel and each model's path warm
+            for _ in range(2):
+                one(model)
+        print("ready", flush=True)
+        for line in sys.stdin:
+            go = json.loads(Path(line.strip()).read_text())
+            out = {"legs": {}}
+            # no collector pause inside a leg: what exists now is frozen
+            # out of the collections, and none runs until the round ends
+            gc.collect()
+            gc.freeze()
+            gc.disable()
+            done = 0.0  # the previous answer's completion
+            for (name, sched), t0 in zip(go["legs"].items(), go["starts"]):
+                records = []
+                for offset, model in sched[index::job["clients"]]:
+                    target = t0 + offset
+                    delay = target - SIM_SPIN_S - time.perf_counter()
+                    woke = 0.0
+                    if delay > 0:
+                        time.sleep(delay)
+                        woke = time.perf_counter() - (target - SIM_SPIN_S)
+                    while time.perf_counter() < target:
+                        pass
+                    waited = done > target
+                    start = time.perf_counter()
+                    ok = one(model)
+                    done = time.perf_counter()
+                    records.append((model, offset, start - target,
+                                    done - target, ok, woke, waited))
+                out["legs"][name] = {"records": records,
+                                     "end_s": time.perf_counter() - t0}
+            gc.enable()
+            Path(f"{go['out']}.{index}").write_text(json.dumps(out))
+            print("done", flush=True)
+
+
+def await_clients(folder: Path, procs: list, word: str,
+                  timeout_s: float) -> None:
+    """Read one line from each ``open_loop_client`` and fail unless every
+    one said ``word`` within ``timeout_s``."""
+    import select
+
+    deadline = time.perf_counter() + timeout_s
+    for i, proc in enumerate(procs):
+        ready, _, _ = select.select(
+            [proc.stdout], [], [], max(0.0, deadline - time.perf_counter()))
+        said = proc.stdout.readline().decode().strip() if ready else ""
+        err = (folder / f"client.{i}.err").read_text()[-2000:]
+        check(said == word, f"open-loop client {i} said {said!r}, not "
+              f"{word!r} (exit code {proc.poll()}): {err}")
+
+
+def sim_clients(schedules: dict) -> int:
+    """The fewest client processes among which every leg's arrivals,
+    dealt out in turn, lie SIM_CLIENT_GAP_S or more apart in each."""
+    n = 1
+    for sched in schedules.values():
+        offsets = sorted(offset for offset, _ in sched)
+        while any(b - a < SIM_CLIENT_GAP_S
+                  for a, b in zip(offsets, offsets[n:])):
+            n += 1
+    return n
+
+
+def start_clients(folder: Path, address: str, files: dict,
+                  clients: int) -> list:
+    """``clients`` ``open_loop_client`` processes, launched together and
+    returned once every one is warm. Each one's errors go to
+    ``client.<index>.err`` in ``folder``."""
+    folder.mkdir(parents=True)
+    job = folder / "job.json"
+    job.write_text(json.dumps({"address": address, "requests": files,
+                               "clients": clients}))
+    procs = []
+    for i in range(clients):
+        with open(folder / f"client.{i}.err", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.open_loop_client(sys.argv[1], "
+                 "int(sys.argv[2]))", str(job), str(i)],
+                cwd=Path(__file__).resolve().parent, stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, bufsize=0))
+    await_clients(folder, procs, "ready", 120.0)
+    return procs
+
+
+def stop_clients(procs: list) -> list:
+    """End the clients' input and reap them (killing any that outlive 60
+    s); returns their exit codes."""
+    for proc in procs:
+        proc.stdin.close()
+    deadline = time.perf_counter() + 60.0
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(0.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return [proc.returncode for proc in procs]
+
+
+def fire_legs(folder: Path, procs: list, name: str,
+              schedules: dict) -> tuple:
+    """One round of open-loop legs from the warm clients: the legs start
+    SIM_START_S after the round is handed out, one after another
+    SIM_GAP_S apart. Returns each leg's merged records and last
+    completion, and the round's seconds."""
+    t0 = time.perf_counter()
+    cpu0 = os.times()
+    start = t0 + SIM_START_S
+    go = folder / f"{name}.json"
+    go.write_text(json.dumps({
+        "legs": schedules, "out": str(folder / f"{name}.legs"),
+        "starts": [start + i * (SIM_DURATION_S + SIM_GAP_S)
+                   for i in range(len(schedules))]}))
+    for proc in procs:
+        proc.stdin.write(f"{go}\n".encode())
+        proc.stdin.flush()
+    await_clients(folder, procs, "done", SIM_START_S + 120.0
+                  + len(schedules) * (SIM_DURATION_S + SIM_GAP_S))
+    cpu1 = os.times()
+    wall = time.perf_counter() - t0
+    server = cpu1.user - cpu0.user + cpu1.system - cpu0.system
+    log(f"sim {name}: this process (the server) used {server / wall:.2f} "
+        f"cores over {wall:.1f} s")
+    legs: dict = {}
+    for i in range(len(procs)):
+        part = json.loads(Path(f"{folder / name}.legs.{i}").read_text())
+        for leg_name, got in part["legs"].items():
+            leg = legs.setdefault(leg_name, {"records": [], "end_s": 0.0})
+            leg["records"] += got["records"]
+            leg["end_s"] = max(leg["end_s"], got["end_s"])
+    SIM_LEGS_FILE.parent.mkdir(parents=True, exist_ok=True)
+    (SIM_LEGS_FILE.parent / f"sim_client_records_{name}.json"
+     ).write_text(json.dumps(legs))
+    return legs, wall
+
+
+def leg_row(got: dict, leg: str, active, n: int, cfg,
+            clients: int) -> tuple:
+    """One leg's LOADBENCH row (``sim.metrics.summarize_level`` per model
+    and over all), with its start lags, the latest wake of a client's
+    sleep, the most arrivals in flight at once, the arrivals that waited
+    for their client's previous answer and the least time between two
+    arrivals of one client; and its answered frames."""
+    from robotic_discovery_platform_tpu_torch.sim import metrics
+
+    recs = got["records"]
+    check(len(recs) == n, f"sim {leg}: {len(recs)} of {n} arrivals recorded")
+    lags = [r[2] * 1e3 for r in recs]
+    edges = sorted([(r[1] + r[2], 1) for r in recs]
+                   + [(r[1] + r[3], -1) for r in recs])
+    errors = sum(1 for r in recs if not r[4])
+    offsets = sorted(r[1] for r in recs)
+    models = {}
+    for m in SIM_MODELS:
+        mine = [r for r in recs if r[0] == m]
+        models[m] = metrics.summarize_level(
+            [r[3] * 1e3 for r in mine if r[4]],
+            sum(1 for r in mine if not r[4]),
+            len(mine) / got["end_s"], got["end_s"], SIM_SLO_MS)
+    row = metrics.summarize_level(
+        [r[3] * 1e3 for r in recs if r[4]], errors,
+        len(recs) / got["end_s"], got["end_s"], SIM_SLO_MS)
+    row.update(models=models, multimodel_leg=leg, chips=1,
+               placement="shared", active_models=list(active),
+               batch_window_ms=cfg.batch_window_ms,
+               start_lag_ms={"max": max(lags),
+                             "p50": float(np.percentile(lags, 50)),
+                             "p99": float(np.percentile(lags, 99))},
+               inflight_max=max(itertools.accumulate(d for _, d in edges)),
+               waited=sum(1 for r in recs if r[6]),
+               client_gap_min_ms=min(
+                   (b - a for a, b in zip(offsets, offsets[clients:])),
+                   default=got["end_s"]) * 1e3,
+               sleep_woke_late_ms=max(r[5] for r in recs) * 1e3)
+    return row, len(recs) - errors
+
+
+def sim_attempt(legs: dict, pending: list, schedules: dict, cfg,
+                clients: int, attempt: int, round_s: float, rows: dict,
+                rejected: list) -> int:
+    """Sort one round's legs: a leg whose every arrival started within
+    SIM_MAX_LAG_MS of its offset goes to ``rows``, any other to
+    ``rejected``; an error or an arrival that waited for its client's
+    previous answer fails the phase. Returns the answered frames."""
+    answered = 0
+    for leg, active in pending:
+        row, ok_frames = leg_row(legs[leg], leg, active,
+                                 len(schedules[leg]), cfg, clients)
+        answered += ok_frames
+        lag = row["start_lag_ms"]["max"]
+        per = {m: tuple(row["models"][m][k] for k in (
+            "n", "offered_rps", "p50_ms", "p99_ms", "violation_rate"))
+            for m in active}
+        log(f"sim leg {leg}, attempt {attempt}: {row['arrivals']} "
+            f"arrivals in {row['wall_s']:.2f} s, {row['errors']} "
+            f"errors; per model (n, offered/s, p50 ms, p99 ms, "
+            f"violation rate) {per}; "
+            f"start lag ms max {lag:.3f} p99 "
+            f"{row['start_lag_ms']['p99']:.3f}; the clients' sleeps "
+            f"woke at most {row['sleep_woke_late_ms']:.3f} ms late "
+            f"(spun from {SIM_SPIN_S * 1e3:.0f} ms before the "
+            f"offset); at most {row['inflight_max']} arrivals in "
+            f"flight at once; a client's arrivals at least "
+            f"{row['client_gap_min_ms']:.0f} ms apart, "
+            f"{row['waited']} waited for an answer; round "
+            f"{round_s:.1f} s")
+        check(row["errors"] == 0,
+              f"sim {leg}: {row['errors']} arrivals failed")
+        check(row["waited"] == 0,
+              f"sim {leg}: {row['waited']} arrivals waited for their "
+              f"client's previous answer: {clients} clients are "
+              f"too few for an open loop")
+        row["attempt"] = attempt
+        if lag <= SIM_MAX_LAG_MS:
+            rows[leg] = row
+        else:
+            rejected.append(row)
+            log(f"sim leg {leg}, attempt {attempt}: an arrival "
+                f"started {lag:.3f} ms late (bar {SIM_MAX_LAG_MS} "
+                f"ms): not open loop, the leg is fired again")
+    return answered
+
+
+def sim_phase(torch, port) -> dict:
+    """The fleet's twin calibrated against legs measured on the card. (a)
+    The zoo's seg and aux models at ``ModelConfig()`` widths (seeded and
+    calibrated as ``seeded_model``) behind one gRPC zoo server (shared
+    placement, ``slo_ms`` SIM_SLO_MS, the direct path): each model's
+    answer over gRPC equal to the servicer's own bit for bit; seg's
+    closed-loop frames/s over one stream and over one-frame streams back
+    to back; then three open-loop legs of the port's
+    ``sim.workload.multimodel`` schedule (seed SIM_SEED, SIM_RATE_SHARE
+    of the one-frame streams' rate per model, period SIM_PERIOD_S,
+    SIM_DURATION_S s) fired by ``sim_clients`` client processes
+    (``open_loop_client``): baseline-seg, baseline-aux and multiplexed,
+    every arrival answered. An arrival that waited for its client's
+    previous answer fails the phase (the clients are too few). A leg in
+    which an arrival started more than SIM_MAX_LAG_MS after its offset
+    (a client's late wake-up) was not open loop: it is not kept and is
+    fired again, SIM_LEG_TRIES times in all. The kept rows go to SIM_LEGS_FILE
+    in the LOADBENCH row shape, the rejected attempts' rows beside them
+    under ``rejected_attempts``. (b) ``sim.calibrate`` over
+    that file at ``abs_tol_ms`` SIM_ABS_TOL_MS must pass; baseline-seg's
+    arrivals replayed through the multiplexed fit is reported, not gated.
+    (c) ``sim.sweep`` over the card's fit, with no real ``time.sleep`` on
+    its thread. Returns the phase's launches."""
+    import random
+    import threading
+
+    import grpc
+
+    from robotic_discovery_platform_tpu_torch.models import variants
+    from robotic_discovery_platform_tpu_torch.serving import grpc_service
+    from robotic_discovery_platform_tpu_torch.serving.proto import (
+        vision_grpc,
+        vision_pb2,
+    )
+    from robotic_discovery_platform_tpu_torch.sim import (
+        calibrate as calibrate_lib,
+        sweep as sweep_lib,
+        workload,
+    )
+    from robotic_discovery_platform_tpu_torch.sim.model import (
+        ServiceTimeModel,
+    )
+
+    t_phase = time.perf_counter()
+    log(f"sim_phase: {torch.cuda.get_device_name(0)} [{nvidia_smi_line()}]")
+    rng = np.random.default_rng(SEED)
+    rgb, _, depth = port.render_scene(rng, FRAME_H, FRAME_W)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sim_"))
+    uri = f"file:{tmp}/mlruns"
+    x0 = port.preprocess(torch.from_numpy(rgb).cuda()[None], 256)
+    base = port.ServerConfig().model_name
+    nets = {variants.registered_name(variants.VARIANTS[m], base): seeded_model(
+        torch, port, x0, variants.VARIANTS[m].model_config(port.ModelConfig()))
+        for m in SIM_MODELS}
+    register_named(port, nets, uri)
+    del nets
+    reset_launches()
+    cfg = port.ServerConfig(
+        address="localhost:0", tracking_uri=uri,
+        metrics_csv=str(tmp / "m.csv"),
+        calibration_path=str(tmp / "none.npz"), reload_poll_s=0.0,
+        zoo_models=",".join(SIM_MODELS[1:]), slo_ms=SIM_SLO_MS)
+    server, service = grpc_service.build_server(
+        cfg, warmup_shape=(FRAME_W, FRAME_H), device="cuda")
+    server.start()
+    warm = read_launches()
+    reset_launches()
+    address = f"localhost:{service.bound_port}"
+    wire = {m: "" if m == SIM_MODELS[0] else m for m in SIM_MODELS}
+    protos = {m: vision_pb2.AnalysisRequest(
+        color_image=vision_pb2.Image(data=rgb.tobytes(), width=FRAME_W,
+                                     height=FRAME_H, format=1),
+        depth_image=vision_pb2.Image(data=depth.astype("<u2").tobytes(),
+                                     width=FRAME_W, height=FRAME_H, format=1),
+        mask_format=1, model=wire[m]) for m in SIM_MODELS}
+    answered = 0
+    try:
+        with grpc.insecure_channel(address) as channel:
+            stub = vision_grpc.VisionAnalysisServiceStub(channel)
+            for m in SIM_MODELS:
+                got = without_anomaly(answers(stub.AnalyzeActuatorPerformance(
+                    iter([protos[m]]), timeout=60)))
+                want = without_anomaly(answers(service.analyze_stream(iter([
+                    port.raw_request(rgb, depth, mask_format=1,
+                                     model=wire[m])]))))
+                check(got == want and got[0][0].startswith("OK"),
+                      f"sim {m}: gRPC answer {got[0][0]!r} differs from the "
+                      f"servicer's {want[0][0]!r}")
+                answered += 2
+            closed = [protos["seg"]] * SIM_CLOSED_FRAMES
+            list(stub.AnalyzeActuatorPerformance(iter(closed[:20]),
+                                                 timeout=120))
+            t0 = time.perf_counter()
+            n = len(list(stub.AnalyzeActuatorPerformance(iter(closed),
+                                                         timeout=120)))
+            stream_fps = n / (time.perf_counter() - t0)
+            # the legs' shape: every frame a gRPC stream of its own, one
+            # after the other; 0.3 of the one stream's rate above held
+            # such legs near saturation (p99 ~200 ms on an H100 host)
+            t0 = time.perf_counter()
+            for _ in range(SIM_CLOSED_FRAMES):
+                list(stub.AnalyzeActuatorPerformance(iter([protos["seg"]]),
+                                                     timeout=60))
+            fps = SIM_CLOSED_FRAMES / (time.perf_counter() - t0)
+            answered += 20 + n + SIM_CLOSED_FRAMES
+        rate = SIM_RATE_SHARE * fps
+        log(f"sim closed loop, seg: one gRPC stream of {n} frames "
+            f"{stream_fps:.1f} frames/s; {SIM_CLOSED_FRAMES} streams of "
+            f"one frame back to back {fps:.1f} frames/s; open-loop rate "
+            f"per model {rate:.2f}/s ({SIM_RATE_SHARE} of the latter), "
+            f"period {SIM_PERIOD_S} s, {SIM_DURATION_S} s a leg")
+
+        # (a) the open-loop legs, from client processes of their own
+        schedules = {leg: workload.multimodel(
+            list(active), rate, SIM_DURATION_S, SIM_PERIOD_S,
+            random.Random(SIM_SEED)) for leg, active in SIM_LEGS}
+        files = {}
+        for m in SIM_MODELS:
+            files[m] = str(tmp / f"request-{m}.bin")
+            Path(files[m]).write_bytes(protos[m].SerializeToString())
+        rows: dict = {}
+        rejected: list = []  # rows of the attempts that missed the bar
+        cpu0 = os.times()
+        t_clients = time.perf_counter()
+        clients = sim_clients(schedules)
+        procs = start_clients(tmp / "clients", address, files, clients)
+        answered += 2 * clients * len(SIM_MODELS)  # warm-ups
+        rounds = 0
+        try:
+            for attempt in range(1, SIM_LEG_TRIES + 1):
+                pending = [(leg, active) for leg, active in SIM_LEGS
+                           if leg not in rows]
+                if not pending:
+                    break
+                legs, round_s = fire_legs(
+                    tmp / "clients", procs, f"round{attempt}",
+                    {leg: schedules[leg] for leg, _ in pending})
+                rounds = attempt
+                answered += sim_attempt(legs, pending, schedules, cfg,
+                                        clients, attempt, round_s, rows,
+                                        rejected)
+        finally:
+            codes = stop_clients(procs)
+        cpu1 = os.times()
+        client_cpu = (cpu1.children_user - cpu0.children_user
+                      + cpu1.children_system - cpu0.children_system)
+        clients_s = time.perf_counter() - t_clients
+        log(f"sim clients: {clients} processes used "
+            f"{client_cpu / clients_s:.2f} cores over {clients_s:.1f} s, "
+            f"{rounds} rounds; exit codes {sorted(set(codes))}")
+        check(codes == [0] * clients,
+              f"open-loop clients exited with {sorted(set(codes))}")
+        check(len(rows) == len(SIM_LEGS),
+              f"sim legs {[leg for leg, _ in SIM_LEGS if leg not in rows]}: "
+              f"no attempt of {SIM_LEG_TRIES} started every arrival within "
+              f"{SIM_MAX_LAG_MS} ms of its offset: not open loop")
+    finally:
+        grpc_service.shutdown(server, service)
+    rows = [rows[leg] for leg, _ in SIM_LEGS]
+    for row in rows:
+        p99 = {m: [(r["attempt"], r["models"][m]["p99_ms"]) for r in rejected
+                   if r["multimodel_leg"] == row["multimodel_leg"]]
+               for m in row["active_models"]}
+        log(f"sim leg {row['multimodel_leg']}: p99 ms of the kept attempt "
+            f"{row['attempt']} "
+            f"{ {m: row['models'][m]['p99_ms'] for m in p99} }; of the "
+            f"rejected (attempt, p99) {p99}")
+    SIM_LEGS_FILE.parent.mkdir(parents=True, exist_ok=True)
+    SIM_LEGS_FILE.write_text(json.dumps({
+        "metric": "open_loop_tail_latency", "unit": "ms",
+        "device": torch.cuda.get_device_name(0), "card": nvidia_smi_line(),
+        "arrivals": "modulated-poisson", "slo_ms": SIM_SLO_MS,
+        "frame": [FRAME_W, FRAME_H], "mask_format": 1,
+        "closed_loop_fps": fps, "one_stream_fps": stream_fps,
+        "clients": clients,
+        "multimodel": {"models": list(SIM_MODELS), "chips": 1,
+                       "rate_per_model": rate, "period_s": SIM_PERIOD_S,
+                       "duration_s": SIM_DURATION_S, "seed": SIM_SEED},
+        "rows": rows, "rejected_attempts": rejected}, indent=1) + "\n")
+    counted = read_launches()
+    check(counted == frame_launches(answered, served=True),
+          f"sim legs: launches {counted} for {answered} answered frames, "
+          f"want 18/1/1/1/1/1 a frame")
+    total = {k: warm[k] + counted[k] for k in counted}
+
+    # (b) the calibration gate over the card's own legs
+    report = calibrate_lib.calibrate(SIM_LEGS_FILE, None,
+                                     seed=SIM_SEED, abs_tol_ms=SIM_ABS_TOL_MS)
+    for rec in report["rows"]:
+        for m, comp in rec["models"].items():
+            log(f"sim calibrate {rec['leg']} {m}: p50 measured "
+                f"{comp['p50_ms']['measured']} sim {comp['p50_ms']['sim']} "
+                f"({comp['p50_ms']['delta_pct']}%), p99 measured "
+                f"{comp['p99_ms']['measured']} sim {comp['p99_ms']['sim']} "
+                f"({comp['p99_ms']['delta_pct']}%), violation rate "
+                f"{comp['violation_rate']['measured']} / "
+                f"{comp['violation_rate']['sim']}; "
+                f"{'ok' if rec['ok'] else 'FAILED'}")
+    check(report["ok"], f"sim calibrate at abs_tol_ms {SIM_ABS_TOL_MS}: "
+          f"{json.dumps(report)}")
+    fit = ServiceTimeModel.fit_loadbench(SIM_LEGS_FILE)
+    data = json.loads(SIM_LEGS_FILE.read_text())
+    seg_row = next(r for r in data["rows"]
+                   if r["multimodel_leg"] == "baseline-seg")
+    confused = ServiceTimeModel(
+        [dataclasses.replace(e, leg="baseline-seg") for e in fit.entries
+         if e.leg == "multiplexed"], slo_ms=SIM_SLO_MS, chips=1)
+    rec = calibrate_lib.calibrate_row(
+        seg_row, confused, seed=SIM_SEED, rate_per_model=rate,
+        period_s=SIM_PERIOD_S, duration_s=SIM_DURATION_S, slo_ms=SIM_SLO_MS,
+        abs_tol_ms=SIM_ABS_TOL_MS)
+    comp = rec["models"]["seg"]
+    log(f"sim regime confusion (baseline-seg arrivals through the "
+        f"multiplexed fit): p50 {comp['p50_ms']['measured']} vs "
+        f"{comp['p50_ms']['sim']} ({comp['p50_ms']['delta_pct']}%), p99 "
+        f"{comp['p99_ms']['measured']} vs {comp['p99_ms']['sim']} "
+        f"({comp['p99_ms']['delta_pct']}%): the gate "
+        f"{'did NOT tell' if rec['ok'] else 'told'} the regimes apart "
+        f"(reported, not gated)")
+
+    # (c) the twin at speed, over the card's fit
+    sleeps = [0]
+    me = threading.get_ident()
+    real_sleep = time.sleep
+
+    def counting_sleep(s):
+        if threading.get_ident() == me:
+            sleeps[0] += 1
+        return real_sleep(s)
+
+    time.sleep = counting_sleep
+    try:
+        t0 = time.perf_counter()
+        sweep = sweep_lib.sweep(loadbench_path=SIM_LEGS_FILE, seed=SIM_SEED)
+        wall = time.perf_counter() - t0
+    finally:
+        time.sleep = real_sleep
+    virtual = len(sweep["rows"]) * sweep["duration_s"]
+    check(not sweep["synthetic_fit"] and len(sweep["rows"]) == 9
+          and sleeps[0] == 0,
+          f"sim sweep: synthetic {sweep['synthetic_fit']}, "
+          f"{len(sweep['rows'])} cells, {sleeps[0]} real sleeps")
+    worst = max(sweep["rows"], key=lambda r: r["p99_ms"] or 0.0)
+    log(f"sim sweep over the card's fit: {len(sweep['rows'])} cells "
+        f"(rates {sweep['grid']['rates']} per model x "
+        f"{sweep['grid']['failures']}), {virtual:.0f} virtual s in "
+        f"{wall:.2f} s: {virtual / wall:.1f} virtual s per wall s, "
+        f"{sum(r['sweep']['events_run'] for r in sweep['rows'])} events, 0 "
+        f"real sleeps; worst cell p99 {worst['p99_ms']} ms "
+        f"({worst['sweep']['failure']} at {worst['sweep']['rate_per_model']}"
+        f"/s)")
+    log(f"sim_phase: {time.perf_counter() - t_phase:.1f} s (the clients "
+        f"{clients_s:.1f} s, {rounds} rounds)")
+    return total
+
+
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
           "train_kernel_phase", "graph_phase", "bitpack_phase",
           "bitpack_timing_phase", "precision_phase", "trained_tier_phase",
           "deploy_phase", "drift_phase", "host_path_phase", "zoo_phase",
           "controller_phase", "rollout_phase", "lab_phase", "tuning_phase",
-          "fleet_phase")
+          "fleet_phase", "sim_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -7833,6 +8393,7 @@ def main(argv: list | None = None) -> int:
     legs.append(lab_phase(torch, port, folded, frames))
     legs.append(tuning_phase(torch, port, folded, frames))
     legs.append(fleet_phase(torch, port))
+    legs.append(sim_phase(torch, port))
     launches = {k: launches[k] + sum(leg[k] for leg in legs)
                 for k in launches}
     from robotic_discovery_platform_tpu_torch.analysis import recompile

@@ -84,8 +84,19 @@ the buckets captured for the frame's model) and
 :meth:`~BatchDispatcher.set_deadline_safety` (the stale shed compares the
 model's service estimate times this factor with the headroom).
 
-Not ported: the multi-device ``DeviceRouter`` (ROADMAP queue 1 item 14;
-``router=`` raises ``NotImplementedError``).
+Chip quarantine (:class:`DeviceRouter`, the JAX package's placement
+and quarantine over a ring of devices): ``round_robin`` placement
+(``parallel/mesh.least_loaded``), a per-chip
+:class:`~resilience.CircuitBreaker` over dispatch outcomes, the
+quarantine of a chip whose breaker opens (never the last healthy one),
+one half-open probe per quarantined chip, reinstatement on a successful
+probe, ``on_health`` and the ``rdp_quarantined_chips`` /
+``rdp_chip_quarantines_total`` instruments and ``chip.quarantine`` /
+``chip.reinstate`` journal events, as in the JAX package. It does no
+device work; ``analysis/explore.py`` drives it over a fake two-chip ring.
+Not ported (ROADMAP queue 1 item 14): ``mode="sharded"`` and the mode
+switch, and the dispatcher's ``router=`` (both raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -111,7 +122,9 @@ from robotic_discovery_platform_tpu_torch.observability import (
     trace,
 )
 from robotic_discovery_platform_tpu_torch.ops import graphs
+from robotic_discovery_platform_tpu_torch.parallel import mesh as mesh_lib
 from robotic_discovery_platform_tpu_torch.resilience import (
+    CircuitBreaker,
     DeadlineExceeded,
     inject,
 )
@@ -129,13 +142,16 @@ from robotic_discovery_platform_tpu_torch.serving.entropy import (
     block_grids,
 )
 from robotic_discovery_platform_tpu_torch.utils.device import resolve_device
+from robotic_discovery_platform_tpu_torch.utils.lockcheck import checked_lock
 
 log = logging.getLogger(__name__)
 
-__all__ = ["BatchDispatcher", "DeadlineExceeded", "OverloadedError",
-           "resolve_max_inflight"]
+__all__ = ["BatchDispatcher", "DeadlineExceeded", "DeviceRouter",
+           "OverloadedError", "resolve_max_inflight"]
 
 _INFLIGHT_ENV_VAR = "RDP_INFLIGHT"
+
+DISPATCH_MODES = ("round_robin", "sharded")
 
 
 def resolve_max_inflight(configured: int) -> int:
@@ -144,6 +160,204 @@ def resolve_max_inflight(configured: int) -> int:
     raw = os.environ.get(_INFLIGHT_ENV_VAR)
     value = int(raw) if raw else int(configured)
     return max(1, value)
+
+
+class DeviceRouter:
+    """Placement and chip quarantine over a ring of devices (the JAX
+    package's ``serving/batching.DeviceRouter`` in ``round_robin`` mode).
+
+    Args:
+        mesh: the devices to route over: a list of ``torch.device``s, or
+            anything with a ``.devices`` array (``parallel/mesh.
+            device_ring``).
+        mode: "round_robin" (whole buckets onto the least-loaded chip).
+            "sharded" is ROADMAP queue 1 item 14 and raises.
+        breaker_failures / breaker_reset_s: per-chip quarantine circuit
+            breakers (0 disables quarantine, the default). Only
+            meaningful over more than one chip.
+        on_health: ``(chip_index, serving: bool)`` callback invoked on
+            quarantine and reinstatement.
+        clock: injectable monotonic clock for the breakers.
+    """
+
+    def __init__(self, mesh, mode: str = "round_robin", *,
+                 breaker_failures: int = 0, breaker_reset_s: float = 30.0,
+                 on_health=None, clock=time.monotonic):
+        self._check_mode(mode)
+        self.mesh = mesh
+        self.mode = mode
+        self.ring = mesh_lib.device_ring(mesh)
+        # -- chip quarantine state ------------------------------------------
+        self.quarantine_enabled = (
+            breaker_failures > 0 and len(self.ring) > 1
+        )
+        self.on_health = on_health
+        self._qlock = checked_lock("batching.router.quarantine")
+        self._quarantined: set[int] = set()  # guarded_by: _qlock
+        # distinct models whose dispatches failed on each chip since its
+        # last success: only failures spanning >= 2 models (or a
+        # single-model dispatcher's failures) feed the chip's breaker, so
+        # one broken zoo model never quarantines a healthy chip
+        self._fail_models: dict[int, set[str]] = {}  # guarded_by: _qlock
+        #: chips quarantined since construction (monotone; the gauge is
+        #: the live set size)
+        self.quarantines_total = 0  # guarded_by: _qlock
+        self.breakers: list[CircuitBreaker] = []
+        if self.quarantine_enabled:
+            self.breakers = [
+                CircuitBreaker(
+                    failure_threshold=breaker_failures,
+                    reset_timeout_s=breaker_reset_s,
+                    name=f"serving.chip.{i}", clock=clock,
+                )
+                for i in range(len(self.ring))
+            ]
+
+    @staticmethod
+    def _check_mode(mode: str) -> None:
+        if mode not in DISPATCH_MODES:
+            raise ValueError(
+                f"unknown dispatch mode {mode!r}; expected one of "
+                f"{DISPATCH_MODES}"
+            )
+        if mode == "sharded":
+            raise NotImplementedError(
+                "the sharded dispatch mode is ROADMAP queue 1 item 14; the "
+                "port's router places round_robin only")
+
+    @property
+    def chips(self) -> int:
+        return len(self.ring)
+
+    def set_mode(self, mode: str) -> None:
+        """The controller's mode actuator: round_robin is the only mode
+        (the same mode is a no-op, as in the JAX router)."""
+        self._check_mode(mode)
+
+    def pick(self, loads, start: int = 0, allowed=None) -> int:
+        """The ring position of the next round_robin dispatch, as the JAX
+        dispatcher's ``_pick_chip`` chooses it: a quarantined chip whose
+        half-open breaker admits a probe (within ``allowed``, the model's
+        placement, when given) takes the dispatch, which is its probe;
+        else the least-loaded placeable chip, ties walked in ring order
+        from ``start``. The caller advances its cursor past the pick."""
+        if self.quarantine_enabled:
+            probe = self.probe_candidate()
+            if probe is not None and (allowed is None or probe in allowed):
+                return probe
+            healthy = set(self.healthy_chips())
+            placeable = (healthy if allowed is None
+                         else (healthy & set(allowed)) or healthy)
+        else:
+            placeable = (set(range(len(self.ring))) if allowed is None
+                         else set(allowed))
+        return mesh_lib.least_loaded(
+            [loads[i] if i in placeable else float("inf")
+             for i in range(len(self.ring))], start)
+
+    # -- quarantine ----------------------------------------------------------
+
+    @property
+    def quarantined(self) -> frozenset[int]:
+        with self._qlock:
+            return frozenset(self._quarantined)
+
+    def healthy_chips(self) -> tuple[int, ...]:
+        with self._qlock:
+            return tuple(i for i in range(len(self.ring))
+                         if i not in self._quarantined)
+
+    def probe_candidate(self) -> int | None:
+        """A quarantined chip whose half-open breaker admits a probe NOW,
+        else None. The breaker holds the probe slot until the dispatch's
+        outcome is recorded, so at most one probe rides each chip."""
+        if not self.quarantine_enabled:
+            return None
+        with self._qlock:
+            quarantined = sorted(self._quarantined)
+        for i in quarantined:
+            if self.breakers[i].allow():
+                return i
+        return None
+
+    def failure_confined(self, chip: int, model: str) -> bool:
+        """True when every recorded failure on ``chip`` since its last
+        success came from ``model`` alone: a broken model rather than a
+        broken chip."""
+        with self._qlock:
+            fails = self._fail_models.get(chip)
+            return fails is not None and fails == {model}
+
+    def record_result(self, chip: int, ok: bool,
+                      exc: BaseException | None = None,
+                      model: str = "", multi_model: bool = False) -> None:
+        """Feed one dispatch outcome on ``chip`` into its breaker and
+        apply the quarantine or reinstatement it implies. Under a zoo
+        (``multi_model``) a failure counts toward the chip's breaker only
+        once failures on that chip span two models."""
+        if not self.quarantine_enabled or not (0 <= chip < len(self.ring)):
+            return
+        breaker = self.breakers[chip]
+        if ok:
+            with self._qlock:
+                self._fail_models.pop(chip, None)
+            breaker.record_success()
+            with self._qlock:
+                reinstated = chip in self._quarantined
+                self._quarantined.discard(chip)
+                live = len(self._quarantined)
+            if reinstated:
+                obs.QUARANTINED_CHIPS.set(live)
+                journal_lib.JOURNAL.append(
+                    events.CHIP_REINSTATE, chip=chip, quarantined=live)
+                log.info("chip %d reinstated after successful probe "
+                         "dispatch", chip)
+                if self.on_health is not None:
+                    self.on_health(chip, True)
+            return
+        with self._qlock:
+            fails = self._fail_models.setdefault(chip, set())
+            fails.add(model)
+            chip_level = not multi_model or len(fails) >= 2
+            already = chip in self._quarantined
+            last_healthy = (not already
+                            and len(self._quarantined) >= len(self.ring) - 1)
+        if not chip_level:
+            return
+        if last_healthy:
+            # never quarantine the last chip: a degraded ring still
+            # serves; its breaker is left untouched
+            log.warning(
+                "chip %d dispatch failed (%s) but it is the last healthy "
+                "chip; not quarantining", chip,
+                exc if exc is not None else "unknown error",
+            )
+            return
+        breaker.record_failure(exc)
+        if breaker.state != "open":
+            return
+        with self._qlock:
+            newly = chip not in self._quarantined
+            self._quarantined.add(chip)
+            if newly:
+                self.quarantines_total += 1
+            live = len(self._quarantined)
+        if newly:
+            obs.QUARANTINED_CHIPS.set(live)
+            obs.CHIP_QUARANTINES.labels(chip=str(chip)).inc()
+            journal_lib.JOURNAL.append(
+                events.CHIP_QUARANTINE, chip=chip, quarantined=live,
+                error=str(exc) if exc is not None else "unknown",
+            )
+            log.error(
+                "chip %d quarantined after repeated dispatch failures "
+                "(%s); failing its in-flight frames over to %d healthy "
+                "chip(s)", chip,
+                exc if exc is not None else "unknown error",
+                len(self.ring) - live,
+            )
+            if self.on_health is not None:
+                self.on_health(chip, False)
 
 
 @dataclass(eq=False)
@@ -395,8 +609,8 @@ class BatchDispatcher:
                  flight_recorder: recorder_lib.FlightRecorder | None = None):
         if router is not None:
             raise NotImplementedError(
-                "DeviceRouter (multi-device dispatch) is ROADMAP queue 1 "
-                "item 14")
+                "routing the dispatcher over a DeviceRouter (multi-device "
+                "dispatch) is ROADMAP queue 1 item 14")
         self.device = resolve_device(device)
         self._model_label = model_label or "default"
         self._placer = placer

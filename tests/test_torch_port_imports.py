@@ -105,6 +105,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "import robotic_discovery_platform_tpu_torch.serving.planner\n"
         "import robotic_discovery_platform_tpu_torch.serving.replica\n"
         "import robotic_discovery_platform_tpu_torch.observability.federation\n"
+        "import robotic_discovery_platform_tpu_torch.sim\n"
+        "import robotic_discovery_platform_tpu_torch.sim.calibrate\n"
+        "import robotic_discovery_platform_tpu_torch.sim.sweep\n"
+        "import robotic_discovery_platform_tpu_torch.analysis.explore\n"
+        "import robotic_discovery_platform_tpu_torch.analysis.statecheck\n"
+        "import robotic_discovery_platform_tpu_torch.parallel\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -136,7 +142,11 @@ def test_port_and_chip_smoke_import_no_jax():
                    "tools.calibrate_camera", "utils.flops",
                    "utils.transferguard", "ops.tuning", "serving.fleet",
                    "serving.frontend", "serving.planner", "serving.replica",
-                   "observability.federation"):
+                   "observability.federation", "sim.engine", "sim.model",
+                   "sim.workload", "sim.metrics", "sim.scenario",
+                   "sim.cluster", "sim.calibrate", "sim.sweep",
+                   "analysis.explore", "analysis.statecheck",
+                   "parallel.mesh"):
         assert f"robotic_discovery_platform_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # the REST store speaks HTTP through the standard library: the card's
