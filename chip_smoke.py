@@ -186,7 +186,18 @@ mismatch raises and the script exits non-zero:
    lease, frames/s over two replicas, one and direct (5 rounds a leg:
    median and range), and an autoscaler
    front-end scaling up under load and down after it, every process
-   stopped at the end.
+   stopped at the end;
+15. the simulated twin (``sim_phase``): the zoo's models behind one
+   server, closed- and open-loop legs the twin is calibrated against;
+16. shape contracts and the data axis (``mesh_phase``): (a) answers bit
+   for bit with the contracts on and off, the host µs they add, a
+   misshaped ``submit`` refused before any launch; (b) one card with
+   ``serving_mesh=-1`` builds no router; (c) a two-position ring on the
+   one card, both modes bit for bit, quarantine, failover and probe,
+   the controller's mode switch both ways; (d) an NCCL group of world
+   size 1: both data-axis steps against the single-device step, their
+   median times, a profile of one step, ``train_model`` over the mesh
+   and a servicer from its checkpoint.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
@@ -199,7 +210,8 @@ runs one phase alone (any of ``PHASES``: ``kernel_phase``,
 ``bitpack_phase``, ``bitpack_timing_phase``, ``precision_phase``,
 ``deploy_phase``, ``drift_phase``, ``host_path_phase``, ``zoo_phase``,
 ``controller_phase``, ``rollout_phase``, ``lab_phase``,
-``tuning_phase``, ``fleet_phase`` or ``trained_tier_phase``, which
+``tuning_phase``, ``fleet_phase``, ``sim_phase``, ``mesh_phase`` or
+``trained_tier_phase``, which
 ``main`` does not run): its
 log lines, then its results as one JSON line. To compare a change with
 its parent on one card, unpack the parent (``git archive``) into a
@@ -211,6 +223,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -218,6 +231,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -374,11 +388,11 @@ def int32_ops_per_s(torch) -> float:
     return flops_lib().int32_ops_per_s(sms, mhz)
 
 
-def time_ms(torch, fn, iters: int = 20) -> float:
+def time_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
     """Mean device time of ``fn`` in ms (CUDA events over ``iters`` calls
-    after a warm-up; inputs stay in L2 between calls, as they arrive from
-    the previous layer in the forward)."""
-    for _ in range(3):
+    after ``warm`` calls; inputs stay in L2 between calls, as they arrive
+    from the previous layer in the forward)."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -4173,6 +4187,7 @@ def deploy_leg(torch, port, uri: str, tmp: Path, requests: list,
 
     from robotic_discovery_platform_tpu_torch import tracking
     from robotic_discovery_platform_tpu_torch.observability import journal
+    from robotic_discovery_platform_tpu_torch.ops import graphs
     from robotic_discovery_platform_tpu_torch.serving import (
         grpc_service,
         health,
@@ -4258,9 +4273,12 @@ def deploy_leg(torch, port, uri: str, tmp: Path, requests: list,
     generations = [generation_refs(servicer._engine)]
     handles = [stream_handles(cache_streams(servicer._engine))]
     per_generation = len(handles[0])
+    made_half = None
     for k in range(DEPLOY_RELOADS):
-        if profile and k == DEPLOY_RELOADS // 2:
-            profiler.start()  # a profile while reloads capture
+        if k == DEPLOY_RELOADS // 2:
+            made_half = graphs.streams_made(0)
+            if profile:
+                profiler.start()  # a profile while reloads capture
         prev = servicer._engine
         target = 2 if version == 1 else 1
         t0 = time.perf_counter()
@@ -4362,15 +4380,15 @@ def deploy_leg(torch, port, uri: str, tmp: Path, requests: list,
     alive = sum(any(r() is not None for r in refs)
                 for refs in generations[:-1])
     check(alive == 0, f"{leg}: {alive} swapped-out generations still alive")
-    # streams are handed on: the second half of the reloads ran on
-    # streams the first half had used (the process may hold more free
-    # streams than two generations need, from earlier graph caches)
-    half = len(handles) // 2
-    used = set().union(*handles[:half])
-    fresh = set().union(*handles[half:]) - used
-    check(not fresh, f"{leg}: the last {len(handles) - half} generations "
-          f"ran on {len(fresh)} streams the first {half} never used")
-    n_streams = len(used | fresh)
+    # streams are handed on: the second half of the reloads made no
+    # stream, every generation took one a collected owner had left (the
+    # process may hold more free streams than the first half draws, from
+    # earlier graph caches and dispatchers, so a stream the first half
+    # never ran on is not a new one)
+    made = graphs.streams_made(0) - made_half
+    check(made == 0, f"{leg}: the last {DEPLOY_RELOADS - DEPLOY_RELOADS // 2}"
+          f" reloads made {made} new stream(s)")
+    n_streams = len(set().union(*handles))
 
     page = http_get(mport, "/metrics").decode()
     served = sum(metric_value(page, "rdp_frames_total", model="seg",
@@ -8298,13 +8316,499 @@ def sim_phase(torch, port) -> dict:
     return total
 
 
+# -- the mesh phase: contracts, the serving ring, the data axis -----------------
+
+MESH_TIMING_FRAMES = 200  # frames per side of the contracts' host cost
+MESH_STEP_ITERS = 7  # timed steps of each data-axis step (the median)
+# the convolutions' kernels in a profile of a plain-conv train step
+# (cuDNN's forward, data-gradient and weight-gradient kernels)
+CONV_KERNEL = re.compile(r"conv|cudnn|fprop|dgrad|wgrad|implicit|xmma",
+                         re.IGNORECASE)
+# a data-axis step against the single-device step: the port's one-step
+# bars (tests/test_torch_port_training.py: loss rtol 1e-5, the updated
+# parameters' relative L2 over all of them 1e-4) and the JAX package's DP
+# bar for each element (tests/test_parallel.py: atol 5e-3, where Adam's
+# step on a gradient near 0 can flip sign)
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAM_REL_L2 = 1e-4
+MESH_PARAM_ATOL = 5e-3
+MESH_RESET_S = 0.5  # chip_breaker_reset_s of the two-position ring
+
+
+def frame_answer(r) -> tuple:
+    """Everything a response carries of one analyzed frame."""
+    return (r.mean_k, r.max_k, r.mask_bytes, r.spline_wire, r.coverage,
+            r.valid, r.confidence_margin)
+
+
+def serve_frames(service, frames, mask_format: int = 1) -> list:
+    return [frame_answer(service.analyze_frame(rgb, depth, mask_format))
+            for rgb, depth in frames]
+
+
+def submit_rows(dispatcher, frames, k) -> list:
+    """Each frame submitted alone (a dispatch of one frame): its packed
+    row, copied."""
+    rows = []
+    for rgb, depth in frames:
+        r = dispatcher.submit(rgb, depth, k, 0.001, timeout_s=60.0)
+        rows.append(np.array(r.payload))
+        r.release()
+    return rows
+
+
+def contracts_on(on: bool) -> None:
+    os.environ["RDP_CONTRACTS"] = "1" if on else "0"
+
+
+def mesh_contracts_leg(torch, port, folded, frames, tmp: Path) -> tuple:
+    """(a) The same frames through the direct servicer and the batched
+    dispatcher with the contracts on and off (RDP_CONTRACTS): bit for bit
+    the same answers; the host time the contracts add per frame; a
+    misshaped submit refused with ContractError before any launch.
+    Returns (launches, the batched server's answers)."""
+    from robotic_discovery_platform_tpu_torch.analysis.contracts import (
+        ContractError,
+    )
+
+    total = launches_of()
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    answers = {}
+    for leg, window in (("direct", 0.0), ("batched", 2.0)):
+        cfg = port.ServerConfig(
+            metrics_csv=str(tmp / f"{leg}.csv"), batch_window_ms=window,
+            max_batch=MAX_BATCH, calibration_path=str(tmp / "none.npz"))
+        service = port.VisionAnalysisService(folded, cfg=cfg, device="cuda")
+        try:
+            service.warmup(FRAME_W, FRAME_H)
+            got = {}
+            for on in (True, False):
+                contracts_on(on)
+                reset_launches()
+                got[on] = serve_frames(service, frames)
+                total = {n: total[n] + c for n, c in read_launches().items()}
+            check(got[True] == got[False], f"contracts leg, {leg}: answers "
+                  "with the contracts on differ from those with them off")
+            answers[leg] = got[True]
+            # the host time per frame, on against off, in alternate blocks
+            rgb, depth = frames[0]
+            times = {True: [], False: []}
+            for block in range(8):
+                on = block % 2 == 0
+                contracts_on(on)
+                for _ in range(MESH_TIMING_FRAMES // 4):
+                    t0 = time.perf_counter()
+                    service.analyze_frame(rgb, depth, 1)
+                    times[on].append(time.perf_counter() - t0)
+            added = (np.median(times[True]) - np.median(times[False])) * 1e6
+            # the checks alone: the entry's contract, called as a frame
+            # calls it, on against off
+            entry = (service.analyze._prepare if leg == "direct"
+                     else type(service.dispatcher).submit)
+            check_us = {}
+            for on in (True, False):
+                contracts_on(on)
+                if leg == "direct":
+                    kd, _ = service._geometry(FRAME_W, FRAME_H).staged()
+                    fn = functools.partial(entry, rgb, depth, kd, 0.001)
+                else:
+                    fn = functools.partial(_contract_only(entry), rgb, depth,
+                                           k)
+                t0 = time.perf_counter()
+                for _ in range(MESH_TIMING_FRAMES):
+                    fn()
+                check_us[on] = ((time.perf_counter() - t0)
+                                / MESH_TIMING_FRAMES * 1e6)
+            contracts_on(True)
+            log(f"mesh (a) contracts, {leg}: {len(frames)} frames bit for bit "
+                f"with RDP_CONTRACTS on and off; host time per frame "
+                f"{np.median(times[True]) * 1e3:.3f} ms on, "
+                f"{np.median(times[False]) * 1e3:.3f} ms off (median of "
+                f"{MESH_TIMING_FRAMES // 2} each, alternate blocks): "
+                f"{added:+.1f} us per frame; the entry's check alone "
+                f"{check_us[True] - check_us[False]:.2f} us per call "
+                f"[{nvidia_smi_line()}]")
+            if leg == "batched":
+                reset_launches()
+                try:
+                    service.dispatcher.submit(rgb[..., :2], depth, k, 0.001)
+                    check(False, "a misshaped submit was taken")
+                except ContractError as exc:
+                    log(f"mesh (a): misshaped submit refused: {exc}")
+                check(read_launches() == launches_of(),
+                      f"a refused submit launched {read_launches()}")
+        finally:
+            contracts_on(True)
+            service.close()
+    return total, answers["batched"]
+
+
+def _contract_only(submit):
+    """``BatchDispatcher.submit``'s contract around a function that does
+    nothing: the check alone, as a submit pays it."""
+    from robotic_discovery_platform_tpu_torch.analysis.contracts import (
+        shape_contract,
+    )
+
+    specs = dict(submit.__shape_contract__)
+    specs.pop("out")
+    return shape_contract(**specs)(
+        lambda frame_rgb, depth, intrinsics: None)
+
+
+def mesh_ring_leg(torch, port, folded, frames, tmp: Path,
+                  batched_answers: list) -> dict:
+    """(b) serving_mesh=-1 on one card: one chip, no router, the default
+    batched server's answers bit for bit. (c) a two-position ring on the
+    one card, built directly: each position its own analyzer, graph cache
+    and streams; round_robin and sharded bit for bit as the router-less
+    dispatcher, launches per position-dispatch; a fault on position 1
+    quarantines it, its frames fail over, a probe reinstates it; the
+    controller's _tune_mode flips on full buckets and back."""
+    from robotic_discovery_platform_tpu_torch.resilience import (
+        configure_faults,
+    )
+    from robotic_discovery_platform_tpu_torch.serving import (
+        batching,
+        controller,
+    )
+
+    total = launches_of()
+    cfg = port.ServerConfig(
+        metrics_csv=str(tmp / "ring1.csv"), batch_window_ms=2.0,
+        max_batch=MAX_BATCH, serving_mesh=-1,
+        calibration_path=str(tmp / "none.npz"))
+    one = port.VisionAnalysisService(folded, cfg=cfg, device="cuda")
+    try:
+        check(one.serving_chips == 1 and one.dispatcher.router is None,
+              f"serving_mesh=-1 on one card: {one.serving_chips} chip(s), "
+              f"router {one.dispatcher.router}")
+        one.warmup(FRAME_W, FRAME_H)
+        reset_launches()
+        got = serve_frames(one, frames)
+        total = {n: total[n] + c for n, c in read_launches().items()}
+        check(got == batched_answers, "serving_mesh=-1: answers differ from "
+              "the default batched server's")
+    finally:
+        one.close()
+    log("mesh (b): serving_mesh=-1 with batch_window_ms=2 on one card "
+        "resolves to 1 chip and builds no router; its 8 answers equal the "
+        "default batched server's bit for bit")
+
+    k = port.default_intrinsics(FRAME_W, FRAME_H)
+    dev = torch.device("cuda", 0)
+
+    def analyzer():
+        from robotic_discovery_platform_tpu_torch.ops import pipeline
+
+        return pipeline.make_batch_analyzer(folded, img_size=256, device=dev,
+                                            pack=True)
+
+    plain = batching.BatchDispatcher(analyzer(), window_ms=2.0,
+                                     max_batch=MAX_BATCH, max_inflight=1,
+                                     device="cuda")
+    try:
+        want = submit_rows(plain, frames, k)
+    finally:
+        plain.stop()
+    per = [analyzer(), analyzer()]
+    flips = []
+    router = batching.DeviceRouter(
+        [dev, dev], "round_robin", per,
+        sharded_analyzer=batching.ShardedAnalyzer(per), breaker_failures=2,
+        breaker_reset_s=MESH_RESET_S,
+        on_health=lambda c, ok: flips.append((c, ok)))
+    ring = batching.BatchDispatcher(per[0], window_ms=2.0,
+                                    max_batch=MAX_BATCH, max_inflight=1,
+                                    device="cuda", router=router)
+    try:
+        for b in (1, 2):
+            ring.warm(np.stack([frames[0][0]] * b),
+                      np.stack([frames[0][1]] * b),
+                      np.repeat(k[None], b, axis=0),
+                      np.full((b,), 0.001, np.float32))
+        streams = {ring._streams[0].cuda_stream, ring._streams[1].cuda_stream,
+                   *(a.graphs.stream_handle for a in per)}
+        check(len(streams) == 4, f"ring streams not distinct: {streams}")
+        for mode, dispatches in (("round_robin", len(frames)),
+                                 ("sharded", 2 * len(frames))):
+            router.set_mode(mode)
+            before = list(ring.chip_dispatches)
+            reset_launches()
+            rows = submit_rows(ring, frames, k)
+            counts = read_launches()
+            total = {n: total[n] + c for n, c in counts.items()}
+            check(all(np.array_equal(a, b) for a, b in zip(rows, want)),
+                  f"two-position ring, {mode}: rows differ from the "
+                  "router-less dispatcher's")
+            # a sharded bucket of 2 is one row per position: each position
+            # runs the one-frame path
+            pw = frame_launches(0, dispatches=dispatches, ones=dispatches)
+            check(counts == pw, f"two-position ring, {mode}: launches "
+                  f"{counts}, want {pw} ({dispatches} position-dispatches)")
+            log(f"mesh (c) two-position ring on one card "
+                f"[{torch.cuda.get_device_name(0)}], {mode}: 8 frames bit for "
+                f"bit as the router-less dispatcher; window dispatches "
+                f"{[a - b for a, b in zip(ring.chip_dispatches, before)]}; "
+                f"launches {counts} = 18/1/1/1/1/1 per position-dispatch")
+        router.set_mode("round_robin")
+        configure_faults("serving.chip.1.dispatch:exc:-1")
+        try:
+            reset_launches()
+            rows = submit_rows(ring, frames, k)
+            total = {n: total[n] + c for n, c in read_launches().items()}
+        finally:
+            configure_faults(None)
+        check(all(np.array_equal(a, b) for a, b in zip(rows, want)),
+              "fault leg: failed-over frames answer differently")
+        check(router.quarantined == frozenset({1}) and flips == [(1, False)],
+              f"fault leg: quarantined {set(router.quarantined)}, health "
+              f"{flips}")
+        time.sleep(MESH_RESET_S * 1.5)
+        reset_launches()
+        rows = submit_rows(ring, frames[:2], k)
+        total = {n: total[n] + c for n, c in read_launches().items()}
+        # the completer records the probe's outcome after its answer
+        deadline = time.perf_counter() + 5.0
+        while router.quarantined and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        check(not router.quarantined and flips == [(1, False), (1, True)],
+              f"probe leg: quarantined {set(router.quarantined)}, health "
+              f"{flips}")
+        log(f"mesh (c) fault on position 1: quarantined after "
+            f"{router.breakers[1].failure_threshold} failures, 8 frames "
+            f"failed over and answered bit for bit; reinstated by a probe "
+            f"after {MESH_RESET_S} s; health {flips}")
+        # the controller's mode switch on the two positions: full
+        # buckets switch to sharded; one-frame dispatches switch back
+        # (the port's rule allows MODE_BACK_SLACK above half the ring,
+        # which their average only approaches from above)
+        ctl = controller.ReactiveController(dispatcher=lambda: ring,
+                                            burn=lambda: 0.0)
+        results: list = []
+
+        def burst(i: int) -> None:
+            for j in range(4):
+                rgb, depth = frames[(i + j) % len(frames)]
+                r = ring.submit(rgb, depth, k, 0.001, timeout_s=60.0)
+                results.append(r)
+                r.release()
+
+        ring.set_window_ms(20.0)
+        reset_launches()
+        threads = [threading.Thread(target=burst, args=(i,))
+                   for i in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        occupancy = ring.recent_batch
+        action = ctl._tune_mode(ring)
+        check(len(results) == 128 and action == "mode_sharded"
+              and router.mode == "sharded",
+              f"_tune_mode under full buckets: {action} at recent_batch "
+              f"{occupancy:.2f}")
+        ring.set_window_ms(2.0)
+        back, n = None, 0
+        while back is None and n < 100:
+            submit_rows(ring, frames[:1], k)
+            back, n = ctl._tune_mode(ring), n + 1
+        total = {c: total[c] + v for c, v in read_launches().items()}
+        check(back == "mode_round_robin" and router.mode == "round_robin",
+              f"_tune_mode after the backlog: {back} after {n} frames "
+              f"(recent_batch {ring.recent_batch})")
+        log(f"mesh (c) _tune_mode on the two positions of the card: "
+            f"round_robin -> sharded at recent_batch {occupancy:.2f} "
+            f"(32 streams x 4 frames), back to round_robin after {n} "
+            f"single frames (recent_batch {ring.recent_batch:.4f})")
+    finally:
+        configure_faults(None)
+        ring.stop()
+    return total
+
+
+def mesh_train_leg(torch, port, tmp: Path) -> None:
+    """(d) The data axis on an NCCL group of world size 1: one
+    parallelize_training step and one shard_map_train_step step at B = 4
+    on the default config against the single-device conv_impl="flax"
+    step, their times, then train_model over the mesh for one epoch and a
+    single-device servicer from its checkpoint."""
+    import torch.distributed as dist
+
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.parallel import dp
+    from robotic_discovery_platform_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+    from robotic_discovery_platform_tpu_torch.training import (
+        checkpoint,
+        synthetic,
+        trainer,
+    )
+    from robotic_discovery_platform_tpu_torch.utils.config import MeshConfig
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            world_size=1, rank=0)
+    # cuDNN's deterministic algorithms: the plain convs' backward is then
+    # the same bits from the same state, so a step can be held to another
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        check(dist.get_backend() == "nccl", "the group is not NCCL")
+        mesh = mesh_lib.make_mesh(MeshConfig(data=1))
+        cfg = dataclasses.replace(port.ModelConfig(), conv_impl="flax")
+        imgs, masks = synthetic.generate_arrays(TRAIN_BATCH, 256, 256,
+                                                seed=SEED)
+        xs, ys = trainer.normalize_arrays(imgs, masks)
+        loss_fn = losses.make_loss_fn("bce")
+        dev = torch.device("cuda", 0)
+
+        def fresh():
+            net = trainer.init_model(cfg, SEED, dev)
+            return net, trainer.make_optimizer(net, 1e-4)
+
+        net0, opt0 = fresh()
+        x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+        loss0 = float(trainer.train_step(net0, opt0, loss_fn, x, y))
+        # copies: the timing below steps net0 on
+        want = {n: t.clone() for n, t in net0.state_dict().items()}
+        net1, opt1 = fresh()
+        trainer.train_step(net1, opt1, loss_fn, x, y)
+        control = all(torch.equal(t, want[n])
+                      for n, t in net1.state_dict().items())
+        del net1, opt1
+        steps, lines = {}, []
+        for kind in ("parallelize_training", "shard_map_train_step"):
+            net, opt = fresh()
+            if kind == "parallelize_training":
+                step, _, state = dp.parallelize_training(mesh, net, opt,
+                                                         loss_fn)
+            else:
+                state = dp.replicated_state(mesh, net, opt)
+                step = dp.shard_map_train_step(mesh, net, opt, loss_fn)
+            state, loss = step(state, x, y)
+            steps[kind] = (step, state)
+            got = state.net.state_dict()
+            bitwise = float(loss) == loss0 and all(
+                torch.equal(got[n], want[n]) for n in want)
+            names = [n for n, p in state.net.named_parameters()]
+            err = rel_l2(torch, torch.cat([got[n].float().ravel()
+                                           for n in names]),
+                         torch.cat([want[n].float().ravel() for n in names]))
+            diffs = {n: float((got[n].float() - want[n].float()).abs().max())
+                     for n in want if want[n].is_floating_point()}
+            worst = max(diffs, key=diffs.get)
+            check(abs(float(loss) - loss0) <= MESH_LOSS_RTOL * abs(loss0)
+                  and err <= MESH_PARAM_REL_L2
+                  and diffs[worst] <= MESH_PARAM_ATOL,
+                  f"{kind}: loss {float(loss)} vs {loss0}, parameters' rel "
+                  f"L2 {err:.3g}, worst element {diffs[worst]:.3g} "
+                  f"({worst})")
+            lines.append(f"{kind} " + ("bitwise" if bitwise else
+                f"not bitwise (loss equal {float(loss) == loss0}, "
+                f"parameters' rel L2 {err:.3g}, worst element "
+                f"{diffs[worst]:.3g} in {worst})"))
+        # timed on cuDNN's default algorithms, as training runs: each
+        # step alone between CUDA events, the three kinds interleaved
+        torch.backends.cudnn.deterministic = deterministic
+        calls = {"single-device": lambda: trainer.train_step(
+            net0, opt0, loss_fn, x, y)}
+        for kind, (step, state) in steps.items():
+            calls[kind] = lambda step=step, state=state: step(state, x, y)
+        samples = {k: [] for k in calls}
+        for fn in calls.values():
+            fn()
+        for _ in range(MESH_STEP_ITERS):
+            for kind, fn in calls.items():
+                samples[kind].append(time_ms(torch, fn, 1, warm=0))
+        times = {k: float(np.median(v)) for k, v in samples.items()}
+        log(f"mesh (d) data axis, NCCL world size 1, B = {TRAIN_BATCH} at "
+            f"256x256, default config with conv_impl='flax', one step from "
+            f"one state with cuDNN deterministic: two single-device steps "
+            f"{'bitwise' if control else 'NOT bitwise'}; {'; '.join(lines)} "
+            f"against the single-device step. Step times (median of "
+            f"{MESH_STEP_ITERS}, each step alone between CUDA events, cuDNN "
+            f"default): " + ", ".join(
+                f"{k} {v:.2f} ms (range {min(samples[k]):.2f}-"
+                f"{max(samples[k]):.2f})" for k, v in times.items())
+            + f" [{nvidia_smi_line()}]")
+        # where a step's device time goes: the profiler's kernels of one
+        # single-device step, the convolutions' share by kernel name
+        rows = profiled_rows(torch, calls["single-device"], 1)
+        busy = sum(r[0] for r in rows)
+        conv_ms = sum(r[0] for r in rows if CONV_KERNEL.search(r[2]))
+        if busy > 0:
+            log(f"mesh (d) profile of one single-device step: device busy "
+                f"{busy:.2f} ms of the {times['single-device']:.2f} ms step, "
+                f"convolution kernels {conv_ms:.2f} ms "
+                f"({100 * conv_ms / busy:.1f}% of busy); largest: "
+                + "; ".join(f"{ms:.2f} ms x{n} {name[:90]}"
+                            for ms, n, name in rows[:6])
+                + f" [{nvidia_smi_line()}]")
+        else:
+            log("mesh (d) profile of one single-device step: the profiler "
+                "recorded no device time (not measured)")
+
+        tcfg = port.TrainConfig(epochs=1, batch_size=TRAIN_BATCH,
+                                img_size=256, loss="bce", seed=SEED,
+                                tracking_uri=f"file:{tmp}/mlruns",
+                                checkpoint_dir=str(tmp / "ckpt"))
+        arrays = synthetic.generate_arrays(TRAIN_SAMPLES, 256, 256, seed=SEED)
+        t0 = time.perf_counter()
+        res = trainer.train_model(tcfg, port.ModelConfig(), arrays=arrays,
+                                  mesh=mesh_lib.make_mesh(
+                                      MeshConfig(data=1)))
+        train_s = time.perf_counter() - t0
+        check(np.isfinite(res.best_val_loss) and res.registry_version == 1,
+              f"train_model over the mesh: {res.to_jsonable()}")
+        state = checkpoint.CheckpointManager(tcfg.checkpoint_dir).restore()
+        net = port.UNet(port.ModelConfig())
+        net.load_state_dict(state["model"], strict=True)
+        sv = port.VisionAnalysisService(
+            port.FoldedUNet(net, device="cuda"), device="cuda",
+            cfg=port.ServerConfig(metrics_csv=str(tmp / "ckpt.csv"),
+                                  calibration_path=str(tmp / "none.npz")))
+        try:
+            rng = np.random.default_rng(SEED + 7)
+            rgb, _, depth = port.render_scene(rng, FRAME_H, FRAME_W)
+            r = sv.analyze_frame(rgb, depth, 1)
+            check(np.isfinite(r.mean_k) and 0.0 <= r.coverage <= 100.0,
+                  f"servicer from the mesh checkpoint: {frame_answer(r)[:2]}")
+        finally:
+            sv.close()
+        log(f"mesh (d) train_model(mesh=make_mesh(MeshConfig(data=1))): one "
+            f"epoch in {train_s:.1f} s, best val loss "
+            f"{res.best_val_loss:.4f}; its checkpoint loaded into a "
+            f"single-device servicer, which answered a frame")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, port, folded=None, frames=None) -> dict:
+    """Shape contracts and the data axis on the card (see the legs)."""
+    t0 = time.perf_counter()
+    if folded is None:
+        folded, frames = phase_model(torch, port)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    total, batched_answers = mesh_contracts_leg(torch, port, folded, frames,
+                                                tmp)
+    ring = mesh_ring_leg(torch, port, folded, frames, tmp, batched_answers)
+    total = {n: total[n] + ring[n] for n in total}
+    mesh_train_leg(torch, port, tmp)
+    log(json.dumps({"phase": "mesh", "seconds": round(
+        time.perf_counter() - t0, 1), "card": nvidia_smi_line(),
+        "launches": total}))
+    return total
+
+
 PHASES = ("kernel_phase", "conv1x1_kernel_phase", "convt_kernel_phase",
           "decode_kernel_phase", "geometry_kernel_phase",
           "train_kernel_phase", "graph_phase", "bitpack_phase",
           "bitpack_timing_phase", "precision_phase", "trained_tier_phase",
           "deploy_phase", "drift_phase", "host_path_phase", "zoo_phase",
           "controller_phase", "rollout_phase", "lab_phase", "tuning_phase",
-          "fleet_phase", "sim_phase")
+          "fleet_phase", "sim_phase", "mesh_phase")
 
 
 def run_phase(torch, port, conv, name: str) -> int:
@@ -8394,6 +8898,7 @@ def main(argv: list | None = None) -> int:
     legs.append(tuning_phase(torch, port, folded, frames))
     legs.append(fleet_phase(torch, port))
     legs.append(sim_phase(torch, port))
+    legs.append(mesh_phase(torch, port, folded, frames))
     launches = {k: launches[k] + sum(leg[k] for leg in legs)
                 for k in launches}
     from robotic_discovery_platform_tpu_torch.analysis import recompile

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from robotic_discovery_platform_tpu_torch.analysis.contracts import shape_contract
 from robotic_discovery_platform_tpu_torch.ops.conv import (
     conv3x3,
     conv3x3_plain,
@@ -90,6 +91,7 @@ def interp_weights(out: int, inp: int, dtype: torch.dtype,
     return m.to(dtype).to(torch.float32).to(device)
 
 
+@shape_contract(x="b ih iw c")
 def upsample_align_corners(x: torch.Tensor, h: int, w: int,
                            cache: dict | None = None) -> torch.Tensor:
     """Bilinear NHWC resize on the ``align_corners=True`` grid, as two
@@ -212,9 +214,15 @@ class BatchNorm(nn.Module):
     normalizes with the batch's, in Flax's ``nn.BatchNorm(momentum=0.9)``
     semantics (not ``nn.BatchNorm2d``'s): float32 statistics over (B, H,
     W), the variance as ``max(0, E[x^2] - E[x]^2)`` (biased), and running
-    statistics updated as ``0.9 * running + (1 - 0.9) * batch``."""
+    statistics updated as ``0.9 * running + (1 - 0.9) * batch``.
+
+    ``sync`` (None by default) maps the batch's per-channel means of x
+    and x² to the statistics to use: ``parallel/dp.sync_batch_norm`` sets
+    it to an all-reduce over the data axis, so a data-parallel step
+    normalizes over the global batch."""
 
     momentum = 0.9
+    sync = None
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -229,8 +237,10 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.to(torch.float32)
             mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 1, 2))
-                                  - mean * mean, 0.0)
+            sq = (xf * xf).mean(dim=(0, 1, 2))
+            if self.sync is not None:
+                mean, sq = self.sync(mean, sq)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from robotic_discovery_platform_tpu_torch.analysis.contracts import shape_contract
+
 
 def clamped_uniform_knots(num_ctrl: int, degree: int = 3) -> np.ndarray:
     """Clamped knot vector on [0, 1] with uniform interior knots; length
@@ -133,6 +135,7 @@ def bspline_basis_derivative(u: torch.Tensor, knots, degree: int = 3,
     return b @ _static(m, b)
 
 
+@shape_contract(points="n d", weights="n", out="n")
 def chord_length_params(points: torch.Tensor,
                         weights: torch.Tensor) -> torch.Tensor:
     """Normalized cumulative chord-length parameters [..., N] for
@@ -170,6 +173,7 @@ def _design(points: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
     return bwt @ b, bwt @ points
 
 
+@shape_contract(points="n d", weights="n", knots="k")
 def fit_bspline(points: torch.Tensor, weights: torch.Tensor, knots,
                 degree: int = 3, smoothing: float = 1e-3, impl: str = "xla"):
     """Weighted penalized least-squares B-spline fit: solves
@@ -214,6 +218,7 @@ def fit_bspline(points: torch.Tensor, weights: torch.Tensor, knots,
     return ctrl.to(points.dtype), u.to(points.dtype)
 
 
+@shape_contract(ctrl="c d", knots="k", u="n", out="n d")
 def evaluate_bspline(ctrl: torch.Tensor, knots, u: torch.Tensor,
                      degree: int = 3, order: int = 0) -> torch.Tensor:
     """The spline (or its ``order``-th derivative) at ``u``: [..., N, D]
@@ -231,6 +236,7 @@ def _curvature_formula(r1: torch.Tensor, r2: torch.Tensor):
     return kappa, valid
 
 
+@shape_contract(ctrl="c d", knots="k", u="n")
 def curvature_profile(ctrl: torch.Tensor, knots, u: torch.Tensor,
                       degree: int = 3, impl: str = "xla"):
     """kappa(u) along the fitted curve, plus the sample points, for

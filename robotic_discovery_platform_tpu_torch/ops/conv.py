@@ -40,6 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from robotic_discovery_platform_tpu_torch.analysis.contracts import shape_contract
 from robotic_discovery_platform_tpu_torch.ops import build, graphs
 from robotic_discovery_platform_tpu_torch.utils.config import (
     CONV_IMPLS,
@@ -187,6 +188,8 @@ def fwd_plan(b: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int]:
     return splits, (splits * b * h * w * cout if splits > 1 else 0)
 
 
+@shape_contract(x="b h w ci", w="3 3 ci co", scale="co", bias="co",
+                out="b h w co")
 def conv3x3_bn_relu(x, w, scale, bias, *, relu: bool = True, out_dtype=None,
                     splits: int | None = None):
     """Fused NHWC 3x3 SAME conv + per-channel scale/bias (+ ReLU).
@@ -296,6 +299,8 @@ def conv1x1_path_of_kernel(x, cout: int, out_dtype=None) -> str:
     return _CONV1X1_PATHS[path]
 
 
+@shape_contract(x="b h w ci", w="ci co", scale="co", bias="co",
+                out="b h w co")
 def conv1x1(x, w, scale, bias, *, relu: bool = False, out_dtype=None):
     """Fused NHWC 1x1 conv + per-channel scale/bias (+ ReLU): the OutConv
     head with an identity scale and the conv bias in ``bias``.
@@ -392,6 +397,7 @@ def convt_path_of_kernel(dtype, cin: int, cout: int,
     return {1: "tensor_cores", 0: "fma"}[path]
 
 
+@shape_contract(x="b h w ci", w="2 2 ci co", bias="co")
 def conv_transpose2x2(x, w, bias, *, out_dtype=None):
     """NHWC 2x2 stride-2 transposed conv + bias: the non-bilinear ``Up``
     upsampler, ``[B, H, W, Cin] -> [B, 2H, 2W, Cout]``.

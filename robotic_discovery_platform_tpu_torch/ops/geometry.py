@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from robotic_discovery_platform_tpu_torch.analysis.contracts import shape_contract
 from robotic_discovery_platform_tpu_torch.ops import bspline
 from robotic_discovery_platform_tpu_torch.utils.config import (
     GeometryConfig,
@@ -55,6 +56,7 @@ class CurvatureProfile(NamedTuple):
     truncated: torch.Tensor  # scalar bool: a bin hit max_per_bin
 
 
+@shape_contract(mask="h w", depth="h w")
 def deproject(mask, depth, fx, fy, cx, cy, depth_scale, stride: int = 1):
     """Pinhole deprojection over the dense grid -> (x, y, z, valid) maps.
 
@@ -170,6 +172,7 @@ def _sort_by_x(pts, w):
             torch.take_along_dim(w, order, dim=-1))
 
 
+@shape_contract(mask="h w", depth="h w", intrinsics="3 3")
 def compute_curvature_profile(mask, depth, intrinsics, depth_scale,
                               cfg: GeometryConfig = GeometryConfig()
                               ) -> CurvatureProfile:

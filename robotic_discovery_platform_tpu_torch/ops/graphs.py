@@ -123,6 +123,8 @@ _driver = None  # guarded_by: _driver_lock
 _free_lock = threading.Lock()
 #: device index -> handles of dedicated streams whose owner is gone
 _free_streams: dict[int, queue.SimpleQueue] = {}  # guarded_by: _free_lock
+#: device index -> how many dedicated streams the port has made there
+_made_streams: dict[int, int] = {}  # guarded_by: _free_lock
 
 
 def _cuda_driver() -> ctypes.CDLL:
@@ -192,10 +194,21 @@ def dedicated_stream(device: torch.device, owner: Any) -> torch.cuda.Stream:
         handle = free.get_nowait()
     except queue.Empty:
         handle = _new_stream(index)
+        with _free_lock:
+            _made_streams[index] = _made_streams.get(index, 0) + 1
     # SimpleQueue.put is safe wherever the collector runs a finalizer
     weakref.finalize(owner, free.put, handle)
     return torch.cuda.ExternalStream(handle, device=torch.device("cuda",
                                                                  index))
+
+
+def streams_made(index: int) -> int:
+    """How many streams :func:`dedicated_stream` has made on device
+    ``index`` in this process: each is handed on, never destroyed, so the
+    count grows only while more owners are alive at once than ever
+    before."""
+    with _free_lock:
+        return _made_streams.get(index, 0)
 
 
 #: one capture at a time in the process: each clears cuBLAS's cached
@@ -573,7 +586,7 @@ class StepGraph:
         caller = torch.cuda.current_stream(self.device)
         first = self._stream is None
         if first:
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = dedicated_stream(self.device, owner=self)
         self._stream.wait_stream(caller)
         if first:
             with torch.cuda.stream(self._stream):

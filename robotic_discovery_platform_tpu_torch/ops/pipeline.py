@@ -34,6 +34,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from robotic_discovery_platform_tpu_torch.analysis.contracts import (
+    mapped,
+    shape_contract,
+)
 from robotic_discovery_platform_tpu_torch.ops import decode, geometry, pack
 from robotic_discovery_platform_tpu_torch.ops import graphs as graphs_lib
 from robotic_discovery_platform_tpu_torch.serving.entropy import block_grids
@@ -123,6 +127,7 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.where(in_bounds, weights, 0.0).T.astype(np.float32)
 
 
+@shape_contract(frames_rgb="b h w 3", out="b s s 3")
 def preprocess(frames_rgb: torch.Tensor, img_size: int,
                r_h: torch.Tensor | None = None,
                r_w: torch.Tensor | None = None) -> torch.Tensor:
@@ -142,6 +147,7 @@ def preprocess(frames_rgb: torch.Tensor, img_size: int,
     return torch.einsum("Pw,bOwc->bOPc", r_w, x)
 
 
+@shape_contract(logits="b s s c", out="b h w")
 def logits_to_native_masks(logits: torch.Tensor, h: int, w: int,
                            threshold: float = 0.5) -> torch.Tensor:
     """[B, S, S, C] logits -> [B, H, W] uint8 masks: sigmoid > threshold at
@@ -255,8 +261,11 @@ def _analyzer(forward, img_size: int, geom_cfg: GeometryConfig,
                     t[None] for t in geometry.compute_curvature_profile(
                         masks[0], raw_depth[0], k[0], scales[0], geom_cfg)))
             else:
-                profile = geometry.compute_curvature_profile(
-                    masks, raw_depth, k, scales, geom_cfg)
+                # the batch's leading axis is the JAX package's vmap: each
+                # contract inside checks one frame's shapes
+                with mapped():
+                    profile = geometry.compute_curvature_profile(
+                        masks, raw_depth, k, scales, geom_cfg)
             coverage = mask_coverage(
                 torch.sum(masks, dim=(1, 2), dtype=torch.int64), h, w)
         return FrameAnalysis(mask=masks, mask_coverage=coverage,
@@ -313,6 +322,9 @@ class Analyzer:
     def __init__(self, prepare: Callable, name: str, budget: int,
                  device: torch.device, finish: Callable):
         self._prepare = prepare
+        #: the entry's ``@shape_contract`` specs (``analysis/contracts``)
+        self.__shape_contract__ = getattr(prepare, "__shape_contract__",
+                                          None)
         self._finish = finish
         self.graphs = graphs_lib.GraphCache(name, budget, device)
 
@@ -355,12 +367,13 @@ def make_frame_analyzer(
     device = resolve_device(device)
     run = _pixel_run(core, geom_cfg.num_samples if pack else None)
 
-    def prepare(frame_rgb, depth, intrinsics, depth_scale):
+    @shape_contract(frame_rgb="h w 3", depth="h w", intrinsics="3 3")
+    def analyze(frame_rgb, depth, intrinsics, depth_scale):
         return run, _pixel_inputs(_leading(frame_rgb), _leading(depth),
                                     _leading(intrinsics), depth_scale), ()
 
     return transferguard.apply(Analyzer(
-        prepare, "pipeline.frame_analyzer", 2, device,
+        analyze, "pipeline.frame_analyzer", 2, device,
         _frame_finish(pack)))
 
 
@@ -393,12 +406,14 @@ def make_batch_analyzer(
     device = resolve_device(device)
     run = _pixel_run(core, geom_cfg.num_samples if pack else None)
 
-    def prepare(frames_rgb, depths, intrinsics, depth_scales):
+    @shape_contract(frames_rgb="b h w 3", depths="b h w",
+                    intrinsics="b 3 3", depth_scales="b")
+    def analyze(frames_rgb, depths, intrinsics, depth_scales):
         return run, _pixel_inputs(frames_rgb, depths, intrinsics,
                                     depth_scales), ()
 
     return transferguard.apply(Analyzer(
-        prepare, "pipeline.batch_analyzer", 8, device,
+        analyze, "pipeline.batch_analyzer", 8, device,
         graphs_lib.clone))
 
 
@@ -450,12 +465,14 @@ def make_scan_batch_analyzer(
             for i in range(frames_rgb.shape[0])])
         return out if pack_pts is None else pack_analysis(out, n_pts=pack_pts)
 
-    def prepare(frames_rgb, depths, intrinsics, depth_scales):
+    @shape_contract(frames_rgb="b h w 3", depths="b h w",
+                    intrinsics="b 3 3", depth_scales="b")
+    def analyze(frames_rgb, depths, intrinsics, depth_scales):
         return run, _pixel_inputs(frames_rgb, depths, intrinsics,
                                     depth_scales), ()
 
     return transferguard.apply(Analyzer(
-        prepare, "pipeline.scan_batch_analyzer", 8, device,
+        analyze, "pipeline.scan_batch_analyzer", 8, device,
         graphs_lib.clone))
 
 
@@ -625,12 +642,15 @@ def make_coef_batch_analyzer(
     run = _coef_run(core, height, width, subsampling,
                     geom_cfg.num_samples if pack else None)
 
-    def prepare(y, cb, cr, qy, qc, depths, intrinsics, depth_scales):
+    @shape_contract(y="b n 64", cb="b m 64", cr="b m 64", qy="b 64",
+                    qc="b 64", depths="b h w", intrinsics="b 3 3",
+                    depth_scales="b")
+    def analyze(y, cb, cr, qy, qc, depths, intrinsics, depth_scales):
         return run, (y, cb, cr, qy, qc,
                      *_depth_inputs(depths, intrinsics, depth_scales)), ()
 
     return transferguard.apply(Analyzer(
-        prepare, "pipeline.coef_batch_analyzer", 8, device,
+        analyze, "pipeline.coef_batch_analyzer", 8, device,
         graphs_lib.clone))
 
 

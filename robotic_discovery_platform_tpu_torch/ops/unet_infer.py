@@ -117,6 +117,23 @@ class FoldedUNet:
         )
         return layers
 
+    def on(self, device: str | torch.device) -> FoldedUNet:
+        """The same folded weights copied to ``device`` (another serving
+        ring position)."""
+        twin = copy.copy(self)
+        twin.device = resolve_device(device)
+        twin._interp = {}
+
+        def move(node):
+            if isinstance(node, torch.Tensor):
+                return node.to(twin.device)
+            if isinstance(node, dict):
+                return {k: move(v) for k, v in node.items()}
+            return type(node)(move(v) for v in node)
+
+        twin._layers = move(self._layers)
+        return twin
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self._forward(x, _tuned_conv3x3, conv1x1, conv_transpose2x2)
 

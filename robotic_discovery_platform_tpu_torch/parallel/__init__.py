@@ -1,12 +1,39 @@
-"""Device rings for the serving router (the part of the JAX package's
-``parallel/`` that ``serving/batching.DeviceRouter`` needs).
+"""Meshes, the serving ring and the data-parallel train steps, the JAX
+package's ``parallel/`` for PyTorch (``torch.distributed`` process groups
+in place of ``jax.distributed``; see :mod:`.mesh` and :mod:`.dp`)."""
 
-The meshes, the data-parallel trainer and ``make_serving_mesh`` are
-ROADMAP queue 1 item 14."""
-
+from robotic_discovery_platform_tpu_torch.parallel.dp import (
+    parallelize_training,
+    put_global_batch,
+    shard_map_train_step,
+)
 from robotic_discovery_platform_tpu_torch.parallel.mesh import (
+    AXES,
+    Mesh,
+    batch_sharding,
     device_ring,
+    initialize_distributed,
     least_loaded,
+    make_mesh,
+    make_serving_mesh,
+    replicated,
+    shard_pytree,
+    tp_param_specs,
 )
 
-__all__ = ["device_ring", "least_loaded"]
+__all__ = [
+    "AXES",
+    "Mesh",
+    "batch_sharding",
+    "device_ring",
+    "initialize_distributed",
+    "least_loaded",
+    "make_mesh",
+    "make_serving_mesh",
+    "parallelize_training",
+    "put_global_batch",
+    "replicated",
+    "shard_map_train_step",
+    "shard_pytree",
+    "tp_param_specs",
+]

@@ -84,19 +84,32 @@ the buckets captured for the frame's model) and
 :meth:`~BatchDispatcher.set_deadline_safety` (the stale shed compares the
 model's service estimate times this factor with the headroom).
 
-Chip quarantine (:class:`DeviceRouter`, the JAX package's placement
-and quarantine over a ring of devices): ``round_robin`` placement
-(``parallel/mesh.least_loaded``), a per-chip
-:class:`~resilience.CircuitBreaker` over dispatch outcomes, the
-quarantine of a chip whose breaker opens (never the last healthy one),
-one half-open probe per quarantined chip, reinstatement on a successful
-probe, ``on_health`` and the ``rdp_quarantined_chips`` /
-``rdp_chip_quarantines_total`` instruments and ``chip.quarantine`` /
-``chip.reinstate`` journal events, as in the JAX package. It does no
-device work; ``analysis/explore.py`` drives it over a fake two-chip ring.
-Not ported (ROADMAP queue 1 item 14): ``mode="sharded"`` and the mode
-switch, and the dispatcher's ``router=`` (both raise
-``NotImplementedError``).
+Routing over a ring of devices (``BatchDispatcher(router=...)`` with a
+:class:`DeviceRouter` over ``parallel/mesh.make_serving_mesh``), as in
+the JAX package:
+
+- ``round_robin``: each bucket whole onto the least-loaded healthy ring
+  position (``parallel/mesh.least_loaded``, ties walking the ring), one
+  in-flight window per position, each position with its own analyzer
+  (its own graph cache and stream) and its own dispatch stream
+  (``ops/graphs.dedicated_stream``); a per-position
+  :class:`~resilience.CircuitBreaker` over dispatch outcomes quarantines
+  a failing position (never the last healthy one), its frames fail over
+  to the others, and one half-open probe reinstates it (``on_health``,
+  the ``rdp_quarantined_chips`` / ``rdp_chip_quarantines_total``
+  instruments, the ``chip.quarantine`` / ``chip.reinstate`` journal
+  events).
+- ``sharded``: one window; each bucket (at least the ring's width) is
+  split evenly over the positions (:class:`ShardedAnalyzer`) and the
+  results gathered in ring order. The chip count must be a power of two
+  and ``max_batch`` a multiple of it.
+- A router built ``round_robin`` with a ``sharded_analyzer`` can switch
+  modes online (``set_mode``): the reactive controller's ``_tune_mode``.
+
+Warm keys are ``(model, chip, bucket)`` (``chip`` None for the sharded
+layout). A ring may hold one device more than once: the two-position ring
+on one card shares that card, each position with its own graph cache and
+streams.
 """
 
 from __future__ import annotations
@@ -114,6 +127,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from robotic_discovery_platform_tpu_torch.analysis.contracts import shape_contract
 from robotic_discovery_platform_tpu_torch.observability import (
     events,
     instruments as obs,
@@ -147,9 +161,12 @@ from robotic_discovery_platform_tpu_torch.utils.lockcheck import checked_lock
 log = logging.getLogger(__name__)
 
 __all__ = ["BatchDispatcher", "DeadlineExceeded", "DeviceRouter",
-           "OverloadedError", "resolve_max_inflight"]
+           "OverloadedError", "ShardedAnalyzer", "resolve_dispatch_mode",
+           "resolve_max_inflight", "resolve_serving_chips"]
 
 _INFLIGHT_ENV_VAR = "RDP_INFLIGHT"
+_CHIPS_ENV_VAR = "RDP_SERVING_CHIPS"
+_MODE_ENV_VAR = "RDP_DISPATCH_MODE"
 
 DISPATCH_MODES = ("round_robin", "sharded")
 
@@ -162,34 +179,90 @@ def resolve_max_inflight(configured: int) -> int:
     return max(1, value)
 
 
+def resolve_serving_chips(configured: int,
+                          device_type: str = "cuda") -> int:
+    """The effective serving-mesh chip count: ``RDP_SERVING_CHIPS`` when
+    set, else ``ServerConfig.serving_mesh``. Negative = every available
+    device of ``device_type`` (``parallel/mesh.available_devices``); 0
+    clamps to 1 (single-device dispatch, exactly the router-less
+    behavior)."""
+    raw = os.environ.get(_CHIPS_ENV_VAR)
+    value = int(raw) if raw else int(configured)
+    if value < 0:
+        return len(mesh_lib.available_devices(device_type))
+    return max(1, value)
+
+
+def resolve_dispatch_mode(configured: str) -> str:
+    """The effective dispatch mode: ``RDP_DISPATCH_MODE`` when set, else
+    ``ServerConfig.dispatch_mode``; dashes normalize to underscores."""
+    mode = (os.environ.get(_MODE_ENV_VAR) or configured).replace("-", "_")
+    if mode not in DISPATCH_MODES:
+        raise ValueError(
+            f"unknown dispatch mode {mode!r}; expected one of "
+            f"{DISPATCH_MODES}"
+        )
+    return mode
+
+
 class DeviceRouter:
-    """Placement and chip quarantine over a ring of devices (the JAX
-    package's ``serving/batching.DeviceRouter`` in ``round_robin`` mode).
+    """Placement policy and chip quarantine for the dispatcher's in-flight
+    window over a ring of devices (the JAX package's
+    ``serving/batching.DeviceRouter``).
 
     Args:
-        mesh: the devices to route over: a list of ``torch.device``s, or
-            anything with a ``.devices`` array (``parallel/mesh.
-            device_ring``).
-        mode: "round_robin" (whole buckets onto the least-loaded chip).
-            "sharded" is ROADMAP queue 1 item 14 and raises.
+        mesh: the devices to route over: a ``parallel/mesh`` serving mesh,
+            a list of ``torch.device``s, or anything with a ``.devices``
+            array (``parallel/mesh.device_ring``). A device may appear
+            more than once (two positions on one card).
+        mode: "round_robin" (whole buckets onto the least-loaded chip) or
+            "sharded" (each bucket split evenly over the ring).
+        analyzers: per-position analyzers (the dispatcher's
+            ``analyze_batch`` signature), one per ring position: each on
+            its position's device with its own graph cache. A sharded
+            router given them (and no ``sharded_analyzer``) splits over
+            them (:class:`ShardedAnalyzer`). Without analyzers the
+            dispatcher's shared analyzer serves every position.
+        sharded_analyzer: the sharded layout's analyzer beside per-chip
+            ``analyzers``: a round_robin router built with it can switch
+            modes online (``set_mode``).
         breaker_failures / breaker_reset_s: per-chip quarantine circuit
-            breakers (0 disables quarantine, the default). Only
-            meaningful over more than one chip.
+            breakers (0 disables quarantine, the default). Only for
+            round_robin routing over more than one chip.
         on_health: ``(chip_index, serving: bool)`` callback invoked on
             quarantine and reinstatement.
         clock: injectable monotonic clock for the breakers.
     """
 
-    def __init__(self, mesh, mode: str = "round_robin", *,
-                 breaker_failures: int = 0, breaker_reset_s: float = 30.0,
-                 on_health=None, clock=time.monotonic):
+    def __init__(self, mesh, mode: str = "round_robin", analyzers=None, *,
+                 sharded_analyzer=None, breaker_failures: int = 0,
+                 breaker_reset_s: float = 30.0, on_health=None,
+                 clock=time.monotonic):
         self._check_mode(mode)
         self.mesh = mesh
         self.mode = mode
         self.ring = mesh_lib.device_ring(mesh)
+        self.analyzers = list(analyzers) if analyzers is not None else None
+        self.sharded_analyzer = sharded_analyzer
+        if (self.analyzers is not None
+                and len(self.analyzers) != len(self.ring)):
+            raise ValueError(
+                f"{mode} router over {len(self.ring)} chips expected "
+                f"{len(self.ring)} analyzer(s), got {len(self.analyzers)}"
+            )
+        if self.analyzers is not None and mode == "sharded":
+            if self.sharded_analyzer is None:
+                self.sharded_analyzer = ShardedAnalyzer(self.analyzers)
+            self.analyzers = None
+        # the sharded layout is reachable (constructed sharded, or
+        # mode-switchable round_robin)
+        self.sharding = (
+            mesh_lib.Sharding(mesh, ("data",))
+            if mode == "sharded" or sharded_analyzer is not None else None)
         # -- chip quarantine state ------------------------------------------
         self.quarantine_enabled = (
-            breaker_failures > 0 and len(self.ring) > 1
+            breaker_failures > 0 and mode == "round_robin"
+            and len(self.ring) > 1
         )
         self.on_health = on_health
         self._qlock = checked_lock("batching.router.quarantine")
@@ -220,19 +293,32 @@ class DeviceRouter:
                 f"unknown dispatch mode {mode!r}; expected one of "
                 f"{DISPATCH_MODES}"
             )
-        if mode == "sharded":
-            raise NotImplementedError(
-                "the sharded dispatch mode is ROADMAP queue 1 item 14; the "
-                "port's router places round_robin only")
 
     @property
     def chips(self) -> int:
         return len(self.ring)
 
+    @property
+    def can_switch_modes(self) -> bool:
+        """True when the controller may retarget round_robin vs sharded
+        online: per-chip windows of a round_robin construction plus a
+        sharded layout."""
+        return self.sharding is not None and self.sharded_analyzer is not None
+
     def set_mode(self, mode: str) -> None:
-        """The controller's mode actuator: round_robin is the only mode
-        (the same mode is a no-op, as in the JAX router)."""
+        """Online dispatch-mode switch (the controller's actuator). The
+        dispatcher reads ``mode`` per dispatch, so the change applies from
+        the next launch; dispatches in flight finish under their own."""
         self._check_mode(mode)
+        if mode == self.mode:
+            return
+        if not self.can_switch_modes:
+            raise ValueError(
+                "router was not built mode-switchable (needs round_robin "
+                "construction with a sharded_analyzer)"
+            )
+        log.info("dispatch mode: %s -> %s", self.mode, mode)
+        self.mode = mode
 
     def pick(self, loads, start: int = 0, allowed=None) -> int:
         """The ring position of the next round_robin dispatch, as the JAX
@@ -240,7 +326,8 @@ class DeviceRouter:
         half-open breaker admits a probe (within ``allowed``, the model's
         placement, when given) takes the dispatch, which is its probe;
         else the least-loaded placeable chip, ties walked in ring order
-        from ``start``. The caller advances its cursor past the pick."""
+        from ``start``. The caller advances its cursor past a pick that is
+        no probe."""
         if self.quarantine_enabled:
             probe = self.probe_candidate()
             if probe is not None and (allowed is None or probe in allowed):
@@ -360,6 +447,55 @@ class DeviceRouter:
                 self.on_health(chip, False)
 
 
+def _tree_cat(parts: list):
+    """Per-position results (tensors, or NamedTuples of them) joined
+    along the batch axis, in ring order, on the first part's device."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(first.device) for p in parts])
+    return type(first)(*(_tree_cat([p[i] for p in parts])
+                         for i in range(len(first))))
+
+
+class ShardedAnalyzer:
+    """The sharded layout over per-position analyzers: a bucket of B rows
+    (B a multiple of the ring's width) is split into equal row blocks in
+    ring order, each block analyzed by its position's analyzer (on its
+    device, graph cache and stream), and the results gathered in ring
+    order on position 0's device. On the card each position's result is
+    copied out of its graph (``graphs.clone``) before the gather, and the
+    caller's ``finish`` (the dispatcher's landing copy) takes the
+    gathered result."""
+
+    def __init__(self, analyzers):
+        self.analyzers = list(analyzers)
+
+    def __call__(self, *inputs, finish: Callable | None = None):
+        n, c = inputs[0].shape[0], len(self.analyzers)
+        if n % c:
+            raise ValueError(
+                f"a sharded bucket of {n} rows does not shard evenly over "
+                f"{c} chips")
+        per = n // c
+        parts = []
+        for i, analyze in enumerate(self.analyzers):
+            rows = tuple(t[i * per:(i + 1) * per] for t in inputs)
+            parts.append(analyze(*rows) if finish is None
+                         else analyze(*rows, finish=graphs.clone))
+        out = _tree_cat(parts)
+        return out if finish is None else finish(out)
+
+
+@dataclass(frozen=True)
+class _ModelBinding:
+    """A zoo model's batched analyzers: the shared one, one per ring
+    position (round_robin), and the sharded layout's."""
+
+    analyze_batch: Callable
+    per_chip: list | None = None
+    sharded: Callable | None = None
+
+
 @dataclass(eq=False)
 class _Pending:
     # [H, W, 3] uint8 pixels, or the coefficient half of a split decode
@@ -384,6 +520,9 @@ class _Pending:
     submit_ns: int = field(default_factory=time.monotonic_ns)
     # the zoo model the frame is for ("" = the default model)
     model: str = ""
+    # times this frame was failed over to another chip after a dispatch
+    # failure (bounded, so a deterministic error cannot circle the ring)
+    failovers: int = 0
 
 
 class _BucketBuffers:
@@ -516,6 +655,8 @@ class _Dispatch:
     timeline: Any = None
     root: Any = None
     model: str = ""  # the zoo model of the dispatch's frames
+    chip: int = 0  # the ring position (0 for a sharded dispatch)
+    mode: str = "single"  # the router's mode at launch
 
 
 def _read_leaf(t: torch.Tensor) -> torch.Tensor:
@@ -594,7 +735,10 @@ class BatchDispatcher:
             (``ops/pipeline.make_coef_batch_analyzer(pack=True)``, called
             as ``analyze_batch`` is), built on a geometry's first
             coefficient dispatch and kept; None fails coefficient
-            frames.
+            frames. Under a router it is called with ``chip=`` the ring
+            position too, and builds that position's analyzer.
+        router: a :class:`DeviceRouter`: dispatches are routed over its
+            ring (see the module docstring). None: one device.
     """
 
     def __init__(self, analyze_batch: Callable, window_ms: float = 2.0,
@@ -607,17 +751,27 @@ class BatchDispatcher:
                  coef_analyzer_factory: Callable | None = None,
                  model_label: str = "default",
                  flight_recorder: recorder_lib.FlightRecorder | None = None):
-        if router is not None:
-            raise NotImplementedError(
-                "routing the dispatcher over a DeviceRouter (multi-device "
-                "dispatch) is ROADMAP queue 1 item 14")
+        if router is not None and router.sharding is not None:
+            # the sharded layout is reachable: its geometry must hold
+            chips = router.chips
+            if chips & (chips - 1):
+                raise ValueError(
+                    f"sharded dispatch needs a power-of-two chip count "
+                    f"(buckets are powers of two); got {chips}"
+                )
+            if max_batch < chips or max_batch % chips:
+                raise ValueError(
+                    f"sharded dispatch over {chips} chips needs max_batch "
+                    f"to be a multiple of the chip count; got {max_batch}"
+                )
         self.device = resolve_device(device)
+        self._router = router
         self._model_label = model_label or "default"
         self._placer = placer
-        # the zoo's other models: name -> batched analyzer (bind_model).
+        # the zoo's other models: name -> their analyzers (bind_model).
         # Written before the model is served; the collector reads it
         # without a lock
-        self._bindings: dict[str, Callable] = {}
+        self._bindings: dict[str, _ModelBinding] = {}
         #: (model, chip, bucket) keys whose graph was captured, at warm-up
         #: or at the first dispatch (``("coef", b)`` for the coefficient
         #: lane's buckets)
@@ -626,13 +780,22 @@ class BatchDispatcher:
         self._recorder = (flight_recorder if flight_recorder is not None
                           else recorder_lib.RECORDER)
         self._cuda = self.device.type == "cuda"
-        # the dispatch stream: staging, the analyzer and the D2H copy of
-        # every dispatch run on it, in launch order
-        self._stream = (torch.cuda.Stream(device=self.device) if self._cuda
-                        else None)
+        # the independent launch windows: one per ring position under a
+        # round_robin router, else one (a sharded dispatch spans the ring)
+        self._n_windows = (router.chips if router is not None
+                           and router.mode == "round_robin" else 1)
+        # each ring position's device and dispatch stream: staging, the
+        # analyzer and the D2H copy of every dispatch on the position run
+        # on its stream, in launch order
+        self._devices = ([torch.device(d) for d in router.ring]
+                         if router is not None and self._cuda
+                         else [self.device])
+        self._streams = [graphs.dedicated_stream(d, owner=self)
+                         if self._cuda else None for d in self._devices]
         self._analyze = analyze_batch
         self._coef_factory = coef_analyzer_factory
-        # (height, width, subsampling) -> the coefficient lane's analyzer
+        # (chip, height, width, subsampling) -> the coefficient lane's
+        # analyzer on that ring position
         self._coef_analyzers: dict[tuple, Callable] = {}  # guarded_by: _coef_lock
         self._coef_lock = threading.Lock()
         self._window_s = window_ms / 1e3
@@ -650,6 +813,9 @@ class BatchDispatcher:
         self.deadline_safety = 1.0
         #: controller-tuned floor of the padded bucket (1 = off)
         self.bucket_floor = 1
+        #: EWMA of recent dispatch sizes (frames per launch): the
+        #: controller's round_robin-vs-sharded choice reads it
+        self.recent_batch = 0.0
         # the queue calls back through a weak reference: a bound method
         # would make dispatcher and queue a cycle, and a stopped dispatcher
         # (a hot reload's old one, with its graphs) would then wait for the
@@ -659,10 +825,21 @@ class BatchDispatcher:
             max_backlog, policy=admission,
             on_evict=lambda p: this() is not None and this()._on_evicted(p))
         self._cq: queue.Queue[_Dispatch | None] = queue.Queue()
-        self._slots = threading.Semaphore(self._max_inflight)  # guarded_by: _inflight_lock
+        # one in-flight window per launch window
+        self._chip_slots = [threading.Semaphore(self._max_inflight)
+                            for _ in range(self._n_windows)]  # guarded_by: _inflight_lock
         self._inflight_lock = threading.Lock()
         self._inflight = 0  # guarded_by: _inflight_lock
-        #: most dispatches in flight at once (never above max_inflight)
+        self._chip_inflight = [0] * self._n_windows  # guarded_by: _inflight_lock
+        # least-loaded tie-break cursor (ring order)
+        self._rr_next = 0  # guarded_by: _inflight_lock
+        #: per-window launched dispatches and carried frames (padding
+        #: excluded), and the most in flight at once on each
+        self.chip_dispatches = [0] * self._n_windows  # guarded_by: _inflight_lock
+        self.chip_frames = [0] * self._n_windows  # guarded_by: _inflight_lock
+        self.chip_inflight_high_water = [0] * self._n_windows  # guarded_by: _inflight_lock
+        #: most dispatches in flight at once (never above max_inflight per
+        #: window)
         self.inflight_high_water = 0  # guarded_by: _inflight_lock
         #: frames per launched dispatch (padding excluded) -> dispatches
         self.dispatch_sizes: collections.Counter = collections.Counter()  # guarded_by: _inflight_lock
@@ -674,7 +851,7 @@ class BatchDispatcher:
         # set per possible in-flight dispatch plus the one being staged
         self._pool: dict[tuple, list[_BucketBuffers]] = {}  # guarded_by: _pool_lock
         self._egress_pool: dict[tuple, list[torch.Tensor]] = {}  # guarded_by: _pool_lock
-        self._pool_cap = self._max_inflight + 1
+        self._pool_cap = self._max_inflight * self._n_windows + 1
         self._pool_lock = threading.Lock()
         self._stopped = threading.Event()
         self._submit_lock = threading.Lock()
@@ -684,7 +861,7 @@ class BatchDispatcher:
         self._pending_lock = threading.Lock()
         self.collector_restarts = 0
         self.completer_restarts = 0
-        obs.SERVING_CHIPS.set(1)
+        obs.SERVING_CHIPS.set(router.chips if router is not None else 1)
         self._completer = self._start(self._complete_loop, "batch-completer")
         self._thread = self._start(self._loop, "batch-dispatcher")
         self._watchdog = None
@@ -692,6 +869,10 @@ class BatchDispatcher:
             self._watchdog = self._start(
                 lambda: self._watch(watchdog_interval_s),
                 "batch-dispatcher-watchdog")
+
+    @property
+    def router(self) -> DeviceRouter | None:
+        return self._router
 
     @staticmethod
     def _start(target: Callable, name: str) -> threading.Thread:
@@ -701,6 +882,8 @@ class BatchDispatcher:
 
     # -- caller side ----------------------------------------------------------
 
+    @shape_contract(frame_rgb=("h w 3", "uint8"), depth="h w",
+                    intrinsics="3 3")
     def submit(self, frame_rgb, depth, intrinsics, depth_scale,
                timeout_s: float | None = None,
                model: str = "") -> PackedResult:
@@ -790,13 +973,20 @@ class BatchDispatcher:
             raise p.error
         return p.result
 
-    def bind_model(self, name: str, analyze_batch: Callable) -> None:
+    def bind_model(self, name: str, analyze_batch: Callable,
+                   per_chip_analyzers=None, sharded_analyzer=None) -> None:
         """Register another zoo model's batched analyzer (called as
-        ``analyze_batch`` is) so that ``submit(model=name)`` routes to it.
+        ``analyze_batch`` is) so that ``submit(model=name)`` routes to it;
+        under a router also one analyzer per ring position and the
+        sharded layout's (else the shared one serves every position).
         Call before that model is served."""
         if not name:
             raise ValueError("the default model is bound at construction")
-        self._bindings[name] = analyze_batch
+        self._bindings[name] = _ModelBinding(
+            analyze_batch,
+            per_chip=(list(per_chip_analyzers)
+                      if per_chip_analyzers is not None else None),
+            sharded=sharded_analyzer)
 
     def bound_models(self) -> tuple[str, ...]:
         """Every model key this dispatcher routes ("" = the default)."""
@@ -806,8 +996,58 @@ class BatchDispatcher:
         """A model key's name in labels and placer keys."""
         return model or self._model_label
 
+    def _allowed_chips(self, model: str) -> set[int] | None:
+        """The placer's chip set for ``model`` (None = unrestricted); an
+        empty placement falls back to unrestricted."""
+        if self._placer is None:
+            return None
+        allowed = set(self._placer.chips_for(self._display_model(model)))
+        allowed &= set(range(self._n_windows))
+        return allowed or None
+
+    def _pick_chip(self, model: str = "") -> int:
+        """The ring position the next dispatch launches on: the router's
+        ``pick`` over the in-flight counts (a half-open quarantined chip's
+        probe first, else the least-loaded healthy chip within the model's
+        placement, ties walking the ring from the cursor). As in the JAX
+        dispatcher a probe leaves the cursor where it was. A sharded
+        dispatch rides window 0."""
+        r = self._router
+        if r is None or r.mode == "sharded" or self._n_windows == 1:
+            return 0
+        allowed = self._allowed_chips(model)
+        with self._inflight_lock:
+            chip = r.pick(self._chip_inflight, self._rr_next, allowed)
+            # only a probe picks a quarantined chip: the last healthy one
+            # is never quarantined
+            probe = chip in r.quarantined
+            if not probe:
+                self._rr_next = (chip + 1) % self._n_windows
+        if probe:
+            log.info("routing probe dispatch to quarantined chip %d", chip)
+        return chip
+
     def _analyze_for(self, model: str) -> Callable:
-        return self._bindings[model] if model else self._analyze
+        """``model``'s shared batched analyzer (the one device's)."""
+        return self._bindings[model].analyze_batch if model else self._analyze
+
+    def _routed_analyze_for(self, model: str, chip: int,
+                            sharded: bool) -> Callable:
+        """The analyzer of ``model``'s dispatch on ring position ``chip``
+        (or over the whole ring, ``sharded``): the per-position or sharded
+        one bound, else the shared one."""
+        r = self._router
+        if model:
+            b = self._bindings[model]
+            if sharded:
+                return b.sharded if b.sharded is not None else b.analyze_batch
+            a = b.per_chip
+        else:
+            if sharded:
+                return (r.sharded_analyzer if r.sharded_analyzer is not None
+                        else self._analyze)
+            a = r.analyzers
+        return a[min(chip, len(a) - 1)] if a else self._analyze_for(model)
 
     def _on_evicted(self, p: _Pending) -> None:
         """DeadlineQueue eviction callback (runs under the queue lock)."""
@@ -880,9 +1120,11 @@ class BatchDispatcher:
                 return
             old = self._max_inflight
             self._max_inflight = n
-            self._pool_cap = n + 1
-            # a new epoch: a fresh semaphore, not a resized one
-            self._slots = threading.Semaphore(n)
+            self._pool_cap = n * self._n_windows + 1
+            # a new epoch on every window: fresh semaphores, not resized
+            # ones
+            self._chip_slots = [threading.Semaphore(n)
+                                for _ in range(self._n_windows)]
         log.info("max_inflight retuned: %d -> %d", old, n)
 
     @property
@@ -908,12 +1150,22 @@ class BatchDispatcher:
         return self._q.qsize()
 
     def analyzers(self) -> list:
-        """The analyzers dispatches go to: the default model's pixel lane,
-        each bound model's, then each coefficient geometry's built so
-        far."""
+        """The analyzers dispatches go to, each once: the default model's
+        (each ring position's under a router), each bound model's, then
+        each coefficient geometry's built so far. A
+        :class:`ShardedAnalyzer` adds none of its own: it splits over the
+        per-position ones."""
+        r = self._router
+        found = [self._analyze]
+        if r is not None:
+            found += [*(r.analyzers or ()), r.sharded_analyzer]
+        for b in self._bindings.values():
+            found += [b.analyze_batch, *(b.per_chip or ()), b.sharded]
         with self._coef_lock:
-            return [self._analyze, *self._bindings.values(),
-                    *self._coef_analyzers.values()]
+            found += self._coef_analyzers.values()
+        unique = {id(a): a for a in found
+                  if a is not None and not isinstance(a, ShardedAnalyzer)}
+        return list(unique.values())
 
     def bucket_for(self, n: int, model: str = "") -> int:
         """The padded bucket a group of ``n`` frames of ``model``
@@ -924,6 +1176,10 @@ class BatchDispatcher:
         wait on a capture; below that, the largest captured bucket under
         the floor)."""
         b = _bucket(n, self._max_batch)
+        r = self._router
+        if r is not None and r.mode == "sharded":
+            # every ring position takes at least one row
+            b = min(max(b, r.chips), self._max_batch)
         floor = _bucket(min(self.bucket_floor, self._max_batch),
                         self._max_batch)
         if floor <= b:
@@ -975,14 +1231,19 @@ class BatchDispatcher:
                         if d.event is not None:
                             d.event.synchronize()
                         self._pool_put(d.bufs)
-                # a fresh window: slots held by dispatches lost with the
-                # dead stage are never released (a dispatch on a live
-                # completer releases its own slot object, not this one)
+                # fresh windows on every chip: slots held by dispatches
+                # lost with the dead stage are never released (a dispatch
+                # on a live completer releases its own slot object)
                 with self._inflight_lock:
-                    self._slots = threading.Semaphore(self._max_inflight)
+                    self._chip_slots = [
+                        threading.Semaphore(self._max_inflight)
+                        for _ in range(self._n_windows)]
                     self._inflight = 0
+                    self._chip_inflight = [0] * self._n_windows
                     self._sheds_since_complete.clear()
                     obs.INFLIGHT_DISPATCHES.set(0)
+                    for chip in range(self._n_windows):
+                        obs.CHIP_INFLIGHT.labels(chip=str(chip)).set(0)
                 self._fail_pending(RuntimeError(
                     f"batch {dead} died; frame dropped"))
                 if collector_dead:
@@ -1116,11 +1377,16 @@ class BatchDispatcher:
         bufs.pad(len(group))
         return bufs
 
-    def _coef_analyze_for(self, frame: CoefficientFrame) -> Callable:
+    def _coef_analyze_for(self, frame: CoefficientFrame, chip: int = 0,
+                          sharded: bool = False) -> Callable:
         """The coefficient lane's analyzer for ``frame``'s geometry and
-        subsampling, built through ``coef_analyzer_factory`` on first use
-        and kept."""
-        key = (frame.height, frame.width, frame.subsampling)
+        subsampling on ring position ``chip`` (or over the ring), built
+        through ``coef_analyzer_factory`` on first use and kept."""
+        if sharded:
+            return ShardedAnalyzer([
+                self._coef_analyze_for(frame, c)
+                for c in range(self._router.chips)])
+        key = (chip, frame.height, frame.width, frame.subsampling)
         with self._coef_lock:
             analyze = self._coef_analyzers.get(key)
         if analyze is not None:
@@ -1130,14 +1396,17 @@ class BatchDispatcher:
                 "coefficient-lane frame dispatched but no "
                 "coef_analyzer_factory is bound (the servicer binds "
                 "ops/pipeline.make_coef_batch_analyzer)")
-        analyze = self._coef_factory(*key)
+        kw = {"chip": chip} if self._router is not None else {}
+        analyze = self._coef_factory(*key[1:], **kw)
         with self._coef_lock:
             return self._coef_analyzers.setdefault(key, analyze)
 
-    def _enqueue(self, bufs: _BucketBuffers, template: _Pending):
-        """Analyze one staged batch of frames like ``template`` and start
-        the D2H copy of its payload; returns (out, host, event). Never
-        waits on the device.
+    def _enqueue(self, bufs: _BucketBuffers, template: _Pending,
+                 chip: int = 0, sharded: bool = False):
+        """Analyze one staged batch of frames like ``template`` on ring
+        position ``chip`` (or split over the ring, ``sharded``, on
+        position 0's stream) and start the D2H copy of its payload;
+        returns (out, host, event). Never waits on the device.
 
         On the card the analyzer copies the pinned staging tensors into
         its (bucket, geometry) graph's static inputs, replays the graph
@@ -1147,15 +1416,20 @@ class BatchDispatcher:
         1``, dispatch N+1's input copy follows dispatch N's D2H copy of its
         output on that one stream, and the dispatch's event covers the
         copies out of the staging buffers and into the landing buffer."""
-        analyze = (self._coef_analyze_for(template.frame_rgb)
-                   if isinstance(bufs, _CoefBucketBuffers)
-                   else self._analyze_for(template.model))
+        if isinstance(bufs, _CoefBucketBuffers):
+            analyze = self._coef_analyze_for(template.frame_rgb, chip, sharded)
+        elif self._router is None:
+            analyze = self._analyze_for(template.model)
+        else:
+            analyze = self._routed_analyze_for(template.model, chip, sharded)
         if not self._cuda:
             return analyze(*bufs.tensors), None, None
-        with torch.cuda.stream(self._stream):
+        stream = self._streams[chip]
+        with torch.cuda.device(self._devices[chip]), \
+                torch.cuda.stream(stream):
             host = analyze(*bufs.tensors, finish=self._land)
             event = torch.cuda.Event()
-            event.record(self._stream)
+            event.record(stream)
         return None, host, event
 
     def _land(self, out):
@@ -1169,32 +1443,54 @@ class BatchDispatcher:
         host.copy_(out, non_blocking=True)
         return host
 
+    def _placements(self, b: int, chips=None) -> list:
+        """The (chip, sharded) layouts a warm-up of bucket ``b`` runs:
+        every routed position (or ``chips``), or the sharded layout; a
+        mode-switchable router's other layout too where ``b`` shards
+        evenly, so a mode flip never waits on a capture."""
+        r = self._router
+        if r is not None and r.mode == "sharded":
+            return [(None, True)]
+        out = [(chip, False) for chip in (range(self._n_windows)
+                                          if chips is None else chips)]
+        if (chips is None and r is not None and r.can_switch_modes
+                and b % r.chips == 0):
+            out.append((None, True))
+        return out
+
     def warm(self, frames, depths, intrinsics, scales,
-             model: str = "") -> None:
-        """Run ``model``'s analyzer once at this batch shape and wait for
+             model: str = "", chips=None) -> None:
+        """Run ``model``'s analyzer once at this batch shape on every
+        routed placement (or the ring positions ``chips``) and wait for
         it, so the first live dispatch of the bucket pays no first-use
         costs: on the card, the bucket's graph is captured here."""
-        self._warm([_Pending(f, d, _intrinsics_f32(k), float(s),
-                             model=model)
-                    for f, d, k, s in zip(frames, depths, intrinsics,
-                                          scales)])
-        with self._warm_lock:
-            self.warmed.add((model, 0, len(frames)))
+        group = [_Pending(f, d, _intrinsics_f32(k), float(s), model=model)
+                 for f, d, k, s in zip(frames, depths, intrinsics, scales)]
+        for chip, sharded in self._placements(len(frames), chips):
+            if (sharded and model and self._router.mode != "sharded"
+                    and self._bindings[model].sharded is None):
+                continue  # no sharded layout bound to switch to
+            self._warm(group, chip or 0, sharded)
+            with self._warm_lock:
+                self.warmed.add((model, chip, len(frames)))
 
     def warm_coef(self, frame: CoefficientFrame, depths, intrinsics,
-                  scales) -> None:
+                  scales, chips=None) -> None:
         """:meth:`warm` for the coefficient lane: ``frame`` replicated over
-        the batch of ``len(depths)`` rows, through the analyzer that live
+        the batch of ``len(depths)`` rows, through the analyzers that live
         coefficient dispatches of its geometry use."""
-        self._warm([_Pending(frame, d, _intrinsics_f32(k), float(s))
-                    for d, k, s in zip(depths, intrinsics, scales)])
-        with self._warm_lock:
-            self.warmed.add(("", 0, ("coef", len(depths))))
+        group = [_Pending(frame, d, _intrinsics_f32(k), float(s))
+                 for d, k, s in zip(depths, intrinsics, scales)]
+        for chip, sharded in self._placements(len(depths), chips):
+            self._warm(group, chip or 0, sharded)
+            with self._warm_lock:
+                self.warmed.add(("", chip, ("coef", len(depths))))
 
-    def _warm(self, group: list[_Pending]) -> None:
+    def _warm(self, group: list[_Pending], chip: int = 0,
+              sharded: bool = False) -> None:
         bufs = self._stage_group(group, len(group))
         try:
-            out, host, event = self._enqueue(bufs, group[0])
+            out, host, event = self._enqueue(bufs, group[0], chip, sharded)
             if event is not None:
                 event.synchronize()
                 if isinstance(host, torch.Tensor):
@@ -1202,19 +1498,22 @@ class BatchDispatcher:
             elif isinstance(out, torch.Tensor):
                 np.asarray(out)
         except BaseException:
-            self._pool_put_after_failure(bufs)
+            self._pool_put_after_failure(bufs, chip)
             raise
         self._pool_put(bufs)
 
-    def _pool_put_after_failure(self, bufs: _BucketBuffers | None) -> None:
+    def _pool_put_after_failure(self, bufs: _BucketBuffers | None,
+                                chip: int = 0) -> None:
         """Pool the staging set of a dispatch that failed, once the
-        dispatch stream has finished the host-to-device copies it may have
-        queued from it; drop the set if the stream cannot say."""
+        position's dispatch stream has finished the host-to-device copies
+        it may have queued from it; drop the set if the stream cannot
+        say."""
         if bufs is None:
             return
-        if self._stream is not None:
+        stream = self._streams[chip]
+        if stream is not None:
             try:
-                self._stream.synchronize()
+                stream.synchronize()
             except BaseException:  # noqa: BLE001 - the set is dropped
                 return
         self._pool_put(bufs)
@@ -1225,7 +1524,12 @@ class BatchDispatcher:
         in-flight dispatch to the completer. Never waits on the result."""
         if collected_ns is None:
             collected_ns = time.monotonic_ns()
-        slot = self._slots
+        model = group[0].model
+        # bounded in-flight window per routed chip: the pick is the
+        # least-loaded within the model's placement, so blocking here
+        # means every chip this model may use has a full window
+        chip = self._pick_chip(model)
+        slot = self._chip_slots[chip]
         while not slot.acquire(timeout=0.05):
             if self._stopped.is_set():
                 self._fail_group(group, RuntimeError("dispatcher stopped"),
@@ -1235,10 +1539,13 @@ class BatchDispatcher:
         # submit; a "submit" span per frame (queue and window wait)
         # carries its trace ID
         first_submit_ns = min(p.submit_ns for p in group)
-        model = group[0].model
         label = self._display_model(model)
+        # the mode at launch: a set_mode before completion must not
+        # misattribute this dispatch's outcome
+        mode = self._router.mode if self._router is not None else "single"
+        sharded = mode == "sharded"
         tl = recorder_lib.Timeline("dispatch", labels={
-            "chip": "0", "mode": "single", "model": label})
+            "chip": str(chip), "mode": mode, "model": label})
         root = tl.span("dispatch", start_ns=first_submit_ns)
         tl.span("collect", start_ns=first_submit_ns, end_ns=collected_ns,
                 parent=root, frames=len(group))
@@ -1251,11 +1558,15 @@ class BatchDispatcher:
         launched = False
         try:
             inject(fault_sites.SERVING_BATCH_DISPATCH)
+            # the per-chip site (serving.chip.<i>.dispatch): one ring
+            # position's dispatches fail or slow, the quarantine drill
+            inject(fault_sites.chip_dispatch(chip))
             # the per-model site: a dispatch holds one model's frames, so
             # it fails that model's frames only
             inject(fault_sites.model_dispatch(label))
             n = len(group)
             obs.BATCH_SIZE.observe(n)
+            self.recent_batch += 0.25 * (n - self.recent_batch)
             coef = isinstance(group[0].frame_rgb, CoefficientFrame)
             b = self.bucket_for(n, model)
             tl.labels["bucket"] = str(b)
@@ -1265,7 +1576,7 @@ class BatchDispatcher:
             t0 = time.monotonic_ns()
             bufs = self._stage_group(group, b)
             t_fill = time.monotonic_ns()
-            out, host, event = self._enqueue(bufs, group[0])
+            out, host, event = self._enqueue(bufs, group[0], chip, sharded)
             t2 = time.monotonic_ns()
             # the analyzer call enqueues the batch's host-to-device copies
             # and then the replay: the graph cache stamps the boundary
@@ -1287,22 +1598,73 @@ class BatchDispatcher:
                 self.inflight_high_water = max(self.inflight_high_water,
                                                self._inflight)
                 self.dispatch_sizes[n] += 1
+                self._chip_inflight[chip] += 1
+                self.chip_inflight_high_water[chip] = max(
+                    self.chip_inflight_high_water[chip],
+                    self._chip_inflight[chip])
+                self.chip_dispatches[chip] += 1
+                self.chip_frames[chip] += n
                 obs.INFLIGHT_DISPATCHES.set(self._inflight)
+                obs.CHIP_INFLIGHT.labels(chip=str(chip)).set(
+                    self._chip_inflight[chip])
+            obs.CHIP_DISPATCHES.labels(chip=str(chip)).inc()
+            obs.CHIP_FRAMES.labels(chip=str(chip)).inc(n)
             obs.MODEL_DISPATCHES.labels(model=label).inc()
             self._cq.put(_Dispatch(group, out, host, event, bufs, slot,
-                                   t2 / 1e9, b, t0 / 1e9, tl, root, model))
+                                   t2 / 1e9, b, t0 / 1e9, tl, root, model,
+                                   chip, mode))
             launched = True
             with self._warm_lock:
-                self.warmed.add((model, 0, ("coef", b) if coef else b))
+                self.warmed.add((model, None if sharded else chip,
+                                 ("coef", b) if coef else b))
         except BaseException as exc:  # deliver, keep the collector alive
             # the failed dispatch's timeline is evidence: record() pins it
             root.end()
             self._recorder.record(tl.fail(exc))
-            self._fail_group(group, exc)
-            self._pool_put_after_failure(bufs)
+            self._dispatch_failed(group, chip, mode, exc)
+            self._pool_put_after_failure(bufs, chip)
         finally:
             if not launched:
                 slot.release()
+
+    def _dispatch_failed(self, group: list[_Pending], chip: int, mode: str,
+                         exc: BaseException) -> None:
+        """A dispatch on ``chip`` failed (launch or completion): feed the
+        chip's quarantine breaker and fail its frames over to the healthy
+        chips where the router quarantines (a requeued frame rides the
+        next dispatch, which the quarantine-aware pick routes away once
+        the breaker opens). Frames out of failover budget, abandoned, or
+        under a router that does not quarantine get the error."""
+        model = group[0].model if group else ""
+        r = self._router
+        if r is not None and mode == "round_robin":
+            r.record_result(chip, ok=False, exc=exc,
+                            model=self._display_model(model),
+                            multi_model=bool(self._bindings))
+        can_failover = (r is not None and r.quarantine_enabled
+                        and mode == "round_robin"
+                        and not self._stopped.is_set())
+        if not can_failover:
+            self._fail_group(group, exc)
+            return
+        retry, doomed = [], []
+        budget = r.chips + 1
+        if (self._bindings
+                and r.failure_confined(chip, self._display_model(model))):
+            budget = 1
+        for p in group:
+            if p.done.is_set() or p.abandoned or p.failovers >= budget:
+                doomed.append(p)
+            else:
+                p.failovers += 1
+                retry.append(p)
+        if retry:
+            obs.CHIP_FAILOVER_FRAMES.inc(len(retry))
+            log.warning("failing %d frame(s) over from chip %d after %s: %s",
+                        len(retry), chip, type(exc).__name__, exc)
+            self._q.requeue(retry)
+        if doomed:
+            self._fail_group(doomed, exc)
 
     # -- completer side -------------------------------------------------------
 
@@ -1338,10 +1700,16 @@ class BatchDispatcher:
                                               key=(d.model, d.bucket))
                 with self._inflight_lock:
                     self._sheds_since_complete[d.model] = 0
+                if self._router is not None and d.mode == "round_robin":
+                    # a completed dispatch is the chip's success signal,
+                    # and a quarantined chip's successful probe
+                    self._router.record_result(
+                        d.chip, ok=True, model=self._display_model(d.model),
+                        multi_model=bool(self._bindings))
             except BaseException as exc:  # deliver, keep draining
                 if d.timeline is not None:
                     d.timeline.fail(exc)
-                self._fail_group(d.group, exc)
+                self._dispatch_failed(d.group, d.chip, d.mode, exc)
             finally:
                 done_ns = time.monotonic_ns()
                 done_t = done_ns / 1e9
@@ -1369,6 +1737,11 @@ class BatchDispatcher:
                 with self._inflight_lock:
                     self._inflight = max(0, self._inflight - 1)
                     obs.INFLIGHT_DISPATCHES.set(self._inflight)
+                    if d.chip < self._n_windows:
+                        self._chip_inflight[d.chip] = max(
+                            0, self._chip_inflight[d.chip] - 1)
+                        obs.CHIP_INFLIGHT.labels(chip=str(d.chip)).set(
+                            self._chip_inflight[d.chip])
                 d.slot.release()
 
     def _fan_out_rows(self, group: list[_Pending], host: torch.Tensor) -> None:

@@ -21,10 +21,15 @@ from the live signals:
 
 - **Bucket floor**: a deep backlog raises the padded-bucket floor (bigger
   dispatches when work is always waiting); an empty one lowers it again.
-- **round_robin against sharded** (``_tune_mode``) acts on the
-  multi-device router, which the port does not have yet (ROADMAP queue 1
-  item 14): it does nothing, as the JAX controller does for a router
-  that cannot switch modes.
+- **round_robin against sharded** (``_tune_mode``): on a router that
+  can switch modes, dispatches as large as the ring is wide (the
+  dispatcher's EWMA ``recent_batch``) justify one sharded dispatch; at
+  half the ring or below, per-chip round_robin windows win again. A
+  dispatcher without such a router is left alone. One divergence from the
+  JAX rule: "half the ring or below" allows ``MODE_BACK_SLACK`` of a
+  frame, since the average of dispatches of exactly half the ring only
+  approaches its bar from above (one-frame dispatches settle at
+  1 + 4.4e-16), so on two chips the JAX rule never switches back.
 
 Every decision passes **hysteresis** (burn must hold beyond its threshold
 for ``sustain_s``; between ``burn_low`` and ``burn_high`` is a dead band)
@@ -71,6 +76,11 @@ _CONTROLLER_ENV_VAR = "RDP_CONTROLLER"
 
 #: brownout ladder depth (level 0 = normal operation)
 MAX_LEVEL = 3
+
+#: the margin, in frames, of sharded -> round_robin's "recent batch at
+#: half the ring or below": the average falls from a full two-chip ring
+#: to within it after 10 one-frame dispatches (0.75 ** 10 < 1 / 16)
+MODE_BACK_SLACK = 1.0 / 16
 
 
 def resolve_controller_enabled(configured: bool) -> bool:
@@ -290,9 +300,17 @@ class ReactiveController:
         return None
 
     def _tune_mode(self, d) -> str | None:
-        """round_robin against sharded dispatch: the JAX controller flips
-        the multi-device router's mode by dispatch occupancy (ROADMAP
-        queue 1 item 14). The port's dispatcher has one device and no
-        router, so this returns None, as the JAX controller does for a
-        router that cannot switch modes."""
+        """round_robin against sharded dispatch by occupancy, with
+        hysteresis (the JAX controller's rule, its way back within
+        ``MODE_BACK_SLACK``)."""
+        r = getattr(d, "router", None)
+        if r is None or not r.can_switch_modes:
+            return None
+        if r.mode == "round_robin" and d.recent_batch >= r.chips:
+            r.set_mode("sharded")
+            return "mode_sharded"
+        if (r.mode == "sharded"
+                and d.recent_batch <= r.chips / 2 + MODE_BACK_SLACK):
+            r.set_mode("round_robin")
+            return "mode_round_robin"
         return None

@@ -365,11 +365,30 @@ class RolloutTarget:
         return analyze.eager
 
     def training_mesh(self):
-        """The drained replica's device mesh for the retraining run: None,
-        since the port trains on one device (the mesh trainer is ROADMAP
-        queue 1 item 14). The JAX package also returns None when no mesh
-        can be built."""
-        return None
+        """The drained replica's device mesh for the retraining run
+        (``parallel/dp.py``): its serving devices along "data", when it
+        routes over more than one and that is this process group's world
+        size (one rank per position), else None, as the JAX package
+        returns None when no mesh can be built; the run then trains
+        unmeshed. A one-device replica trains unmeshed too (the JAX
+        package builds a one-device mesh there, which in the port would
+        only swap the kernel convs for plain ones)."""
+        from robotic_discovery_platform_tpu_torch.parallel import (
+            mesh as mesh_lib,
+        )
+
+        sv = self.servicer
+        chips = max(1, getattr(sv, "serving_chips", 1))
+        _, world = mesh_lib.data_rank()
+        if chips == 1:
+            return None
+        if chips != world:
+            log.warning("no training mesh for %s (%d serving device(s), "
+                        "process group of %d); retraining runs unmeshed",
+                        self.name, chips, world)
+            return None
+        return mesh_lib.make_serving_mesh(
+            chips, devices=list(mesh_lib.chip_shardings(sv._serving_mesh)))
 
 
 # -- gates -------------------------------------------------------------------

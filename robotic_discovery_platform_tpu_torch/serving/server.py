@@ -22,7 +22,13 @@ frames of concurrent streams meet in the batch dispatcher
 batch, "scan" the frame path once per frame) and come back as packed rows,
 or with ``egress_pack=False`` as one unpacked
 :class:`~ops.pipeline.FrameAnalysis` row per frame. The response fields
-are read off either alike.
+are read off either alike. With ``serving_mesh`` (``RDP_SERVING_CHIPS``)
+resolving to more than one device on the batched path, the dispatcher
+routes over a serving mesh (``parallel/mesh.make_serving_mesh``) through
+a ``DeviceRouter`` in ``dispatch_mode`` (``RDP_DISPATCH_MODE``), each
+ring position with its own analyzers and graph caches, and its own
+``rdp.serving.chip.<i>`` health entry; one device (or
+``batch_window_ms`` 0) builds no mesh and serves exactly as without.
 Coefficient frames (``Image.format = 2``, or baseline JPEGs under
 ``ServerConfig.onchip_decode``) take the coefficient lane on either path:
 the single-frame coefficient analyzer
@@ -143,6 +149,7 @@ response is built (a failing tap never fails the frame).
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import math
 import os
@@ -200,9 +207,14 @@ from robotic_discovery_platform_tpu_torch.serving import (
 from robotic_discovery_platform_tpu_torch.serving.admission import (
     OverloadedError,
 )
+from robotic_discovery_platform_tpu_torch.parallel import mesh as mesh_lib
 from robotic_discovery_platform_tpu_torch.serving.batching import (
     BatchDispatcher,
+    DeviceRouter,
+    ShardedAnalyzer,
+    resolve_dispatch_mode,
     resolve_max_inflight,
+    resolve_serving_chips,
 )
 from robotic_discovery_platform_tpu_torch.serving.messages import (
     AnalysisResponse,
@@ -286,6 +298,20 @@ def tier_forward(net: UNet, precision: str, device: torch.device,
     forward = (eval_on_kernels(served) if model_forward == "flax"
                else FoldedUNet(served, device=device))
     return forward, (None if report is None else net)
+
+
+def forward_on(forward: Callable, device: torch.device) -> Callable:
+    """``forward`` for a serving ring position on ``device``: itself where
+    it already runs there (a caller's callable is taken to), a copy of a
+    folded or module forward moved there otherwise."""
+    if isinstance(forward, FoldedUNet):
+        return forward if forward.device == device else forward.on(device)
+    if isinstance(forward, torch.nn.Module):
+        param = next(forward.parameters(), None)
+        if param is None or param.device == device:
+            return forward
+        return copy.deepcopy(forward).to(device)
+    return forward
 
 
 class FrameResult(NamedTuple):
@@ -476,19 +502,32 @@ class VisionAnalysisService:
         obs.ZOO_MODELS.set(len(self._zoo_names))
         self._controller_enabled = controller_lib.resolve_controller_enabled(
             cfg.controller_enabled)
+        # the serving mesh: only the batched path routes, and only over
+        # more than one device (one device serves exactly as without)
+        self.dispatch_mode = resolve_dispatch_mode(cfg.dispatch_mode)
+        self._serving_mesh = None
+        chips = resolve_serving_chips(cfg.serving_mesh, self.device.type)
+        if cfg.batch_window_ms > 0 and chips > 1:
+            self._serving_mesh = mesh_lib.make_serving_mesh(
+                chips, device_type=self.device.type)
+            log.info("serving mesh: %d device(s), %s dispatch", chips,
+                     self.dispatch_mode)
+        #: devices the batch dispatcher routes across (1: one device)
+        self.serving_chips = chips if self._serving_mesh is not None else 1
         # the placer, before the first dispatcher, which records each
-        # submit's arrival in it; one device: every model's chip is 0
+        # submit's arrival in it
         self.placer: zoo_lib.ZooPlacer | None = None
         if len(self._zoo_names) > 1:
             self.placer = zoo_lib.ZooPlacer(
-                self._zoo_names, chips=1,
+                self._zoo_names, chips=self.serving_chips,
                 mode=zoo_lib.resolve_zoo_placement(cfg.zoo_placement),
                 interval_s=cfg.zoo_rate_interval_s,
                 window=cfg.zoo_rate_window,
                 rebalance_s=cfg.zoo_rebalance_s,
                 corr_cap=cfg.zoo_corr_cap)
-            log.info("model zoo: %s (%s placement over 1 device)",
-                     ",".join(self._zoo_names), self.placer.mode)
+            log.info("model zoo: %s (%s placement over %d device(s))",
+                     ",".join(self._zoo_names), self.placer.mode,
+                     self.placer.chips)
         self._engine = self._make_engine(version, forward, pristine)
         self._warm_shape: tuple[int, int] | None = None
         self._reload_stop: threading.Event | None = None
@@ -509,6 +548,11 @@ class VisionAnalysisService:
         # NOT_SERVING again once a drain begins
         self.health = health_lib.HealthServicer()
         self.health.set(VISION_SERVICE, health_lib.NOT_SERVING)
+        # one readiness entry per routed device: a probe enumerates
+        # rdp.serving.chip.<i> until NOT_FOUND to read the ring's width;
+        # they flip with overall readiness (set_all) and with quarantine
+        for i in range(self.serving_chips):
+            self.health.set(f"rdp.serving.chip.{i}", health_lib.NOT_SERVING)
         self._streams_cond = threading.Condition()
         self._active_streams = 0  # guarded_by: _streams_cond
         self._draining = False  # guarded_by: _streams_cond
@@ -607,6 +651,45 @@ class VisionAnalysisService:
         self._model_slo: dict[str, slo_lib.SloTracker] = {}
         self._build_zoo_entries()
 
+    def _on_chip_health(self, chip: int, serving: bool) -> None:
+        """The router's quarantine hook: a quarantined device's
+        ``rdp.serving.chip.<i>`` health entry goes NOT_SERVING, and back
+        on reinstatement."""
+        self.health.set(
+            f"rdp.serving.chip.{chip}",
+            health_lib.SERVING if serving else health_lib.NOT_SERVING)
+
+    def _batched(self, forward: Callable,
+                 device: torch.device | None = None) -> Analyzer:
+        """The batched analyzer ``batch_impl`` names around ``forward`` on
+        ``device`` (the servicer's by default): its own graph cache; with
+        ``egress_pack`` the graph ends in the pack stage, one [B, P]
+        device-to-host copy per dispatch, else each leaf comes back on its
+        own."""
+        cfg = self.cfg
+        make = (pipeline.make_scan_batch_analyzer if cfg.batch_impl == "scan"
+                else pipeline.make_batch_analyzer)
+        return make(forward, img_size=cfg.model_img_size,
+                    geom_cfg=self.geom_cfg, device=device or self.device,
+                    pack=cfg.egress_pack)
+
+    def _routed(self, forward: Callable) -> tuple:
+        """One batched analyzer per serving-mesh position (its forward on
+        that device, its own graph cache) and the sharded layout's over
+        them where this server needs one: ``(per_chip, sharded)``;
+        ``(None, None)`` without a mesh."""
+        if self._serving_mesh is None:
+            return None, None
+        cfg, chips = self.cfg, self.serving_chips
+        per_chip = [self._batched(forward_on(forward, d), d)
+                    for d in mesh_lib.chip_shardings(self._serving_mesh)]
+        # a controller-enabled round_robin server binds the sharded layout
+        # too where its geometry allows, so the controller can flip modes
+        switchable = (self.dispatch_mode == "sharded" or (
+            self._controller_enabled and not chips & (chips - 1)
+            and cfg.max_batch >= chips and cfg.max_batch % chips == 0))
+        return per_chip, (ShardedAnalyzer(per_chip) if switchable else None)
+
     def _set_refuse_streams(self, refusing: bool) -> None:
         """The controller's rung 3: refuse (or accept again) every other
         new stream."""
@@ -634,24 +717,31 @@ class VisionAnalysisService:
             device=device, pack=True)
         dispatcher = None
         if cfg.batch_window_ms > 0:
-            make_batched = (pipeline.make_scan_batch_analyzer
-                            if cfg.batch_impl == "scan"
-                            else pipeline.make_batch_analyzer)
+            ring = (mesh_lib.chip_shardings(self._serving_mesh)
+                    if self._serving_mesh is not None else None)
 
-            def coef_factory(height: int, width: int, subsampling: str):
+            def coef_factory(height: int, width: int, subsampling: str,
+                             chip: int = 0):
+                dev = ring[chip] if ring is not None else device
                 return pipeline.make_coef_batch_analyzer(
-                    forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
-                    device=device, height=height, width=width,
-                    subsampling=subsampling, pack=cfg.egress_pack)
+                    forward_on(forward, dev), img_size=cfg.model_img_size,
+                    geom_cfg=geom_cfg, device=dev, height=height,
+                    width=width, subsampling=subsampling,
+                    pack=cfg.egress_pack)
 
-            # egress_pack: the batch graph ends in the pack stage, one
-            # [B, P] device-to-host copy per dispatch; without it each
-            # leaf comes back on its own
+            router = None
+            per_chip, sharded = self._routed(forward)
+            if per_chip is not None:
+                router = DeviceRouter(
+                    self._serving_mesh, self.dispatch_mode, per_chip,
+                    sharded_analyzer=sharded,
+                    breaker_failures=cfg.chip_breaker_failures,
+                    breaker_reset_s=cfg.chip_breaker_reset_s,
+                    on_health=self._on_chip_health)
             dispatcher = BatchDispatcher(
-                make_batched(forward, img_size=cfg.model_img_size,
-                             geom_cfg=geom_cfg, device=device,
-                             pack=cfg.egress_pack),
-                coef_analyzer_factory=coef_factory,
+                per_chip[0] if per_chip is not None
+                else self._batched(forward),
+                coef_analyzer_factory=coef_factory, router=router,
                 window_ms=cfg.batch_window_ms, max_batch=cfg.max_batch,
                 max_backlog=cfg.max_backlog,
                 submit_timeout_s=cfg.submit_deadline_s,
@@ -666,7 +756,8 @@ class VisionAnalysisService:
             if hasattr(self, "zoo"):
                 old = self._engine.dispatcher
                 for entry in self.zoo.extras():
-                    dispatcher.bind_model(entry.name, entry.batch_analyze)
+                    dispatcher.bind_model(entry.name, entry.batch_analyze,
+                                          *entry.routed)
                 if old is not None:
                     # their graphs are the same caches, captured already
                     with old._warm_lock:
@@ -769,15 +860,13 @@ class VisionAnalysisService:
             forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
             device=device, pack=True)
         batch_analyze = None
+        routed = (None, None)
         dispatcher = self._engine.dispatcher
         if dispatcher is not None:
-            make_batched = (pipeline.make_scan_batch_analyzer
-                            if cfg.batch_impl == "scan"
-                            else pipeline.make_batch_analyzer)
-            batch_analyze = make_batched(
-                forward, img_size=cfg.model_img_size, geom_cfg=geom_cfg,
-                device=device, pack=cfg.egress_pack)
-            dispatcher.bind_model(name, batch_analyze)
+            routed = self._routed(forward)
+            batch_analyze = (routed[0][0] if routed[0] is not None
+                             else self._batched(forward))
+            dispatcher.bind_model(name, batch_analyze, *routed)
         drift = None
         if cfg.drift_enabled:
             reference = self._load_drift_profile(
@@ -803,7 +892,8 @@ class VisionAnalysisService:
         return zoo_lib.ZooEntry(
             name=name, variant=variant, analyze=analyze, forward=forward,
             version=version, precision=self.precision, pristine=pristine,
-            drift=drift, slo=tracker, batch_analyze=batch_analyze)
+            drift=drift, slo=tracker, batch_analyze=batch_analyze,
+            routed=routed)
 
     def _resolve_model(self, name: str) -> tuple[str, zoo_lib.ZooEntry | None]:
         """A request's ``model`` field -> (metric label, zoo entry). "" and
@@ -1226,9 +1316,8 @@ class VisionAnalysisService:
         (``serving/fleet.add_replica_stats_to_server``), every key of the
         JAX package's: in-flight streams and error-budget burn feed the
         front-end's least-loaded placement and its weighted ring; the rest
-        is diagnostics. The port serves on one device with no
-        ``DeviceRouter`` (ROADMAP queue 1 item 14): ``chips`` is 1 and
-        ``quarantined_chips`` 0. A single-model server reports its
+        is diagnostics: ``chips`` and ``quarantined_chips`` are the
+        router's (1 and 0 without one). A single-model server reports its
         model's arrival rate (the JAX package's reports 0.0: only a zoo's
         placer measured one), over ``zoo_rate_window`` intervals of
         ``zoo_rate_interval_s``."""
@@ -1255,8 +1344,8 @@ class VisionAnalysisService:
             "models": models,
             "burn": self.slo.burn if self.slo is not None else 0.0,
             "slo_ms": self.cfg.slo_ms,
-            "chips": 1,
-            "quarantined_chips": 0,
+            "chips": self.serving_chips,
+            "quarantined_chips": self._quarantined_chips(),
             "version": version,
             "drift_generation": drift_generation,
             "draining": self.is_draining,
@@ -1269,6 +1358,13 @@ class VisionAnalysisService:
             "host": host,
             "role": role,
         }
+
+    def _quarantined_chips(self) -> int:
+        """Devices the live generation's router has quarantined."""
+        d = self._engine.dispatcher
+        if d is None or d.router is None:
+            return 0
+        return len(d.router.quarantined)
 
     def drift_debug(self) -> dict:
         """The ``GET /debug/drift`` payload: the monitor's snapshot and
@@ -1581,15 +1677,21 @@ class VisionAnalysisService:
                               np.zeros((height, width), np.uint16),
                               k_dev, scale)
                 continue
-            sizes = (self._buckets(dispatcher) if self.cfg.zoo_eager_warm < 0
+            capped = self.cfg.zoo_eager_warm >= 0
+            sizes = (self._buckets(dispatcher) if not capped
                      else [dispatcher.bucket_for(1, entry.name)])
+            # the capped warm-up takes each model's home placement only
+            chips = None
+            if capped and dispatcher.router is not None:
+                home = self.placer.chips_for(entry.name) if self.placer else ()
+                chips = [home[0] if home else 0]
             for b in sizes:
                 dispatcher.warm(
                     np.zeros((b, height, width, 3), np.uint8),
                     np.zeros((b, height, width), np.uint16),
                     np.repeat(k[None], b, axis=0),
                     np.full((b,), self.depth_scale, np.float32),
-                    model=entry.name)
+                    model=entry.name, chips=chips)
 
     def _parity_gate(self, width: int, height: int) -> None:
         """The warm-up parity gate of a bf16 or int8 tier (none at f32),

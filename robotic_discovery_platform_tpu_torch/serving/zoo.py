@@ -102,6 +102,9 @@ class ZooEntry:
     #: the batched analyzer bound on the dispatcher (``bind_model``), and
     #: again on each new dispatcher of a hot reload
     batch_analyze: Callable | None = None
+    #: under a serving mesh, the per-position analyzers and the sharded
+    #: layout's, bound with ``batch_analyze`` ((None, None) without)
+    routed: tuple = (None, None)
 
 
 class ModelZoo:

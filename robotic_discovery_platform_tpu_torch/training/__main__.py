@@ -9,8 +9,11 @@ Usage:
 Defaults, then an optional ``--config`` JSON file (the ``PlatformConfig``
 shape), then ``--section.field`` overrides. Prints the run's
 ``TrainResult.to_jsonable()`` as one JSON line. Any ``--mesh.*`` override
-raises ``NotImplementedError`` (the mesh trainer is ROADMAP queue 1 item
-14).
+builds the mesh (``parallel/mesh.make_mesh`` over ``--device``'s type) and
+trains data-parallel over it, as the JAX package's CLI does; a
+multi-process run joins its process group first
+(``parallel/mesh.initialize_distributed``). ``--mesh.model`` or
+``--mesh.spatial`` > 1 raises ``NotImplementedError`` (ROADMAP item 34).
 """
 
 from __future__ import annotations
@@ -50,15 +53,29 @@ def main(argv=None) -> int:
         train_model,
     )
 
+    mesh = None
+    if cfg.mesh != config_lib.MeshConfig():
+        # any explicit --mesh.* override builds the mesh, as in the JAX
+        # package's CLI
+        from robotic_discovery_platform_tpu_torch.parallel import mesh as m
+
+        mesh = m.make_mesh(cfg.mesh,
+                           device_type=torch_device_type(args.device))
     try:
         res = train_model(cfg.train, cfg.model, resume=args.resume,
-                          register=not args.no_register, device=args.device)
+                          mesh=mesh, register=not args.no_register,
+                          device=args.device)
     except (FileNotFoundError, ValueError) as e:
         # config and dataset problems get a one-line error, not a traceback
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(json.dumps(res.to_jsonable()))
     return 0
+
+
+def torch_device_type(device: str) -> str:
+    """``"cuda"`` or ``"cpu"`` of a ``--device`` value."""
+    return device.split(":")[0]
 
 
 if __name__ == "__main__":

@@ -43,11 +43,23 @@ draws the order from the seed afresh and so repeats the first epoch's
 batches (ROADMAP queue 3). A checkpoint without that state (one the JAX
 package's was converted from) resumes as the JAX package does.
 
-The mesh is refused (ROADMAP queue 1 item 14).
+With a ``mesh`` (``parallel/mesh.make_mesh``) the run is data-parallel
+over the mesh's "data" axis, the ranks of the default process group
+(:class:`MeshEpochs` around ``parallel/dp.parallelize_training``), with
+the JAX package's rules: the convs are the plain ones
+(``conv_impl="flax"``: the custom-VJP conv carries no collectives), the
+batch is rounded up to a multiple of the data axis, ``epoch_mode="scan"``
+is refused, and only rank 0 writes checkpoints, tracking and the
+registry (every rank restores). A checkpoint holds the unwrapped
+network's state dict, so it loads into the single-device trainer and
+servicer. A mesh with ``spatial`` or ``model`` > 1 raises
+``NotImplementedError`` (ROADMAP item 34).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass, field
@@ -70,6 +82,7 @@ from robotic_discovery_platform_tpu_torch.training.checkpoint import (
 )
 from robotic_discovery_platform_tpu_torch.utils import transferguard
 from robotic_discovery_platform_tpu_torch.utils.config import (
+    PLAIN_CONV_IMPLS,
     ModelConfig,
     TrainConfig,
     check_supported,
@@ -267,6 +280,37 @@ class StreamEpochs:
                 for k, v in agg.items()}
 
 
+class MeshEpochs:
+    """The per-batch epoch over a mesh's data axis: every rank draws the
+    same global batches (seed-deterministic) and the data-parallel steps
+    (``parallel/dp.parallelize_training``) take this rank's rows; the
+    losses and metrics are the global batch's."""
+
+    def __init__(self, train_step: Callable, eval_step: Callable, state,
+                 train_batches, val_batches):
+        self._train_step = transferguard.apply(train_step)
+        self._eval_step = transferguard.apply(eval_step)
+        self.state = state
+        self.train_batches, self.val_batches = train_batches, val_batches
+
+    @property
+    def order_rng(self) -> np.random.Generator:
+        return self.train_batches.rng
+
+    def train(self) -> float:
+        losses = [self._train_step(self.state, bx, by)[1]
+                  for bx, by in self.train_batches]
+        return float(np.mean(torch.stack(losses).cpu().numpy()))
+
+    def validate(self) -> dict:
+        agg: dict[str, list] = {}
+        for bx, by in self.val_batches:
+            for k, v in self._eval_step(self.state, bx, by).items():
+                agg.setdefault(k, []).append(v)
+        return {k: float(np.mean(torch.stack(v).cpu().numpy()))
+                for k, v in agg.items()}
+
+
 class ScanEpochs:
     """The JAX package's whole-epoch scan (``make_epoch_runners``) on one
     device: the arrays resident there, one captured step replayed per
@@ -378,7 +422,9 @@ def train_model(cfg: TrainConfig = TrainConfig(),
             ``cfg.dataset_dir``.
         resume: restore the latest checkpoint under ``cfg.checkpoint_dir``
             and continue from its epoch.
-        mesh: must be None; the mesh trainer is ROADMAP queue 1 item 14.
+        mesh: a ``parallel/mesh.Mesh``: train data-parallel over its
+            "data" axis on this rank's device of it (``device`` is then
+            unused; see the module docstring).
         register: register the best variables under
             ``cfg.registered_model_name``.
         device: where the network trains.
@@ -403,11 +449,22 @@ def train_model(cfg: TrainConfig = TrainConfig(),
     if len(val_idx) == 0:
         raise ValueError("dataset too small for a validation split")
     mode = resolve_epoch_mode(cfg, data_bytes, mesh)
+    divisor, rank = 1, 0
     if mesh is not None:
-        raise NotImplementedError(
-            "train_model(mesh=...): the mesh trainer is ROADMAP queue 1 "
-            "item 14; the port trains on one device"
+        from robotic_discovery_platform_tpu_torch.parallel import dp
+        from robotic_discovery_platform_tpu_torch.parallel import (
+            mesh as mesh_lib,
         )
+
+        divisor = mesh_lib.check_data_mesh(mesh)
+        rank, _ = mesh_lib.data_rank()
+        device = mesh_lib.local_device(mesh)
+        if model_cfg.conv_impl not in PLAIN_CONV_IMPLS:
+            # the custom-VJP kernel conv carries no collectives; under a
+            # mesh the plain convs are the data-parallel ones (the JAX
+            # trainer's rule)
+            model_cfg = dataclasses.replace(model_cfg, conv_impl="flax")
+    is_main = rank == 0
 
     net = init_model(model_cfg, cfg.seed, device)
     optimizer = make_optimizer(net, cfg.learning_rate)
@@ -427,10 +484,29 @@ def train_model(cfg: TrainConfig = TrainConfig(),
                           for k, v in restored["best"].items()}
         log.info("resumed from checkpoint at epoch %d", epoch)
 
-    batch_size = cfg.batch_size
+    # the global batch, rounded up to a multiple of the data axis
+    batch_size = -(-max(cfg.batch_size, divisor) // divisor) * divisor
     # the epochs read the restored state: a scan epoch's graphs are
     # captured on its first epoch, after the restore
-    if mode == "scan":
+    if mesh is not None:
+        train, evals, state = dp.parallelize_training(
+            mesh, net, optimizer, loss_fn)
+        if ds is not None:
+            train_batches = data_lib.StreamingBatches(
+                ds, train_idx, batch_size, shuffle=True, seed=cfg.seed,
+                divisor=divisor, workers=cfg.loader_workers)
+            val_batches = data_lib.StreamingBatches(
+                ds, val_idx, batch_size, shuffle=False, divisor=divisor,
+                workers=cfg.loader_workers)
+        else:
+            train_batches = data_lib.Batches(
+                xs[train_idx], ys[train_idx], batch_size, shuffle=True,
+                seed=cfg.seed, divisor=divisor)
+            val_batches = data_lib.Batches(
+                xs[val_idx], ys[val_idx], batch_size, shuffle=False,
+                divisor=divisor)
+        epochs = MeshEpochs(train, evals, state, train_batches, val_batches)
+    elif mode == "scan":
         epochs = ScanEpochs(net, optimizer, loss_fn,
                             (xs[train_idx], ys[train_idx]),
                             (xs[val_idx], ys[val_idx]), batch_size,
@@ -457,8 +533,14 @@ def train_model(cfg: TrainConfig = TrainConfig(),
         # docstring)
         epochs.order_rng.bit_generator.state = restored["order_rng"]
 
-    tracking.set_tracking_uri(cfg.tracking_uri)
-    tracking.set_experiment(cfg.experiment_name)
+    if is_main:
+        tracking.set_tracking_uri(cfg.tracking_uri)
+        tracking.set_experiment(cfg.experiment_name)
+        run_ctx = tracking.start_run()
+    else:
+        # the other ranks train the same steps and write nothing
+        run_ctx = contextlib.nullcontext(
+            tracking.ActiveRun(f"process-{rank}"))
     registry_version = None
     final_metrics: dict = {}
     epoch_seconds: list = []
@@ -466,8 +548,11 @@ def train_model(cfg: TrainConfig = TrainConfig(),
     # close() on both exits: a failure mid-training still drains the
     # in-flight save without masking the original error
     try:
-        with tracking.start_run() as run:
-            tracking.log_params({
+        with run_ctx as run:
+            log_params = tracking.log_params if is_main else (lambda p: None)
+            log_metric = (tracking.log_metric if is_main
+                          else (lambda *a, **k: None))
+            log_params({
                 "learning_rate": cfg.learning_rate,
                 "batch_size": batch_size,
                 "epochs": cfg.epochs,
@@ -479,7 +564,7 @@ def train_model(cfg: TrainConfig = TrainConfig(),
                 "bilinear": model_cfg.bilinear,
                 "base_features": model_cfg.base_features,
                 "backend": device.type,
-                "num_devices": 1,
+                "num_devices": divisor,
             })
             if epoch >= cfg.epochs:
                 log.warning("checkpoint epoch %d >= cfg.epochs %d; nothing to "
@@ -489,10 +574,10 @@ def train_model(cfg: TrainConfig = TrainConfig(),
                 t_epoch = time.time()
                 train_loss = epochs.train()
                 val = final_metrics = epochs.validate()
-                tracking.log_metric("train_loss", train_loss, step=epoch)
-                tracking.log_metric("val_loss", val["loss"], step=epoch)
-                tracking.log_metric("val_miou", val["miou"], step=epoch)
-                tracking.log_metric("val_dice", val["dice"], step=epoch)
+                log_metric("train_loss", train_loss, step=epoch)
+                log_metric("val_loss", val["loss"], step=epoch)
+                log_metric("val_miou", val["miou"], step=epoch)
+                log_metric("val_dice", val["dice"], step=epoch)
                 epoch_seconds.append(time.time() - t_epoch)
                 log.info("epoch %d/%d train_loss=%.4f val_loss=%.4f "
                          "miou=%.4f (%.1fs)", epoch + 1, cfg.epochs,
@@ -501,8 +586,8 @@ def train_model(cfg: TrainConfig = TrainConfig(),
                 if val["loss"] < best_val_loss:
                     best_val_loss = val["loss"]
                     best_state = _state_copy(net)
-                if ((epoch + 1) % cfg.checkpoint_every
-                        and epoch + 1 < cfg.epochs):
+                if (((epoch + 1) % cfg.checkpoint_every
+                        and epoch + 1 < cfg.epochs) or not is_main):
                     continue
                 payload = {
                     "model": net.state_dict(),
@@ -517,8 +602,8 @@ def train_model(cfg: TrainConfig = TrainConfig(),
                     ckpt.save_async(epoch + 1, payload)
                 else:
                     ckpt.save(epoch + 1, payload)
-            tracking.log_metric("best_val_loss", best_val_loss)
-            if register and best_state is not None:
+            log_metric("best_val_loss", best_val_loss)
+            if register and best_state is not None and is_main:
                 best = UNet(model_cfg)
                 best.load_state_dict({k: v.cpu()
                                       for k, v in best_state.items()})

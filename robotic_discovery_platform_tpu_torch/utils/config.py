@@ -6,13 +6,10 @@ defaults, the offline drift detector's ``DriftConfig``, and the operator
 tools' ``CameraConfig``, ``CalibrationConfig`` and ``CollectConfig``,
 plus ``from_dict`` and ``--section.field`` flag parsing for them.
 
-Settings the port does not implement yet raise ``NotImplementedError`` in
-:func:`check_supported`, naming the ROADMAP item that brings them:
-
-- on the batched path (``batch_window_ms > 0``): ``serving_mesh > 1``
-  and the ``RDP_SERVING_CHIPS`` and ``RDP_DISPATCH_MODE`` overrides (the
-  multi-device router, item 14);
-- any non-default ``MeshConfig`` (the mesh trainer, item 14).
+:func:`check_supported` raises ``ValueError`` for a value no package
+knows. Every ``MeshConfig`` is taken; a train step over ``spatial`` or
+``model`` > 1 raises ``NotImplementedError`` there (ROADMAP item 34,
+``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +19,6 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-import os
 from typing import Any, Sequence
 
 #: ``GeometryConfig.kernel_impl`` values, the JAX package's names
@@ -52,13 +48,6 @@ MODEL_FORWARDS = ("auto", "pallas", "flax")
 #: reference's, folded by the served forward) and GroupNorm (unfolded)
 NORMS = ("batch", "group")
 
-#: the JAX package's environment overrides of the multi-device router's
-#: settings (ROADMAP queue 1 item 14)
-_ROUTER_ENV_OVERRIDES = ("RDP_SERVING_CHIPS", "RDP_DISPATCH_MODE")
-#: the JAX package's ServerConfig keys of the multi-device router, which
-#: the port refuses by name (ROADMAP queue 1 item 14)
-_ROUTER_KEYS = ("dispatch_mode", "chip_breaker_failures",
-                "chip_breaker_reset_s")
 
 
 @dataclass(frozen=True)
@@ -180,7 +169,15 @@ class ServerConfig:
     # launched-but-not-completed dispatches: 1 = serial, 2 = batch N+1
     # stages and computes while batch N's result comes back
     max_inflight_dispatches: int = 2
-    serving_mesh: int = 0  # devices the dispatcher routes over (0/1: one)
+    # devices the batch dispatcher routes its in-flight window across
+    # (serving/batching.DeviceRouter): 0/1 = one device, N > 1 the first
+    # N, -1 every card. Only on the batched path; RDP_SERVING_CHIPS
+    # overrides it
+    serving_mesh: int = 0
+    # "round_robin": each bucket whole onto the least-loaded device;
+    # "sharded": each bucket split evenly over the ring. RDP_DISPATCH_MODE
+    # overrides it
+    dispatch_mode: str = "round_robin"
     egress_pack: bool = True  # one packed [B, P] D2H per dispatch
     # response mask encode pool (serving/egress.EncodePool): 0 = inline in
     # the handler thread, N > 0 = N worker threads, negative = one per
@@ -258,6 +255,12 @@ class ServerConfig:
     registry_breaker_failures: int = 3
     # how long the open breaker fast-fails before admitting a probe
     registry_breaker_reset_s: float = 60.0
+    # per-device dispatch breaker of a routed ring: after this many
+    # consecutive failures a device is quarantined until a probe dispatch
+    # succeeds (0 disables; the last healthy device never is)
+    chip_breaker_failures: int = 3
+    # how long a quarantined device fast-fails before a probe
+    chip_breaker_reset_s: float = 15.0
     # graceful shutdown: how long drain() waits for in-flight streams
     # after readiness flips to NOT_SERVING
     drain_grace_s: float = 5.0
@@ -490,8 +493,10 @@ class CollectConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device-mesh sizes (data, model, spatial). The
-    port trains on one device: any value but the defaults raises."""
+    """The device-mesh sizes (``parallel/mesh.make_mesh``): ``data``
+    (data parallelism over a process group's ranks), ``model`` and
+    ``spatial`` (ROADMAP item 34 in a train step). Sizes <= 0 are
+    inferred from the available devices."""
 
     data: int = -1
     model: int = 1
@@ -537,9 +542,8 @@ def resolve_kernel_impl(configured: str) -> str:
 
 
 def check_supported(cfg: Any) -> None:
-    """Raise for a setting the port does not implement (see the module
-    docstring): ``NotImplementedError`` naming its ROADMAP item, or
-    ``ValueError`` for a value no package knows."""
+    """Raise ``ValueError`` for a setting no package knows (see the
+    module docstring)."""
     if isinstance(cfg, GeometryConfig):
         resolve_kernel_impl(cfg.kernel_impl)
     if isinstance(cfg, ServerConfig):
@@ -558,11 +562,6 @@ def check_supported(cfg: Any) -> None:
                 f"epoch_mode must be one of {EPOCH_MODES}, got "
                 f"{cfg.epoch_mode!r}"
             )
-    if isinstance(cfg, MeshConfig) and cfg != MeshConfig():
-        raise NotImplementedError(
-            f"{cfg}: the mesh trainer is ROADMAP queue 1 item 14; the port "
-            "trains on one device"
-        )
     if isinstance(cfg, ModelConfig):
         if cfg.conv_impl not in CONV_IMPLS:
             raise ValueError(
@@ -576,17 +575,6 @@ def check_supported(cfg: Any) -> None:
 def _check_batched(cfg: ServerConfig) -> None:
     if cfg.batch_impl not in BATCH_IMPLS:
         raise ValueError(f"unknown batch_impl {cfg.batch_impl!r}")
-    if cfg.serving_mesh not in (0, 1):
-        raise NotImplementedError(
-            f"ServerConfig.serving_mesh={cfg.serving_mesh}: the multi-device "
-            "router (DeviceRouter) is ROADMAP queue 1 item 14; use 0"
-        )
-    set_env = [k for k in _ROUTER_ENV_OVERRIDES if os.environ.get(k)]
-    if set_env:
-        raise NotImplementedError(
-            f"environment overrides {set_env} of the multi-device router "
-            "are ROADMAP queue 1 item 14; unset them"
-        )
 
 
 def _coerce(value: str, typ: type) -> Any:
@@ -611,17 +599,9 @@ def _resolve(f: dataclasses.Field) -> type:
 
 def from_dict(cls: type, data: dict) -> Any:
     """Rebuild a (possibly nested) config dataclass from a plain dict.
-    Unknown keys raise ``ValueError``; the JAX package's multi-device
-    router keys (:data:`_ROUTER_KEYS`) raise ``NotImplementedError``
-    naming ROADMAP item 14."""
+    Unknown keys raise ``ValueError``."""
     known = {f.name for f in dataclasses.fields(cls)}
     unknown = set(data) - known
-    router = sorted(unknown.intersection(_ROUTER_KEYS))
-    if router:
-        raise NotImplementedError(
-            f"{cls.__name__} keys {router}: the multi-device router "
-            "(DeviceRouter) is ROADMAP queue 1 item 14; remove them"
-        )
     if unknown:
         raise ValueError(
             f"unknown config keys for {cls.__name__}: {sorted(unknown)}"

@@ -16,8 +16,10 @@ when the offline detector (``monitoring/drift.analyze_drift``) flags the
 metrics CSV.
 
 Training and the capture run on ``device`` (the card unless the caller
-asks for the CPU). The mesh trainer is ROADMAP queue 1 item 14: a
-``mesh`` raises ``NotImplementedError``.
+asks for the CPU). With a ``mesh`` (``parallel/mesh.make_mesh``) the
+training is data-parallel over its "data" axis (``training/trainer``);
+then only rank 0 registers, so the other ranks' cycles end "registered no
+model", as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -115,17 +117,13 @@ def run_retraining_pipeline(
         train_model,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_retraining_pipeline(mesh=...): the mesh trainer is ROADMAP "
-            "queue 1 item 14; the port trains on one device"
-        )
     log.info("=== automated retraining pipeline starting ===")
     try:
         if _cancelled(cancel):
             return PipelineResult(False, None, None,
                                   "cancelled before training started")
-        result = train_model(cfg, model_cfg, arrays=arrays, device=device)
+        result = train_model(cfg, model_cfg, arrays=arrays, mesh=mesh,
+                             device=device)
         if result.registry_version is None:
             return PipelineResult(False, None, None,
                                   "training completed but registered no model")

@@ -284,18 +284,18 @@ def test_a_failed_dispatch_pools_its_staging_only_after_the_stream(
     d = BatchDispatcher(_Analyzer(fail_on=13), window_ms=1.0, max_batch=4,
                         device="cpu", watchdog_interval_s=0.0)
     try:
-        d._stream = _Stream(d, stream_fails)
+        d._streams[0] = _Stream(d, stream_fails)
         with pytest.raises(ValueError):
             d.submit(_frame(13), _DEPTH, _K, 0.001)
-        _wait_for(lambda: d._stream.pooled_at_sync, "the stream wait")
+        _wait_for(lambda: d._streams[0].pooled_at_sync, "the stream wait")
         time.sleep(0.05)  # the set is pooled (or dropped) right after
         # waited before the failed set went back, and dropped it when the
         # stream could not say its copies were done
-        assert d._stream.pooled_at_sync == [0]
+        assert d._streams[0].pooled_at_sync == [0]
         held = sum(len(v) for v in d._pool.values())
         assert held == (0 if stream_fails else 1)
     finally:
-        d._stream = None
+        d._streams[0] = None
         d.stop()
 
 
@@ -440,8 +440,19 @@ def test_left_out_parts_raise():
             d.submit(_frame(0), _DEPTH, _K, 0.001, model="aux")
     finally:
         d.stop()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        BatchDispatcher(_Analyzer(), device="cpu", router=object())
+    # the router is ported (tests/test_torch_port_mesh_routing.py): a
+    # two-position ring routes, and a sharded ring's geometry is checked
+    ring = [torch.device("cpu")] * 2
+    d = BatchDispatcher(_Analyzer(), device="cpu", watchdog_interval_s=0.0,
+                        router=batching.DeviceRouter(ring))
+    try:
+        assert d.router.chips == 2 and len(d.chip_dispatches) == 2
+        assert _value(d.submit(_frame(3), _DEPTH, _K, 0.001)) == 3
+    finally:
+        d.stop()
+    with pytest.raises(ValueError, match="multiple of the chip count"):
+        BatchDispatcher(_Analyzer(), device="cpu", max_batch=1,
+                        router=batching.DeviceRouter(ring, "sharded"))
 
 
 class _Item:

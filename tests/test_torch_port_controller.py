@@ -8,8 +8,8 @@ floor, min_samples) runs on the JAX controller over a fake dispatcher and
 on the port's controller over the same fake and over the port's real
 BatchDispatcher on the CPU: at every tick the action strings, the ladder's
 level and the knob values (window, max_inflight, deadline_safety, bucket
-floor) must be identical. The mode switch is the multi-device router's
-(ROADMAP queue 1 item 14) and is not replayed.
+floor) must be identical. The mode switch (``_tune_mode``) is replayed
+against the JAX controller's in tests/test_torch_port_mesh_routing.py.
 
 Tolerances, fixed before measuring: none. Actions and knobs are compared
 exactly; an idle controller's responses equal the controller-off
@@ -339,11 +339,11 @@ def test_dispatcher_knobs_hold_jax_semantics():
                         max_inflight=2, device="cpu",
                         watchdog_interval_s=0.0)
     try:
-        old = d._slots
+        old = d._chip_slots[0]
         d.set_max_inflight(2)
-        assert d._slots is old  # unchanged: no new window
+        assert d._chip_slots[0] is old  # unchanged: no new window
         d.set_max_inflight(0)
-        assert d.max_inflight == 1 and d._slots is not old
+        assert d.max_inflight == 1 and d._chip_slots[0] is not old
         d.set_window_ms(7.0)
         assert d.window_ms == 7.0
         d.set_window_ms(-1.0)

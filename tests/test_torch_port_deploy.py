@@ -688,15 +688,15 @@ def test_server_config_gains_the_jax_fields():
                                                   for f in fields})
     assert made == port
     # the drift fields came with the drift monitor (test_torch_port_drift.
-    # py) and the fleet's with the fleet (test_torch_port_fleet.py); the
-    # multi-device router's keys are refused naming their item, and a key
-    # no package knows as unknown
+    # py), the fleet's with the fleet (test_torch_port_fleet.py) and the
+    # multi-device router's with the router; a key no package knows is
+    # refused as unknown
     assert config.from_dict(config.ServerConfig, {"drift_enabled": True}) == (
         port)
     assert config.from_dict(config.ServerConfig, {"fleet_replicas": ""}) == (
         port)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        config.from_dict(config.ServerConfig, {"dispatch_mode": "shared"})
+    assert config.from_dict(config.ServerConfig, {
+        "dispatch_mode": "sharded"}).dispatch_mode == "sharded"
     with pytest.raises(ValueError, match="unknown config keys"):
         config.from_dict(config.ServerConfig, {"no_such_field": ""})
 

@@ -12,8 +12,10 @@ is held against the JAX dispatcher's choice (``BatchDispatcher.
 _pick_chip``: the probe first, then the least-loaded placeable chip),
 written out here over the JAX router.
 
-Left for ROADMAP queue 1 item 14, and checked to raise naming it: the
-sharded mode, a sharded analyzer, the dispatcher's ``router=``.
+The sharded mode, the mode switch and the dispatcher's ``router=``
+(ROADMAP item 14, once left out here) are held against the JAX package in
+tests/test_torch_port_mesh_routing.py; the last test here checks their
+construction rules.
 
 Tolerances, fixed before measuring: none; every answer is compared
 exactly.
@@ -275,16 +277,29 @@ def test_least_loaded_ties_match_jax(loads):
 
 
 def test_left_for_item_14_raises_naming_it():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tbatching.DeviceRouter(FakeMesh(2), "sharded")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tbatching.BatchDispatcher(
-            lambda *a: None, device="cpu", watchdog_interval_s=0.0,
-            router=tbatching.DeviceRouter(FakeMesh(2)))
+    """Item 14's router parts are ported: the sharded mode and its
+    analyzers, the mode switch, the dispatcher's ``router=``; what the JAX
+    router refuses, the port's refuses with the same words."""
+    r = tbatching.DeviceRouter(FakeMesh(2), "sharded")
+    assert r.mode == "sharded" and r.sharding is not None
+    assert not r.quarantine_enabled
+    d = tbatching.BatchDispatcher(
+        lambda *a: None, device="cpu", watchdog_interval_s=0.0,
+        router=tbatching.DeviceRouter(FakeMesh(2)))
+    d.stop()
     with pytest.raises(ValueError, match="unknown dispatch mode"):
         tbatching.DeviceRouter(FakeMesh(2), "diagonal")
     r = tbatching.DeviceRouter(FakeMesh(2))
     r.set_mode("round_robin")  # same mode: no-op
-    with pytest.raises(NotImplementedError, match="item 14"):
-        r.set_mode("sharded")
-    assert r.mode == "round_robin"
+    for lib in (tbatching, jbatching):
+        fixed = lib.DeviceRouter(FakeMesh(2))
+        with pytest.raises(ValueError, match="mode-switchable"):
+            fixed.set_mode("sharded")
+        assert fixed.mode == "round_robin" and not fixed.can_switch_modes
+    both = tbatching.DeviceRouter(FakeMesh(2), analyzers=[len, len],
+                                  sharded_analyzer=max)
+    assert both.can_switch_modes
+    both.set_mode("sharded")
+    assert both.mode == "sharded"
+    with pytest.raises(ValueError, match="expected 2 analyzer"):
+        tbatching.DeviceRouter(FakeMesh(2), analyzers=[len])

@@ -323,17 +323,27 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
             config.check_supported(dataclasses.replace(cfg,
                                                        batch_impl="loop"))
     elif case == "serving_mesh":
-        # the multi-device router and its overrides wait for item 14
+        # the multi-device router is ported (tests/test_torch_port_mesh_
+        # routing.py): a ring wider than the devices is refused with the
+        # JAX package's words, one device builds no mesh, and an unknown
+        # dispatch mode (field or RDP_DISPATCH_MODE) is refused
         cfg = config.ServerConfig(batch_window_ms=2.0, serving_mesh=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+        with pytest.raises(ValueError, match="only 1 devices"):
             VisionAnalysisService(lambda x: x, cfg=cfg, device="cpu")
         config.check_supported(dataclasses.replace(cfg, batch_window_ms=0.0))
-        for var in ("RDP_SERVING_CHIPS", "RDP_DISPATCH_MODE"):
-            with monkeypatch.context() as m:
-                m.setenv(var, "2")
-                with pytest.raises(NotImplementedError, match="item 14"):
-                    config.check_supported(dataclasses.replace(
-                        cfg, serving_mesh=0))
+        service = VisionAnalysisService(
+            lambda x: x, cfg=dataclasses.replace(cfg, serving_mesh=-1),
+            device="cpu")
+        try:
+            assert service.serving_chips == 1
+            assert service.dispatcher.router is None
+        finally:
+            service.close()
+        with monkeypatch.context() as m:
+            m.setenv("RDP_DISPATCH_MODE", "diagonal")
+            with pytest.raises(ValueError, match="unknown dispatch mode"):
+                VisionAnalysisService(lambda x: x, cfg=dataclasses.replace(
+                    cfg, serving_mesh=0), device="cpu")
     elif case == "conv_impl":
         for impl in config.CONV_IMPLS:
             config.check_supported(config.ModelConfig(conv_impl=impl))
@@ -369,10 +379,10 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
                                       "--server.drift_sustain_s", "0.5"])
         assert parsed.drift.min_rows == 10
         assert parsed.server.drift_sustain_s == 0.5
-        # 82 of the JAX package's 85: the seven controller_* and seven
+        # all 85 of the JAX package's: the seven controller_* and seven
         # zoo_* fields joined the 47, then the 21 fleet_*, autoscaler_*
-        # and planner_* fields; the three left are item 14's
-        assert len(dataclasses.fields(config.ServerConfig)) == 82
+        # and planner_* fields, then the router's three
+        assert len(dataclasses.fields(config.ServerConfig)) == 85
     elif case == "zoo_controller_rollout_fields":
         # the seven controller_* and seven zoo_* fields and the rollout
         # section: the JAX package's names and defaults, taken by from_dict
@@ -399,9 +409,10 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
             VisionAnalysisService(lambda x: x, cfg=config.ServerConfig(
                 zoo_models="bogus"), device="cpu")
     elif case == "mesh_section":
+        # every mesh shape is taken; a train step over model or spatial
+        # > 1 raises naming item 34 (tests/test_torch_port_parallel.py)
         config.check_supported(config.MeshConfig())
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            config.check_supported(config.MeshConfig(data=2))
+        config.check_supported(config.MeshConfig(data=2, model=2))
     elif case == "bilinear_false":
         # the transposed-conv decoder builds: a ConvTranspose_0 in each Up,
         # the ladder ending at 16x the base width

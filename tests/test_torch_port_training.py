@@ -578,10 +578,23 @@ def test_training_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
             trainer.train_model(dataclasses.replace(cfg, epoch_mode="x"),
                                 TRAIN_MODEL, **kw)
     elif case == "mesh_argument":
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            trainer.train_model(cfg, TRAIN_MODEL, mesh=object(), **kw)
+        # the mesh trainer is ported (tests/test_torch_port_parallel.py);
+        # what it does not shard yet is item 34's
+        from robotic_discovery_platform_tpu_torch.parallel import mesh
+        from robotic_discovery_platform_tpu_torch.utils.config import (
+            MeshConfig,
+        )
+
+        cpus = [torch.device("cpu")] * 2
+        with pytest.raises(NotImplementedError, match="item 34"):
+            trainer.train_model(cfg, TRAIN_MODEL, mesh=mesh.make_mesh(
+                MeshConfig(data=1, model=2), devices=cpus), **kw)
+        with pytest.raises(ValueError, match="world size"):
+            trainer.train_model(cfg, TRAIN_MODEL, mesh=mesh.make_mesh(
+                MeshConfig(data=2), devices=cpus), **kw)
     elif case == "mesh_flag":
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        # --mesh.* builds the mesh over --device's devices: one CPU
+        with pytest.raises(ValueError, match="mesh 2x1x1 != 1 available"):
             main(["--device", "cpu", "--mesh.data", "2"])
     elif case == "tracking_http":
         # ported: an http:// URI reaches the REST store, and a run trains
@@ -631,13 +644,20 @@ def test_training_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         (ckpt / "2" / checkpoint.STATE_FILE).write_bytes(b"")
         assert supervisor._completed_steps(ckpt) == [2]
     elif case == "retraining_workflow":
-        # ported (tests/test_torch_port_retraining.py); the mesh trainer
-        # it would take is not
+        # ported (tests/test_torch_port_retraining.py), with the mesh
+        # trainer under it: a model axis is item 34's, and the failure is
+        # the cycle's result
+        from robotic_discovery_platform_tpu_torch.parallel import mesh
+        from robotic_discovery_platform_tpu_torch.utils.config import (
+            MeshConfig,
+        )
         from robotic_discovery_platform_tpu_torch.workflows import retraining
 
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            retraining.run_retraining_pipeline(cfg, TRAIN_MODEL,
-                                               mesh=object(), arrays=arrays)
+        tp = mesh.make_mesh(MeshConfig(data=1, model=2),
+                            devices=[torch.device("cpu")] * 2)
+        res = retraining.run_retraining_pipeline(
+            cfg, TRAIN_MODEL, mesh=tp, arrays=arrays, device="cpu")
+        assert not res.succeeded and "item 34" in res.message
     elif case == "checkpoint_every_zero":
         with pytest.raises(ValueError, match="checkpoint_every"):
             trainer.train_model(dataclasses.replace(cfg, checkpoint_every=0),
