@@ -197,7 +197,12 @@ mismatch raises and the script exits non-zero:
    the controller's mode switch both ways; (d) an NCCL group of world
    size 1: both data-axis steps against the single-device step, their
    median times, a profile of one step, ``train_model`` over the mesh
-   and a servicer from its checkpoint.
+   and a servicer from its checkpoint; (e) two and four rank processes
+   sharing the card under gloo: the model and spatial axes at full width
+   on 1x1x2, 1x2x1 and 1x2x2 against the single-device step (loss,
+   float64 SGD step, eval), their step times, ``train_model`` over 1x2x2
+   and its resume, and the registered version's servicer against the
+   same weights loaded single-device.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports only the port, never JAX.
@@ -8785,6 +8790,444 @@ def mesh_train_leg(torch, port, tmp: Path) -> None:
         dist.destroy_process_group()
 
 
+# leg (e): the model and spatial axes, ranks sharing the one card under
+# gloo. The loss bar is the one-step bar above; the gradient and eval bars
+# are tests/test_torch_port_tp_spatial.py's (the gradient rule of
+# tests/test_torch_port_parallel.py), held in float64 on both sides, as
+# there: in float32 a pre-activation near a ReLU's kink can land on the
+# other side in one of two orders of summation, which moves a leaf's
+# change past the rule in the single-device step alone.
+SPLIT_MESHES = {2: ((1, 1, 2), (1, 2, 1)), 4: ((1, 2, 2),)}
+SPLIT_TIMED_STEPS = 10  # timed float32 steps of each mesh (the median)
+SPLIT_GRAD_REL = 1e-3  # of a leaf's largest change
+SPLIT_GRAD_FLOOR = 1e-4  # of the largest leaf's, for leaves below it
+SPLIT_METRIC_ATOL = 1e-4
+SPLIT_LAUNCH_TIMEOUT_S = 400
+SPLIT_DEVICE, SPLIT_IMG = "cuda", 256
+
+
+#: the collectives that parallel/collectives.py (all-reduce, all-gather)
+#: and DistributedDataParallel (broadcast at its construction) run on the
+#: ranks' CUDA tensors
+SPLIT_COLLECTIVES_USED = ("all_reduce", "all_gather", "broadcast")
+
+
+def probe_gloo_collectives(torch, dev) -> dict:
+    """Which collectives the default group's backend runs on tensors of
+    ``dev`` as they are: each called once on every rank, with rank ``r``
+    contributing ``r + 1``, and its output held exactly to the value it
+    must have; ``"ok"``, ``"wrong: ..."`` or the error it raised."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    total = world * (world + 1) / 2
+
+    def mine():
+        return torch.full((4,), float(rank + 1), device=dev)
+
+    def all_reduce():
+        t = mine()
+        dist.all_reduce(t)
+        return t, torch.full((4,), total)
+
+    def all_gather():
+        parts = [torch.empty(4, device=dev) for _ in range(world)]
+        dist.all_gather(parts, mine())
+        return torch.cat(parts), torch.arange(1, world + 1).float(
+            ).repeat_interleave(4)
+
+    def broadcast():
+        t = mine()
+        dist.broadcast(t, 0)
+        return t, torch.ones(4)
+
+    def reduce_scatter():
+        t = torch.empty(4, device=dev)
+        dist.reduce_scatter(t, [mine() for _ in range(world)])
+        return t, torch.full((4,), total)
+
+    out = {}
+    for call in (all_reduce, all_gather, broadcast, reduce_scatter):
+        try:
+            got, want = call()
+            got = got.cpu()
+            out[call.__name__] = ("ok" if torch.equal(got, want)
+                                  else f"wrong: {got.tolist()}")
+        except (RuntimeError, ValueError, NotImplementedError) as exc:
+            out[call.__name__] = f"{type(exc).__name__}: {str(exc)[:120]}"
+    return out
+
+
+def split_model(port, dtype: str = "float32"):
+    """The reference train step's net on plain convs (``step_phase``)."""
+    return dataclasses.replace(port.ModelConfig(), conv_impl="flax",
+                               compute_dtype=dtype)
+
+
+def split_rank_run(torch, port, spec: dict, rank: int, world: int,
+                   root: Path) -> dict:
+    """One rank's part of leg (e): on each mesh of ``SPLIT_MESHES[world]``
+    the float32 Adam step's loss and timed steps, then the float64 SGD
+    step (its full state saved by rank 0) and the eval after it; on the
+    4-rank launch, ``train_model`` over the mesh for 1 epoch and a resumed
+    run of one more."""
+    import torch.distributed as dist
+
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.parallel import dp
+    from robotic_discovery_platform_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+    from robotic_discovery_platform_tpu_torch.training import (
+        synthetic,
+        trainer,
+    )
+    from robotic_discovery_platform_tpu_torch.utils.config import MeshConfig
+
+    kind = spec["device_type"]
+    devices = mesh_lib.rank_devices(kind)
+    dev = devices[rank]
+    data = np.load(root / "batch.npz")
+    x, y = data["x"], data["y"]
+    init = torch.load(root / "init.pt")
+    loss_fn = losses.make_loss_fn("bce")
+    cudnn = torch.backends.cudnn
+    out = {"meshes": {}, "gloo_on_device": probe_gloo_collectives(torch,
+                                                                  dev)}
+    last = None
+    for shape in SPLIT_MESHES[world]:
+        d, sp, m = shape
+        mesh = last = mesh_lib.make_mesh(
+            MeshConfig(data=d, spatial=sp, model=m), devices)
+        row = {}
+        cudnn.deterministic = True
+        net = port.UNet(split_model(port, spec["dtype"])).to(dev)
+        net.load_state_dict(init)
+        opt = trainer.make_optimizer(net, 1e-4)
+        train, _, state = dp.parallelize_training(mesh, net, opt, loss_fn)
+        row["sharded"] = list(state.sharded)
+        row["transport"] = dist.get_backend(state.groups.world)
+        state, loss = train(state, x, y)
+        row["loss"] = float(loss)
+        # timed on cuDNN's default algorithms, as training runs
+        cudnn.deterministic = False
+        train(state, x, y)
+        times = []
+        for _ in range(SPLIT_TIMED_STEPS):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(state, x, y)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        row["step_ms"] = times
+        del net, opt, train, state
+        cudnn.deterministic = True
+        net = port.UNet(split_model(port, "float64")).to(dev).double()
+        net.load_state_dict(init)
+        opt = torch.optim.SGD(net.parameters(), lr=1.0)
+        train, evals, state = dp.parallelize_training(mesh, net, opt,
+                                                      loss_fn)
+        state, loss = train(state, x, y)
+        row["loss64"] = float(loss)
+        full = dp.full_state_dict(state)
+        name = "x".join(map(str, shape))
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in full.items()},
+                       root / f"sgd_{name}.pt")
+        row["metrics"] = {k: float(v) for k, v in evals(state, x, y).items()}
+        del net, opt, train, evals, state, full
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["meshes"][name] = row
+    if world == 4:
+        img = spec["img"]
+        arrays = synthetic.generate_arrays(TRAIN_SAMPLES, img, img, seed=SEED)
+        tcfg = port.TrainConfig(epochs=1, batch_size=TRAIN_BATCH,
+                                img_size=img, loss="bce", seed=SEED,
+                                tracking_uri=f"file:{root}/mlruns",
+                                checkpoint_dir=str(root / "ckpt"),
+                                async_checkpointing=False)
+        t0 = time.perf_counter()
+        first = trainer.train_model(tcfg, port.ModelConfig(), arrays=arrays,
+                                    mesh=last, device=kind)
+        again = trainer.train_model(dataclasses.replace(tcfg, epochs=2),
+                                    port.ModelConfig(), arrays=arrays,
+                                    resume=True, mesh=last, device=kind)
+        out["train"] = {"v1": first.registry_version,
+                        "v2": again.registry_version,
+                        "best1": first.best_val_loss,
+                        "best2": again.best_val_loss,
+                        "epochs_run": [first.epochs_run, again.epochs_run],
+                        "seconds": time.perf_counter() - t0}
+    return out
+
+
+def mesh_split_rank(argv: list) -> int:
+    """A rank process of leg (e): ``rank world root``; joins the launch's
+    gloo group (``file://`` init under ``root``), runs
+    :func:`split_rank_run` and writes its results to
+    ``root/rank<world>_<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import robotic_discovery_platform_tpu_torch as port
+    from robotic_discovery_platform_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+
+    rank, world, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    spec = json.loads((root / "spec.json").read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.initialize_distributed(f"file://{root}/pg{world}", world, rank,
+                                    spec["device_type"], backend="gloo")
+    try:
+        out = split_rank_run(torch, port, spec, rank, world, root)
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{world}_{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def launch_split_ranks(root: Path, world: int) -> list:
+    """``world`` rank processes of leg (e), all waited for (each within
+    ``SPLIT_LAUNCH_TIMEOUT_S``) and reaped before anything is checked;
+    their results in rank order."""
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here), OMP_NUM_THREADS="4")
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.mesh_split_rank(sys.argv[1:]))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r),
+                               str(world), str(root)], cwd=here, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=SPLIT_LAUNCH_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\n(killed at the timeout)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"rank {r} of {world} exited {p.returncode}: {logs[r][-3000:]}"
+              for r, p in enumerate(procs) if p.returncode != 0]
+    check(not failed, "; ".join(failed))
+    return [json.loads((root / f"rank{world}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def split_gradient_error(ref: dict, got: dict, init: dict) -> tuple:
+    """tests/test_torch_port_parallel.py's rule on one SGD step at lr 1:
+    ``(worst ratio, its leaf, leaves held)``; a held leaf's ratio is its
+    max-abs error over its own max-abs change (bar ``SPLIT_GRAD_REL``), a
+    leaf at or below ``SPLIT_GRAD_FLOOR`` of the largest change its port
+    change over that floor (bar 1)."""
+    delta = {k: ref[k].double() - init[k].double() for k in init}
+    top = max(float(d.abs().max()) for d in delta.values())
+    worst, held = (0.0, None), 0
+    for k, d in delta.items():
+        change = got[k].double() - init[k].double()
+        scale = float(d.abs().max())
+        if scale > SPLIT_GRAD_FLOOR * top:
+            held += 1
+            ratio = float((change - d).abs().max()) / scale / SPLIT_GRAD_REL
+        else:
+            ratio = float(change.abs().max()) / (SPLIT_GRAD_FLOOR * top)
+        worst = max(worst, (ratio, k))
+    return worst[0], worst[1], held
+
+
+def mesh_split_leg(torch, port, tmp: Path, frames) -> None:
+    """(e) Tensor parallelism over "model" and spatial sharding over
+    "spatial" at full width (the reference train step of ``step_phase``,
+    B = 4 at 256x256, plain convs, bce), two and then four rank processes
+    sharing the card under gloo: on 1x1x2, 1x2x1 and 1x2x2, from one init,
+    the float32 step's loss, the float64 SGD step's every leaf and the
+    eval after it against the single-device step on the card, each mesh's
+    median step time beside the single-device step's; then train_model
+    over 1x2x2 for 1 epoch and a resumed epoch, and a servicer from the
+    registered version against one from the same weights loaded
+    single-device, bit for bit."""
+    from robotic_discovery_platform_tpu_torch.models import losses
+    from robotic_discovery_platform_tpu_torch.parallel import (
+        mesh as mesh_lib,
+    )
+    from robotic_discovery_platform_tpu_torch.serving import server
+    from robotic_discovery_platform_tpu_torch.training import (
+        checkpoint,
+        synthetic,
+        trainer,
+    )
+
+    t0 = time.perf_counter()
+    root = tmp / "split"
+    root.mkdir()
+    spec = {"device_type": SPLIT_DEVICE, "dtype": "float32", "img": SPLIT_IMG}
+    (root / "spec.json").write_text(json.dumps(spec))
+    imgs, masks = synthetic.generate_arrays(TRAIN_BATCH, SPLIT_IMG, SPLIT_IMG,
+                                            seed=SEED)
+    xs, ys = trainer.normalize_arrays(imgs, masks)
+    np.savez(root / "batch.npz", x=xs, y=ys)
+    init = trainer.init_model(split_model(port), SEED,
+                              torch.device("cpu")).state_dict()
+    torch.save(init, root / "init.pt")
+    specs = mesh_lib.tp_param_specs(port.UNet(port.ModelConfig())
+                                    .named_parameters())
+    want_sharded = sorted(n for n, sp in specs.items() if sp)
+
+    # the single-device step on the card, from the same init
+    dev = mesh_lib.available_devices(SPLIT_DEVICE)[0]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    loss_fn = losses.make_loss_fn("bce")
+    x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    try:
+        cudnn.deterministic = True
+        net = port.UNet(split_model(port)).to(dev)
+        net.load_state_dict(init)
+        opt = trainer.make_optimizer(net, 1e-4)
+        loss_ref = float(trainer.train_step(net, opt, loss_fn, x, y))
+        cudnn.deterministic = False
+        trainer.train_step(net, opt, loss_fn, x, y)
+        single_ms = []
+        for _ in range(SPLIT_TIMED_STEPS):
+            sync()
+            t1 = time.perf_counter()
+            trainer.train_step(net, opt, loss_fn, x, y)
+            sync()
+            single_ms.append((time.perf_counter() - t1) * 1e3)
+        cudnn.deterministic = True
+        net = port.UNet(split_model(port, "float64")).to(dev).double()
+        net.load_state_dict(init)
+        sgd = torch.optim.SGD(net.parameters(), lr=1.0)
+        loss64_ref = float(trainer.train_step(net, sgd, loss_fn, x, y))
+        sgd_ref = {k: v.detach().cpu().clone()
+                   for k, v in net.state_dict().items()}
+        metrics_ref = {k: float(v) for k, v in trainer.eval_step(
+            net, loss_fn, x, y).items()}
+    finally:
+        cudnn.deterministic = deterministic
+    del net, opt, sgd, x, y
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    results, launch_s = {}, {}
+    for world in SPLIT_MESHES:
+        t1 = time.perf_counter()
+        results[world] = launch_split_ranks(root, world)
+        launch_s[world] = time.perf_counter() - t1
+    params = [n for n, _ in port.UNet(port.ModelConfig()).named_parameters()]
+    lines = []
+    for world, outs in results.items():
+        for name, row in outs[0]["meshes"].items():
+            for o in outs:  # every rank returns the same loss and metrics
+                mine = o["meshes"][name]
+                check(mine["loss"] == row["loss"]
+                      and mine["loss64"] == row["loss64"]
+                      and mine["metrics"] == row["metrics"],
+                      f"mesh {name}: the ranks disagree: {mine} vs {row}")
+            model = int(name.split("x")[2])
+            check(sorted(row["sharded"]) == (want_sharded if model > 1
+                                             else []),
+                  f"mesh {name}: sharded {row['sharded']}")
+            check(abs(row["loss"] - loss_ref) <= MESH_LOSS_RTOL * abs(loss_ref)
+                  and abs(row["loss64"] - loss64_ref)
+                  <= MESH_LOSS_RTOL * abs(loss64_ref),
+                  f"mesh {name}: loss {row['loss']} (float64 step "
+                  f"{row['loss64']}) vs single-device {loss_ref} "
+                  f"({loss64_ref})")
+            got = torch.load(root / f"sgd_{name}.pt")
+            check(sorted(got) == sorted(sgd_ref)
+                  and all(got[k].shape == sgd_ref[k].shape for k in got),
+                  f"mesh {name}: the gathered state is not full-shaped")
+            ratio, leaf, held = split_gradient_error(
+                {k: sgd_ref[k] for k in params}, got,
+                {k: init[k] for k in params})
+            check(ratio <= 1.0 and held >= len(params) // 2,
+                  f"mesh {name}: SGD step's leaf {leaf} at {ratio:.3g} of "
+                  f"its bar ({held} of {len(params)} leaves held)")
+            worst_metric = max(abs(row["metrics"][k] - metrics_ref[k])
+                               for k in metrics_ref)
+            check(worst_metric <= SPLIT_METRIC_ATOL,
+                  f"mesh {name}: eval {row['metrics']} vs single-device "
+                  f"{metrics_ref}")
+            lines.append(
+                f"{name}: loss {row['loss']:.7f} (single {loss_ref:.7f}), "
+                f"float64 SGD step's worst leaf {leaf} at {ratio:.3g} of its "
+                f"bar ({held} of {len(params)} leaves held), eval "
+                f"{worst_metric:.2g} off; step median "
+                f"{float(np.median(row['step_ms'])):.1f} ms (range "
+                f"{min(row['step_ms']):.1f}-{max(row['step_ms']):.1f})")
+    probes = {w: [o["gloo_on_device"] for o in outs]
+              for w, outs in results.items()}
+    check(all(p[c] == "ok" for ps in probes.values() for p in ps
+              for c in SPLIT_COLLECTIVES_USED),
+          f"gloo on the card's tensors: {probes}")
+    first = results[2][0]["meshes"]["1x1x2"]
+    log(f"mesh (e) model and spatial axes at full width (B = {TRAIN_BATCH} "
+        f"at {SPLIT_IMG}x{SPLIT_IMG}, the default config on plain convs, "
+        f"bce, TF32 off, cuDNN deterministic for the bars), ranks sharing "
+        f"{dev} over {first['transport']} on the card's tensors as they are "
+        f"(its collectives, each output held exactly: "
+        f"{results[2][0]['gloo_on_device']}; the data x spatial gradient "
+        f"average by DistributedDataParallel); model-axis kernels split "
+        f"at tp_min_channels "
+        f"256: {', '.join(first['sharded'])}; single-device step median "
+        f"{float(np.median(single_ms)):.1f} ms (range {min(single_ms):.1f}-"
+        f"{max(single_ms):.1f}); " + "; ".join(lines)
+        + f"; reference {ref_s:.1f} s, launches "
+        + ", ".join(f"{w} ranks {s:.1f} s" for w, s in launch_s.items())
+        + f" [{nvidia_smi_line()}]")
+
+    train = results[4][0]["train"]
+    for o in results[4]:
+        check(o["train"]["epochs_run"] == [1, 1]
+              and o["train"]["best2"] == train["best2"],
+              f"train_model over 1x2x2: {o['train']} vs rank 0 {train}")
+    check(train["v1"] == 1 and train["v2"] == 2
+          and all(o["train"]["v1"] is None and o["train"]["v2"] is None
+                  for o in results[4][1:])
+          and np.isfinite(train["best2"]) and train["best2"] <= train["best1"],
+          f"train_model over 1x2x2: {train}")
+    state = checkpoint.CheckpointManager(str(root / "ckpt")).restore()
+    net = port.UNet(port.ModelConfig())
+    net.load_state_dict(state["best"], strict=True)
+    scfg = port.ServerConfig(tracking_uri=f"file:{root}/mlruns",
+                             metrics_csv=str(root / "served.csv"),
+                             calibration_path=str(root / "none.npz"))
+    _, registered, version = server.resolve_serving_model(scfg, device=dev)
+    check(version == 2, f"serving version {version}, want 2")
+    answers = []
+    for model in (registered, net):
+        sv = port.VisionAnalysisService(
+            port.FoldedUNet(model, device=dev), device=dev,
+            cfg=dataclasses.replace(scfg, metrics_csv=str(
+                root / f"served{len(answers)}.csv")))
+        try:
+            answers.append(serve_frames(sv, frames))
+        finally:
+            sv.close()
+    check(answers[0] == answers[1], "the servicer of the registered version "
+          "answers otherwise than the one of the same weights loaded "
+          "single-device")
+    log(f"mesh (e) train_model over 1x2x2: 1 epoch (best val loss "
+        f"{train['best1']:.4f}, version {train['v1']}) and a resumed epoch "
+        f"({train['best2']:.4f}, version {train['v2']}) in "
+        f"{train['seconds']:.1f} s; the registered version's servicer "
+        f"answered the {len(frames)} frames bit for bit as one from the "
+        f"checkpoint's best weights loaded single-device; leg "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def mesh_phase(torch, port, folded=None, frames=None) -> dict:
     """Shape contracts and the data axis on the card (see the legs)."""
     t0 = time.perf_counter()
@@ -8796,6 +9239,7 @@ def mesh_phase(torch, port, folded=None, frames=None) -> dict:
     ring = mesh_ring_leg(torch, port, folded, frames, tmp, batched_answers)
     total = {n: total[n] + ring[n] for n in total}
     mesh_train_leg(torch, port, tmp)
+    mesh_split_leg(torch, port, tmp, frames)
     log(json.dumps({"phase": "mesh", "seconds": round(
         time.perf_counter() - t0, 1), "card": nvidia_smi_line(),
         "launches": total}))

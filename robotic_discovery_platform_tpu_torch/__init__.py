@@ -57,6 +57,8 @@ Package map:
   profiles a new version.
 """
 
+from robotic_discovery_platform_tpu_torch.version import __version__
+
 #: public name -> the module that defines it, imported at first use: the
 #: fleet front-end (``serving/frontend.py``) imports this package and must
 #: load nothing of ``ops/`` or ``models/``
@@ -100,7 +102,7 @@ def __getattr__(name: str):
 
 
 __all__ = [
-    "BatchNorm", "FoldedUNet", "GeometryConfig", "ModelConfig",
+    "__version__", "BatchNorm", "FoldedUNet", "GeometryConfig", "ModelConfig",
     "ServerConfig", "SyntheticSource", "TrainConfig", "UNet",
     "VisionAnalysisService", "build_service", "compute_curvature_profile",
     "decode_mask_wire", "decode_spline_wire", "default_intrinsics",

@@ -6,13 +6,44 @@ only); the Dice term and the IoU / Dice / accuracy metrics are the JAX
 package's additions. Every function takes logits and labels of shape
 [..., H, W, C] and returns a scalar tensor; metrics threshold the sigmoid
 at 0.5, the serving threshold.
+
+Under a mesh that splits H (``parallel/dp.py``), a rank holds some rows
+of each sample. The pixel means (BCE, accuracy) are then the rank's, and
+their mean over equal shards is the global one; the per-sample ratios
+(Dice, IoU) are not, so their numerators and denominators pass through
+:func:`sample_sums`'s reduction (a sum over the spatial group) before
+they divide.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 _AXES = (-3, -2, -1)  # per-sample reduction over H, W, C
+
+_reduce = contextvars.ContextVar("sample_sum_reduce", default=None)
+
+
+@contextlib.contextmanager
+def sample_sums(reduce):
+    """Within the block, every per-sample sum over (H, W, C) of the
+    functions below is passed through ``reduce`` (None: unchanged)."""
+    token = _reduce.set(reduce)
+    try:
+        yield
+    finally:
+        _reduce.reset(token)
+
+
+def _sum(t):
+    """Per-sample sum over (H, W, C), through :func:`sample_sums`'s
+    reduction."""
+    total = t.sum(dim=_AXES)
+    reduce = _reduce.get()
+    return total if reduce is None else reduce(total)
 
 
 def bce_with_logits(logits, labels):
@@ -28,8 +59,8 @@ def dice_loss(logits, labels, eps: float = 1.0):
     probabilities, per sample, averaged."""
     p = torch.sigmoid(logits)
     z = labels.to(logits.dtype)
-    inter = (p * z).sum(dim=_AXES)
-    denom = p.sum(dim=_AXES) + z.sum(dim=_AXES)
+    inter = _sum(p * z)
+    denom = _sum(p) + _sum(z)
     dice = (2.0 * inter + eps) / (denom + eps)
     return (1.0 - dice).mean()
 
@@ -57,8 +88,8 @@ def _masks(logits, labels, threshold: float):
 def binary_iou(logits, labels, threshold: float = 0.5, eps: float = 1e-7):
     """Foreground IoU per sample, averaged."""
     pred, z = _masks(logits, labels, threshold)
-    inter = (pred & z).sum(dim=_AXES).to(torch.float32)
-    union = (pred | z).sum(dim=_AXES).to(torch.float32)
+    inter = _sum(pred & z).to(torch.float32)
+    union = _sum(pred | z).to(torch.float32)
     return ((inter + eps) / (union + eps)).mean()
 
 
@@ -67,8 +98,8 @@ def mean_iou(logits, labels, threshold: float = 0.5, eps: float = 1e-7):
     pred, z = _masks(logits, labels, threshold)
 
     def iou(a, b):
-        inter = (a & b).sum(dim=_AXES).to(torch.float32)
-        union = (a | b).sum(dim=_AXES).to(torch.float32)
+        inter = _sum(a & b).to(torch.float32)
+        union = _sum(a | b).to(torch.float32)
         return (inter + eps) / (union + eps)
 
     return (0.5 * (iou(pred, z) + iou(~pred, ~z))).mean()
@@ -77,8 +108,8 @@ def mean_iou(logits, labels, threshold: float = 0.5, eps: float = 1e-7):
 def dice_coefficient(logits, labels, threshold: float = 0.5,
                      eps: float = 1e-7):
     pred, z = _masks(logits, labels, threshold)
-    inter = (pred & z).sum(dim=_AXES).to(torch.float32)
-    total = (pred.sum(dim=_AXES) + z.sum(dim=_AXES)).to(torch.float32)
+    inter = _sum(pred & z).to(torch.float32)
+    total = (_sum(pred) + _sum(z)).to(torch.float32)
     return ((2.0 * inter + eps) / (total + eps)).mean()
 
 

@@ -19,7 +19,9 @@ onto :meth:`nn.Module.state_dict` keys one to one
 
 Layout at the public surface is the JAX package's: NHWC in, NHWC float32
 logits out. Inside, convolutions run as ``F.conv2d`` on NCHW views with
-the operands in the compute dtype and float32 accumulation.
+the operands in the compute dtype and float32 accumulation
+(``accumulation_dtype``: float64 for a ``compute_dtype="float64"`` net,
+as the JAX package's under ``x64``; the logits stay float32).
 
 ``forward(x, train=True)`` is the training forward of the JAX package's
 ``UNet.apply(..., train=True)``: under a kernel ``ModelConfig.conv_impl``
@@ -55,7 +57,8 @@ from robotic_discovery_platform_tpu_torch.utils.config import (
     check_supported,
 )
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -66,6 +69,12 @@ def compute_dtype(name: str) -> torch.dtype:
         raise ValueError(
             f"unsupported compute_dtype {name!r}; one of {sorted(_DTYPES)}"
         ) from None
+
+
+def accumulation_dtype(dtype: torch.dtype) -> torch.dtype:
+    """What a compute dtype accumulates in: float32, or float64 for a
+    float64 net (a float64 step, the JAX package's under ``x64``)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def interp_matrix(out: int, inp: int) -> np.ndarray:
@@ -85,10 +94,10 @@ def interp_matrix(out: int, inp: int) -> np.ndarray:
 
 def interp_weights(out: int, inp: int, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
-    """:func:`interp_matrix` rounded to ``dtype``, held as float32 on
-    ``device``."""
+    """:func:`interp_matrix` rounded to ``dtype``, held in its
+    accumulation dtype on ``device``."""
     m = torch.from_numpy(interp_matrix(out, inp))
-    return m.to(dtype).to(torch.float32).to(device)
+    return m.to(dtype).to(accumulation_dtype(dtype)).to(device)
 
 
 @shape_contract(x="b ih iw c")
@@ -111,7 +120,8 @@ def upsample_align_corners(x: torch.Tensor, h: int, w: int,
                 cache[key] = m
         return m
 
-    y = torch.einsum("Hh,bhwc->bHwc", mat(h, ih), x.to(torch.float32))
+    y = torch.einsum("Hh,bhwc->bHwc", mat(h, ih),
+                     x.to(accumulation_dtype(x.dtype)))
     y = torch.einsum("Ww,bhwc->bhWc", mat(w, iw), y)
     return y.to(x.dtype)
 
@@ -190,7 +200,10 @@ class Conv3x3(nn.Module):
     With ``train=True`` (or ``kernels_in_eval``, :func:`eval_on_kernels`)
     and a kernel ``impl`` it is the custom-VJP :func:`ops.conv.conv3x3` on
     the kernel cast to x's dtype (the JAX package's ``TrainConv3x3``);
-    otherwise the plain conv."""
+    otherwise the plain conv. ``shard`` (None by default) replaces the
+    forward under a mesh: ``parallel/sharded.py`` installs it."""
+
+    shard = None
 
     def __init__(self, cin: int, cout: int, impl: str = "auto"):
         super().__init__()
@@ -199,6 +212,8 @@ class Conv3x3(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(3, 3, cin, cout))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.shard is not None:
+            return self.shard(self, x)
         if ((train or self.kernels_in_eval)
                 and self.impl not in PLAIN_CONV_IMPLS):
             return conv3x3(x, self.kernel.to(x.dtype), self.impl)
@@ -218,8 +233,8 @@ class BatchNorm(nn.Module):
 
     ``sync`` (None by default) maps the batch's per-channel means of x
     and x² to the statistics to use: ``parallel/dp.sync_batch_norm`` sets
-    it to an all-reduce over the data axis, so a data-parallel step
-    normalizes over the global batch."""
+    it to a mean over the mesh's data x spatial group, so a step over a
+    mesh normalizes over the global batch."""
 
     momentum = 0.9
     sync = None
@@ -235,7 +250,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         mean, var = self.mean, self.var
         if train:
-            xf = x.to(torch.float32)
+            xf = x.to(accumulation_dtype(x.dtype))
             mean = xf.mean(dim=(0, 1, 2))
             sq = (xf * xf).mean(dim=(0, 1, 2))
             if self.sync is not None:
@@ -246,7 +261,8 @@ class BatchNorm(nn.Module):
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
                 self.var.copy_(m * self.var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return ((x.to(torch.float32) - mean) * mul + self.bias).to(x.dtype)
+        return ((x.to(accumulation_dtype(x.dtype)) - mean) * mul
+                + self.bias).to(x.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -256,9 +272,14 @@ class GroupNorm(nn.Module):
     group) in float32 as ``max(0, E[x^2] - E[x]^2)`` (Flax's fast
     variance), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
     float32 and one cast back to the input's dtype. No running
-    statistics: training and inference normalize alike."""
+    statistics: training and inference normalize alike.
+
+    ``sync`` (None by default) maps each sample's per-group means of x and
+    x² to the statistics to use: ``parallel/sharded.py`` sets it to a mean
+    over the spatial group when H is split."""
 
     eps = 1e-6
+    sync = None
 
     def __init__(self, c: int, groups: int):
         super().__init__()
@@ -271,11 +292,13 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         b, h, w, c = x.shape
         g = self.groups
-        xf = x.to(torch.float32)
+        xf = x.to(accumulation_dtype(x.dtype))
         grouped = xf.reshape(b, h, w, g, c // g)
         mean = grouped.mean(dim=(1, 2, 4))
-        var = torch.clamp_min((grouped * grouped).mean(dim=(1, 2, 4))
-                              - mean * mean, 0.0)
+        sq = (grouped * grouped).mean(dim=(1, 2, 4))
+        if self.sync is not None:
+            mean, sq = self.sync(mean, sq)
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         mean = mean.repeat_interleave(c // g, dim=1)[:, None, None, :]
         var = var.repeat_interleave(c // g, dim=1)[:, None, None, :]
         mul = torch.rsqrt(var + self.eps) * self.scale
@@ -315,7 +338,10 @@ class DoubleConv(nn.Module):
 
 
 class Down(nn.Module):
-    """2x2 max-pool, then DoubleConv."""
+    """2x2 max-pool, then DoubleConv. ``shard`` (None by default) replaces
+    the pool under a mesh (``parallel/sharded.py``)."""
+
+    shard = None
 
     def __init__(self, cin: int, cout: int, impl: str = "auto",
                  norm: str = "batch"):
@@ -323,14 +349,18 @@ class Down(nn.Module):
         self.DoubleConv_0 = DoubleConv(cin, cout, impl=impl, norm=norm)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.DoubleConv_0(max_pool2x2(x), train)
+        x = max_pool2x2(x) if self.shard is None else self.shard(x)
+        return self.DoubleConv_0(x, train)
 
 
 class ConvTranspose2x2(nn.Module):
     """2x2 stride-2 transposed conv with a bias, Flax's ``nn.ConvTranspose``
     in the compute dtype: ``kernel`` is [2, 2, Cin, Cout] (its taps land
     flipped, :func:`ops.conv.conv_transpose2x2`), the product is rounded to
-    x's dtype and the bias added in that dtype."""
+    x's dtype and the bias added in that dtype. ``shard`` (None by
+    default) replaces the forward under a mesh (``parallel/sharded.py``)."""
+
+    shard = None
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -338,6 +368,8 @@ class ConvTranspose2x2(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            return self.shard(self, x)
         return conv_transpose2x2_plain(x, self.kernel) + self.bias.to(x.dtype)
 
 
@@ -346,7 +378,10 @@ class Up(nn.Module):
     DoubleConv. ``bilinear``: the align-corners bilinear upsample and a
     halved mid width; otherwise ``ConvTranspose_0`` to ``cin_up // 2``
     channels, then a nearest resize to the skip's size (the identity when
-    the sizes already match), and no halved mid width."""
+    the sizes already match), and no halved mid width. ``shard`` (None by
+    default) replaces the upsample under a mesh (``parallel/sharded.py``)."""
+
+    shard = None
 
     def __init__(self, cin_up: int, cin_skip: int, cout: int,
                  impl: str = "auto", bilinear: bool = True,
@@ -366,7 +401,9 @@ class Up(nn.Module):
                 train: bool = False, cache: dict | None = None
                 ) -> torch.Tensor:
         h, w = skip.shape[1], skip.shape[2]
-        if self.bilinear:
+        if self.shard is not None:
+            x = self.shard(self, x, skip, cache)
+        elif self.bilinear:
             x = upsample_align_corners(x, h, w, cache)
         else:
             x = resize_nearest(self.ConvTranspose_0(x), h, w, cache)
@@ -383,8 +420,9 @@ class Head(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel[0, 0].to(x.dtype).to(torch.float32)
-        y = torch.matmul(x.to(torch.float32), w).to(x.dtype)
+        acc = accumulation_dtype(x.dtype)
+        w = self.kernel[0, 0].to(x.dtype).to(acc)
+        y = torch.matmul(x.to(acc), w).to(x.dtype)
         return y + self.bias.to(x.dtype)
 
 
@@ -393,7 +431,10 @@ class UNet(nn.Module):
     BatchNorm or GroupNorm). Call with NHWC input; returns NHWC float32 logits.
     ``dtype`` is the compute dtype of the activations; parameters stay
     float32. ``forward(x, train=True)`` is the training forward (module
-    docstring)."""
+    docstring). ``shard`` (None by default) is told each input's shape
+    under a mesh (``parallel/sharded.py``)."""
+
+    shard = None
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -442,6 +483,8 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.shard is not None:
+            self.shard.begin(x)
         xs = [self.DoubleConv_0(x, train)]
         for i in range(4):
             xs.append(getattr(self, f"Down_{i}")(xs[-1], train))

@@ -349,14 +349,16 @@ conv1x1.launches = 0
 
 def conv_transpose2x2_plain(x, w, bias=None, *, out_dtype=None):
     """Plain PyTorch version of :func:`conv_transpose2x2`, differentiable by
-    autograd: four float32 contractions over Cin, one per tap, with the
+    autograd: four float32 (float64 for float64 operands) contractions
+    over Cin, one per tap, with the
     spatially flipped tap (``out[2h+dy, 2w+dx] = x[h, w] @ w[1-dy, 1-dx]``),
     interleaved, the float32 bias added (when given), one cast. On a CUDA
     tensor the caller keeps TF32 off."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     b, h, width, _ = x.shape
-    xf = x.to(torch.float32)
-    wf = w.to(x.dtype).to(torch.float32)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    wf = w.to(x.dtype).to(acc)
 
     def tap(dy, dx):
         return torch.einsum("bhwi,io->bhwo", xf, wf[1 - dy, 1 - dx])
@@ -366,7 +368,7 @@ def conv_transpose2x2_plain(x, w, bias=None, *, out_dtype=None):
                      for dy in (0, 1)], dim=2)
     y = y.reshape(b, 2 * h, 2 * width, w.shape[3])
     if bias is not None:
-        y = y + bias.to(torch.float32)
+        y = y + bias.to(acc)
     return y.to(out_dtype)
 
 
@@ -531,13 +533,15 @@ conv3x3_grad_weights.launches = 0
 # -- the training conv ---------------------------------------------------------
 
 
-def conv3x3_plain(x, w):
+def conv3x3_plain(x, w, padding=1):
     """A 3x3 SAME no-bias conv in plain torch, differentiable by autograd:
-    ``F.conv2d`` in float32 on the operands in x's dtype (w cast to it),
-    one cast of the result to x's dtype. On a CUDA tensor the caller
-    keeps TF32 off."""
-    wf = w.to(x.dtype).to(torch.float32).permute(3, 2, 0, 1)
-    y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), wf, padding=1)
+    ``F.conv2d`` in float32 (float64 for float64 operands) on the
+    operands in x's dtype (w cast to it), one cast of the result to x's
+    dtype. On a CUDA tensor the caller keeps TF32 off. ``padding`` is ``F.conv2d``'s (``(0, 1)`` for a map
+    whose H already carries its halo rows)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    wf = w.to(x.dtype).to(acc).permute(3, 2, 0, 1)
+    y = F.conv2d(x.to(acc).permute(0, 3, 1, 2), wf, padding=padding)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

@@ -1,6 +1,8 @@
-"""Meshes, the serving ring and the data-parallel train steps, the JAX
-package's ``parallel/`` for PyTorch (``torch.distributed`` process groups
-in place of ``jax.distributed``; see :mod:`.mesh` and :mod:`.dp`)."""
+"""Meshes, the serving ring and the train steps over a mesh's data,
+spatial and model axes, the JAX package's ``parallel/`` for PyTorch
+(``torch.distributed`` process groups in place of ``jax.distributed``,
+and the collectives XLA inserts written out; see :mod:`.mesh`,
+:mod:`.dp`, :mod:`.collectives` and :mod:`.sharded`)."""
 
 from robotic_discovery_platform_tpu_torch.parallel.dp import (
     parallelize_training,

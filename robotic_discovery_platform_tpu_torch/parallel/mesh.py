@@ -2,21 +2,25 @@
 ``parallel/mesh.py`` for PyTorch.
 
 A :class:`Mesh` is a ``("data", "spatial", "model")`` array of devices,
-as the JAX package's ``jax.sharding.Mesh``:
+as the JAX package's ``jax.sharding.Mesh``. A train step over it runs one
+rank of a ``torch.distributed`` process group per position: the group's
+world size is the mesh's size, and rank ``r`` sits at the row-major
+coordinate ``(d, s, m)`` of the device array (:func:`mesh_coord`), the
+order in which the JAX mesh reshapes its devices. Each rank holds its own
+device (``cuda:<rank % cards>`` on the card, the CPU under ``gloo``;
+several ranks may share one card under ``gloo``, ``initialize_distributed
+(backend=...)``).
 
-- ``data``: data parallelism. Its positions are the ranks of a
-  ``torch.distributed`` process group, each holding its own device
-  (``cuda:<local rank>`` on the card, the CPU under ``gloo``); the
-  gradient all-reduce runs over that group (``parallel/dp.py``). The
-  serving router walks the same axis in one process
-  (:func:`make_serving_mesh`, :func:`device_ring`).
-- ``spatial`` and ``model``: spatial sharding of H and tensor parallelism
-  over output channels. :func:`make_mesh` builds every axis shape, as the
-  JAX package does, but a train step over ``spatial > 1`` or
-  ``model > 1`` raises ``NotImplementedError`` (ROADMAP item 34: each
-  needs hand-written collectives inside the U-Net's forward and
-  backward). :func:`tp_param_specs` is the pure function item 34 will
-  execute.
+- ``data``: data parallelism; rank ``(d, ., .)`` takes row block ``d``
+  of the global batch.
+- ``spatial``: H of the activations split over the ranks
+  ``(d, ., m)``, with halo exchanges (``parallel/sharded.py``).
+- ``model``: tensor parallelism; each kernel that :func:`tp_param_specs`
+  splits holds its ``Cout / model`` slice on rank ``(., ., m)``.
+
+:func:`mesh_groups` builds the subgroups a step over the mesh reduces
+over, once per mesh. The serving router walks the data axis in one
+process (:func:`make_serving_mesh`, :func:`device_ring`).
 
 "Available devices" are those of one device type: every card
 (``torch.cuda.device_count()``), or the one CPU (:func:`available_devices`;
@@ -39,12 +43,6 @@ import torch
 from robotic_discovery_platform_tpu_torch.utils.config import MeshConfig
 
 AXES = ("data", "spatial", "model")
-
-#: the error a train step over an axis the port does not shard yet raises
-ITEM_34 = ("tensor parallelism over 'model' and spatial sharding over "
-           "'spatial' are ROADMAP item 34; the port's train step shards "
-           "the 'data' axis only")
-
 
 class Mesh:
     """A named device array (``devices`` shaped like ``axis_names``)."""
@@ -85,12 +83,16 @@ def available_devices(device_type: str = "cuda") -> list[torch.device]:
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None,
-                           device_type: str = "cuda") -> None:
+                           device_type: str = "cuda",
+                           backend: str | None = None) -> None:
     """Multi-process bring-up (a no-op for one process): joins this
-    process to a ``torch.distributed`` group of ``num_processes`` ranks,
-    NCCL on the card and ``gloo`` on the CPU. ``coordinator`` is
-    ``host:port`` (rank 0 listens there) or an ``init_method`` URL
-    (``tcp://...``, ``file://...``). On the card the rank's device is
+    process to a ``torch.distributed`` group of ``num_processes`` ranks
+    over ``backend``: by default NCCL on the card and ``gloo`` on the
+    CPU; ``"gloo"`` on the card lets several ranks share one card (NCCL
+    refuses two ranks on one device; gloo runs the collectives of
+    ``parallel/collectives.py`` on CUDA tensors). ``coordinator`` is ``host:port``
+    (rank 0 listens there) or an ``init_method`` URL (``tcp://...``,
+    ``file://...``, ``env://``). On the card the rank's device is
     ``cuda:<rank % cards>``. A failed init raises; nothing falls back to
     another backend."""
     if num_processes is None or num_processes <= 1:
@@ -102,11 +104,22 @@ def initialize_distributed(coordinator: str | None = None,
             "initialize_distributed needs a coordinator and a process_id "
             "for more than one process")
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-    backend = "nccl" if device_type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if device_type == "cuda" else "gloo"
     if device_type == "cuda":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=url,
                             world_size=num_processes, rank=process_id)
+
+
+def rank_devices(device_type: str = "cuda") -> list[torch.device]:
+    """The device of each rank of the process group, in rank order
+    (``cuda:<rank % cards>``; the CPU for every rank on the CPU): the
+    devices to build a train mesh over when several ranks share a card.
+    One device without a group."""
+    devices = available_devices(device_type)
+    _, world = data_rank()
+    return [devices[r % len(devices)] for r in range(world)]
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), devices=None,
@@ -196,7 +209,8 @@ def tp_param_specs(params, min_channels: int = 256) -> dict:
     output-channel (last) dimension of every ``kernel`` at least
     ``min_channels`` wide is split over "model", everything else
     replicated (``()``). Names are the port's, which are the JAX tree's
-    paths joined by dots. Pure: executing the specs is ROADMAP item 34."""
+    paths joined by dots. :func:`shard_pytree` executes them, and
+    ``parallel/dp.parallelize_training`` trains the slices."""
     items = params.items() if hasattr(params, "items") else params
     specs = {}
     for name, leaf in items:
@@ -209,8 +223,8 @@ def tp_param_specs(params, min_channels: int = 256) -> dict:
 
 
 def data_rank() -> tuple[int, int]:
-    """This process's (rank, world size) on the data axis: the default
-    process group's, or (0, 1) without one."""
+    """This process's (rank, world size) in the default process group,
+    or (0, 1) without one."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -218,39 +232,102 @@ def data_rank() -> tuple[int, int]:
     return 0, 1
 
 
-def check_data_mesh(mesh: Mesh) -> int:
-    """The data axis a train step over ``mesh`` runs on: ``spatial`` and
-    ``model`` must be 1 (item 34), and the data axis must be the process
-    group's world size (1 without a group). Returns the data size."""
-    shape = mesh.shape
-    if shape.get("spatial", 1) > 1 or shape.get("model", 1) > 1:
-        raise NotImplementedError(f"mesh {shape}: {ITEM_34}")
-    data = shape.get("data", 1)
-    _, world = data_rank()
-    if data != world:
+class MeshGroups(NamedTuple):
+    """This rank's place on a mesh and the subgroups a step reduces
+    over. A group of one rank is ``None`` (``parallel/collectives.py``
+    treats it as the identity)."""
+
+    coord: tuple          # (d, s, m)
+    model: object         # the ranks (d, s, .)
+    spatial: object       # the ranks (d, ., m)
+    data_spatial: object  # the ranks (., ., m): the gradient average
+    data: object          # the ranks (., s, m)
+    world: object         # every rank: the loss and metrics
+
+
+def mesh_coord(mesh: Mesh) -> tuple:
+    """This rank's row-major ``(d, s, m)`` coordinate on ``mesh``. The
+    mesh's size must be the process group's world size (1 without a
+    group): one rank per position; ValueError otherwise."""
+    shape = tuple(mesh.shape.get(a, 1) for a in AXES)
+    rank, world = data_rank()
+    if int(np.prod(shape)) != world:
         raise ValueError(
-            f"the mesh's data axis ({data}) must equal the process "
-            f"group's world size ({world}): one rank per data position")
-    return data
+            f"mesh {'x'.join(map(str, shape))} has {int(np.prod(shape))} "
+            f"positions but the process group's world size is {world}: "
+            "one rank per position")
+    return tuple(int(i) for i in np.unravel_index(rank, shape))
+
+
+def mesh_groups(mesh: Mesh) -> MeshGroups:
+    """This rank's coordinate and subgroups on ``mesh`` (see
+    :class:`MeshGroups`), built on the first call for a mesh and kept on
+    it. ``dist.new_group`` is collective: every rank creates every
+    subgroup of more than one rank, in the same order (each axis's groups
+    in row-major order of the other coordinates), and keeps its own. Raises
+    ValueError as :func:`mesh_coord` does."""
+    coord = mesh_coord(mesh)
+    import torch.distributed as dist
+
+    world = (dist.group.WORLD if dist.is_available()
+             and dist.is_initialized() else None)
+    cached = getattr(mesh, "_groups", None)
+    if cached is not None and cached[0] is world:
+        return cached[1]
+    shape = tuple(mesh.shape.get(a, 1) for a in AXES)
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+
+    def mine(blocks):
+        """Create every block of ranks (a list of rank lists) as a group,
+        in order; return this rank's."""
+        own = None
+        for block in blocks:
+            block = [int(r) for r in block]
+            group = dist.new_group(block) if len(block) > 1 else None
+            if ranks[coord] in block:
+                own = group
+        return own
+
+    d, s, m = coord
+    D, S, M = shape
+    groups = MeshGroups(
+        coord=coord,
+        model=mine([ranks[i, j, :] for i in range(D) for j in range(S)]),
+        spatial=mine([ranks[i, :, k] for i in range(D) for k in range(M)]),
+        data_spatial=mine([ranks[:, :, k].ravel() for k in range(M)]),
+        data=mine([ranks[:, j, k] for j in range(S) for k in range(M)]),
+        world=world if ranks.size > 1 else None)
+    mesh._groups = (world, groups)
+    return groups
 
 
 def local_device(mesh: Mesh) -> torch.device:
-    """The device of this process's data position."""
+    """The device of this process's position."""
     rank, _ = data_rank()
     return torch.device(device_ring(mesh)[rank])
 
 
 def shard_pytree(mesh: Mesh, tree, specs=None):
     """Place a tree of tensors (a dict, nested or flat) on this rank's
-    device of ``mesh``: replicated by default. A spec naming an axis
-    longer than 1 is item 34's and raises."""
+    device of ``mesh``: replicated by default; a leaf whose spec names a
+    mesh axis for one of its dimensions becomes this rank's block of that
+    dimension (for :func:`tp_param_specs`, the ``Cout / model`` slice of
+    the last dimension on rank ``(., ., m)``)."""
     device = local_device(mesh)
+    coord = dict(zip(AXES, mesh_coord(mesh)))
     shape = mesh.shape
 
     def place(leaf, spec=()):
-        if any(a is not None and shape.get(a, 1) > 1 for a in spec):
-            raise NotImplementedError(f"spec {spec}: {ITEM_34}")
-        return leaf.to(device)
+        for dim, axis in enumerate(spec):
+            n = shape.get(axis, 1) if axis is not None else 1
+            if n > 1:
+                if leaf.shape[dim] % n:
+                    raise ValueError(
+                        f"dimension {dim} of {tuple(leaf.shape)} does not "
+                        f"split over {axis!r} ({n})")
+                k = leaf.shape[dim] // n
+                leaf = leaf.narrow(dim, coord[axis] * k, k)
+        return leaf.to(device).contiguous()
 
     def walk(node, spec_node):
         if isinstance(node, dict):

@@ -9,17 +9,21 @@ Usage:
 Defaults, then an optional ``--config`` JSON file (the ``PlatformConfig``
 shape), then ``--section.field`` overrides. Prints the run's
 ``TrainResult.to_jsonable()`` as one JSON line. Any ``--mesh.*`` override
-builds the mesh (``parallel/mesh.make_mesh`` over ``--device``'s type) and
-trains data-parallel over it, as the JAX package's CLI does; a
-multi-process run joins its process group first
-(``parallel/mesh.initialize_distributed``). ``--mesh.model`` or
-``--mesh.spatial`` > 1 raises ``NotImplementedError`` (ROADMAP item 34).
+builds the mesh and trains over its data, spatial and model axes, as the
+JAX package's CLI does. The mesh has one rank per position: a process
+started by a launcher that sets ``WORLD_SIZE`` > 1 (with ``RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``, as ``torchrun`` does) first joins
+that process group (``parallel/mesh.initialize_distributed`` over
+``env://``: NCCL on the card, ``gloo`` on the CPU) and builds the mesh
+over the ranks' devices; a lone process builds it over ``--device``'s
+devices.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -53,14 +57,21 @@ def main(argv=None) -> int:
         train_model,
     )
 
-    mesh = None
+    mesh, joined = None, False
     if cfg.mesh != config_lib.MeshConfig():
         # any explicit --mesh.* override builds the mesh, as in the JAX
         # package's CLI
         from robotic_discovery_platform_tpu_torch.parallel import mesh as m
 
-        mesh = m.make_mesh(cfg.mesh,
-                           device_type=torch_device_type(args.device))
+        device_type = torch_device_type(args.device)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        devices = None
+        if world > 1:
+            m.initialize_distributed("env://", world,
+                                     int(os.environ["RANK"]), device_type)
+            joined = True
+            devices = m.rank_devices(device_type)
+        mesh = m.make_mesh(cfg.mesh, devices, device_type=device_type)
     try:
         res = train_model(cfg.train, cfg.model, resume=args.resume,
                           mesh=mesh, register=not args.no_register,
@@ -69,6 +80,11 @@ def main(argv=None) -> int:
         # config and dataset problems get a one-line error, not a traceback
         print(f"error: {e}", file=sys.stderr)
         return 2
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(json.dumps(res.to_jsonable()))
     return 0
 

@@ -43,17 +43,20 @@ draws the order from the seed afresh and so repeats the first epoch's
 batches (ROADMAP queue 3). A checkpoint without that state (one the JAX
 package's was converted from) resumes as the JAX package does.
 
-With a ``mesh`` (``parallel/mesh.make_mesh``) the run is data-parallel
-over the mesh's "data" axis, the ranks of the default process group
-(:class:`MeshEpochs` around ``parallel/dp.parallelize_training``), with
-the JAX package's rules: the convs are the plain ones
-(``conv_impl="flax"``: the custom-VJP conv carries no collectives), the
-batch is rounded up to a multiple of the data axis, ``epoch_mode="scan"``
-is refused, and only rank 0 writes checkpoints, tracking and the
-registry (every rank restores). A checkpoint holds the unwrapped
-network's state dict, so it loads into the single-device trainer and
-servicer. A mesh with ``spatial`` or ``model`` > 1 raises
-``NotImplementedError`` (ROADMAP item 34).
+With a ``mesh`` (``parallel/mesh.make_mesh``) the run is split over the
+mesh's "data", "spatial" and "model" axes, one rank of the default
+process group per position (:class:`MeshEpochs` around
+``parallel/dp.parallelize_training``, ``TrainConfig.tp_min_channels``
+choosing the kernels split over "model"), with the JAX package's rules:
+the convs are the plain ones (``conv_impl="flax"``: the custom-VJP conv
+carries no collectives), the batch is rounded up to a multiple of the
+data axis, ``epoch_mode="scan"`` is refused, and only rank 0 writes
+checkpoints, tracking and the registry (every rank restores). Every rank
+of the model group gathers the kernels' slices and their Adam moments
+before rank 0 writes, so a checkpoint and a registered version hold the
+full-shaped state dict of the unwrapped network: they load into the
+single-device trainer and servicer, and a resumed mesh run slices them
+again.
 """
 
 from __future__ import annotations
@@ -206,8 +209,14 @@ class TrainResult:
         }
 
 
-def _state_copy(net: UNet) -> dict:
-    """Independent copies of the parameters and BatchNorm statistics."""
+def _state_copy(net: UNet, state=None) -> dict:
+    """Independent copies of the parameters and BatchNorm statistics, at
+    full shape: a mesh run's ``state`` (``parallel/dp.ReplicatedState``)
+    gathers its ``model`` slices, on every rank of the model group."""
+    if state is not None:
+        from robotic_discovery_platform_tpu_torch.parallel import dp
+
+        return dp.full_state_dict(state)
     return {k: v.detach().clone() for k, v in net.state_dict().items()}
 
 
@@ -422,9 +431,9 @@ def train_model(cfg: TrainConfig = TrainConfig(),
             ``cfg.dataset_dir``.
         resume: restore the latest checkpoint under ``cfg.checkpoint_dir``
             and continue from its epoch.
-        mesh: a ``parallel/mesh.Mesh``: train data-parallel over its
-            "data" axis on this rank's device of it (``device`` is then
-            unused; see the module docstring).
+        mesh: a ``parallel/mesh.Mesh``: train over its axes on this
+            rank's device of it (``device`` is then unused; see the module
+            docstring).
         register: register the best variables under
             ``cfg.registered_model_name``.
         device: where the network trains.
@@ -456,7 +465,8 @@ def train_model(cfg: TrainConfig = TrainConfig(),
             mesh as mesh_lib,
         )
 
-        divisor = mesh_lib.check_data_mesh(mesh)
+        mesh_lib.mesh_groups(mesh)  # ValueError unless one rank a position
+        divisor = mesh.shape.get("data", 1)
         rank, _ = mesh_lib.data_rank()
         device = mesh_lib.local_device(mesh)
         if model_cfg.conv_impl not in PLAIN_CONV_IMPLS:
@@ -487,10 +497,12 @@ def train_model(cfg: TrainConfig = TrainConfig(),
     # the global batch, rounded up to a multiple of the data axis
     batch_size = -(-max(cfg.batch_size, divisor) // divisor) * divisor
     # the epochs read the restored state: a scan epoch's graphs are
-    # captured on its first epoch, after the restore
+    # captured on its first epoch, after the restore; a mesh run slices it
+    mesh_state = None
     if mesh is not None:
-        train, evals, state = dp.parallelize_training(
-            mesh, net, optimizer, loss_fn)
+        train, evals, mesh_state = dp.parallelize_training(
+            mesh, net, optimizer, loss_fn,
+            tp_min_channels=cfg.tp_min_channels)
         if ds is not None:
             train_batches = data_lib.StreamingBatches(
                 ds, train_idx, batch_size, shuffle=True, seed=cfg.seed,
@@ -505,7 +517,8 @@ def train_model(cfg: TrainConfig = TrainConfig(),
             val_batches = data_lib.Batches(
                 xs[val_idx], ys[val_idx], batch_size, shuffle=False,
                 divisor=divisor)
-        epochs = MeshEpochs(train, evals, state, train_batches, val_batches)
+        epochs = MeshEpochs(train, evals, mesh_state, train_batches,
+                            val_batches)
     elif mode == "scan":
         epochs = ScanEpochs(net, optimizer, loss_fn,
                             (xs[train_idx], ys[train_idx]),
@@ -585,17 +598,27 @@ def train_model(cfg: TrainConfig = TrainConfig(),
                          epoch_seconds[-1])
                 if val["loss"] < best_val_loss:
                     best_val_loss = val["loss"]
-                    best_state = _state_copy(net)
-                if (((epoch + 1) % cfg.checkpoint_every
-                        and epoch + 1 < cfg.epochs) or not is_main):
+                    best_state = _state_copy(net, mesh_state)
+                if ((epoch + 1) % cfg.checkpoint_every
+                        and epoch + 1 < cfg.epochs):
+                    continue
+                # gathered on every rank of the model group, before rank 0
+                # alone writes
+                if mesh_state is not None:
+                    model_state = dp.full_state_dict(mesh_state)
+                    optimizer_state = dp.full_optimizer_state(mesh_state)
+                else:
+                    model_state = net.state_dict()
+                    optimizer_state = optimizer.state_dict()
+                if not is_main:
                     continue
                 payload = {
-                    "model": net.state_dict(),
-                    "optimizer": optimizer.state_dict(),
+                    "model": model_state,
+                    "optimizer": optimizer_state,
                     "epoch": epoch + 1,
                     "best_val_loss": best_val_loss,
                     "best": (best_state if best_state is not None
-                             else net.state_dict()),
+                             else model_state),
                     "order_rng": epochs.order_rng.bit_generator.state,
                 }
                 if cfg.async_checkpointing:
@@ -620,6 +643,12 @@ def train_model(cfg: TrainConfig = TrainConfig(),
         if mode == "scan":
             epochs.close()
     ckpt.close()
+    if mesh_state is not None:
+        # rank 0's checkpoint and registry writes are done when any rank
+        # returns: a resumed run on another rank reads them
+        from robotic_discovery_platform_tpu_torch.parallel import collectives
+
+        collectives.barrier(mesh_state.groups.world, device)
     return TrainResult(
         run_id=run_id,
         registry_version=registry_version,

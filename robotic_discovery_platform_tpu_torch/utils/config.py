@@ -7,9 +7,8 @@ tools' ``CameraConfig``, ``CalibrationConfig`` and ``CollectConfig``,
 plus ``from_dict`` and ``--section.field`` flag parsing for them.
 
 :func:`check_supported` raises ``ValueError`` for a value no package
-knows. Every ``MeshConfig`` is taken; a train step over ``spatial`` or
-``model`` > 1 raises ``NotImplementedError`` there (ROADMAP item 34,
-``parallel/mesh.py``).
+knows. Every ``MeshConfig`` is taken: a train step runs over any mesh
+whose size is its process group's (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -89,9 +88,11 @@ class TrainConfig:
     "auto" with in-memory arrays of at most ``scan_max_bytes``, runs the
     whole-epoch scan (on the card one captured step replayed per batch);
     "stream", or "auto" over a dataset directory, the per-batch loop.
-    ``donate_state`` (XLA buffer donation of the train state) and
-    ``tp_min_channels`` (tensor parallelism) are accepted and have no
-    effect on the card: the port updates the state in place."""
+    ``donate_state`` (XLA buffer donation of the train state) is accepted
+    and has no effect on the card: the port updates the state in place.
+    ``tp_min_channels``: under a mesh with ``model`` > 1, the kernels at
+    least this many output channels wide are split over "model"
+    (``parallel/mesh.tp_param_specs``)."""
 
     learning_rate: float = 1e-4
     batch_size: int = 4
@@ -493,10 +494,10 @@ class CollectConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The device-mesh sizes (``parallel/mesh.make_mesh``): ``data``
-    (data parallelism over a process group's ranks), ``model`` and
-    ``spatial`` (ROADMAP item 34 in a train step). Sizes <= 0 are
-    inferred from the available devices."""
+    """The device-mesh sizes (``parallel/mesh.make_mesh``), one rank of a
+    process group per position: ``data`` (data parallelism), ``model``
+    (tensor parallelism over output channels) and ``spatial`` (H split
+    over ranks). Sizes <= 0 are inferred from the available devices."""
 
     data: int = -1
     model: int = 1

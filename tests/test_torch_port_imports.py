@@ -409,8 +409,8 @@ def test_config_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
             VisionAnalysisService(lambda x: x, cfg=config.ServerConfig(
                 zoo_models="bogus"), device="cpu")
     elif case == "mesh_section":
-        # every mesh shape is taken; a train step over model or spatial
-        # > 1 raises naming item 34 (tests/test_torch_port_parallel.py)
+        # every mesh shape is taken, and a train step runs over any of them
+        # (tests/test_torch_port_parallel.py, test_torch_port_tp_spatial.py)
         config.check_supported(config.MeshConfig())
         config.check_supported(config.MeshConfig(data=2, model=2))
     elif case == "bilinear_false":

@@ -142,37 +142,62 @@ def test_tp_param_specs_match_jax(jax_init):
         assert any(s for s in got.values()) == (min_channels == 64)
 
 
-def test_item_34_axes_raise_naming_it():
+def test_model_and_spatial_placement_is_executed(monkeypatch):
+    """Over a 1x2x2 mesh: a mesh whose size is not the world size is
+    refused; each rank (``data_rank`` standing in for its process) sits at
+    its row-major coordinate, ``shard_pytree`` gives it the ``Cout / 2``
+    slice of every kernel the specs split (the rest whole), and
+    ``put_global_batch(spatial=True)`` its H block of the batch."""
     net = tunet.UNet(TINY).init_weights(torch.Generator().manual_seed(0))
     opt = trainer.make_optimizer(net, 1e-3)
-    for cfg in (MeshConfig(data=1, model=2), MeshConfig(data=1, spatial=2)):
-        mesh = tmesh.make_mesh(cfg, devices=[CPU] * 2)
-        with pytest.raises(NotImplementedError, match="item 34"):
-            dp.parallelize_training(mesh, net, opt, tlosses.bce_with_logits)
-        with pytest.raises(NotImplementedError, match="item 34"):
-            dp.shard_map_train_step(mesh, net, opt, tlosses.bce_with_logits)
-        if cfg.model > 1:  # the specs split "model" only
-            with pytest.raises(NotImplementedError, match="item 34"):
-                tmesh.shard_pytree(mesh, dict(net.state_dict()),
-                                   tmesh.tp_param_specs(net.state_dict(), 8))
-    with pytest.raises(NotImplementedError, match="item 34"):
-        dp.put_global_batch(
-            tmesh.make_mesh(MeshConfig(data=1, spatial=2),
-                            devices=[CPU] * 2),
-            np.zeros((2, 4, 4, 3)), spatial=True)
+    mesh = tmesh.make_mesh(MeshConfig(data=1, spatial=2, model=2),
+                           devices=[CPU] * 4)
+    for call in (lambda: tmesh.mesh_groups(mesh),
+                 lambda: dp.parallelize_training(mesh, net, opt,
+                                                 tlosses.bce_with_logits),
+                 lambda: dp.shard_map_train_step(mesh, net, opt,
+                                                 tlosses.bce_with_logits),
+                 lambda: dp.put_global_batch(mesh, np.zeros((2, 4, 4, 3)))):
+        with pytest.raises(ValueError, match="world size is 1"):
+            call()
+    state = dict(net.state_dict())
+    specs = tmesh.tp_param_specs(state, 32)
+    assert any(specs.values())
+    x = np.arange(2 * 8 * 4 * 3, dtype=np.float32).reshape(2, 8, 4, 3)
+    for rank in range(4):
+        monkeypatch.setattr(tmesh, "data_rank", lambda rank=rank: (rank, 4))
+        d, s, m = tmesh.mesh_coord(mesh)
+        assert (d, s, m) == (0, rank // 2, rank % 2)
+        placed = tmesh.shard_pytree(mesh, state, specs)
+        for name, spec in specs.items():
+            want = state[name]
+            if spec:
+                c = want.shape[-1] // 2
+                want = want[..., m * c:(m + 1) * c]
+            assert torch.equal(placed[name], want), (rank, name)
+        got = dp.put_global_batch(mesh, x, spatial=True)
+        assert torch.equal(got, torch.from_numpy(x[:, 4 * s:4 * s + 4]))
+        assert torch.equal(dp.put_global_batch(mesh, x), torch.from_numpy(x))
+    with pytest.raises(ValueError, match="not divisible by the spatial"):
+        dp.put_global_batch(mesh, x[:, :7], spatial=True)
 
 
-def test_put_global_batch_and_replicated_placement():
+def test_put_global_batch_and_replicated_placement(monkeypatch):
     mesh = tmesh.make_mesh(MeshConfig(data=1), devices=[CPU])
     x = np.arange(24, dtype=np.float32).reshape(4, 2, 3)
     got = dp.put_global_batch(mesh, x)
     assert got.dtype == torch.float32 and torch.equal(got,
                                                       torch.from_numpy(x))
     two = tmesh.make_mesh(MeshConfig(data=2), devices=[CPU] * 2)
-    with pytest.raises(ValueError, match="not divisible by the data axis"):
-        dp.put_global_batch(two, np.zeros((3, 2)))
-    # rank 0 of a two-rank axis takes the first half
-    assert dp.put_global_batch(two, x).shape == (2, 2, 3)
+    # rank 0 of a two-rank axis (data_rank standing in for its process)
+    # takes the first half
+    with monkeypatch.context() as patch:
+        patch.setattr(tmesh, "data_rank", lambda: (0, 2))
+        with pytest.raises(ValueError, match="not divisible by the data "
+                                             "axis"):
+            dp.put_global_batch(two, np.zeros((3, 2)))
+        assert torch.equal(dp.put_global_batch(two, x),
+                           torch.from_numpy(x[:2]))
     tree = {"a": torch.ones(2), "b": {"c": torch.zeros(3)}}
     placed = tmesh.shard_pytree(mesh, tree)
     assert torch.equal(placed["b"]["c"], tree["b"]["c"])
@@ -224,8 +249,10 @@ def test_world_size_one_steps_equal_the_single_step(gloo_one, jax_init):
         if kind == "parallelize_training":
             step, evals, state = dp.parallelize_training(
                 gloo_one, net, opt, tlosses.bce_with_logits)
-            assert isinstance(state.module,
-                              torch.nn.parallel.DistributedDataParallel)
+            # the data x spatial group has one rank: no DDP wrapper
+            # (parallel/dp.py)
+            assert type(state.net) is tunet.UNet and state.sharded == ()
+            assert state.module is state.net
         else:
             state = dp.replicated_state(gloo_one, net, opt)
             step = dp.shard_map_train_step(gloo_one, net, opt,

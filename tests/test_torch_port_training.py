@@ -578,15 +578,16 @@ def test_training_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
             trainer.train_model(dataclasses.replace(cfg, epoch_mode="x"),
                                 TRAIN_MODEL, **kw)
     elif case == "mesh_argument":
-        # the mesh trainer is ported (tests/test_torch_port_parallel.py);
-        # what it does not shard yet is item 34's
+        # the mesh trainer is ported (tests/test_torch_port_parallel.py,
+        # tests/test_torch_port_tp_spatial.py): a mesh needs one rank of a
+        # process group per position, on every axis
         from robotic_discovery_platform_tpu_torch.parallel import mesh
         from robotic_discovery_platform_tpu_torch.utils.config import (
             MeshConfig,
         )
 
         cpus = [torch.device("cpu")] * 2
-        with pytest.raises(NotImplementedError, match="item 34"):
+        with pytest.raises(ValueError, match="world size"):
             trainer.train_model(cfg, TRAIN_MODEL, mesh=mesh.make_mesh(
                 MeshConfig(data=1, model=2), devices=cpus), **kw)
         with pytest.raises(ValueError, match="world size"):
@@ -645,8 +646,8 @@ def test_training_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
         assert supervisor._completed_steps(ckpt) == [2]
     elif case == "retraining_workflow":
         # ported (tests/test_torch_port_retraining.py), with the mesh
-        # trainer under it: a model axis is item 34's, and the failure is
-        # the cycle's result
+        # trainer under it: a model axis with no process group of its size
+        # is refused, and the failure is the cycle's result
         from robotic_discovery_platform_tpu_torch.parallel import mesh
         from robotic_discovery_platform_tpu_torch.utils.config import (
             MeshConfig,
@@ -657,7 +658,7 @@ def test_training_refuses_what_the_slice_lacks(case, tmp_path, monkeypatch):
                             devices=[torch.device("cpu")] * 2)
         res = retraining.run_retraining_pipeline(
             cfg, TRAIN_MODEL, mesh=tp, arrays=arrays, device="cpu")
-        assert not res.succeeded and "item 34" in res.message
+        assert not res.succeeded and "world size" in res.message
     elif case == "checkpoint_every_zero":
         with pytest.raises(ValueError, match="checkpoint_every"):
             trainer.train_model(dataclasses.replace(cfg, checkpoint_every=0),
